@@ -1,12 +1,14 @@
-"""CLI of the port: build an artifact, count k-mers on one device.
+"""CLI of the port: build an artifact, query or serve it on one device.
 
     python -m readserver_tpu_torch.cli build --config ecoli --out data/idx
     python -m readserver_tpu_torch.cli query --index data/idx --kmer ACGTT \\
-        --both-strands
+        --both-strands --hits --samples
+    python -m readserver_tpu_torch.cli serve --index data/idx --port 8080 \\
+        --batch 8192 --warmup-k 31
 
 Artifacts are the JAX package's on-disk format; either package's CLI can
-build one and query the other's.  ``query`` answers counts only; hits and
-sample histograms are not ported yet (ROADMAP.md).
+build one and query the other's.  Cohort artifacts and multi-host serving
+are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,23 +44,53 @@ def cmd_build(args) -> int:
     return 0
 
 
-def _load_engine(index_path: str, batch_size: int, device: str):
+def _load_engine(index_path: str, batch_size: int, device: str,
+                 warmup_k: tuple = ()):
     from readserver_tpu_torch.config import ServeConfig
     from readserver_tpu_torch.index import artifact
     from readserver_tpu_torch.serve import QueryEngine
 
     packed = artifact.load_artifact(index_path, mmap=False)
-    return QueryEngine(
-        packed, ServeConfig(batch_size=batch_size), device=device
-    )
+    cfg = ServeConfig(batch_size=batch_size, warmup_query_lengths=warmup_k)
+    return QueryEngine(packed, cfg, device=device)
 
 
 def cmd_query(args) -> int:
+    # sized to both strands: the reverse complements join the same batch
     width = max(len(args.kmer) * (2 if args.both_strands else 1), 16)
     engine = _load_engine(args.index, width, args.device)
-    results = engine.count_batch(args.kmer, both_strands=args.both_strands)
+    if args.hits or args.samples:
+        results = engine.query_batch(args.kmer, both_strands=args.both_strands)
+    else:
+        results = engine.count_batch(args.kmer, both_strands=args.both_strands)
     for r in results:
-        print(json.dumps({"kmer": r.kmer, "count": r.count}))
+        out = {"kmer": r.kmer, "count": r.count}
+        if args.hits:
+            out["hits"] = r.hits
+            out["hits_truncated"] = r.hits_truncated
+        if args.samples:
+            out["samples"] = r.sample_hist
+        print(json.dumps(out))
+    return 0
+
+
+def _warmup_k(args) -> tuple:
+    """--warmup-k "31,21" → uniform query lengths run at startup."""
+    return tuple(int(x) for x in args.warmup_k.split(",") if x.strip())
+
+
+def cmd_serve(args) -> int:
+    import asyncio
+
+    from readserver_tpu_torch.serve.http import serve_forever
+
+    engine = _load_engine(args.index, args.batch, args.device,
+                          warmup_k=_warmup_k(args))
+    engine.warmup()
+    try:
+        asyncio.run(serve_forever(engine, args.host, args.port))
+    except KeyboardInterrupt:
+        pass
     return 0
 
 
@@ -72,14 +104,28 @@ def main(argv=None) -> int:
     b.add_argument("--out", required=True)
     b.set_defaults(fn=cmd_build)
 
-    q = sub.add_parser("query", help="count k-mers in an index artifact")
+    q = sub.add_parser("query", help="query an index artifact")
     q.add_argument("--index", required=True)
     q.add_argument("--kmer", nargs="+", required=True)
+    q.add_argument("--hits", action="store_true")
+    q.add_argument("--samples", action="store_true")
     q.add_argument("--both-strands", action="store_true",
                    help="also search the reverse complement")
     q.add_argument("--device", default="cuda",
                    help="torch device to serve from (cuda, cuda:1, cpu)")
     q.set_defaults(fn=cmd_query)
+
+    s = sub.add_parser("serve", help="REST server over an index artifact")
+    s.add_argument("--index", required=True)
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8080)
+    s.add_argument("--batch", type=int, default=256)
+    s.add_argument("--warmup-k", default="",
+                   help="comma-separated uniform query lengths to run at "
+                        "startup (e.g. 31)")
+    s.add_argument("--device", default="cuda",
+                   help="torch device to serve from (cuda, cuda:1, cpu)")
+    s.set_defaults(fn=cmd_serve)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -5,6 +5,9 @@
 * ``BACKWARD_SEARCH`` (K2, ``csrc/search.cu``): the whole backward search,
   one thread per query; launched by the search functions of
   ``ops/search.py`` for CUDA tensors.
+* ``RESOLVE_DSA`` (K5), ``RESOLVE_FUSED`` (K6) and ``EXACT_HISTOGRAM``
+  (K7), ``csrc/resolve.cu``: the dsa decode, the fused-row walk and the
+  exact per-sample histogram sweep; launched by ``ops/resolve.py``.
 
 Each is a :class:`~readserver_tpu_torch.kernels.build.Kernel` carrying its
 launch count in ``launches``.
@@ -14,6 +17,18 @@ from readserver_tpu_torch.kernels.build import LIBRARY, Kernel
 
 RANK_OCC = Kernel("rs_rank_occ")
 BACKWARD_SEARCH = Kernel("rs_backward_search")
-KERNELS = {"rank_occ": RANK_OCC, "backward_search": BACKWARD_SEARCH}
+RESOLVE_DSA = Kernel("rs_resolve_dsa")
+RESOLVE_FUSED = Kernel("rs_resolve_fused")
+EXACT_HISTOGRAM = Kernel("rs_exact_histogram")
+KERNELS = {
+    "rank_occ": RANK_OCC,
+    "backward_search": BACKWARD_SEARCH,
+    "resolve_dsa": RESOLVE_DSA,
+    "resolve_fused": RESOLVE_FUSED,
+    "exact_histogram": EXACT_HISTOGRAM,
+}
 
-__all__ = ["BACKWARD_SEARCH", "KERNELS", "LIBRARY", "Kernel", "RANK_OCC"]
+__all__ = [
+    "BACKWARD_SEARCH", "EXACT_HISTOGRAM", "KERNELS", "LIBRARY", "Kernel",
+    "RANK_OCC", "RESOLVE_DSA", "RESOLVE_FUSED",
+]

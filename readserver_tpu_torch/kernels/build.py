@@ -21,7 +21,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "kernels"
-_SOURCES = ("rank.cu", "search.cu")
+_SOURCES = ("rank.cu", "search.cu", "resolve.cu")
 _HEADERS = ("rank.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -35,6 +35,14 @@ SIGNATURES = {
     "rs_backward_search": [
         _P, _P, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I,
         _L, _I, _I, _I, _P, _P, _P, _P,
+    ],
+    "rs_resolve_dsa": [_P, _P, _L, _I, _P, _I, _P, _L, _P, _P, _P, _P],
+    "rs_resolve_fused": [
+        _P, _P, _L, _P, _I, _I, _I, _P, _P, _L, _P, _L, _I, _P, _P, _P,
+    ],
+    "rs_exact_histogram": [
+        _P, _P, _L, _L, _L, _I, _P, _I, _P, _I, _I, _I, _P, _P, _L, _P, _L,
+        _I, _P, _L, _I, _P, _P,
     ],
 }
 
@@ -117,11 +125,16 @@ class Kernel:
         self.symbol = symbol
         self.launches = 0
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, device) -> None:
+        """Launch on ``device`` (the device of the tensors in ``args``), on
+        that device's current stream.  The calling thread's current device
+        may be another one (the dispatcher's worker thread), so the launch
+        runs under ``torch.cuda.device(device)``."""
         import torch
 
         fn = getattr(LIBRARY.get(), self.symbol)
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             raise RuntimeError(
                 f"{self.symbol}: CUDA error {rc} at launch"
@@ -142,3 +155,17 @@ def on_cuda(t) -> bool:
 def ptr(t) -> int | None:
     """A tensor's device pointer for ctypes (None for a missing tensor)."""
     return None if t is None else t.data_ptr()
+
+
+def check_int32(name: str, t, device, shape=None) -> None:
+    """Raise ``ValueError`` unless ``t`` is a contiguous int32 tensor on
+    ``device`` (of ``shape`` when given): what a kernel may read."""
+    import torch
+
+    if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous int32 tensor on {device}, got "
+            f"{t.dtype} on {t.device}"
+        )
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")

@@ -1,4 +1,4 @@
-"""Device-side query ops: rank, backward search, prefix LUT.
+"""Device-side query ops: rank, backward search, prefix LUT, resolve.
 
 Functions over a :class:`DeviceIndex` of torch tensors.  For CUDA tensors
 they launch the port's kernels (``kernels/``); for CPU tensors they run the
@@ -16,6 +16,14 @@ from readserver_tpu_torch.ops.search import (
     prefix_ids,
 )
 from readserver_tpu_torch.ops.lut import build_prefix_lut, default_lut_order
+from readserver_tpu_torch.ops.resolve import (
+    exact_sample_histogram,
+    resolve_intervals,
+    resolve_rows_dsa,
+    resolve_rows_fused,
+    sample_histogram,
+    select_walk,
+)
 
 __all__ = [
     "DeviceIndex",
@@ -29,5 +37,11 @@ __all__ = [
     "canonical_empty",
     "default_lut_order",
     "encode_query_batch",
+    "exact_sample_histogram",
     "prefix_ids",
+    "resolve_intervals",
+    "resolve_rows_dsa",
+    "resolve_rows_fused",
+    "sample_histogram",
+    "select_walk",
 ]

@@ -101,6 +101,7 @@ def occ_rows_cuda(
         RANK_OCC(
             ptr(rank_rows), ptr(c), ptr(i), ptr(out), B, rows_per_symbol,
             log2_block, words_per_block, rank_rows.shape[1],
+            device=rank_rows.device,
         )
     return out
 
@@ -150,4 +151,35 @@ def occ(index: DeviceIndex, c: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
         rows_per_symbol=index.rows_per_symbol,
         log2_block=index.log2_block,
         words_per_block=index.words_per_block,
+    )
+
+
+def bit_rank_and_test(
+    table: torch.Tensor,
+    i: torch.Tensor,
+    *,
+    log2_block: int,
+    words_per_block: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-bitvector rank + membership in ONE row gather (plain torch on
+    any device; only the marks and slow walks use it).
+
+    ``table`` is a ``pack_bit_rank`` layout (int32 view [NB+1, row_words]).
+    Returns ``(rank int32 [B], bit bool [B])``: ``rank`` counts set bits
+    strictly before position ``i``, ``bit`` is the bit AT ``i``."""
+    block = i >> log2_block
+    within = i - (block << log2_block)
+    rows = table.index_select(0, block.to(torch.int64))
+    rank = rows[:, 0] + _inblock_count(rows, within, words_per_block)
+    word = rows.gather(1, (1 + (within >> 5)).to(torch.int64)[:, None])[:, 0]
+    bit = ((word.to(torch.int64) & _WORD) >> (within & 31).to(torch.int64)) & 1
+    return rank, bit != 0
+
+
+def read_symbol(index: DeviceIndex, i: torch.Tensor) -> torch.Tensor:
+    """BWT symbol code at positions ``i`` (int32 [B]) via the 4-bit pack."""
+    word = index.sym4.index_select(0, (i >> 3).to(torch.int64))
+    shift = ((i & 7) << 2).to(torch.int64)
+    return ((word.to(torch.int64) & _WORD) >> shift).bitwise_and(0xF).to(
+        torch.int32
     )

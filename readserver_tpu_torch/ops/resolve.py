@@ -1,0 +1,671 @@
+"""Resolve: SA rows → read ids / offsets / sample attribution.
+
+A port of the JAX package's ``ops/resolve.py``.  Every walk has a plain
+torch form that advances the whole batch one step at a time with frozen
+``done`` lanes, as the JAX lockstep loops do.  Three of them also have a
+kernel (``csrc/resolve.cu``), launched for CUDA tensors:
+
+* K5, the direct tier: one uint32 ``dsa`` word per hit lane, split into
+  read id and offset, with the lane's sample id gathered beside it
+  (:func:`resolve_rows_dsa`, :func:`resolve_dsa_hits`);
+* K6, the fused-row walk: one thread per row, ≤ ``sample_rate`` steps of
+  one 64-byte fused row each (:func:`resolve_rows_fused`);
+* K7, the exact per-sample histogram: one thread per worklist slot, a
+  binary search over the int64 prefix sums, the dsa or fused walk, and an
+  atomic add (:func:`exact_sample_histogram`).
+
+The lf, marks and slow walks are plain torch on every device (in the JAX
+package they are XLA, not Pallas); :func:`select_walk` reaches them only
+when neither ``dsa`` nor ``fused`` shipped.  With one of those walks the
+histogram sweep is plain torch too, since K7 walks only dsa and fused.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from readserver_tpu_torch.kernels import (
+    EXACT_HISTOGRAM,
+    RESOLVE_DSA,
+    RESOLVE_FUSED,
+)
+from readserver_tpu_torch.kernels.build import check_int32, on_cuda, ptr
+from readserver_tpu_torch.ops import rank as rank_ops
+from readserver_tpu_torch.ops.rank import _WORD, popcount32
+from readserver_tpu_torch.ops.types import DeviceIndex
+
+# words per block the fused-walk kernels are compiled for (block sizes
+# 32, 64, 128, 256; csrc/resolve.cu)
+FUSED_WORDS_PER_BLOCK = (1, 2, 4, 8)
+
+
+def _take(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    return t.index_select(0, i.to(torch.int64).reshape(-1)).reshape(
+        *i.shape, *t.shape[1:]
+    )
+
+
+def _clip_take(t: torch.Tensor, i: torch.Tensor, size: int) -> torch.Tensor:
+    """``t[clip(i, 0, max(size - 1, 0))]``, the JAX package's clipped gather."""
+    return _take(t, i.clamp(0, max(size - 1, 0)))
+
+
+def _neg(t: torch.Tensor) -> torch.Tensor:
+    return torch.full_like(t, -1)
+
+
+def resolve_rows(
+    index: DeviceIndex,
+    rows: torch.Tensor,   # int32 [R] starting SA rows
+    valid: torch.Tensor,  # bool  [R]
+    max_steps: int | None = None,
+    rank_fn=None,
+    sym_fn=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slow walk, one symbol per step up to ``max_steps`` (default the
+    longest read): → ``(read_id, offset)`` int32 [R]; -1 where invalid or
+    unterminated.  At a ``$`` the LF rank ``occ(0, i)`` is the ``$``-rank."""
+    if max_steps is None:
+        max_steps = index.max_read_len
+    if rank_fn is None:
+        def rank_fn(c, i):
+            return rank_ops.occ(index, c, i)
+    if sym_fn is None:
+        def sym_fn(i):
+            return rank_ops.read_symbol(index, i)
+    cur = torch.where(valid, rows, torch.zeros_like(rows))
+    done = ~valid
+    read_id = _neg(rows)
+    offset = _neg(rows)
+    for t in range(max_steps):
+        c = sym_fn(cur)
+        o = rank_fn(c, cur)
+        hit = (c == 0) & ~done
+        rid = _clip_take(index.dollar_map, o, index.num_reads)
+        read_id = torch.where(hit, rid, read_id)
+        offset = torch.where(hit, torch.full_like(offset, t), offset)
+        done = done | (c == 0)
+        cur = torch.where(done, cur, _take(index.C, c) + o)
+    return read_id, offset
+
+
+def expand_intervals(
+    l: torch.Tensor, u: torch.Tensor, max_hits: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Intervals [B] → flattened candidate rows [B*max_hits]:
+    ``(rows, valid, query_seg)``.  Hit enumeration is capped per query;
+    counts stay exact through ``u - l``."""
+    B = l.shape[0]
+    span = torch.arange(max_hits, dtype=torch.int32, device=l.device)
+    rows = (l[:, None] + span[None, :]).reshape(-1)
+    valid = (span[None, :] < (u - l)[:, None]).reshape(-1)
+    seg = torch.arange(B, dtype=torch.int32, device=l.device).repeat_interleave(
+        max_hits
+    )
+    return torch.where(valid, rows, torch.zeros_like(rows)), valid, seg
+
+
+def resolve_rows_fast(
+    index: DeviceIndex,
+    rows: torch.Tensor,
+    valid: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sampled-LF walk over the ``lf`` array (sign bit = sampled row): a
+    walk ends at a ``$`` (``lf value < num_reads``, the dollar_map key) or
+    at a sampled row, whose mark rank indexes ``sample_pairs``."""
+    assert index.lf is not None and index.sample_rate > 0
+    m = index.C[1]
+    n_marked = index.sample_pairs.shape[0]
+    cur = torch.where(valid, rows, torch.zeros_like(rows))
+    done = ~valid
+    steps = torch.zeros_like(rows)
+    for _ in range(index.sample_rate):
+        raw = _take(index.lf, cur)
+        val = raw & 0x7FFFFFFF
+        is_term = (raw < 0) | (val < m)
+        step_now = ~done & ~is_term
+        cur = torch.where(step_now, val, cur)
+        steps = steps + step_now.to(torch.int32)
+        done = done | is_term
+    raw = _take(index.lf, cur)
+    is_marked = raw < 0
+    rid_d = _clip_take(
+        index.dollar_map, raw & 0x7FFFFFFF, index.dollar_map.shape[0]
+    )
+    slot = rank_ops.occ_rows(
+        index.mark_rank, torch.zeros_like(cur), cur,
+        rows_per_symbol=index.mark_rank.shape[0],
+        log2_block=index.log2_block, words_per_block=index.words_per_block,
+    )
+    pair = _clip_take(index.sample_pairs, slot, n_marked)
+    rid = torch.where(is_marked, pair[:, 0], rid_d)
+    off = torch.where(is_marked, pair[:, 1] + steps, steps)
+    ok = valid & done
+    return torch.where(ok, rid, _neg(rid)), torch.where(ok, off, _neg(off))
+
+
+def resolve_rows_marked(
+    index: DeviceIndex,
+    rows: torch.Tensor,
+    valid: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mark walk without the ``lf`` array: per step one sym4 gather, one
+    rank row and one mark row (terminal test and slot rank in one gather)."""
+    assert index.mark_rank is not None and index.sample_rate > 0
+    kw = dict(log2_block=index.log2_block,
+              words_per_block=index.words_per_block)
+    cur = torch.where(valid, rows, torch.zeros_like(rows))
+    done = ~valid
+    steps = torch.zeros_like(rows)
+    for _ in range(index.sample_rate):
+        c = rank_ops.read_symbol(index, cur)
+        _, marked = rank_ops.bit_rank_and_test(index.mark_rank, cur, **kw)
+        is_term = marked | (c == 0)
+        o = rank_ops.occ(index, c, cur)
+        step_now = ~done & ~is_term
+        cur = torch.where(step_now, _take(index.C, c) + o, cur)
+        steps = steps + step_now.to(torch.int32)
+        done = done | is_term
+    slot, marked = rank_ops.bit_rank_and_test(index.mark_rank, cur, **kw)
+    o0 = rank_ops.occ(index, torch.zeros_like(cur), cur)
+    rid_d = _clip_take(index.dollar_map, o0, index.dollar_map.shape[0])
+    pair = _clip_take(index.sample_pairs, slot, index.sample_pairs.shape[0])
+    rid = torch.where(marked, pair[:, 0], rid_d)
+    off = torch.where(marked, pair[:, 1] + steps, steps)
+    ok = valid & done
+    return torch.where(ok, rid, _neg(rid)), torch.where(ok, off, _neg(off))
+
+
+# ------------------------------------------------------------ K5: dsa tier
+
+
+def resolve_rows_dsa_plain(
+    index: DeviceIndex,
+    rows: torch.Tensor,
+    valid: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain form of :func:`resolve_rows_dsa`.  ``dsa`` holds uint32 words
+    as int32 bits; bit 31 is set once ``read_id << dsa_bits`` passes 2^31
+    (chr20 scale), so the word is widened to int64 and masked before the
+    shift."""
+    p = _take(index.dsa, torch.where(valid, rows, torch.zeros_like(rows)))
+    p = p.to(torch.int64) & _WORD
+    bits = index.dsa_bits
+    rid = (p >> bits).to(torch.int32)
+    off = (p & ((1 << bits) - 1)).to(torch.int32)
+    return torch.where(valid, rid, _neg(rid)), torch.where(valid, off, _neg(off))
+
+
+def _launch_dsa(index, l, u, H, with_sample: bool):
+    """K5 over ``[B, H]`` lanes: lane (q, h) resolves row ``l[q] + h`` when
+    ``h < u[q] - l[q]``, else writes -1."""
+    if index.dsa is None or index.dsa_bits <= 0:
+        raise ValueError("index carries no dsa tier")
+    dev = index.dsa.device
+    B = l.shape[0]
+    check_int32("l", l, dev, (B,))
+    check_int32("u", u, dev, (B,))
+    check_int32("dsa", index.dsa, dev)
+    check_int32("read_to_sample", index.read_to_sample, dev)
+    rid = torch.empty((B, H), dtype=torch.int32, device=dev)
+    off = torch.empty_like(rid)
+    smp = torch.empty_like(rid) if with_sample else None
+    if B * H:
+        RESOLVE_DSA(
+            ptr(l), ptr(u), B, H, ptr(index.dsa), index.dsa_bits,
+            ptr(index.read_to_sample), index.read_to_sample.shape[0],
+            ptr(rid), ptr(off), ptr(smp), device=dev,
+        )
+    return rid, off, smp
+
+
+def resolve_rows_dsa(
+    index: DeviceIndex,
+    rows: torch.Tensor,   # int32 [R] SA rows
+    valid: torch.Tensor,  # bool  [R]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Direct resolution, ``(read_id, offset)`` in ONE gather, no walk:
+    ``dsa[row] = read_id << dsa_bits | offset``.  K5 for CUDA tensors (one
+    lane per row), the plain form for CPU tensors."""
+    assert index.dsa is not None and index.dsa_bits > 0
+    if not on_cuda(index.dsa):
+        return resolve_rows_dsa_plain(index, rows, valid)
+    start = torch.where(valid, rows, torch.zeros_like(rows)).contiguous()
+    rid, off, _ = _launch_dsa(
+        index, start, start + valid.to(torch.int32), 1, with_sample=False
+    )
+    return rid.reshape(-1), off.reshape(-1)
+
+
+def resolve_dsa_hits_plain(
+    index: DeviceIndex, l: torch.Tensor, u: torch.Tensor, max_hits: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain form of :func:`resolve_dsa_hits`: expand the intervals,
+    resolve through dsa, gather each hit's sample id, -1 on invalid lanes
+    (the JAX engine's ``_pieces`` hit step, ``serve/engine.py:548-561``)."""
+    B = l.shape[0]
+    rows, valid, _ = expand_intervals(l, u, max_hits)
+    rid, off = resolve_rows_dsa_plain(index, rows, valid)
+    smp = _clip_take(index.read_to_sample, rid, index.num_reads)
+    smp = torch.where(valid, smp, _neg(smp))
+    return (rid.reshape(B, max_hits), off.reshape(B, max_hits),
+            smp.reshape(B, max_hits))
+
+
+def resolve_dsa_hits(
+    index: DeviceIndex, l: torch.Tensor, u: torch.Tensor, max_hits: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """→ ``(read_id, offset, sample)`` int32 [B, max_hits] through the dsa
+    tier, -1 where a lane holds no hit.  K5 for CUDA tensors: expansion,
+    dsa decode and the sample gather in one pass."""
+    if not on_cuda(l):
+        return resolve_dsa_hits_plain(index, l, u, max_hits)
+    return _launch_dsa(
+        index, l.contiguous(), u.contiguous(), max_hits, with_sample=True
+    )
+
+
+# ------------------------------------------------------- K6: fused-row walk
+
+
+def _fused_plane_pop(words: torch.Tensor, within: torch.Tensor) -> torch.Tensor:
+    """words int64 [R, W] (uint32 values), within int64 [R] → masked
+    popcount int32 [R] over the first ``within`` bits."""
+    W = words.shape[1]
+    word_base = torch.arange(W, dtype=torch.int64, device=words.device) * 32
+    bits = (within[:, None] - word_base[None, :]).clamp(0, 32)
+    partial = (torch.ones_like(bits) << bits.clamp(max=31)) - 1
+    mask = torch.where(bits >= 32, torch.full_like(bits, _WORD), partial)
+    return popcount32(words & mask).sum(dim=1).to(torch.int32)
+
+
+def _fused_bit_at(words: torch.Tensor, within: torch.Tensor) -> torch.Tensor:
+    w = words.gather(1, (within >> 5)[:, None])[:, 0]
+    return ((w >> (within & 31)) & 1) != 0
+
+
+def _fused_step_fields(index: DeviceIndex, cur: torch.Tensor):
+    """One fused-row gather → (symbol, occ(symbol, cur), marked, mark_slot).
+
+    Row layout (index/packing.pack_fused_rows): columns 0..4 = occ
+    checkpoints, 5 = mark-rank checkpoint, then 4 bitplanes of W words
+    each: dollar, base-low, base-high, mark."""
+    W = index.words_per_block
+    row = _take(index.fused_rows, cur >> index.log2_block).to(torch.int64)
+    row = row & _WORD
+    within = (cur & (index.block_size - 1)).to(torch.int64)
+    dollar = row[:, 6 : 6 + W]
+    b0 = row[:, 6 + W : 6 + 2 * W]
+    b1 = row[:, 6 + 2 * W : 6 + 3 * W]
+    mk = row[:, 6 + 3 * W : 6 + 4 * W]
+    is_dollar = _fused_bit_at(dollar, within)
+    lo = _fused_bit_at(b0, within)
+    hi = _fused_bit_at(b1, within)
+    c = torch.where(
+        is_dollar,
+        torch.zeros_like(cur),
+        1 + lo.to(torch.int32) + 2 * hi.to(torch.int32),
+    )
+    # occ(c, cur): XNOR-match the target bits against the planes ($ rows
+    # have zeroed base planes, so mask them out; for c == $ the dollar
+    # plane IS the match plane)
+    full = torch.full_like(within, _WORD)
+    t0x = torch.where(lo, full, torch.zeros_like(full))[:, None]
+    t1x = torch.where(hi, full, torch.zeros_like(full))[:, None]
+    match = (~(b0 ^ t0x)) & (~(b1 ^ t1x)) & (~dollar) & _WORD
+    match = torch.where(is_dollar[:, None], dollar, match)
+    ck = row.gather(1, c.to(torch.int64)[:, None])[:, 0].to(torch.int32)
+    o = ck + _fused_plane_pop(match, within)
+    marked = _fused_bit_at(mk, within)
+    slot = row[:, 5].to(torch.int32) + _fused_plane_pop(mk, within)
+    return c, o, marked, slot
+
+
+def resolve_rows_fused_plain(
+    index: DeviceIndex,
+    rows: torch.Tensor,
+    valid: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain form of :func:`resolve_rows_fused`: ``sample_rate`` lockstep
+    steps with frozen ``done`` lanes, then the terminal lookup."""
+    assert index.fused_rows is not None and index.sample_rate > 0
+    cur = torch.where(valid, rows, torch.zeros_like(rows))
+    done = ~valid
+    steps = torch.zeros_like(rows)
+    for _ in range(index.sample_rate):
+        c, o, marked, _ = _fused_step_fields(index, cur)
+        is_term = marked | (c == 0)
+        step_now = ~done & ~is_term
+        cur = torch.where(step_now, _take(index.C, c) + o, cur)
+        steps = steps + step_now.to(torch.int32)
+        done = done | is_term
+    # terminal lookup: marked row → sampled pair; $-row → occ(0, cur) IS
+    # the $-rank (c == 0 forces the dollar plane as match plane above)
+    c, o, marked, slot = _fused_step_fields(index, cur)
+    rid_d = _clip_take(index.dollar_map, o, index.dollar_map.shape[0])
+    pair = _clip_take(index.sample_pairs, slot, index.sample_pairs.shape[0])
+    rid = torch.where(marked, pair[:, 0], rid_d)
+    off = torch.where(marked, pair[:, 1] + steps, steps)
+    ok = valid & done
+    return torch.where(ok, rid, _neg(rid)), torch.where(ok, off, _neg(off))
+
+
+def _fused_walk_args(index: DeviceIndex) -> tuple:
+    """The fused walk's arguments to K6 and K7, after checking them."""
+    dev = index.device
+    if index.fused_rows is None or index.sample_rate <= 0:
+        raise ValueError("index carries no fused walk tier")
+    if index.words_per_block not in FUSED_WORDS_PER_BLOCK:
+        raise ValueError(
+            f"the fused-walk kernels take {FUSED_WORDS_PER_BLOCK} words per "
+            f"block, got {index.words_per_block}"
+        )
+    fr = index.fused_rows
+    check_int32("fused_rows", fr, dev)
+    words = -(-(6 + 4 * index.words_per_block) // 4) * 4
+    if fr.dim() != 2 or fr.shape[1] != words or fr.data_ptr() % 16:
+        raise ValueError(
+            f"fused rows must be 16-byte aligned [NB, {words}] words, got "
+            f"{tuple(fr.shape)}"
+        )
+    check_int32("C", index.C, dev, (6,))
+    check_int32("dollar_map", index.dollar_map, dev)
+    check_int32("sample_pairs", index.sample_pairs, dev)
+    return (
+        ptr(fr), fr.shape[1], index.log2_block, index.words_per_block,
+        ptr(index.C), ptr(index.dollar_map), index.dollar_map.shape[0],
+        ptr(index.sample_pairs), index.sample_pairs.shape[0],
+        index.sample_rate,
+    )
+
+
+def resolve_rows_fused(
+    index: DeviceIndex,
+    rows: torch.Tensor,   # int32 [R] starting SA rows
+    valid: torch.Tensor,  # bool  [R]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused-row walk: the bounded (≤ ``sample_rate`` steps) resolve at ONE
+    row gather per step; a walk ends at a marked row (its sampled pair,
+    offset plus steps) or a ``$`` (marked wins), and -1 where it did not
+    end within ``sample_rate`` steps.  K6 for CUDA tensors (one thread per
+    row, stopping at its terminal), the plain form for CPU tensors."""
+    if not on_cuda(rows):
+        return resolve_rows_fused_plain(index, rows, valid)
+    args = _fused_walk_args(index)
+    R = rows.shape[0]
+    check_int32("rows", rows, index.device, (R,))
+    if valid.dtype != torch.bool or valid.shape != rows.shape:
+        raise ValueError("valid must be a bool tensor shaped like rows")
+    valid = valid.contiguous()
+    rid = torch.empty_like(rows)
+    off = torch.empty_like(rows)
+    if R:
+        RESOLVE_FUSED(ptr(rows), ptr(valid), R, *args, ptr(rid), ptr(off),
+                      device=index.device)
+    return rid, off
+
+
+# --------------------------------------------------------------- selection
+
+
+def select_walk(index: DeviceIndex, **slow_kw):
+    """The best resolve strategy the shipped tiers support, best-first:
+    dsa (1 gather, no walk) > lf (1×4B gather/step) > fused (1×64B
+    gather/step) > marks (3 gathers/step) > slow (2 gathers × read_len)."""
+    if index.dsa is not None and index.dsa_bits > 0:
+        return lambda r, v: resolve_rows_dsa(index, r, v)
+    if index.lf is not None and index.sample_rate > 0:
+        return lambda r, v: resolve_rows_fast(index, r, v)
+    if index.fused_rows is not None and index.sample_rate > 0:
+        return lambda r, v: resolve_rows_fused(index, r, v)
+    if index.mark_rank is not None and index.sample_rate > 0:
+        return lambda r, v: resolve_rows_marked(index, r, v)
+    return lambda r, v: resolve_rows(index, r, v, **slow_kw)
+
+
+def _kernel_walk(index: DeviceIndex) -> str | None:
+    """The walk :func:`select_walk` picks when K7 can run it, else None."""
+    if index.dsa is not None and index.dsa_bits > 0:
+        return "dsa"
+    if index.lf is not None and index.sample_rate > 0:
+        return None
+    if index.fused_rows is not None and index.sample_rate > 0:
+        return "fused"
+    return None
+
+
+def compact_rows(rows: torch.Tensor, valid: torch.Tensor, R_c: int):
+    """The row-budget compaction (a prefix-sum scatter, no kernel): the
+    first ``R_c`` valid lanes in flat order → ``(rows [R_c], valid [R_c],
+    orig [R_c], keep [F])``, where ``orig`` is each compact slot's flat
+    lane (F where the slot is empty) and ``keep`` marks the lanes kept."""
+    F = rows.shape[0]
+    dev = rows.device
+    v32 = valid.to(torch.int32)
+    pos = torch.cumsum(v32, 0) - v32
+    keep = valid & (pos < R_c)
+    # R_c is the overflow slot: written, then cut off
+    slot = torch.where(keep, pos, torch.full_like(pos, R_c))
+    comp_rows = torch.zeros(R_c + 1, dtype=rows.dtype, device=dev)
+    comp_rows = comp_rows.scatter(0, slot, rows)[:R_c]
+    comp_valid = torch.zeros(R_c + 1, dtype=torch.bool, device=dev)
+    comp_valid = comp_valid.scatter(0, slot, keep)[:R_c]
+    orig = torch.full((R_c + 1,), F, dtype=torch.int64, device=dev)
+    orig = orig.scatter(
+        0, slot, torch.arange(F, dtype=torch.int64, device=dev)
+    )[:R_c]
+    return comp_rows.contiguous(), comp_valid.contiguous(), orig, keep
+
+
+def resolve_intervals(
+    index: DeviceIndex,
+    l: torch.Tensor,
+    u: torch.Tensor,
+    max_hits: int,
+    use_fast: bool | None = None,
+    row_budget: int | None = None,
+    **kw,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """→ ``(read_id, offset, valid)``, each [B, max_hits].
+
+    With ``row_budget`` set (and a walk tier serving), valid rows are
+    compacted by a prefix-sum scatter into the budget before the walk and
+    scattered back after: the first ``row_budget`` valid lanes in flat
+    order walk, the rest drop and their queries report ``hits_truncated``.
+    The dsa tier ignores the budget (one gather per lane is cheaper than
+    the compaction round trip)."""
+    rows, valid, _ = expand_intervals(l, u, max_hits)
+    if use_fast is False:
+        # explicit opt-out of every accelerated tier (parity tests)
+        walk = lambda r, v: resolve_rows(index, r, v, **kw)  # noqa: E731
+    elif use_fast is True:
+        # explicit request for the lf sampled walk (parity tests)
+        walk = lambda r, v: resolve_rows_fast(index, r, v)  # noqa: E731
+    else:
+        walk = select_walk(index, **kw)
+
+    B = l.shape[0]
+    F = B * max_hits
+    if index.dsa is not None and index.dsa_bits > 0 and use_fast is None:
+        read_id, offset = walk(rows, valid)
+    elif row_budget is not None and row_budget < F:
+        comp_rows, comp_valid, orig, keep = compact_rows(
+            rows, valid, row_budget
+        )
+        rid_c, off_c = walk(comp_rows, comp_valid)
+        full = torch.full((F + 1,), -1, dtype=torch.int32, device=rows.device)
+        read_id = full.scatter(0, orig, rid_c)[:F]
+        offset = full.scatter(0, orig, off_c)[:F]
+        valid = valid & keep
+    else:
+        read_id, offset = walk(rows, valid)
+    return (
+        read_id.reshape(B, max_hits),
+        offset.reshape(B, max_hits),
+        valid.reshape(B, max_hits),
+    )
+
+
+def resolve_hits(
+    index: DeviceIndex,
+    l: torch.Tensor,
+    u: torch.Tensor,
+    max_hits: int,
+    row_budget: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The engine's hit step: → ``(read_id, offset, sample, valid)`` [B, H]
+    with -1 on every lane that holds no hit.  Through K5 in one pass when
+    dsa ships (for CUDA tensors); else :func:`resolve_intervals` (with its
+    row budget) and a clipped ``read_to_sample`` gather."""
+    if index.dsa is not None and index.dsa_bits > 0:
+        rid, off, smp = resolve_dsa_hits(index, l, u, max_hits)
+        return rid, off, smp, rid >= 0
+    rid, off, valid = resolve_intervals(
+        index, l, u, max_hits, row_budget=row_budget
+    )
+    smp = _clip_take(index.read_to_sample, rid, index.num_reads)
+    return (
+        torch.where(valid, rid, _neg(rid)),
+        torch.where(valid, off, _neg(off)),
+        torch.where(valid, smp, _neg(smp)),
+        valid,
+    )
+
+
+# ------------------------------------------------- K7: exact attribution
+
+
+def _rounds_cap(max_rows: int | None, window: int) -> int | None:
+    """Rows the ``max_rows`` cap lets the sweep reach: it binds in whole
+    windows, ceil(max_rows / window) of them."""
+    if max_rows is None:
+        return None
+    return max(-(-int(max_rows) // window), 0) * window
+
+
+def exact_sample_histogram_plain(
+    index: DeviceIndex,
+    l: torch.Tensor,
+    u: torch.Tensor,
+    window: int,
+    max_rows: int | None = None,
+    **walk_kw,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain form of :func:`exact_sample_histogram`: window after window
+    of the worklist, as the JAX ``while_loop`` sweeps it."""
+    B = l.shape[0]
+    S = max(index.num_samples, 1)
+    dev = l.device
+    counts = (u - l).to(torch.int64)
+    cum = torch.cumsum(counts, 0)
+    total = int(cum[B - 1])
+    span = torch.arange(window, dtype=torch.int64, device=dev)
+    walk = select_walk(index, **walk_kw)
+    hist = torch.zeros(B * S, dtype=torch.int32, device=dev)
+    t = 0
+    while t * window < total and (max_rows is None or t * window < max_rows):
+        g = t * window + span
+        valid = g < total
+        q = torch.searchsorted(cum, g, right=True)
+        qc = q.clamp(max=B - 1)
+        prev = torch.where(
+            qc > 0, _take(cum, (qc - 1).clamp(min=0)), torch.zeros_like(qc)
+        )
+        rows = _take(l, qc) + (g - prev).to(l.dtype)
+        rid, _ = walk(torch.where(valid, rows, torch.zeros_like(rows)), valid)
+        sample = _clip_take(index.read_to_sample, rid, index.num_reads)
+        seg = qc * S + sample.to(torch.int64)
+        hist.index_add_(0, seg, valid.to(torch.int32))
+        t += 1
+    # rows are swept in concatenated order, so query b completed iff its
+    # interval's end fell inside the processed prefix
+    complete = cum <= t * window
+    return hist.reshape(B, S), complete
+
+
+def exact_sample_histogram(
+    index: DeviceIndex,
+    l: torch.Tensor,       # int32 [B]
+    u: torch.Tensor,       # int32 [B]
+    window: int,
+    max_rows: int | None = None,
+    **walk_kw,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact per-sample attribution over FULL intervals, no hit cap.
+
+    The concatenation of all query intervals is one worklist of
+    ``Σ(u - l)`` rows (int64 prefix sums: the total can pass 2^31); slot g
+    maps to its query by a right-sided search over the prefix sums and to
+    the SA row ``l[q] + (g - cum[q-1])``, which is walked to its read and
+    counted under that read's sample.  Returns ``(hist int32 [B, S],
+    complete bool [B])``.
+
+    ``max_rows`` caps the sweep in whole ``window`` rounds, as the JAX
+    package's loop does: the rows processed are ``min(total,
+    ceil(max_rows / window) * window)`` and ``complete[b]`` is
+    ``cum[b] <= t_end * window``.  A valid slot whose walk returns -1 is
+    counted under ``read_to_sample[0]`` (the JAX package clips the id).
+
+    K7 for CUDA tensors when the walk :func:`select_walk` picks is dsa or
+    fused: one thread per slot, the grid sized to the cap, so nothing
+    waits for the card unless ``max_rows`` is None (then the total is read
+    back to size the grid).  Else the plain form."""
+    kind = _kernel_walk(index)
+    if not on_cuda(l) or kind is None:
+        return exact_sample_histogram_plain(
+            index, l, u, window, max_rows, **walk_kw
+        )
+    dev = index.device
+    B = l.shape[0]
+    S = max(index.num_samples, 1)
+    check_int32("l", l, dev, (B,))
+    check_int32("u", u, dev, (B,))
+    check_int32("read_to_sample", index.read_to_sample, dev)
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    cum = torch.cumsum((u - l).to(torch.int64), 0)
+    total = cum[B - 1]
+    cap = _rounds_cap(max_rows, window)
+    if cap is None:
+        slots = int(total)  # the one wait for the card
+        tw = (total + window - 1) // window * window
+    else:
+        slots = cap
+        tw = torch.clamp((total + window - 1) // window, max=cap // window)
+        tw = tw * window
+    hist = torch.zeros(B * S, dtype=torch.int32, device=dev)
+    if kind == "dsa":
+        check_int32("dsa", index.dsa, dev)
+        walk = (0, ptr(index.dsa), index.dsa_bits, *_NO_FUSED_WALK)
+    else:
+        walk = (1, None, 0, *_fused_walk_args(index))
+    if slots > 0:
+        EXACT_HISTOGRAM(
+            ptr(l), ptr(cum), B, -1 if cap is None else cap, slots, *walk,
+            ptr(index.read_to_sample), index.read_to_sample.shape[0], S,
+            ptr(hist), device=dev,
+        )
+    return hist.reshape(B, S), cum <= tw
+
+
+# K7's fused-walk arguments when it walks dsa (see _fused_walk_args)
+_NO_FUSED_WALK = (None, 0, 0, 0, None, None, 0, None, 0, 0)
+
+
+def sample_histogram(
+    index: DeviceIndex,
+    read_id: torch.Tensor,  # int32 [B, H]
+    valid: torch.Tensor,    # bool  [B, H]
+) -> torch.Tensor:
+    """Per-query per-sample hit counts [B, num_samples] over the resolved
+    (capped) hit lanes."""
+    B, H = read_id.shape
+    S = max(index.num_samples, 1)
+    sample = _clip_take(index.read_to_sample, read_id, index.num_reads)
+    seg = (
+        torch.arange(B, dtype=torch.int64, device=read_id.device)[:, None] * S
+        + sample.to(torch.int64)
+    )
+    flat = torch.zeros(B * S, dtype=torch.int32, device=read_id.device)
+    flat.index_add_(0, seg.reshape(-1), valid.to(torch.int32).reshape(-1))
+    return flat.reshape(B, S)

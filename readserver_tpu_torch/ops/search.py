@@ -28,7 +28,7 @@ import torch
 
 from readserver_tpu_torch import alphabet
 from readserver_tpu_torch.kernels import BACKWARD_SEARCH
-from readserver_tpu_torch.kernels.build import on_cuda, ptr
+from readserver_tpu_torch.kernels.build import check_int32, on_cuda, ptr
 from readserver_tpu_torch.ops.rank import _check_table, occ_rows_plain
 from readserver_tpu_torch.ops.types import DeviceIndex
 
@@ -231,16 +231,6 @@ def _check_codes(kmers, lengths, p: int) -> None:
 # ----------------------------------------------------------------- kernel K2
 
 
-def _check_int32(name: str, t: torch.Tensor, device, shape=None) -> None:
-    if t.device != device or t.dtype != torch.int32 or not t.is_contiguous():
-        raise ValueError(
-            f"{name} must be a contiguous int32 tensor on {device}, got "
-            f"{t.dtype} on {t.device}"
-        )
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-
-
 def backward_search_cuda(
     index: DeviceIndex,
     kmers: torch.Tensor,
@@ -257,29 +247,29 @@ def backward_search_cuda(
     ``ValueError`` on the inputs :func:`_check_codes` refuses, which costs
     one wait for the card per call."""
     dev = index.device
-    _check_int32("kmers", kmers, dev)
+    check_int32("kmers", kmers, dev)
     if kmers.dim() != 2 or kmers.shape[1] < 1:
         raise ValueError(f"kmers must be [B, K], got {tuple(kmers.shape)}")
     B, K = kmers.shape
     _check_table(index.rank_rows)
-    _check_int32("C", index.C, dev, (6,))
+    check_int32("C", index.C, dev, (6,))
     if kstep:
         if index.rank2_rows is None:
             raise ValueError("index was built without the pair-rank tier")
         _check_table(index.rank2_rows)
-        _check_int32("C2", index.C2, dev, (16,))
+        check_int32("C2", index.C2, dev, (16,))
         if index.rank3_rows is not None:
             _check_table(index.rank3_rows)
-            _check_int32("C3", index.C3, dev, (64,))
+            check_int32("C3", index.C3, dev, (64,))
         lengths = None
     else:
         if lengths is None:
             raise ValueError("the masked search needs per-query lengths")
-        _check_int32("lengths", lengths, dev, (B,))
+        check_int32("lengths", lengths, dev, (B,))
     if lut is not None and p:
         if not 1 <= p <= K:
             raise ValueError(f"LUT order {p} outside [1, K={K}]")
-        _check_int32("lut", lut, dev, (4**p, 2))
+        check_int32("lut", lut, dev, (4**p, 2))
     else:
         lut, p = None, 0
     l = torch.empty(B, dtype=torch.int32, device=dev)
@@ -294,7 +284,7 @@ def backward_search_cuda(
             ptr(index.C2 if kstep else None),
             ptr(r3), ptr(index.C3 if r3 is not None else None), int(kstep),
             index.rows_per_symbol, index.log2_block, index.words_per_block,
-            index.rank_rows.shape[1], ptr(l), ptr(u), ptr(bad),
+            index.rank_rows.shape[1], ptr(l), ptr(u), ptr(bad), device=dev,
         )
         nbad = int(bad.item())
         if nbad:

@@ -1,4 +1,6 @@
-"""Serving: the single-device count engine."""
+"""Serving: the single-device engine, the async micro-batcher and the REST
+front (``http.RestServer``).  ``dispatcher``, ``http`` and ``metrics`` are
+copies of the JAX package's modules with the package name substituted."""
 
 from readserver_tpu_torch.serve.engine import (
     QueryEngine,
@@ -6,5 +8,14 @@ from readserver_tpu_torch.serve.engine import (
     fold_strand_results,
     rc_string,
 )
+from readserver_tpu_torch.serve.dispatcher import Dispatcher
+from readserver_tpu_torch.serve.metrics import Metrics
 
-__all__ = ["QueryEngine", "QueryResult", "fold_strand_results", "rc_string"]
+__all__ = [
+    "Dispatcher",
+    "Metrics",
+    "QueryEngine",
+    "QueryResult",
+    "fold_strand_results",
+    "rc_string",
+]

@@ -1,14 +1,21 @@
-"""Port's QueryEngine count path against the JAX package's QueryEngine on
-the same PackedIndex: tiered widths 1 and 256, uniform and mixed lengths
-(k-step, LUT and plain routes), both strands — and the port's CLI."""
+"""Port's QueryEngine against the JAX package's QueryEngine on the same
+PackedIndex: counts at tiered widths 1 and 256, uniform and mixed lengths
+(k-step, LUT and plain routes), both strands; full answers (hits,
+histogram-only, both strands) on a single-sample and a 128-sample corpus,
+through the dsa and the fused walk, the dense fallback, the capped
+histogram; read text, names and metadata — and the port's CLI."""
 
+import dataclasses
+import itertools
 import json
 
 import numpy as np
 import pytest
 
+from readserver_tpu import alphabet as jax_alphabet
 from readserver_tpu import cli as jax_cli
 from readserver_tpu.config import ServeConfig as JaxServeConfig
+from readserver_tpu.corpus import simulate as jax_simulate
 from readserver_tpu.corpus.simulate import sample_query_kmers
 from readserver_tpu.index import build_index
 from readserver_tpu.serve import QueryEngine as JaxQueryEngine
@@ -83,9 +90,10 @@ def test_engine_plan_and_warmup(engines):
 
 
 def test_unported_surfaces_raise(engines, small_corpus):
+    """Document sharding (a list of partitions) and interval sharding (a
+    mesh) are the surfaces still to port."""
     _, _, engine = engines
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.query_batch(["ACGT"])
+    assert not engine._doc and not engine._sharded
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         QueryEngine([engine.packed, engine.packed], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -120,3 +128,173 @@ def test_cli_both_strands_beyond_16_kmers(tmp_path, capsys, engines):
     got = [json.loads(x)["count"] for x in capsys.readouterr().out.splitlines()]
     want = jax_engine.count_batch(kms, both_strands=True)
     assert got == [r.count for r in want]
+
+
+# ------------------------------------------------------------ full answers
+
+
+def _same_results(got, want):
+    assert [dataclasses.asdict(r) for r in got] == [
+        dataclasses.asdict(r) for r in want
+    ]
+
+
+@pytest.fixture(scope="module")
+def cohort_packed():
+    corpus = jax_simulate.simulate_config("cohort", scale=0.004)
+    packed = build_index(
+        corpus.reads, sample_ids=corpus.sample_ids,
+        sample_names=[f"s{i:03d}" for i in range(128)],
+    )
+    return corpus, packed
+
+
+def _pair(packed, **cfg):
+    return (JaxQueryEngine(packed, JaxServeConfig(**cfg)),
+            QueryEngine(packed, ServeConfig(**cfg), device="cpu"))
+
+
+@pytest.mark.parametrize("mode", ["hits", "hist", "both strands"])
+def test_query_batch_single_sample_matches_jax(engines, mode):
+    """One sample: the histogram is the count (the single-sample
+    shortcut); hits resolve through dsa."""
+    corpus, jax_engine, engine = engines
+    assert engine._ns == 1 and engine.index.dsa is not None
+    kms = _kmers(corpus, 200, 15, seed=21) + ["ACGTA", "AATT"]
+    kw = dict(include_hits=mode != "hist", both_strands=mode == "both strands")
+    got = engine.query_batch(kms, **kw)
+    _same_results(got, jax_engine.query_batch(kms, **kw))
+    assert any(r.hits for r in got) or mode == "hist"
+
+
+@pytest.mark.parametrize("tiers", [(), ("dsa",)])
+@pytest.mark.parametrize("mode", ["hits", "hist", "both strands"])
+def test_query_batch_cohort_matches_jax(cohort_packed, tiers, mode):
+    """128 samples: exact per-sample histograms through the dsa walk, or
+    through the fused walk (with the row-budget compaction) when dsa is
+    dropped, as the chr20 serving profile drops it."""
+    corpus, packed = cohort_packed
+    jax_engine, engine = _pair(
+        packed, batch_size=256, small_batch_sizes=(16,), max_hits=8,
+        drop_tiers=tiers, resolve_budget_frac=0.05,
+    )
+    walk = "fused_rows" if tiers else "dsa"
+    assert getattr(engine.index, walk) is not None
+    kms = [jax_alphabet.decode(k) for k in
+           jax_simulate.sample_query_kmers(corpus, 100, 31, seed=22,
+                                           miss_frac=0.1)]
+    kms += ["ACGTAC", "GGATC", "TTAGA"]  # short: many hits, past the cap
+    kw = dict(include_hits=mode != "hist", both_strands=mode == "both strands")
+    got = engine.query_batch(kms, **kw)
+    _same_results(got, jax_engine.query_batch(kms, **kw))
+    assert any(len(r.sample_hist) > 1 for r in got)
+    if mode == "hits" and tiers:  # the row budget dropped hits
+        assert sum(len(r.hits) for r in got) < sum(
+            min(r.count, 8) for r in got)
+
+
+def test_query_batch_dense_fallback_matches_jax(cohort_packed):
+    """Short k-mers hit far more than COMPACT_PER_QUERY lanes per query, so
+    both the histogram and the hit pack overflow to the dense buffers."""
+    corpus, packed = cohort_packed
+    jax_engine, engine = _pair(packed, batch_size=64, small_batch_sizes=())
+    kms = ["".join(p) for p in itertools.product("ACGT", repeat=3)]
+    for include_hits in (True, False):
+        got = engine.query_batch(kms, include_hits=include_hits)
+        _same_results(got, jax_engine.query_batch(kms,
+                                                  include_hits=include_hits))
+    assert engine.pack_stats == jax_engine.pack_stats
+    assert engine.pack_stats["hits_dense_fallbacks"] == 1
+    assert engine.pack_stats["hist_dense_fallbacks"] == 2
+
+
+@pytest.mark.parametrize("include_hits", [True, False])
+def test_capped_histogram_matches_jax(cohort_packed, include_hits):
+    """exact_attribution=False: the histogram covers the resolved (capped)
+    hits, complete only when every interval row resolved."""
+    corpus, packed = cohort_packed
+    jax_engine, engine = _pair(packed, batch_size=64, max_hits=4,
+                               exact_attribution=False, drop_tiers=("dsa",),
+                               resolve_budget_frac=0.2)
+    kms = [jax_alphabet.decode(k) for k in
+           jax_simulate.sample_query_kmers(corpus, 40, 31, seed=23)]
+    kms += ["ACGTAC", "GGATC"]
+    got = engine.query_batch(kms, include_hits=include_hits)
+    _same_results(got, jax_engine.query_batch(kms, include_hits=include_hits))
+    assert not all(r.sample_hist_complete for r in got)
+
+
+def test_sweep_cap_and_both_strands_fold_match_jax(cohort_packed):
+    """A max_sweep_rows cap cuts the sweep off: complete=False one strand
+    at a time; folded over both strands the flag reads True in both
+    packages (the reference drops it; ROADMAP.md §3)."""
+    corpus, packed = cohort_packed
+    jax_engine, engine = _pair(packed, batch_size=16, small_batch_sizes=(),
+                               max_sweep_rows=16, sweep_window=16)
+    kms = ["ACGTAC", "GGATCC"]
+    for both in (False, True):
+        got = engine.query_batch(kms, include_hits=False, both_strands=both)
+        _same_results(got, jax_engine.query_batch(
+            kms, include_hits=False, both_strands=both))
+        assert all(r.count > 16 for r in got)
+        assert [r.sample_hist_complete for r in got] == [both, both]
+
+
+@pytest.mark.parametrize("mode", ["count", "hist", "full"])
+def test_dispatch_single_buffers_match_jax(cohort_packed, mode):
+    """The dense per-batch buffers a multi-partition front merges: [W, 3],
+    [W, 4+NS] or [W, 4+NS+3H], equal to the JAX engine's, and unpacked
+    alike."""
+    corpus, packed = cohort_packed
+    jax_engine, engine = _pair(packed, batch_size=64, small_batch_sizes=(),
+                               max_hits=8)
+    kms = [jax_alphabet.decode(k) for k in
+           jax_simulate.sample_query_kmers(corpus, 40, 31, seed=24)]
+    kms += ["ACGTAC", "GGATC"]
+    codes, lengths, nq = engine._pad_encode(kms)
+    got = engine._dispatch_single(codes, lengths, nq, mode).numpy()
+    want = np.asarray(jax_engine._dispatch_single(codes, lengths, nq, mode))
+    np.testing.assert_array_equal(got, want)
+    if mode != "hist":
+        g = engine._unpack_single(got[:nq], counts_only=mode == "count")
+        w = jax_engine._unpack_single(want[:nq], mode == "count")
+        assert g.keys() == w.keys()
+        for key in g:
+            np.testing.assert_array_equal(g[key], w[key])
+
+
+def test_warmup_and_read_store_match_jax(tiny_corpus):
+    reads = tiny_corpus.reads[:50]
+    packed = build_index(
+        reads, sample_ids=tiny_corpus.sample_ids[:50],
+        read_names=[f"SRR000.{i}/1" for i in range(50)],
+        read_meta=[f"flowcell=F{i % 3}".encode() for i in range(50)],
+    )
+    jax_engine, engine = _pair(packed, batch_size=16, max_hits=16,
+                               small_batch_sizes=(4,))
+    engine.warmup()
+    for rid in (0, 7, 49):
+        assert engine.read_sequence(rid) == jax_engine.read_sequence(rid)
+        assert engine.read_name(rid) == jax_engine.read_name(rid)
+        assert engine.read_meta(rid) == jax_engine.read_meta(rid)
+        assert engine._sample_of(rid) == jax_engine._sample_of(rid)
+    bare = QueryEngine(build_index(reads), device="cpu")
+    assert bare.read_name(3) == "read_3" and bare.read_meta(3) is None
+    assert bare.sample_names == ["sample_0"]
+
+
+@pytest.mark.parametrize("flags", [["--hits"], ["--samples"],
+                                   ["--hits", "--samples", "--both-strands"]])
+def test_cli_query_hits_samples_match_jax_cli(tmp_path, capsys, flags):
+    out = tmp_path / "idx"
+    assert cli.main(["build", "--config", "tiny", "--out", str(out)]) == 0
+    kms = ["ACGTACGTAC", "GGGCCCAAAT", "TTTTT", "ACGT"]
+    capsys.readouterr()
+    assert cli.main(["query", "--index", str(out), "--device", "cpu",
+                     *flags, "--kmer", *kms]) == 0
+    got = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert jax_cli.main(["query", "--index", str(out), *flags,
+                         "--kmer", *kms]) == 0
+    want = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert got == want and [g["kmer"] for g in got] == kms
+    assert ("hits" in got[0]) == ("--hits" in flags)

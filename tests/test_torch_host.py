@@ -35,6 +35,9 @@ COPIED = [
     "oracle/__init__.py",
     "oracle/fm.py",
     "oracle/naive.py",
+    "serve/metrics.py",
+    "serve/dispatcher.py",
+    "serve/http.py",
 ]
 # budget.py differs from here on: the device budget reads torch, not jax
 BUDGET_TAIL = {"orig": "# nameplate HBM per chip", "port": "def device_budget_bytes("}
@@ -103,6 +106,10 @@ engine = QueryEngine(build_index(corpus.reads[:200]), device="cpu")
 kms = ["".join("ACGT"[c - 1] for c in r[5:16]) for r in corpus.reads[:8]]
 got = [r.count for r in engine.count_batch(kms)]
 assert got == [naive_count(corpus.reads[:200], k) for k in kms], got
+from readserver_tpu_torch.oracle import naive_find_reads
+for r in engine.query_batch(kms):
+    hits = sorted((h["read_id"], h["offset"]) for h in r.hits)
+    assert hits == naive_find_reads(corpus.reads[:200], r.kmer), r.kmer
 print("imported", len(names), "modules; counts", got)
 """
     env = {**os.environ, "PYTHONPATH": str(REPO)}

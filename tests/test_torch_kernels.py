@@ -5,19 +5,31 @@ machine), without the repository's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
-Every test needs a CUDA card and skips without one; the CPU parity of the
-plain forms with the JAX package is in test_torch_{rank,search,lut}.py.
+Every test but one needs a CUDA card and skips without one; the CPU parity
+of the plain forms with the JAX package is in
+test_torch_{rank,search,lut,resolve}.py.
 """
 
+import contextlib
 import dataclasses
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 
+from readserver_tpu_torch.config import ServeConfig
 from readserver_tpu_torch.corpus import simulate
 from readserver_tpu_torch.index import build_index
-from readserver_tpu_torch.kernels import BACKWARD_SEARCH, RANK_OCC
+from readserver_tpu_torch.kernels import (
+    BACKWARD_SEARCH,
+    EXACT_HISTOGRAM,
+    RANK_OCC,
+    RESOLVE_DSA,
+    RESOLVE_FUSED,
+)
+from readserver_tpu_torch.kernels import build as kbuild
 from readserver_tpu_torch.ops import (
     DeviceIndex,
     backward_search,
@@ -28,7 +40,9 @@ from readserver_tpu_torch.ops import (
 )
 from readserver_tpu_torch.ops import lut as lut_ops
 from readserver_tpu_torch.ops import rank as rank_ops
+from readserver_tpu_torch.ops import resolve
 from readserver_tpu_torch.ops import search as search_ops
+from readserver_tpu_torch.serve import QueryEngine
 from torch_common import cuda_device, t32  # noqa: F401
 
 P = 5
@@ -151,3 +165,186 @@ def test_search_kernel_matches_plain(packed, dev, tiers):
     assert BACKWARD_SEARCH.launches == before + len(cases)
     for (l1, u1), (l2, u2) in cases:
         assert torch.equal(l1, l2) and torch.equal(u1, u2)
+
+
+# ------------------------------------------------------------ launch device
+
+
+def test_kernel_launches_on_the_tensors_device(monkeypatch):
+    """A wrapper called from a worker thread (the dispatcher's) launches
+    under the tensors' device and on that device's current stream, whatever
+    the thread's current device is.  Runs on the CPU with the library and
+    torch.cuda's device and stream calls stood in for."""
+    seen = []
+
+    class FakeLib:
+        def rs_rank_occ(self, *args):
+            seen.append(("launch", threading.current_thread().name, args[-1]))
+            return 0
+
+    @contextlib.contextmanager
+    def fake_device(d):
+        seen.append(("device", str(d)))
+        yield
+
+    class FakeStream:
+        def __init__(self, d):
+            self.cuda_stream = 1000 + torch.device(d).index
+
+    monkeypatch.setattr(kbuild.LIBRARY, "get", lambda: FakeLib())
+    monkeypatch.setattr(torch.cuda, "device", fake_device)
+    monkeypatch.setattr(torch.cuda, "current_stream", FakeStream)
+    kernel = kbuild.Kernel("rs_rank_occ")
+    with ThreadPoolExecutor(1, thread_name_prefix="device-batch") as ex:
+        ex.submit(kernel, 1, 2, device=torch.device("cuda:3")).result()
+    assert seen == [("device", "cuda:3"), ("launch", "device-batch_0", 1003)]
+    assert kernel.launches == 1
+
+
+@pytest.mark.cuda
+def test_rank_kernel_from_worker_thread(dev):
+    rng = np.random.default_rng(5)
+    i = t32(rng.integers(0, dev.n + 1, size=10_000), dev.device)
+    c = t32(rng.integers(0, 5, size=10_000), dev.device)
+    before = RANK_OCC.launches
+    with ThreadPoolExecutor(1, thread_name_prefix="device-batch") as ex:
+        got = ex.submit(rank_ops.occ_rows, dev.rank_rows, c, i,
+                        **_layout(dev)).result()
+    torch.cuda.synchronize()
+    assert RANK_OCC.launches == before + 1
+    assert torch.equal(got, rank_ops.occ_rows_plain(dev.rank_rows, c, i,
+                                                    **_layout(dev)))
+
+
+# ------------------------------------------------------------ K5, K6, K7
+
+
+@pytest.fixture(scope="module")
+def cohort():
+    corpus = simulate.simulate_config("cohort", scale=0.004)
+    return corpus, build_index(corpus.reads, sample_ids=corpus.sample_ids)
+
+
+def _intervals(d, corpus, n, seed):
+    codes, lens = _queries(corpus, n, corpus.spec.kmer_len, seed)
+    return backward_search(d, t32(codes, d.device), t32(lens, d.device))
+
+
+def _edge_intervals(l, u, n):
+    """An empty interval, a count past H = 64, and a whole-table one."""
+    l, u = l.clone(), u.clone()
+    l[0], u[0] = 0, 0
+    l[1], u[1] = 5, 5 + 200
+    l[2], u[2] = 0, n
+    return l, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [256, 8192])
+def test_dsa_kernel_matches_plain(cohort, cuda_device, W):  # noqa: F811
+    corpus, packed = cohort
+    d = DeviceIndex.from_packed(packed, cuda_device)
+    l, u = _edge_intervals(*_intervals(d, corpus, W, seed=W), d.n)
+    before = RESOLVE_DSA.launches
+    got = resolve.resolve_dsa_hits(d, l, u, 64)
+    want = resolve.resolve_dsa_hits_plain(d, l, u, 64)
+    rows = torch.arange(d.n, dtype=torch.int32, device=d.device)
+    valid = torch.rand(d.n, device=d.device) > 0.1
+    got_rows = resolve.resolve_rows_dsa(d, rows, valid)
+    want_rows = resolve.resolve_rows_dsa_plain(d, rows, valid)
+    torch.cuda.synchronize()
+    assert RESOLVE_DSA.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got_rows, want_rows))
+    assert (got[0][0] == -1).all() and (got[0][1] >= 0).all()
+
+
+@pytest.mark.cuda
+def test_dsa_kernel_bit_31(cuda_device):  # noqa: F811
+    words = np.array([0xFFFFFFFF, 0x80000001, 0x7FFFFFFF, 5], dtype=np.uint32)
+    d = DeviceIndex.from_numpy(
+        {"dsa": words, "read_to_sample": np.arange(4)},
+        {"n": 4, "dsa_bits": 7, "num_reads": 4}, cuda_device)
+    l, u = t32([0, 2], cuda_device), t32([2, 4], cuda_device)
+    got = resolve.resolve_dsa_hits(d, l, u, 3)
+    want = resolve.resolve_dsa_hits_plain(d, l, u, 3)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0].tolist() == [[0x1FFFFFF, 0x1000000, -1], [0xFFFFFF, 0, -1]]
+
+
+def _fused_variants(d):
+    """The index itself; its mark plane cleared (walks end only at $, so
+    those needing sample_rate steps or more give -1); and every $ row of
+    the first blocks also marked (marked wins)."""
+    W = d.words_per_block
+    fr = d.fused_rows.clone()
+    fr[:, 6 + 3 * W : 6 + 4 * W] = 0
+    dm = d.fused_rows.clone()
+    dm[:4096, 6 + 3 * W : 6 + 4 * W] |= dm[:4096, 6 : 6 + W]
+    return {"index": d, "no marks": dataclasses.replace(d, fused_rows=fr),
+            "$ also marked": dataclasses.replace(d, fused_rows=dm)}
+
+
+@pytest.mark.cuda
+def test_fused_kernel_matches_plain(cohort, cuda_device):  # noqa: F811
+    corpus, packed = cohort
+    d = DeviceIndex.from_packed(packed, cuda_device, tiers={"fused"})
+    rows = torch.arange(d.n, dtype=torch.int32, device=d.device)
+    valid = torch.rand(d.n, device=d.device) > 0.1
+    offsets = {}
+    for name, v in _fused_variants(d).items():
+        before = RESOLVE_FUSED.launches
+        got = resolve.resolve_rows_fused(v, rows, valid)
+        want = resolve.resolve_rows_fused_plain(v, rows, valid)
+        torch.cuda.synchronize()
+        assert RESOLVE_FUSED.launches == before + 1, name
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+        offsets[name] = got[1]
+    # without marks: walks of sample_rate - 1 steps end, longer ones give -1
+    off = offsets["no marks"]
+    assert (off == d.sample_rate - 1).any() and (off[valid] == -1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", [None, {"fused"}])
+@pytest.mark.parametrize("window, max_rows", [(2048, 1 << 20), (64, 100),
+                                              (256, None)])
+def test_exact_histogram_kernel_matches_plain(cohort, cuda_device, tiers,
+                                              window, max_rows):  # noqa: F811
+    corpus, packed = cohort
+    d = DeviceIndex.from_packed(packed, cuda_device, tiers=tiers)
+    l, u = _edge_intervals(*_intervals(d, corpus, 256, seed=3), d.n)
+    before = EXACT_HISTOGRAM.launches
+    got = resolve.exact_sample_histogram(d, l, u, window, max_rows)
+    want = resolve.exact_sample_histogram_plain(d, l, u, window, max_rows)
+    torch.cuda.synchronize()
+    assert EXACT_HISTOGRAM.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_exact_histogram_kernel_int64_totals(cohort, cuda_device):  # noqa: F811
+    _, packed = cohort
+    d = DeviceIndex.from_packed(packed, cuda_device)
+    l = t32([0, 0, 0], d.device)
+    u = t32([1_200_000_000] * 3, d.device)
+    got = resolve.exact_sample_histogram(d, l, u, 256, 1024)
+    want = resolve.exact_sample_histogram_plain(d, l, u, 256, 1024)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not got[1].any() and int(got[0][0].sum()) == 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop", [(), ("dsa",)])
+def test_engine_on_card_matches_cpu(cohort, cuda_device, drop):  # noqa: F811
+    """The whole full-answer path on the card (K2, K5 or K6, K7) gives the
+    CPU engine's answers, field by field."""
+    corpus, packed = cohort
+    cfg = ServeConfig(batch_size=512, max_hits=8, drop_tiers=drop,
+                      resolve_budget_frac=0.05)
+    card = QueryEngine(packed, cfg, device=cuda_device)
+    cpu = QueryEngine(packed, cfg, device="cpu")
+    kms = ["".join("ACGT"[c - 1] for c in row) for row in _queries(
+        corpus, 200, 31, seed=9)[0]] + ["ACGTAC", "GGATC"]
+    for kw in (dict(), dict(include_hits=False), dict(both_strands=True)):
+        assert card.query_batch(kms, **kw) == cpu.query_batch(kms, **kw)

@@ -1,0 +1,215 @@
+"""Port's serving tier (serve/dispatcher.py, serve/http.py over the port's
+QueryEngine) against the JAX package's server on the same artifact: for the
+same requests, the same status and the same JSON body — plus the
+dispatcher's batching, error and mixed-tier behaviour."""
+
+import asyncio
+import http.client
+import json
+
+import numpy as np
+import pytest
+
+from readserver_tpu import alphabet
+from readserver_tpu.config import ServeConfig as JaxServeConfig
+from readserver_tpu.corpus.simulate import sample_query_kmers
+from readserver_tpu.index.builder import build_index
+from readserver_tpu.serve import Dispatcher as JaxDispatcher
+from readserver_tpu.serve import QueryEngine as JaxQueryEngine
+from readserver_tpu.serve.http import RestServer as JaxRestServer
+from readserver_tpu_torch.config import ServeConfig
+from readserver_tpu_torch.oracle import naive_count
+from readserver_tpu_torch.serve import Dispatcher, Metrics, QueryEngine
+from readserver_tpu_torch.serve.http import RestServer
+
+CFG = dict(batch_size=64, max_hits=32, batch_deadline_ms=5.0,
+           small_batch_sizes=(8,))
+
+
+@pytest.fixture(scope="module")
+def servers(tiny_corpus):
+    reads = tiny_corpus.reads
+    names = [f"SRR000.{i}/1" for i in range(len(reads))]
+    meta = [f"flowcell=F{i % 3}".encode() for i in range(len(reads))]
+    packed = build_index(
+        reads, sample_ids=np.arange(len(reads), dtype=np.int32) % 4,
+        sample_names=["a", "b", "c", "d"], read_names=names, read_meta=meta,
+    )
+    jax_engine = JaxQueryEngine(packed, JaxServeConfig(**CFG))
+    engine = QueryEngine(packed, ServeConfig(**CFG), device="cpu")
+    return (tiny_corpus, (JaxRestServer, JaxDispatcher, jax_engine),
+            (RestServer, Dispatcher, engine))
+
+
+def _kmers(corpus, n, seed):
+    kms = sample_query_kmers(corpus, n, corpus.spec.kmer_len, seed=seed)
+    return [alphabet.decode(km) for km in kms]
+
+
+def _exchange(side, requests):
+    """Start ``side``'s REST server on a free port, send ``requests``
+    (method, path, body) over one keep-alive connection, stop it; →
+    [(status, json body)]."""
+    server_cls, dispatcher_cls, engine = side
+
+    async def go():
+        server = server_cls(dispatcher_cls(engine), "127.0.0.1", 0)
+        await server.start()
+        port = server._server.sockets[0].getsockname()[1]
+
+        def client():
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            out = []
+            for method, path, body in requests:
+                conn.request(method, path,
+                             body=None if body is None else json.dumps(body))
+                r = conn.getresponse()
+                out.append((r.status, json.loads(r.read())))
+            conn.close()
+            return out
+
+        try:
+            return await asyncio.get_running_loop().run_in_executor(
+                None, client)
+        finally:
+            await server.stop()
+
+    return asyncio.run(go())
+
+
+def _same_answers(servers, requests):
+    _, jax_side, port_side = servers
+    got = _exchange(port_side, requests)
+    want = _exchange(jax_side, requests)
+    for req, g, w in zip(requests, got, want):
+        assert g == w, req
+    return got
+
+
+def test_rest_get_endpoints_match_jax(servers):
+    corpus = servers[0]
+    km = _kmers(corpus, 4, seed=34)
+    reqs = [("GET", p, None) for p in (
+        f"/count?kmer={km[0]}",
+        f"/count?kmer={km[1]}&both_strands=1",
+        f"/reads?kmer={km[1]}&sequences=1",
+        f"/reads?kmer={km[2]}&both_strands=1",
+        "/reads?kmer=ACG",
+        f"/samples?kmer={km[3]}",
+        "/samples?kmer=ACG&both_strands=1",
+        "/read?id=3",
+        "/read?id=-1",
+        "/read?id=999999",
+        "/read?id=x",
+        "/health",
+        "/info",
+        "/count",
+        "/count?kmer=XYZ",
+        "/nope",
+    )]
+    got = _same_answers(servers, reqs)
+    assert [s for s, _ in got] == [200] * 8 + [404, 404, 400, 200, 200,
+                                               400, 400, 404]
+    assert got[4][1]["hits_truncated"] and len(got[4][1]["hits"]) == 32
+    assert got[6][1]["samples_exact"] and len(got[6][1]["samples"]) == 4
+    assert got[7][1]["name"] == "SRR000.3/1" and got[7][1]["sample"] == "d"
+
+
+@pytest.mark.parametrize("mode", ["count", "reads", "samples"])
+def test_rest_batch_post_matches_jax(servers, mode):
+    corpus = servers[0]
+    kms = _kmers(corpus, 12, seed=36) + ["ACGTA"]
+    reqs = [
+        ("POST", "/batch", {"kmers": kms, "mode": mode}),
+        ("POST", "/batch", {"kmers": kms[:5], "mode": mode,
+                            "both_strands": True, "sequences": True}),
+        ("POST", "/batch", {"kmers": [], "mode": mode}),
+        ("POST", "/batch", {"kmers": ["NOTDNA"], "mode": mode}),
+        ("GET", f"/count?kmer={kms[0]}", None),
+    ]
+    got = _same_answers(servers, reqs)
+    assert [s for s, _ in got] == [200, 200, 400, 400, 200]
+    assert len(got[0][1]["results"]) == len(kms)
+    for res in got[0][1]["results"]:
+        assert res["count"] == naive_count(corpus.reads, res["kmer"])
+
+
+def test_rest_stats_answers(servers):
+    """/stats reports the port's dispatcher metrics and the engine's pack
+    accounting (the parallel.stats import is reached only by an interval-
+    sharded engine, which the port does not build)."""
+    *_, port_side = servers
+    kms = _kmers(servers[0], 3, seed=37)
+    got = _exchange(port_side, [("GET", f"/samples?kmer={k}", None)
+                                for k in kms] + [("GET", "/stats", None)])
+    status, snap = got[-1]
+    assert status == 200 and snap["queries"] >= 3 and snap["errors"] == 0
+    assert snap["pack"]["batches"] >= 3
+    assert set(snap) >= {"qps", "p50_latency_ms", "mean_batch_fill", "pack"}
+
+
+def test_dispatcher_batches_concurrent_queries(servers):
+    corpus, _, (_, _, engine) = servers
+    kmers = _kmers(corpus, 40, seed=33)
+
+    async def go():
+        d = Dispatcher(engine, Metrics())
+        await d.start()
+        results = await asyncio.gather(
+            *[d.submit(km, counts_only=True) for km in kmers]
+        )
+        snap = d.metrics.snapshot()
+        await d.stop()
+        return results, snap
+
+    results, snap = asyncio.run(go())
+    for km, r in zip(kmers, results):
+        assert r.count == naive_count(corpus.reads, km)
+    assert snap["queries"] == 40 and snap["batches"] < 40
+    assert snap["p50_latency_ms"] is not None
+
+
+def test_dispatcher_mixed_tiers_match_engine(servers):
+    """count, hist and full blocks that share a device batch each get the
+    answers the engine gives them alone (a batch runs the strongest tier
+    its blocks need, so the hist block's answers may carry hits too)."""
+    corpus, _, (_, _, engine) = servers
+    kms = _kmers(corpus, 30, seed=38)
+
+    async def go():
+        d = Dispatcher(engine)
+        await d.start()
+        out = await asyncio.gather(
+            d.submit_many(kms[:10], mode="count"),
+            d.submit_many(kms[10:20], mode="hist"),
+            d.submit_many(kms[20:], mode="full", both_strands=True),
+        )
+        await d.stop()
+        return out
+
+    counts, hist, full = asyncio.run(go())
+    assert [r.count for r in counts] == [
+        r.count for r in engine.count_batch(kms[:10])]
+    key = lambda r: (r.kmer, r.count, r.sample_hist, r.sample_hist_complete)  # noqa: E731
+    assert [key(r) for r in hist] == [
+        key(r) for r in engine.query_batch(kms[10:20], include_hits=False)]
+    assert full == engine.query_batch(kms[20:], both_strands=True)
+
+
+def test_dispatcher_propagates_errors(servers):
+    *_, (_, _, engine) = servers
+
+    async def go():
+        d = Dispatcher(engine)
+        await d.start()
+        with pytest.raises(ValueError):
+            await d.submit("NOTDNA", counts_only=True)
+        with pytest.raises(ValueError, match="unknown mode"):
+            await d.submit_many(["ACGT"], mode="nope")
+        ok = await d.submit("ACGT", counts_only=True)
+        errors = d.metrics.errors
+        await d.stop()
+        return ok, errors
+
+    ok, errors = asyncio.run(go())
+    assert ok.count >= 0 and errors == 1
