@@ -9,22 +9,24 @@ Phases, each printed with its seconds on a ``#`` line, run in the order
 timing phases, so each path's launch counts are its own):
 
 1. device: a CUDA card is required (no CPU path); its name and power limit;
-2. kernels: build K1 (rank), K2 (backward search), K5 (dsa resolve), K6
-   (fused-row walk) and K7 (exact histogram) from
-   ``readserver_tpu_torch/csrc`` in one nvcc call for sm_90a;
+2. kernels: build K1 (rank and its LUT level entry), K2 (backward search),
+   K5 (dsa resolve), K6 (fused-row walk) and K7 (exact histogram) from
+   ``readserver_tpu_torch/csrc`` for sm_90a, one nvcc per source started
+   together;
 3. artifact: simulate and build the E. coli artifact with the port's
    builder (cached under ``data/``);
 4. count path: with every kernel's launch count at 0, start a
-   ``QueryEngine`` on the card (tier plan, ship, prefix LUT through K1,
-   warmup) and send count requests (1, 256, and 4096 queries on both
-   strands); K1 and K2 must have launched;
+   ``QueryEngine`` on the card (tier plan, ship, prefix LUT through K1's
+   level entry, warmup) and send count requests (1, 256, and 4096 queries
+   on both strands); the level entry and K2 must have launched;
 5. oracle: the served counts of >= 256 queries against exact counts of all
    read windows (``oracle.naive.window_multiset_counts``);
 8. reads: counts at 0, ``query_batch`` requests (1, 256, 4096 on both
-   strands) on the dsa engine (K5) and on a ``drop_tiers=("dsa",)`` engine
-   (K6 after the row-budget compaction); the two engines' answers equal,
-   hit sets against the windows equal to each query on >= 64 queries; K5
-   and K6 must have launched;
+   strands) on the dsa engine (K5), a ``drop_tiers=("dsa",)`` engine (K6
+   after the row-budget compaction) and a mark-walk engine
+   (``drop_tiers=("dsa", "fused", "lf")``, K1's generic entry); the
+   engines' answers equal, hit sets against the windows equal to each
+   query on >= 64 queries; K5, K6 and K1 must have launched;
 9. samples: the 128-sample cohort artifact (built or loaded), counts at 0,
    histogram-only and full ``query_batch`` on a dsa and a fused engine;
    histograms exact against per-sample oracle counts on >= 64 queries, and
@@ -33,12 +35,18 @@ timing phases, so each path's launch counts are its own):
 10. REST: counts at 0, the port's ``RestServer`` over the card engines in
    this script's event loop; every endpoint's answer equals the engine's;
 6. kernel vs plain: each kernel against its plain torch form on the card,
-   bit for bit, at the main paths' shapes (the engine's prefix LUT against
-   a plain-rank build, batches of width 256 and 8192, H = 64) and at edge
+   bit for bit, at the main paths' shapes (K1 at the mark walk's step, the
+   engine's prefix LUT and a chunked build against the plain build, K2 in
+   every mode and tier set at widths 256, 8192 and 262,144 and its
+   deferred guard, K5-K7 at widths 256 and 8192, H = 64) and at edge
    cases;
-7. timing: K2 searches/s and batch latency at B=262,144 over 8 distinct
-   batches, K1 rows/s at the LUT's last level, K5-K7 against their plain
-   forms at width 8192 (CUDA events and the profiler's kernel time), and
+7. timing: K2 at B=262,144 and at width 8192 over 8 distinct batches
+   (through the waiting wrapper, on the engine's no-wait path 16 batches
+   back to back, plain); K1's level entry per level and for the whole
+   build, the LUT start-up stage split;
+   K1's generic entry at random positions, at the LUT's last level and at
+   the mark walk's step; K5-K7 at width 8192 (CUDA events and the
+   profiler's kernel time), each kernel's bytes needed and bound; and
    where a served count, ``/reads`` and ``/samples`` request's time goes
    (host stages, device busy share, top device ops).
 
@@ -145,14 +153,17 @@ def kernel_device_ms(fn, iters: int, kernel: str) -> float | None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    us = sum(e.self_device_time_total for e in events if kernel in e.key)
+    for _ in range(3):  # the profiler now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in events if kernel in e.key)
+        if us > 0:
+            break
     if us <= 0:
         log(f"profiler saw no device time for {kernel}; its device events: "
             + ", ".join(f"{e.key[:60]} {e.self_device_time_total:.1f} us"
@@ -162,6 +173,10 @@ def kernel_device_ms(fn, iters: int, kernel: str) -> float | None:
 
 def fmt_ms(ms: float | None) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def ratio(a: float | None, b: float | None) -> str:
+    return "not measured" if a is None or not b else f"{a / b:.3f}"
 
 
 def request_breakdown(engine, kms: list[str], tier: str) -> None:
@@ -187,7 +202,7 @@ def request_breakdown(engine, kms: list[str], tier: str) -> None:
     stages["pad + encode"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     if tier == "count":
-        out = engine._dispatch_single(codes, lengths, nq)[:nq]
+        out = engine._counted(codes, lengths, nq)
     else:
         use_lut, use_pair = engine._routes(codes, lengths, nq)
         out = engine._served(*engine._to_device(codes, lengths), nq, use_lut,
@@ -195,7 +210,7 @@ def request_breakdown(engine, kms: list[str], tier: str) -> None:
     torch.cuda.synchronize()
     stages["copy in + device"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out.cpu().numpy()
+    engine._fetch(out)
     stages["copy out"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     whole_fn()
@@ -372,6 +387,120 @@ def max_err(pairs) -> int:
                for a, b in pairs)
 
 
+# ------------------------------------------------------------------ bounds
+# Each kernel's bound is the bytes its work needs (each input byte read
+# once, each output byte written once, table rows counted once each over
+# the rows the work actually touches) over the card's memory rate; every
+# kernel here does a few integer operations per byte, far below the
+# card's operation rates, so bytes bind all of them.
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3 (NVIDIA's data sheet)
+
+
+def bound_ms(nbytes: int) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def distinct(*parts) -> int:
+    """Distinct values over integer tensors (rows to read once)."""
+    import torch
+
+    parts = [t.reshape(-1).long() for t in parts if t.numel()]
+    return int(torch.unique(torch.cat(parts)).numel()) if parts else 0
+
+
+def k1_bytes(table, c, i, lay) -> int:
+    """occ(c, i): c and i in, occ out, the distinct rows they touch."""
+    rows = c.long() * lay["rows_per_symbol"] + (i >> lay["log2_block"]).long()
+    return c.numel() * 12 + distinct(rows) * table.shape[1] * 4
+
+
+def level_bytes(idx, l, u) -> int:
+    """One level of the LUT build: (l, u) in, 4S (l, u) out, and the
+    distinct rows of the alive intervals' ranks for c = 1..4."""
+    alive = l < u
+    sh, rps = idx.log2_block, idx.rows_per_symbol
+    rows = [c * rps + (x[alive] >> sh).long() for c in range(1, 5)
+            for x in (l, u)]
+    return l.numel() * 40 + distinct(*rows) * idx.rank_rows.shape[1] * 4
+
+
+def k2_needs(idx, codes, lut, p) -> tuple[int, int]:
+    """→ (bytes, steps) of K2's k-step search from the LUT on ``codes``:
+    the codes, each distinct LUT entry and each distinct rank row of the
+    steps taken (the plain schedule's active masks) read once, (l, u)
+    written; and the number of steps taken."""
+    import torch
+    from readserver_tpu_torch.ops import search as so
+
+    B, K = codes.shape
+    ids = so.prefix_ids(codes, p).long()
+    lu = lut.index_select(0, ids)
+    l, u = lu[:, 0].contiguous(), lu[:, 1].contiguous()
+    r = K - p
+    ntri = r // 3 if idx.rank3_rows is not None else 0
+    rem = r - 3 * ntri
+    sched = ([(j, 3) for j in range(r - 3, rem - 1, -3)]
+             + [(j, 2) for j in range(rem - 2, rem % 2 - 1, -2)]
+             + ([(0, 1)] if rem % 2 else []))
+    tables = {3: (idx.rank3_rows, idx.C3), 2: (idx.rank2_rows, idx.C2),
+              1: (idx.rank_rows, idx.C)}
+    rows = {3: [], 2: [], 1: []}
+    steps = 0
+    for j, k in sched:
+        if k == 1:
+            code = codes[:, j]
+        else:
+            code = torch.zeros_like(l)
+            for t in range(k):
+                code = code * 4 + (codes[:, j + t] - 1)
+        act = l < u
+        steps += int(act.sum())
+        base = code.long() * idx.rows_per_symbol
+        rows[k] += [(base + (x >> idx.log2_block).long())[act] for x in (l, u)]
+        table, starts = tables[k]
+        l, u = so._step_plain(idx, table, starts, code, l, u, act)
+    nbytes = B * K * 4 + distinct(ids) * 8 + B * 8 + sum(
+        distinct(*rows[k]) * tables[k][0].shape[1] * 4 for k in rows)
+    return nbytes, steps
+
+
+def fused_walk_bytes(idx_f, rows, valid) -> int:
+    """The distinct fused rows the walks of ``rows`` visit (the plain
+    walk's active lanes, terminal rows included) and their terminal
+    lookups (a sampled pair or a dollar_map entry)."""
+    import torch
+    from readserver_tpu_torch.ops import resolve as rz
+
+    cur = torch.where(valid, rows, torch.zeros_like(rows))
+    done = ~valid
+    seen = []
+    for _ in range(idx_f.sample_rate):
+        seen.append((cur >> idx_f.log2_block)[~done])
+        c, o, marked, _ = rz._fused_step_fields(idx_f, cur)
+        is_term = marked | (c == 0)
+        step_now = ~done & ~is_term
+        cur = torch.where(step_now, rz._take(idx_f.C, c) + o, cur)
+        done = done | is_term
+    _, o, marked, slot = rz._fused_step_fields(idx_f, cur)
+    end = valid & done
+    return (distinct(*seen) * idx_f.fused_rows.shape[1] * 4
+            + distinct(slot[end & marked]) * 8
+            + distinct(o[end & ~marked]) * 4)
+
+
+def interval_rows(l, u):
+    """Every row of every interval, in order (the sweep's worklist when
+    no cap binds)."""
+    import torch
+
+    counts = (u - l).long()
+    starts = torch.repeat_interleave(l.long(), counts)
+    first = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
+    return (starts + torch.arange(starts.numel(), device=l.device)
+            - first).int()
+
+
 def run(args) -> dict:
     import torch
 
@@ -456,8 +585,8 @@ def run(args) -> dict:
             f"{list(plan.dropped)}, {plan.total_bytes / 2**30:.3f} GiB "
             f"planned, {engine.index.device_bytes() / 2**30:.3f} GiB on card")
         log(f"ship {engine.startup_seconds['ship']:.3f}s, prefix LUT "
-            f"p={engine.lut_p} ({engine.lut.nbytes} B) through K1 in "
-            f"{engine.startup_seconds['lut']:.3f}s")
+            f"p={engine.lut_p} ({engine.lut.nbytes} B) through K1's level "
+            f"entry in {engine.startup_seconds['lut']:.3f}s")
         t0 = time.perf_counter()
         engine.warmup()
         log(f"warmup (widths 256/8192, lengths {KMER}/32) in "
@@ -473,7 +602,7 @@ def run(args) -> dict:
             log(f"request of {name} queries: {dt * 1e3:.3f} ms, "
                 f"{int((served[name] > 0).sum())} found")
         launches = read_launches("count")
-        for name in ("rank_occ", "backward_search"):
+        for name in ("lut_level", "backward_search"):
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the count path")
 
@@ -509,10 +638,22 @@ def run(args) -> dict:
         log(f"fused engine up and warm in {time.perf_counter() - t0:.3f}s: "
             f"tiers kept {sorted(engine_f.tier_plan.keep)}, row budget "
             f"{engine_f.row_budget} of {cfg.batch_size * H} lanes")
+        # the smallest resolve tier: the mark walk, whose ranks go through
+        # K1's generic entry
+        cfg_m = dataclasses.replace(cfg, drop_tiers=("dsa", "fused", "lf"))
+        t0 = time.perf_counter()
+        engine_m = QueryEngine(packed, cfg_m, device=dev)
+        engine_m.warmup()
+        log(f"mark-walk engine up and warm in {time.perf_counter() - t0:.3f}"
+            f"s: tiers kept {sorted(engine_m.tier_plan.keep)}")
         check(engine.index.dsa is not None, "the default plan has no dsa")
         check(engine_f.index.dsa is None
               and engine_f.index.fused_rows is not None,
               "the drop_tiers=('dsa',) plan does not walk fused rows")
+        check(engine_m.index.mark_rank is not None and engine_m.index.dsa is
+              None and engine_m.index.fused_rows is None
+              and engine_m.index.lf is None,
+              "the drop_tiers=('dsa', 'fused', 'lf') plan does not walk marks")
         reads_served = {}
         for name, qs, both in (("1", q1, False), ("256", q256, False),
                                ("4096x2", q4096, True)):
@@ -523,16 +664,22 @@ def run(args) -> dict:
             t0 = time.perf_counter()
             res_f = engine_f.query_batch(kms, both_strands=both)
             dt_f = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res_m = engine_m.query_batch(kms, both_strands=both)
+            dt_m = time.perf_counter() - t0
             check(res == res_f, f"the dsa and fused engines disagree on the "
                   f"request of {name}")
+            check(res == res_m, f"the dsa and mark-walk engines disagree on "
+                  f"the request of {name}")
             reads_served[name] = res
             log(f"/reads request of {name} queries: dsa engine "
                 f"{dt * 1e3:.3f} ms, fused engine {dt_f * 1e3:.3f} ms, "
+                f"mark-walk engine {dt_m * 1e3:.3f} ms, "
                 f"{sum(len(r.hits) for r in res)} hits, "
                 f"{sum(r.hits_truncated for r in res)} truncated, answers "
                 f"equal")
         launches = read_launches("reads")
-        for name in ("resolve_dsa", "resolve_fused"):
+        for name in ("resolve_dsa", "resolve_fused", "rank_occ"):
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the reads path")
         t0 = time.perf_counter()
@@ -659,11 +806,20 @@ def run(args) -> dict:
     # -------------------------------------------------- 6. kernel vs plain
     idx = engine.index
     lut, p = engine.lut, engine.lut_p
+    lay = dict(rows_per_symbol=idx.rows_per_symbol, log2_block=idx.log2_block,
+               words_per_block=idx.words_per_block)
+    k2 = search_ops.backward_search_cuda
     summary = {}
+
+    def intervals(eng, kms):
+        ce, le, nq = eng._pad_encode(kms)
+        return eng._search(*eng._to_device(ce, le), *eng._routes(ce, le, nq),
+                           eng._new_bad())
+
+    batches = {256: decode_all(q256),
+               8192: engine._expand_rc(decode_all(q4096))[0]}
+    cbatches = {256: ckms, 8192: ceng._expand_rc(decode_all(c4096))[0]}
     with phase("6 kernel vs plain"):
-        lay = dict(rows_per_symbol=idx.rows_per_symbol,
-                   log2_block=idx.log2_block,
-                   words_per_block=idx.words_per_block)
         n, S = idx.n, idx.block_size
         k1_err = 0
         for tname, table, P in (("base", idx.rank_rows, 5),
@@ -684,107 +840,134 @@ def run(args) -> dict:
             k1_err = max(k1_err, err)
             log(f"K1 {tname}: {len(ii)} ranks, max |err| {err}")
             check(err == 0, f"K1 disagrees with the plain rank on {tname}")
-        # K1 at every shape the main path gave it: the engine's LUT (levels
-        # of 8 * 4^l ranks through K1) against the same levels through the
-        # plain rank on the card
+        # K1's generic entry at the main path's shape: the first step of
+        # the mark walk over the engine's 8192-wide batch (compacted rows)
+        idx_m = engine_m.index
+        ml, mu = intervals(engine_m, batches[8192])
+        rows, valid, _ = resolve.expand_intervals(ml, mu, H)
+        mrows, mvalid, _, _ = resolve.compact_rows(rows, valid,
+                                                   engine_m.row_budget)
+        m_i = torch.where(mvalid, mrows, torch.zeros_like(mrows))
+        m_c = rank_ops.read_symbol(idx_m, m_i)
+        err = max_err([(rank_ops.occ_rows_cuda(idx_m.rank_rows, m_c, m_i,
+                                               **lay),
+                        rank_ops.occ_rows_plain(idx_m.rank_rows, m_c, m_i,
+                                                **lay))])
+        k1_err = max(k1_err, err)
+        log(f"K1 at the mark walk's first step (width 8192, {m_i.numel()} "
+            f"rows, {int(mvalid.sum())} valid): max |err| {err}")
+        check(err == 0, "K1 disagrees with the plain rank on the mark walk")
+        # K1's level entry: the engine's LUT, and a build in ragged chunks,
+        # against the plain build on the card
         t0 = time.perf_counter()
         plain_lut = lut_ops.build_prefix_lut_plain(idx, p)
         torch.cuda.synchronize()
-        err = int((plain_lut.long() - lut.long()).abs().max())
-        k1_err = max(k1_err, err)
-        log(f"K1 prefix LUT p={p}: engine's LUT ({lut.shape[0]} entries, "
-            f"{p - 1} levels up to {8 * 4 ** (p - 1)} ranks) vs the plain-"
-            f"rank build ({time.perf_counter() - t0:.3f}s): max |err| {err}")
-        check(torch.equal(plain_lut, lut),
-              "K1's prefix LUT disagrees with the plain-rank build")
-        del plain_lut
+        t_plain = time.perf_counter() - t0
+        chunk = 4 ** (p - 1) // 4 + 3
+        chunked = lut_ops.build_prefix_lut(idx, p, max_chunk=chunk)
+        k1l_err = max_err([(lut, plain_lut), (chunked, plain_lut)])
+        log(f"K1 level entry, prefix LUT p={p}: the engine's LUT "
+            f"({lut.shape[0]} entries, {p - 1} levels) and a build in chunks "
+            f"of {chunk} vs the plain build ({t_plain:.3f}s): max |err| "
+            f"{k1l_err}")
+        check(torch.equal(plain_lut, lut) and torch.equal(chunked, lut),
+              "K1's level entry disagrees with the plain LUT build")
+        del plain_lut, chunked
 
+        # K2: every mode and tier set at widths 256, 8192 and B_TIME
         bq = simulate.sample_query_kmers_fast(
             corpus, B_TIME, KMER, seed=args.seed + 1, miss_frac=0.1
         ).astype(np.int32)
-        codes = torch.from_numpy(bq).to(dev)
-        full_len = torch.full((B_TIME,), KMER, dtype=torch.int32, device=dev)
         no3 = dataclasses.replace(idx, rank3_rows=None, C3=None)
-        # mixed lengths 8..31: right-aligned suffixes of the same k-mers
         mlen = rng.integers(8, KMER + 1, size=B_TIME)
         mixed, mixed_len = encode_query_batch(
             [row[KMER - L:] for row, L in zip(bq.astype(np.uint8), mlen)], 32
         )
-        mixed_t = torch.from_numpy(mixed).to(dev)
-        mixed_len_t = torch.from_numpy(mixed_len).to(dev)
         lut_len = rng.integers(p, KMER + 1, size=B_TIME)
         mixed_lut, mixed_lut_len = encode_query_batch(
-            [row[KMER - L:] for row, L in zip(bq.astype(np.uint8), lut_len)], 32
-        )
-        mixed_lut_t = torch.from_numpy(mixed_lut).to(dev)
-        mixed_lut_len_t = torch.from_numpy(mixed_lut_len).to(dev)
+            [row[KMER - L:] for row, L in zip(bq.astype(np.uint8), lut_len)],
+            32)
+        pair_plain = search_ops.backward_search_pair_plain
+        k2_err = 0
+        for W in (256, 8192, B_TIME):
+            codes = torch.from_numpy(bq[:W]).to(dev)
+            mx, mxl, lx, lxl = (torch.from_numpy(a[:W]).to(dev) for a in (
+                mixed, mixed_len, mixed_lut, mixed_lut_len))
+            full_len = torch.full((W,), KMER, dtype=torch.int32, device=dev)
+            cases = [
+                ("k-step + LUT, rank3+rank2",
+                 k2(idx, codes, lut=lut, p=p, kstep=True),
+                 pair_plain(idx, codes, lut, p)),
+                ("k-step + LUT, rank2", k2(no3, codes, lut=lut, p=p,
+                                           kstep=True),
+                 pair_plain(no3, codes, lut, p)),
+                ("k-step, rank3+rank2", k2(idx, codes, kstep=True),
+                 pair_plain(idx, codes)),
+                ("k-step, rank2", k2(no3, codes, kstep=True),
+                 pair_plain(no3, codes)),
+                ("1-step, lengths 8-31", k2(idx, mx, mxl),
+                 search_ops.backward_search_plain(idx, mx, mxl)),
+                (f"1-step + LUT, lengths {p}-31",
+                 k2(idx, lx, lxl, lut=lut, p=p),
+                 search_ops.backward_search_lut_plain(idx, lut, p, lx, lxl)),
+                ("1-step, uniform 31", k2(idx, codes, full_len),
+                 search_ops.backward_search_plain(idx, codes, full_len)),
+            ]
+            errs = {name: max_err(zip(got, want)) for name, got, want in cases}
+            k2_err = max(k2_err, *errs.values())
+            found = int((cases[0][1][1] > cases[0][1][0]).sum())
+            log(f"K2 width {W}: {len(cases)} modes and tier sets "
+                f"({', '.join(errs)}), {found} found by k-step + LUT, max "
+                f"|err| {max(errs.values())}")
+            check(max(errs.values()) == 0,
+                  f"K2 disagrees with the plain search at width {W}: {errs}")
         short = torch.from_numpy(bq[:1, KMER - 8:].copy()).to(dev)
         short_len = torch.full((1,), 8, dtype=torch.int32, device=dev)
-        k2 = search_ops.backward_search_cuda
-        cases = [
-            ("LUT + triples", lambda: k2(idx, codes, lut=lut, p=p, kstep=True),
-             lambda: search_ops.backward_search_pair_plain(idx, codes, lut, p)),
-            ("LUT + pairs (no rank3)",
-             lambda: k2(no3, codes, lut=lut, p=p, kstep=True),
-             lambda: search_ops.backward_search_pair_plain(no3, codes, lut, p)),
-            ("triples, no LUT", lambda: k2(idx, codes, kstep=True),
-             lambda: search_ops.backward_search_pair_plain(idx, codes)),
-            ("masked 1-step, lengths 8-31, no LUT",
-             lambda: k2(idx, mixed_t, mixed_len_t),
-             lambda: search_ops.backward_search_plain(idx, mixed_t,
-                                                      mixed_len_t)),
-            (f"masked 1-step + LUT, lengths {p}-31",
-             lambda: k2(idx, mixed_lut_t, mixed_lut_len_t, lut=lut, p=p),
-             lambda: search_ops.backward_search_lut_plain(
-                 idx, lut, p, mixed_lut_t, mixed_lut_len_t)),
-            ("masked 1-step, uniform 31, no LUT",
-             lambda: k2(idx, codes, full_len),
-             lambda: search_ops.backward_search_plain(idx, codes, full_len)),
-            ("one query of length 8 < p, 1-step",
-             lambda: k2(idx, short, short_len),
-             lambda: search_ops.backward_search_plain(idx, short, short_len)),
-            ("one query of length 8 < p, k-step",
-             lambda: k2(idx, short, kstep=True),
-             lambda: search_ops.backward_search_pair_plain(idx, short)),
-        ]
-        # K2 at the widths the engine serves: the main path's own batches,
-        # padded and encoded by the engine and searched through its dispatch
-        for kms, width in ((decode_all(q256), 256),
-                           (engine._expand_rc(decode_all(q4096))[0], 8192)):
+        err = max_err([*zip(k2(idx, short, short_len),
+                            search_ops.backward_search_plain(idx, short,
+                                                             short_len)),
+                       *zip(k2(idx, short, kstep=True),
+                            pair_plain(idx, short))])
+        k2_err = max(k2_err, err)
+        check(err == 0, "K2 disagrees on one query of length 8 < p")
+        # the engine's own batches, padded, encoded and searched by it
+        for width, kms in batches.items():
             ce, le, nq = engine._pad_encode(kms)
             check(ce.shape == (width, KMER) and int(le.min()) == KMER,
                   f"engine batch of {len(kms)} is not uniform [{width}, "
                   f"{KMER}]")
-            cases.append((
-                f"engine batch of width {width} ({nq} queries), LUT + triples",
-                lambda ce=ce, le=le, nq=nq: engine._dispatch_single(
-                    ce, le, nq)[:, :2].unbind(1),
-                lambda ce=ce: search_ops.backward_search_pair_plain(
-                    idx, torch.from_numpy(ce).to(dev), lut, p),
-            ))
-        k2_err = 0
-        for name, kern, plain in cases:
-            l1, u1 = kern()
-            l2, u2 = plain()
-            err = max(int((l1.long() - l2.long()).abs().max()),
-                      int((u1.long() - u2.long()).abs().max()))
+            got = engine._dispatch_single(
+                ce, le, nq, bad=engine._new_bad())[:, :2].unbind(1)
+            err = max_err(zip(got, pair_plain(
+                idx, torch.from_numpy(ce).to(dev), lut, p)))
             k2_err = max(k2_err, err)
-            found = int((u1 > l1).sum())
-            log(f"K2 {name}: {l1.shape[0]} queries, {found} found, "
-                f"max |err| {err}")
-            check(err == 0, f"K2 disagrees with the plain search: {name}")
-        summary["k1_err"], summary["k2_err"] = k1_err, k2_err
+            log(f"K2 engine batch of width {width} ({nq} queries): max "
+                f"|err| {err}")
+            check(err == 0, f"K2 disagrees on the engine's batch of {width}")
+        # the guard, deferred: refused queries counted on the card, (0, 0)
+        codes = torch.from_numpy(bq[:8192]).to(dev)
+        dirty = codes.clone()
+        hit = torch.tensor([5, 77, 4000], device=dev)
+        dirty[hit, torch.tensor([0, 13, 30], device=dev)] = torch.tensor(
+            [0, 5, -1], dtype=torch.int32, device=dev)
+        bad = torch.zeros(1, dtype=torch.int32, device=dev)
+        l1, u1 = k2(idx, dirty, lut=lut, p=p, kstep=True, bad=bad)
+        l2, u2 = pair_plain(idx, codes, lut, p)
+        l2[hit], u2[hit] = 0, 0
+        check(int(bad.item()) == 3 and torch.equal(l1, l2)
+              and torch.equal(u1, u2), "K2's deferred guard miscounts")
+        try:
+            search_ops.backward_search_pair(idx, dirty, lut, p)
+            check(False, "backward_search_pair took refused queries")
+        except ValueError as e:
+            log(f"K2 deferred guard: 3 refused queries counted on the card "
+                f"and answered (0, 0), the rest equal; the public search "
+                f"raises: {e}")
+        summary["k1_err"], summary["k1l_err"] = k1_err, k1l_err
+        summary["k2_err"] = k2_err
 
         # K5-K7 at the engines' own widths (256, 8192) and H = 64
         idx_f = engine_f.index
-
-        def intervals(eng, kms):
-            ce, le, nq = eng._pad_encode(kms)
-            return eng._search(*eng._to_device(ce, le), *eng._routes(ce, le, nq))
-
-        batches = {256: decode_all(q256),
-                   8192: engine._expand_rc(decode_all(q4096))[0]}
-        cbatches = {256: ckms, 8192: ceng._expand_rc(decode_all(c4096))[0]}
         k5_err = k6_err = k7_err = 0
         for width, kms in batches.items():
             l, u = (x.clone() for x in intervals(engine, kms))
@@ -881,6 +1064,9 @@ def run(args) -> dict:
 
     # ---------------------------------------------------------- 7. timing
     with phase("7 timing"):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
         log(f"card: {card}")
         # distinct batches in turn, as a bulk screen sends them: a batch
         # touches more rank and LUT sectors than the 50 MB L2 holds, and a
@@ -889,63 +1075,158 @@ def run(args) -> dict:
             simulate.sample_query_kmers_fast(
                 corpus, N_ROT * B_TIME, KMER, seed=args.seed + 2,
                 miss_frac=0.1).astype(np.int32), N_ROT)]
-        turn = itertools.cycle(rot)
-        search_k = lambda: search_ops.backward_search_cuda(  # noqa: E731
-            idx, next(turn), lut=lut, p=p, kstep=True)
-        search_p = lambda: search_ops.backward_search_pair_plain(  # noqa: E731
-            idx, next(turn), lut, p)
-        search_rep = lambda: search_ops.backward_search_cuda(  # noqa: E731
-            idx, codes, lut=lut, p=p, kstep=True)
-        search_k(), search_p(), search_rep()
-        torch.cuda.synchronize()
-        ms_k, ms_p, ms_rep = [], [], []
-        for _ in range(5):  # interleaved: kernel, plain, repeated batch
-            ms_k.append(time_cuda(search_k, 2 * N_ROT))
-            ms_p.append(time_cuda(search_p, N_ROT))
-            ms_rep.append(time_cuda(search_rep, 2 * N_ROT))
-        lat_k = latencies_ms(search_k, 100)
-        lat_p = latencies_ms(search_p, 24)
-        dev_ms = kernel_device_ms(search_k, N_ROT, "backward_search_kernel")
-        t_k, t_p, t_rep = (float(np.median(x)) for x in (ms_k, ms_p, ms_rep))
-        log(f"K2 search B={B_TIME} LUT p={p} + triples over {N_ROT} distinct "
-            f"batches in turn: kernel {t_k:.4f} ms/batch = "
-            f"{B_TIME / t_k * 1e3:.0f} searches/s (median of 5 x "
-            f"{2 * N_ROT} batches, wrapper with its input-guard wait), "
-            f"kernel device time {fmt_ms(dev_ms)} ms/batch (profiler), batch "
-            f"latency p50 {np.median(lat_k):.4f} ms p90 "
-            f"{np.percentile(lat_k, 90):.4f} ms (n=100) | plain torch "
-            f"{t_p:.4f} ms/batch = {B_TIME / t_p * 1e3:.0f} searches/s "
-            f"(median of 5 x {N_ROT}), p50 {np.median(lat_p):.4f} ms (n=24) "
-            f"| {card}")
-        log(f"K2 one batch repeated (warm L2): {t_rep:.4f} ms/batch = "
-            f"{B_TIME / t_rep * 1e3:.0f} searches/s, {t_k / t_rep:.4f}x "
-            f"faster than distinct batches | {card}")
-        # K1 at the last LUT level's shape: 2 ranks x 4 chars x 4^(p-1)
-        nr = 8 * 4 ** (p - 1)
-        cc = torch.from_numpy(
+        widths = {B_TIME: rot, 8192: [b[:8192] for b in rot]}
+        bad = torch.zeros(1, dtype=torch.int32, device=dev)
+
+        def k2_turns(bs, **kw):
+            turn = itertools.cycle(bs)
+            return lambda: k2(idx, next(turn), lut=lut, p=p, kstep=True, **kw)
+
+        # K2 through the public wrapper (which waits for its guard count),
+        # on the engine's no-wait path (16 batches back to back, one wait),
+        # the plain form, and the kernel's device time
+        k2_t = {}
+        for W, bs in widths.items():
+            kern, nowait = k2_turns(bs), k2_turns(bs, bad=bad)
+            turn = itertools.cycle(bs)
+            plain = lambda: pair_plain(idx, next(turn), lut, p)  # noqa: E731
+            kern(), plain(), nowait()
+            torch.cuda.synchronize()
+            ms_k, ms_p, burst = [], [], []
+            for _ in range(5):  # interleaved: wrapper, plain, no-wait burst
+                ms_k.append(time_cuda(kern, 2 * N_ROT))
+                ms_p.append(time_cuda(plain, N_ROT))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(16):
+                    nowait()
+                torch.cuda.synchronize()
+                burst.append((time.perf_counter() - t0) * 1e3 / 16)
+            lat = latencies_ms(kern, 100)
+            dev_ms = kernel_device_ms(nowait, N_ROT, "backward_search_kernel")
+            needs = [k2_needs(idx, b, lut, p) for b in bs]
+            nbytes = int(np.mean([x[0] for x in needs]))
+            steps = int(np.mean([x[1] for x in needs]))
+            t_k, t_p, t_b = (float(np.median(x)) for x in (ms_k, ms_p, burst))
+            k2_t[W] = (t_k, t_p, dev_ms, bound_ms(nbytes),
+                       f"{W} 31-mers, LUT p={p} + triples")
+            log(f"K2 width {W}, LUT p={p} + triples, {N_ROT} distinct "
+                f"batches in turn: wrapper {t_k:.4f} ms/batch = "
+                f"{W / t_k * 1e3:.0f} searches/s (median of 5 x {2 * N_ROT},"
+                f" with its wait), latency p50 {np.median(lat):.4f} ms p90 "
+                f"{np.percentile(lat, 90):.4f} ms (n=100); kernel device "
+                f"time {fmt_ms(dev_ms)} ms (profiler); no-wait path, 16 "
+                f"batches back to back: {t_b:.4f} ms/batch = "
+                f"{ratio(t_b, dev_ms)} x the device time; plain torch "
+                f"{t_p:.4f} ms/batch | needs {nbytes} B ({steps} steps "
+                f"taken): bound {bound_ms(nbytes):.4f} ms, device time at "
+                f"{ratio(bound_ms(nbytes), dev_ms)} of the bound | {card}")
+        check(int(bad.item()) == 0, "K2 refused a query of the timing batches")
+        rep = k2_turns(rot[:1], bad=bad)
+        ms_rep = float(np.median([time_cuda(rep, 2 * N_ROT)
+                                  for _ in range(5)]))
+        ms_dis = float(np.median([time_cuda(k2_turns(rot, bad=bad), 2 * N_ROT)
+                                  for _ in range(5)]))
+        log(f"K2 width {B_TIME}, no-wait path by CUDA events: one batch "
+            f"repeated (warm L2) {ms_rep:.4f} ms/batch vs {N_ROT} distinct "
+            f"batches {ms_dis:.4f} ms/batch | {card}")
+
+        # K1's level entry: each level, the whole build, the start-up stage
+        levels = [(idx.C[1:5], idx.C[2:6])]
+        for _ in range(p - 2):
+            levels.append(lut_ops.extend_level(idx, *levels[-1]))
+        lvl_bound = [bound_ms(level_bytes(idx, l_, u_)) for l_, u_ in levels]
+        build = lambda: lut_ops.build_prefix_lut(idx, p)  # noqa: E731
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            build()
+            torch.cuda.synchronize()
+        kev = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and "lut_level_kernel" in e.name),
+                     key=lambda e: e.time_range.start)
+        lvl_dev = [e.self_device_time_total / 1e3 for e in kev]
+        check(len(lvl_dev) == p - 1, f"profiled {len(lvl_dev)} level launches")
+        for k, (l_, u_) in enumerate(levels):
+            last = k == len(levels) - 1
+            ms = float(np.median([time_cuda(
+                lambda: lut_ops.extend_level(idx, l_, u_, last=last), 5)
+                for _ in range(3)]))
+            log(f"K1 level entry, level {k + 1} -> {k + 2} ({l_.numel()} "
+                f"intervals): wrapper {ms:.4f} ms, device {lvl_dev[k]:.4f} "
+                f"ms, bound {lvl_bound[k]:.4f} ms, device time at "
+                f"{ratio(lvl_bound[k], lvl_dev[k])} of the bound")
+        b_k, b_p, wall = [], [], []
+        for _ in range(3):  # interleaved: kernel build, plain build, wall
+            b_k.append(time_cuda(build, 3))
+            b_p.append(time_cuda(
+                lambda: lut_ops.build_prefix_lut_plain(idx, p), 1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            build()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        t_b, t_bp, t_w = (float(np.median(x)) for x in (b_k, b_p, wall))
+        b_dev, b_bound = sum(lvl_dev), sum(lvl_bound)
+        summary["lut_level"] = (t_b, t_bp, b_dev, b_bound,
+                                f"whole LUT p={p}, {p - 1} launches")
+        log(f"K1 level entry, whole LUT p={p} ({p - 1} launches): wrapper "
+            f"{t_b:.4f} ms, device {b_dev:.4f} ms, bound {b_bound:.4f} ms "
+            f"(device time at {ratio(b_bound, b_dev)} of the bound) | plain "
+            f"torch build {t_bp:.4f} ms (median of 3) | {card}")
+        log(f"LUT start-up stage: engine starts took "
+            + ", ".join(f"{name} {e.startup_seconds['lut'] * 1e3:.3f} ms"
+                        for name, e in (("count (first)", engine),
+                                        ("fused", engine_f),
+                                        ("mark walk", engine_m),
+                                        ("cohort", ceng)))
+            + f"; a warm rebuild: wall {t_w:.4f} ms = kernel device "
+            f"{b_dev:.4f} ms + the rest {t_w - b_dev:.4f} ms | {card}")
+
+        # K1's generic entry: random positions, the LUT's last level's
+        # ranks (the same work as the level entry's last launch), and the
+        # mark walk's first step (its main path, the shape in the kernels
+        # line)
+        l_last, u_last = levels[-1]
+        cc = torch.arange(1, 5, dtype=torch.int32, device=dev)
+        cc = cc.repeat_interleave(l_last.numel())
+        lvl_c = torch.cat([cc, cc])
+        lvl_i = torch.cat([l_last.repeat(4), u_last.repeat(4)])
+        nr = lvl_c.numel()
+        rnd_c = torch.from_numpy(
             rng.integers(1, 5, size=nr).astype(np.int32)).to(dev)
-        ii = torch.from_numpy(
+        rnd_i = torch.from_numpy(
             rng.integers(0, idx.n + 1, size=nr).astype(np.int32)).to(dev)
-        lay = dict(rows_per_symbol=idx.rows_per_symbol,
-                   log2_block=idx.log2_block,
-                   words_per_block=idx.words_per_block)
-        rank_k = lambda: rank_ops.occ_rows_cuda(  # noqa: E731
-            idx.rank_rows, cc, ii, **lay)
-        rank_p = lambda: rank_ops.occ_rows_plain(  # noqa: E731
-            idx.rank_rows, cc, ii, **lay)
-        check(torch.equal(rank_k(), rank_p()),
-              f"K1 disagrees with the plain rank at B={nr}")
-        r_k, r_p = [], []
-        for _ in range(3):
-            r_k.append(time_cuda(rank_k, 10))
-            r_p.append(time_cuda(rank_p, 3))
-        r_t_k, r_t_p = float(np.median(r_k)), float(np.median(r_p))
-        log(f"K1 rank B={nr} over the base table: kernel "
-            f"{nr / r_t_k * 1e3:.0f} rows/s ({r_t_k:.4f} ms) | plain torch "
-            f"{nr / r_t_p * 1e3:.0f} rows/s ({r_t_p:.4f} ms), outputs equal "
-            f"| {card}")
-        summary.update(k1_ms=r_t_k, k1_plain_ms=r_t_p, k2_ms=t_k,
-                       k2_plain_ms=t_p)
+        for what, table, c_t, i_t, main in (
+                (f"{nr} random positions", idx.rank_rows, rnd_c, rnd_i,
+                 False),
+                (f"the LUT's level {p - 1} -> {p} ranks ({nr})",
+                 idx.rank_rows, lvl_c, lvl_i, False),
+                (f"the mark walk's first step, {m_i.numel()} ranks",
+                 idx_m.rank_rows, m_c, m_i, True)):
+            kern = lambda: rank_ops.occ_rows_cuda(  # noqa: E731
+                table, c_t, i_t, **lay)
+            plain = lambda: rank_ops.occ_rows_plain(  # noqa: E731
+                table, c_t, i_t, **lay)
+            check(torch.equal(kern(), plain()),
+                  f"K1 disagrees with the plain rank at {what}")
+            iters = 10 if nr == c_t.numel() else 50
+            r_k, r_p = [], []
+            for _ in range(3):
+                r_k.append(time_cuda(kern, iters))
+                r_p.append(time_cuda(plain, 3))
+            dev_ms = kernel_device_ms(kern, iters, "rank_occ_kernel")
+            nb = k1_bytes(table, c_t, i_t, lay)
+            tk, tp = float(np.median(r_k)), float(np.median(r_p))
+            if main:
+                summary["rank_occ"] = (tk, tp, dev_ms, bound_ms(nb), what)
+            log(f"K1 generic entry at {what}: wrapper {tk:.4f} ms = "
+                f"{c_t.numel() / tk * 1e3:.0f} ranks/s, device "
+                f"{fmt_ms(dev_ms)} ms | plain torch {tp:.4f} ms | needs {nb} "
+                f"B: bound {bound_ms(nb):.4f} ms, device time at "
+                f"{ratio(bound_ms(nb), dev_ms)} of the bound | {card}")
+        summary["backward_search"] = k2_t[B_TIME]
+
         # K5-K7 at width 8192: the E. coli 4096-on-both-strands batch (K5 on
         # the dsa engine, K6 on the fused engine's compacted rows) and the
         # cohort's (K7 through either walk, the engine's window and cap)
@@ -955,6 +1236,23 @@ def run(args) -> dict:
                                                 engine_f.row_budget)
         cl, cu = intervals(ceng, cbatches[8192])
         win = 8 * 8192
+        wrows = interval_rows(cl, cu)
+        check(wrows.numel() <= win, "the cohort batch's worklist passes "
+              "one window")
+        wvalid = torch.ones_like(wrows, dtype=torch.bool)
+        wrid = resolve.resolve_rows_dsa_plain(ceng.index, wrows, wvalid)[0]
+        rid = resolve.resolve_dsa_hits_plain(idx, l, u, H)[0]
+        hist_io = 8192 * (9 + 4 * ceng._ns)
+        needs = {
+            "resolve_dsa": 8192 * 8 + distinct(rows[valid]) * 4
+            + distinct(rid[rid >= 0]) * 4 + 3 * 8192 * H * 4,
+            "resolve_fused": crow.numel() * 13
+            + fused_walk_bytes(idx_f, crow, cval),
+            "exact_histogram": hist_io + distinct(wrows) * 4
+            + distinct(wrid) * 4,
+            "exact_histogram (fused walk)": hist_io + distinct(wrid) * 4
+            + fused_walk_bytes(ceng_f.index, wrows, wvalid),
+        }
         cases = [
             ("resolve_dsa", "resolve_dsa_kernel",
              lambda: resolve.resolve_dsa_hits(idx, l, u, H),
@@ -969,7 +1267,7 @@ def run(args) -> dict:
                  ceng.index, cl, cu, win, 1 << 20),
              lambda: resolve.exact_sample_histogram_plain(
                  ceng.index, cl, cu, win, 1 << 20),
-             f"dsa walk, {int((cu - cl).sum())} worklist rows"),
+             f"dsa walk, {wrows.numel()} worklist rows"),
             ("exact_histogram (fused walk)", "exact_histogram_kernel",
              lambda: resolve.exact_sample_histogram(
                  ceng_f.index, cl, cu, win, 1 << 20),
@@ -987,11 +1285,15 @@ def run(args) -> dict:
                 t_plain.append(time_cuda(plain, 3))
             dev_ms = kernel_device_ms(kern, 10, kname)
             tk, tp = float(np.median(t_kern)), float(np.median(t_plain))
+            bnd = bound_ms(needs[name])
             log(f"{name} width 8192 ({what}): wrapper {tk:.4f} ms, kernel "
                 f"device time {fmt_ms(dev_ms)} ms (profiler) | plain torch "
                 f"{tp:.4f} ms (median of 3 x 20 and 3 x 3 calls, CUDA "
-                f"events), outputs equal | {card}")
-            summary.setdefault(name, (tk, tp, dev_ms))
+                f"events), outputs equal | needs {needs[name]} B: bound "
+                f"{bnd:.4f} ms, device time at {ratio(bnd, dev_ms)} of the "
+                f"bound | {card}")
+            summary.setdefault(name, (tk, tp, dev_ms, bnd,
+                                      f"width 8192, {what}"))
         request_breakdown(engine, decode_all(q4096), "count")
         request_breakdown(engine, decode_all(q4096), "reads")
         request_breakdown(ceng, decode_all(c4096), "samples")
@@ -1002,13 +1304,12 @@ def run(args) -> dict:
     # REST), each counted from 0
     total = {name: sum(c[name] for c in path_launches.values())
              for name in KERNELS}
-    timed = {"rank_occ": (summary["k1_ms"], summary["k1_plain_ms"]),
-             "backward_search": (summary["k2_ms"], summary["k2_plain_ms"])}
-    for name in ("resolve_dsa", "resolve_fused", "exact_histogram"):
-        timed[name] = summary[name][:2]
+    check(all(total.values()), f"a kernel never launched on a main path: "
+          f"{total}")
     where = {
         "rank_occ": ("rank.cu", "readserver_tpu/kernels/pallas_rank.py:144",
                      "k1_err"),
+        "lut_level": ("rank.cu", "readserver_tpu/ops/lut.py:29", "k1l_err"),
         "backward_search": ("search.cu", "readserver_tpu/ops/search.py:220",
                             "k2_err"),
         "resolve_dsa": ("resolve.cu", "readserver_tpu/ops/resolve.py:222",
@@ -1018,13 +1319,15 @@ def run(args) -> dict:
         "exact_histogram": ("resolve.cu",
                             "readserver_tpu/ops/resolve.py:426", "k7_err"),
     }
-    kernels = [
-        dict(name=name, route="cuda",
-             source=f"readserver_tpu_torch/csrc/{src}", replaces=rep,
-             launches=total[name], max_abs_err=summary[err],
-             ms=timed[name][0], plain_ms=timed[name][1])
-        for name, (src, rep, err) in where.items()
-    ]
+    kernels = []
+    for name, (src, rep_at, err) in where.items():
+        ms, plain_ms, device_ms, bnd, shape = summary[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"readserver_tpu_torch/csrc/{src}", replaces=rep_at,
+            launches=total[name], max_abs_err=summary[err], ms=ms,
+            device_ms=device_ms, plain_ms=plain_ms, bound_ms=bnd,
+            bound_by="bytes", library_ms=None, shape=shape))
     return dict(kernels=kernels, card=card)
 
 

@@ -2,6 +2,9 @@
 
 * ``RANK_OCC`` (K1, ``csrc/rank.cu``): batched occ over a rank-row table;
   launched by ``ops/rank.occ_rows`` for CUDA tensors.
+* ``LUT_LEVEL`` (K1's level entry, ``csrc/rank.cu``): one level of the
+  prefix-LUT build; launched by ``ops/lut.build_prefix_lut`` for CUDA
+  tensors.
 * ``BACKWARD_SEARCH`` (K2, ``csrc/search.cu``): the whole backward search,
   one thread per query; launched by the search functions of
   ``ops/search.py`` for CUDA tensors.
@@ -16,12 +19,14 @@ launch count in ``launches``.
 from readserver_tpu_torch.kernels.build import LIBRARY, Kernel
 
 RANK_OCC = Kernel("rs_rank_occ")
+LUT_LEVEL = Kernel("rs_lut_level")
 BACKWARD_SEARCH = Kernel("rs_backward_search")
 RESOLVE_DSA = Kernel("rs_resolve_dsa")
 RESOLVE_FUSED = Kernel("rs_resolve_fused")
 EXACT_HISTOGRAM = Kernel("rs_exact_histogram")
 KERNELS = {
     "rank_occ": RANK_OCC,
+    "lut_level": LUT_LEVEL,
     "backward_search": BACKWARD_SEARCH,
     "resolve_dsa": RESOLVE_DSA,
     "resolve_fused": RESOLVE_FUSED,
@@ -29,6 +34,6 @@ KERNELS = {
 }
 
 __all__ = [
-    "BACKWARD_SEARCH", "EXACT_HISTOGRAM", "KERNELS", "LIBRARY", "Kernel",
-    "RANK_OCC", "RESOLVE_DSA", "RESOLVE_FUSED",
+    "BACKWARD_SEARCH", "EXACT_HISTOGRAM", "KERNELS", "LIBRARY", "LUT_LEVEL",
+    "Kernel", "RANK_OCC", "RESOLVE_DSA", "RESOLVE_FUSED",
 ]

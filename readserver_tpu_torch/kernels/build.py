@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
 The sources under ``readserver_tpu_torch/csrc/`` have a plain C interface,
-so one ``nvcc -shared`` call builds them into a shared library in seconds
-(no PyTorch headers).  The library lands in ``build/kernels/``, named by a
-hash of its sources, and is built at first use.  Nothing here runs at
-import: the CPU tests import every module on a host with no nvcc.
+so nvcc builds them into one shared library in seconds (no PyTorch
+headers): one compile per source, all at once, then one link.  The
+library lands in ``build/kernels/``, named by a hash of its sources, and
+is built at first use.  Nothing here runs at import: the CPU tests import
+every module on a host with no nvcc.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ _L = ctypes.c_longlong
 # C entry points: name → argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
     "rs_rank_occ": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
+    "rs_lut_level": [_P, _P, _P, _P, _L, _P, _P, _P, _L, _L, _I, _I, _I, _P],
     "rs_backward_search": [
         _P, _P, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I,
         _L, _I, _I, _I, _P, _P, _P, _P,
@@ -82,19 +84,36 @@ class _Library:
         if so.exists():
             return so
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-            "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            *[str(_CSRC / s) for s in _SOURCES], "-o", str(tmp),
-        ]
+        objs = [so.with_suffix(f".{os.getpid()}.{s}.o") for s in _SOURCES]
+        flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        # one nvcc per source, all started together, then one link
+        cmds = [
+            [_nvcc(), *flags, "-Xptxas", "-v", "-c", str(_CSRC / s),
+             "-o", str(o)]
+            for s, o in zip(_SOURCES, objs)
+        ]
+        procs = [
+            subprocess.Popen(c, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for c in cmds
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        self.build_log = "".join(logs)
+        for cmd, proc, out in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n" + out
+                )
+        link = [_nvcc(), *flags, "-shared", *map(str, objs), "-o", str(tmp)]
+        proc = subprocess.run(link, capture_output=True, text=True)
         self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink(missing_ok=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                + self.build_log
+                f"nvcc failed ({proc.returncode}): {' '.join(link)}\n"
+                + proc.stdout + proc.stderr
             )
         tmp.replace(so)
         return so

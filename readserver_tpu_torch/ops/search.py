@@ -15,8 +15,11 @@ Each search has two forms: a plain torch form (``*_plain``), a port of the
 JAX package's ``ops/search.py`` that advances the whole batch one step at a
 time, and kernel K2 (``csrc/search.cu``), which carries each query through
 all of its steps in one thread.  The public functions take the plain form
-for CPU tensors and launch K2 for CUDA tensors; both refuse a code outside
-1..4 in a searched column with ``ValueError``.
+for CPU tensors and launch K2 for CUDA tensors, through
+:func:`search_batch`; both refuse a code outside 1..4 in a searched column
+with ``ValueError``.  The engine calls :func:`search_batch` with a device
+counter instead, into which K2 counts refused queries, so that no search
+waits for the card.
 """
 
 from __future__ import annotations
@@ -209,26 +212,32 @@ def _bad_message(nbad: int, K: int) -> str:
     )
 
 
-def _check_codes(kmers, lengths, p: int) -> None:
-    """Raise ``ValueError`` for the inputs K2 refuses: a code outside 1..4
-    in any column the search reads (every column for the k-step search;
+def _refused(kmers, lengths, p: int) -> torch.Tensor:
+    """bool [B]: the queries K2 refuses: a code outside 1..4 in any column
+    the search reads (every column for the k-step search, ``lengths`` None;
     the last ``max(length, p)`` columns otherwise), or a length outside
-    [1, K].  The CPU form of the guard in ``csrc/search.cu``."""
+    [1, K].  The plain form of the guard in ``csrc/search.cu``."""
     B, K = kmers.shape
     bad_code = (kmers < 1) | (kmers > 4)
     if lengths is None:
-        bad = bad_code.any(dim=1)
-    else:
-        first = (K - lengths.to(torch.int64)).clamp(max=K - p)
-        cols = torch.arange(K, device=kmers.device)
-        read = cols[None, :] >= first[:, None]
-        bad = (lengths < 1) | (lengths > K) | (bad_code & read).any(dim=1)
-    nbad = int(bad.sum())
+        return bad_code.any(dim=1)
+    first = (K - lengths.to(torch.int64)).clamp(max=K - p)
+    cols = torch.arange(K, device=kmers.device)
+    read = cols[None, :] >= first[:, None]
+    return (lengths < 1) | (lengths > K) | (bad_code & read).any(dim=1)
+
+
+def raise_if_refused(nbad: int, K: int) -> None:
+    """Raise ``ValueError`` when a search counted ``nbad`` refused queries
+    (the check a caller of :func:`search_batch` makes on its count)."""
     if nbad:
         raise ValueError(_bad_message(nbad, K))
 
 
 # ----------------------------------------------------------------- kernel K2
+
+
+SEARCH_MAX_K = 256  # columns K2 packs in a thread's registers
 
 
 def backward_search_cuda(
@@ -238,19 +247,32 @@ def backward_search_cuda(
     lut: torch.Tensor | None = None,
     p: int = 0,
     kstep: bool = False,
+    *,
+    bad: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 on CUDA tensors.
 
     ``kstep=False``: the masked 1-step search (``lengths`` required), from
     the LUT when one is given.  ``kstep=True``: the k-step schedule of
-    :func:`backward_search_pair` (every query of length K).  Raises
-    ``ValueError`` on the inputs :func:`_check_codes` refuses, which costs
-    one wait for the card per call."""
+    :func:`backward_search_pair` (every query of length K).  ``kmers`` may
+    be a view at any offset of its storage; K is at most
+    ``SEARCH_MAX_K``.
+
+    A refused query (:func:`_refused`) reads no table and comes out
+    ``(0, 0)``; K2 counts it.  With ``bad`` (int32 [1] on the card) the
+    count is added there and the call returns without waiting for the card;
+    the caller checks it (the engine does, with its one result copy).
+    Without ``bad`` the wrapper reads the count back, which waits, and
+    raises ``ValueError``."""
     dev = index.device
     check_int32("kmers", kmers, dev)
     if kmers.dim() != 2 or kmers.shape[1] < 1:
         raise ValueError(f"kmers must be [B, K], got {tuple(kmers.shape)}")
     B, K = kmers.shape
+    if K > SEARCH_MAX_K:
+        raise ValueError(
+            f"K2 searches at most {SEARCH_MAX_K} columns, got K={K}"
+        )
     _check_table(index.rank_rows)
     check_int32("C", index.C, dev, (6,))
     if kstep:
@@ -272,10 +294,14 @@ def backward_search_cuda(
         check_int32("lut", lut, dev, (4**p, 2))
     else:
         lut, p = None, 0
+    wait = bad is None
+    if wait:
+        bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    else:
+        check_int32("bad", bad, dev, (1,))
     l = torch.empty(B, dtype=torch.int32, device=dev)
     u = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
-        bad = torch.zeros(1, dtype=torch.int32, device=dev)
         r3 = index.rank3_rows if kstep else None
         BACKWARD_SEARCH(
             ptr(kmers), ptr(lengths), B, K, ptr(index.C),
@@ -286,10 +312,45 @@ def backward_search_cuda(
             index.rows_per_symbol, index.log2_block, index.words_per_block,
             index.rank_rows.shape[1], ptr(l), ptr(u), ptr(bad), device=dev,
         )
-        nbad = int(bad.item())
-        if nbad:
-            raise ValueError(_bad_message(nbad, K))
+        if wait:
+            raise_if_refused(int(bad.item()), K)
     return l, u
+
+
+def search_batch(
+    index: DeviceIndex,
+    kmers: torch.Tensor,
+    lengths: torch.Tensor | None,
+    lut: torch.Tensor | None,
+    p: int,
+    kstep: bool,
+    bad: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The search behind the public functions and the engine: the k-step
+    schedule (``kstep``) or the masked 1-step search, from the LUT when one
+    is given.
+
+    CUDA tensors launch K2 (:func:`backward_search_cuda`): with ``bad``
+    (int32 [1] on the card) the refused queries are counted there and the
+    call does not wait, the caller checks the count with
+    :func:`raise_if_refused`; without it the call waits and raises
+    ``ValueError``.  CPU tensors run the plain forms and raise
+    ``ValueError`` on a refused query at once (there is no card to wait
+    for, and ``bad`` is left as it is)."""
+    if lut is None or not p:
+        lut, p = None, 0
+    if on_cuda(index.rank_rows):
+        return backward_search_cuda(
+            index, kmers, lengths, lut, p, kstep, bad=bad
+        )
+    if kstep:
+        lengths = None
+    raise_if_refused(int(_refused(kmers, lengths, p).sum()), kmers.shape[1])
+    if kstep:
+        return backward_search_pair_plain(index, kmers, lut, p)
+    if p:
+        return backward_search_lut_plain(index, lut, p, kmers, lengths)
+    return backward_search_plain(index, kmers, lengths)
 
 
 # ------------------------------------------------------------------- public
@@ -302,10 +363,7 @@ def backward_search(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """→ half-open interval ``(l, u)`` per query, int32 [B] each; empty
     intervals come out as the canonical ``(0, 0)``."""
-    if on_cuda(index.rank_rows):
-        return backward_search_cuda(index, kmers, lengths)
-    _check_codes(kmers, lengths, 0)
-    return backward_search_plain(index, kmers, lengths)
+    return search_batch(index, kmers, lengths, None, 0, False)
 
 
 def backward_search_lut(
@@ -316,10 +374,7 @@ def backward_search_lut(
     lengths: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """LUT-started search: the first p steps are one LUT row."""
-    if on_cuda(index.rank_rows):
-        return backward_search_cuda(index, kmers, lengths, lut=lut, p=p)
-    _check_codes(kmers, lengths, p)
-    return backward_search_lut_plain(index, lut, p, kmers, lengths)
+    return search_batch(index, kmers, lengths, lut, p, False)
 
 
 def backward_search_pair(
@@ -335,7 +390,4 @@ def backward_search_pair(
     Restricted to uniform full-width batches (every query length == K); the
     engine routes mixed-length batches to the masked 1-step path.  Bit-
     identical to :func:`backward_search`, empties included."""
-    if on_cuda(index.rank_rows):
-        return backward_search_cuda(index, kmers, lut=lut, p=p, kstep=True)
-    _check_codes(kmers, None, 0)
-    return backward_search_pair_plain(index, kmers, lut, p)
+    return search_batch(index, kmers, None, lut, p, True)

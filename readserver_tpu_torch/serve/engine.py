@@ -23,9 +23,6 @@ from readserver_tpu_torch.index.budget import device_budget_bytes, plan_tiers
 from readserver_tpu_torch.index.builder import PackedIndex
 from readserver_tpu_torch.ops import (
     DeviceIndex,
-    backward_search,
-    backward_search_lut,
-    backward_search_pair,
     build_prefix_lut,
     default_lut_order,
     encode_query_batch,
@@ -34,6 +31,7 @@ from readserver_tpu_torch.ops import (
     sample_histogram,
 )
 from readserver_tpu_torch.ops.resolve import resolve_hits
+from readserver_tpu_torch.ops.search import raise_if_refused, search_batch
 
 _NOT_PORTED = "not ported yet; see ROADMAP.md, modules still to port"
 
@@ -117,7 +115,7 @@ def _compact_cols(mask: torch.Tensor, cols, R: int):
 
 
 def sparse_pack_device(
-    count, complete, hist, rid, off, smp, nq, cpq, l=None, u=None,
+    count, complete, hist, rid, off, smp, nq, cpq, bad, l=None, u=None,
     trunc=None,
 ):
     """Device-side sparse pack of a query batch's answers into ONE small
@@ -125,7 +123,9 @@ def sparse_pack_device(
 
       [count(W), complete(W), trunc(W)?, (l(W), u(W))?,
        n_hist, hist_idx(R), hist_val(R),
-       (n_hits, hit_idx(R), read_id(R), offset(R), sample(R))?]
+       (n_hits, hit_idx(R), read_id(R), offset(R), sample(R))?, bad]
+
+    ``bad`` (int32 [1]) is the search's refused-query count.
 
     ``rid=None`` packs a histogram-only answer (the /samples shape).
     Returns ``(packed, hist, dense_hits)``: the dense device tensors back
@@ -158,6 +158,7 @@ def sparse_pack_device(
         )
         segs += [n_hits.reshape(1), hit_idx, hit_rid, hit_off, hit_smp]
         dense_hits = torch.cat([rid, off, smp], dim=1)
+    segs.append(bad)
     return torch.cat(segs), hist, dense_hits
 
 
@@ -361,17 +362,27 @@ class QueryEngine:
 
     # ------------------------------------------------------------- helpers
 
-    def _search(self, codes, lengths, use_lut: bool, use_pair: bool):
-        idx = self.index
-        if use_pair:
-            # uniform full-length batch: the k-step path
-            return backward_search_pair(
-                idx, codes, self.lut if use_lut else None,
-                self.lut_p if use_lut else 0,
-            )
-        if use_lut:
-            return backward_search_lut(idx, self.lut, self.lut_p, codes, lengths)
-        return backward_search(idx, codes, lengths)
+    def _search(self, codes, lengths, use_lut: bool, use_pair: bool, bad):
+        """K-step search for a uniform full-length batch (``use_pair``),
+        else the masked 1-step one; from the LUT when ``use_lut``.
+
+        On the card the search never waits: it counts refused queries into
+        ``bad`` (:meth:`_new_bad`), which rides at the end of the batch's
+        one result copy, where :meth:`_fetch` raises on it.  On the CPU a
+        refused query raises here."""
+        lut, p = (self.lut, self.lut_p) if use_lut else (None, 0)
+        return search_batch(self.index, codes, lengths, lut, p, use_pair, bad)
+
+    def _new_bad(self) -> torch.Tensor:
+        return torch.zeros(1, dtype=torch.int32, device=self.device)
+
+    def _fetch(self, buf: torch.Tensor) -> np.ndarray:
+        """The batch's ONE device→host copy of ``buf`` (flat int32), whose
+        last word is the search's refused-query count; raises
+        ``ValueError`` when that count is not 0, else → the other words."""
+        arr = buf.cpu().numpy()
+        raise_if_refused(int(arr[-1]), self.K)
+        return arr[:-1]
 
     def _pad_encode(self, kmers: list[str]) -> tuple[np.ndarray, np.ndarray, int]:
         nq = len(kmers)
@@ -410,15 +421,24 @@ class QueryEngine:
         return use_lut, use_pair
 
     def _to_device(self, codes, lengths):
-        return (torch.from_numpy(codes).to(self.device),
-                torch.from_numpy(lengths).to(self.device))
+        """Host batch → device tensors.  On the card the copy is staged in
+        pinned memory and does not wait for the card, so batches queue."""
+        out = []
+        for a in (codes, lengths):
+            t = torch.from_numpy(a)
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            else:
+                t = t.to(self.device)
+            out.append(t)
+        return tuple(out)
 
-    def _pieces(self, codes_t, lengths_t, use_lut, use_pair, with_hits):
+    def _pieces(self, codes_t, lengths_t, use_lut, use_pair, with_hits, bad):
         """Query-step pieces on the device: search interval, exact (or
         capped) histogram, and — when the endpoint needs them — resolved
         hits with their sample ids, -1 on lanes that hold no hit."""
         idx = self.index
-        l, u = self._search(codes_t, lengths_t, use_lut, use_pair)
+        l, u = self._search(codes_t, lengths_t, use_lut, use_pair, bad)
         rid = off = smp = valid = None
         if with_hits:
             rid, off, smp, valid = resolve_hits(
@@ -455,13 +475,13 @@ class QueryEngine:
             complete = ((u - l) <= self.H) & (resolved == (u - l))
         return l, u, hist, complete, rid, off, smp
 
-    def _full(self, codes_t, lengths_t, use_lut, use_pair, with_hits=True):
+    def _full(self, codes_t, lengths_t, use_lut, use_pair, with_hits, bad):
         """Dense per-batch buffer [W, 4+NS(+3H)] of (l, u, count, complete,
         hist, (read_id, offset, sample)) — the form a multi-partition front
         merges on the device; ``with_hits=False`` skips hit resolution and
         its columns."""
         l, u, hist, complete, rid, off, smp = self._pieces(
-            codes_t, lengths_t, use_lut, use_pair, with_hits
+            codes_t, lengths_t, use_lut, use_pair, with_hits, bad
         )
         cols = [l[:, None], u[:, None], (u - l)[:, None],
                 complete[:, None].to(torch.int32), hist.to(torch.int32)]
@@ -470,36 +490,49 @@ class QueryEngine:
         return torch.cat(cols, dim=1)
 
     def _served(self, codes_t, lengths_t, nq, use_lut, use_pair, with_hits):
-        """Sparse-packed serving buffer: one small copy to the host, the
-        dense fallbacks riding along on the device."""
+        """Sparse-packed serving buffer: one small copy to the host (the
+        search's refused-query count at its end), the dense fallbacks
+        riding along on the device."""
+        bad = self._new_bad()
         l, u, hist, complete, rid, off, smp = self._pieces(
-            codes_t, lengths_t, use_lut, use_pair, with_hits
+            codes_t, lengths_t, use_lut, use_pair, with_hits, bad
         )
         # hist-tier trunc flag reflects the per-query hit cap ONLY (not
         # resolve_intervals' whole-batch row budget)
         return sparse_pack_device(
             u - l, complete, hist, rid, off, smp, nq,
-            self.COMPACT_PER_QUERY, l=l, u=u,
+            self.COMPACT_PER_QUERY, bad, l=l, u=u,
             trunc=None if with_hits else (u - l) > self.H,
         )
 
+    def _counted(self, codes, lengths, nq: int) -> torch.Tensor:
+        """The count tier on the device → flat int32 [l(nq), u(nq), bad]:
+        the buffer :meth:`_run` copies once."""
+        bad = self._new_bad()
+        use_lut, use_pair = self._routes(codes, lengths, nq)
+        l, u = self._search(*self._to_device(codes, lengths), use_lut,
+                            use_pair, bad)
+        return torch.cat([l[:nq], u[:nq], bad])
+
     def _run(self, kmers: list[str]) -> dict[str, np.ndarray]:
         codes, lengths, nq = self._pad_encode(kmers)
-        out = self._dispatch_single(codes, lengths, nq)
-        arr = out[:nq].cpu().numpy()  # the ONE device->host transfer
-        return self._unpack_single(arr)
+        arr = self._fetch(self._counted(codes, lengths, nq))
+        l, u = arr[:nq], arr[nq:]
+        return dict(l=l, u=u, count=u - l)
 
-    def _dispatch_single(self, codes, lengths, nq: int, mode="count"):
+    def _dispatch_single(self, codes, lengths, nq: int, mode="count", *,
+                         bad):
         """Run the query program on the device; returns the dense buffer
         without transferring it: [W, 3] (l, u, count) for ``"count"``,
-        [W, 4+NS] for ``"hist"``, [W, 4+NS+3H] for ``"full"``."""
+        [W, 4+NS] for ``"hist"``, [W, 4+NS+3H] for ``"full"``.  ``bad`` as
+        in :meth:`_search`: the caller reads it with the buffer."""
         use_lut, use_pair = self._routes(codes, lengths, nq)
         codes_t, lengths_t = self._to_device(codes, lengths)
         if mode == "count":
-            l, u = self._search(codes_t, lengths_t, use_lut, use_pair)
+            l, u = self._search(codes_t, lengths_t, use_lut, use_pair, bad)
             return torch.stack([l, u, u - l], dim=1)
         return self._full(codes_t, lengths_t, use_lut, use_pair,
-                          with_hits=(mode == "full"))
+                          mode == "full", bad)
 
     def _unpack_single(
         self, arr: np.ndarray, counts_only: bool = True
@@ -609,7 +642,7 @@ class QueryEngine:
             codes_t, lengths_t, nq, use_lut, use_pair, include_hits
         )
         return assemble_sparse(
-            kmers, nq, codes.shape[0], packed_dev.cpu().numpy(),
+            kmers, nq, codes.shape[0], self._fetch(packed_dev),
             self._ns, self.H, self.COMPACT_PER_QUERY,
             self.sample_names, has_lu=True, has_hits=include_hits,
             dense_hist_dev=hist_dev, dense_hits_dev=hits_dev,

@@ -252,7 +252,8 @@ def test_dispatch_single_buffers_match_jax(cohort_packed, mode):
            jax_simulate.sample_query_kmers(corpus, 40, 31, seed=24)]
     kms += ["ACGTAC", "GGATC"]
     codes, lengths, nq = engine._pad_encode(kms)
-    got = engine._dispatch_single(codes, lengths, nq, mode).numpy()
+    got = engine._dispatch_single(codes, lengths, nq, mode,
+                                  bad=engine._new_bad()).numpy()
     want = np.asarray(jax_engine._dispatch_single(codes, lengths, nq, mode))
     np.testing.assert_array_equal(got, want)
     if mode != "hist":
@@ -261,6 +262,36 @@ def test_dispatch_single_buffers_match_jax(cohort_packed, mode):
         assert g.keys() == w.keys()
         for key in g:
             np.testing.assert_array_equal(g[key], w[key])
+
+
+def test_refused_query_raises_in_the_engine(engines, monkeypatch):
+    """A refused query (a code the encoder cannot produce, put in after it)
+    raises ``ValueError`` on every answer tier; on the CPU at the search,
+    with the counter left at 0 (the card's deferred count is in
+    test_torch_kernels.py)."""
+    _, _, engine = engines
+    kms = ["ACGTACGTACGTAC"] * 3
+    codes, lengths, nq = engine._pad_encode(kms)
+    codes[1, 0] = 7
+    bad = engine._new_bad()
+    for mode in ("count", "hist", "full"):
+        with pytest.raises(ValueError, match="1 queries hold a code"):
+            engine._dispatch_single(codes, lengths, nq, mode, bad=bad)
+    assert int(bad) == 0
+    real = engine._pad_encode
+
+    def pad_encode_one_bad(k):
+        c, ln, n = real(k)
+        c = c.copy()
+        c[0, -1] = 0
+        return c, ln, n
+
+    monkeypatch.setattr(engine, "_pad_encode", pad_encode_one_bad)
+    for call in (lambda: engine.count_batch(kms),
+                 lambda: engine.query_batch(kms),
+                 lambda: engine.query_batch(kms, include_hits=False)):
+        with pytest.raises(ValueError, match="1 queries hold a code"):
+            call()
 
 
 def test_warmup_and_read_store_match_jax(tiny_corpus):

@@ -25,6 +25,7 @@ from readserver_tpu_torch.index import build_index
 from readserver_tpu_torch.kernels import (
     BACKWARD_SEARCH,
     EXACT_HISTOGRAM,
+    LUT_LEVEL,
     RANK_OCC,
     RESOLVE_DSA,
     RESOLVE_FUSED,
@@ -98,15 +99,33 @@ def test_rank_kernel_matches_plain(dev, table):
 
 @pytest.mark.cuda
 def test_lut_through_kernel_matches_plain(packed, dev):
-    before = RANK_OCC.launches
+    before = LUT_LEVEL.launches, RANK_OCC.launches
     lut = build_prefix_lut(dev, P)
-    assert RANK_OCC.launches == before + P - 1
+    assert (LUT_LEVEL.launches, RANK_OCC.launches) == (before[0] + P - 1,
+                                                       before[1])
     plain = build_prefix_lut(DeviceIndex.from_packed(packed[1], "cpu"), P)
     assert torch.equal(lut.cpu(), plain)
-    before = RANK_OCC.launches
+    before = LUT_LEVEL.launches
     on_card = lut_ops.build_prefix_lut_plain(dev, P)
-    assert RANK_OCC.launches == before
+    assert LUT_LEVEL.launches == before
     assert torch.equal(lut, on_card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p, max_chunk", [(12, 1 << 22), (8, 1000), (1, 1)])
+def test_lut_level_entry_matches_plain(dev, p, max_chunk):
+    """K1's level entry against the plain build: p = 12 (the E. coli
+    engine's order, one launch a level) and a chunked build whose chunks
+    are ragged (4^l is no multiple of 1000)."""
+    before = LUT_LEVEL.launches
+    got = build_prefix_lut(dev, p, max_chunk=max_chunk)
+    want = lut_ops.build_prefix_lut_plain(dev, p, max_chunk=max_chunk)
+    torch.cuda.synchronize()
+    chunks = sum(-(-4**level // max_chunk) for level in range(1, p))
+    assert LUT_LEVEL.launches == before + chunks
+    assert torch.equal(got, want)
+    empty = got[:, 0] >= got[:, 1]
+    assert (got[empty] == 0).all()
 
 
 @pytest.mark.cuda
@@ -165,6 +184,115 @@ def test_search_kernel_matches_plain(packed, dev, tiers):
     assert BACKWARD_SEARCH.launches == before + len(cases)
     for (l1, u1), (l2, u2) in cases:
         assert torch.equal(l1, l2) and torch.equal(u1, u2)
+
+
+def _unaligned(x: np.ndarray, device) -> torch.Tensor:
+    """``x`` on the card as a contiguous view that starts 4 bytes past a
+    16-byte boundary of its storage."""
+    flat = torch.zeros(x.size + 4, dtype=torch.int32, device=device)
+    flat[1 : 1 + x.size] = t32(x.reshape(-1), device)
+    view = flat[1 : 1 + x.size].view(x.shape)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", ["rank2+rank3", "rank2"])
+@pytest.mark.parametrize("K", [1, 12, 31, 32])
+def test_search_kernel_widths_and_edges(packed, dev, tiers, K):
+    """K2 against the plain forms at widths K of 1, 12, 31 and 32, with a
+    batch of 1001 queries (no multiple of the 32-query block, so the last
+    block holds 9) in an unaligned view, in both modes and both tier sets;
+    padding columns outside the searched range hold codes the guard would
+    refuse if it read them."""
+    corpus, _ = packed
+    d = dev if tiers == "rank2+rank3" else dataclasses.replace(
+        dev, rank3_rows=None, C3=None)
+    p = min(P, K)
+    lut = build_prefix_lut(d, p)
+    B = 1001
+    codes, _ = _queries(corpus, B, K, seed=K)
+    mixed, mixed_len = _queries(corpus, B, K, seed=K + 1, min_len=1)
+    lmixed, lmixed_len = _queries(corpus, B, K, seed=K + 2, min_len=p)
+    dirty = mixed.copy()
+    pad = np.arange(K)[None, :] < (K - mixed_len)[:, None]
+    dirty[pad] = 7
+    ml = t32(mixed_len, d.device)
+    lml = t32(lmixed_len, d.device)
+    c = t32(codes, d.device)
+    k2 = search_ops.backward_search_cuda
+    want = {
+        "k-step": search_ops.backward_search_pair_plain(d, c),
+        "k-step + LUT": search_ops.backward_search_pair_plain(d, c, lut, p),
+        "1-step": search_ops.backward_search_plain(
+            d, t32(mixed, d.device), ml),
+        "1-step + LUT": search_ops.backward_search_lut_plain(
+            d, lut, p, t32(lmixed, d.device), lml),
+    }
+    got = {
+        "k-step": k2(d, _unaligned(codes, d.device), kstep=True),
+        "k-step + LUT": k2(d, _unaligned(codes, d.device), lut=lut, p=p,
+                           kstep=True),
+        "1-step": k2(d, _unaligned(dirty, d.device), ml),
+        "1-step + LUT": k2(d, _unaligned(lmixed, d.device), lml, lut=lut,
+                           p=p),
+    }
+    for name, (l1, u1) in got.items():
+        l2, u2 = want[name]
+        assert torch.equal(l1, l2) and torch.equal(u1, u2), name
+
+
+@pytest.mark.cuda
+def test_search_kernel_deferred_guard(packed, dev):
+    """With a ``bad`` counter K2 returns without a wait: refused queries
+    come out (0, 0) and counted, the rest as the plain form gives them."""
+    corpus, _ = packed
+    codes, _ = _queries(corpus, 300, 15, seed=4)
+    codes[[3, 100, 299], [0, 7, 14]] = [0, 5, -2]
+    bad = torch.zeros(1, dtype=torch.int32, device=dev.device)
+    l, u = search_ops.backward_search_cuda(
+        dev, t32(codes, dev.device), kstep=True, bad=bad)
+    assert int(bad.item()) == 3
+    ok = codes.copy()
+    ok[[3, 100, 299]] = 1
+    want = search_ops.backward_search_pair_plain(dev, t32(ok, dev.device))
+    keep = torch.ones(300, dtype=torch.bool, device=dev.device)
+    keep[[3, 100, 299]] = False
+    assert (l[~keep] == 0).all() and (u[~keep] == 0).all()
+    assert torch.equal(l[keep], want[0][keep])
+    assert torch.equal(u[keep], want[1][keep])
+
+
+@pytest.mark.cuda
+def test_engine_raises_refused_queries_at_its_copy(packed, cuda_device,
+                                                   monkeypatch):  # noqa: F811
+    """The engine's search does not wait: a refused query's count rides on
+    the batch's one copy, and the engine raises there."""
+    _, pk = packed
+    engine = QueryEngine(pk, ServeConfig(batch_size=256), device=cuda_device)
+    kms = ["ACGTACGTACGTAC"] * 5
+    codes, lengths, nq = engine._pad_encode(kms)
+    bad = engine._new_bad()
+    codes[2, -1] = 9
+    out = engine._dispatch_single(codes, lengths, nq, bad=bad)
+    torch.cuda.synchronize()
+    assert int(bad.item()) == 1 and out.shape[0] == codes.shape[0]
+    buf = engine._counted(codes, lengths, nq)
+    assert buf.shape == (2 * nq + 1,) and int(buf[-1]) == 1
+    real = engine._pad_encode
+
+    def pad_encode_one_bad(k):
+        c, ln, n = real(k)
+        c = c.copy()
+        c[1, 0] = 0
+        return c, ln, n
+
+    monkeypatch.setattr(engine, "_pad_encode", pad_encode_one_bad)
+    with pytest.raises(ValueError, match="1 queries hold a code"):
+        engine.count_batch(kms)
+    for hits in (True, False):
+        with pytest.raises(ValueError, match="1 queries hold a code"):
+            engine.query_batch(kms, include_hits=hits)
 
 
 # ------------------------------------------------------------ launch device

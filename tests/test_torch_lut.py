@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 
 from readserver_tpu.index import build_index
+from readserver_tpu.ops import lut as jax_lut
 from readserver_tpu.ops import DeviceIndex as JaxDeviceIndex
 from readserver_tpu.ops import build_prefix_lut as jax_build_prefix_lut
 from readserver_tpu.ops import default_lut_order as jax_default_lut_order
@@ -13,8 +14,12 @@ from readserver_tpu_torch.ops import (
     build_prefix_lut,
     default_lut_order,
 )
-from readserver_tpu_torch.ops.lut import build_prefix_lut_plain
-from torch_common import np_of
+from readserver_tpu_torch.ops.lut import (
+    build_prefix_lut_plain,
+    extend_level,
+    extend_level_plain,
+)
+from torch_common import np_of, t32
 
 
 @pytest.fixture(scope="module")
@@ -52,6 +57,33 @@ def test_plain_lut_matches_jax(setup, p):
     jdev, tdev = setup
     got = np_of(build_prefix_lut_plain(tdev, p, max_chunk=5))
     assert np.array_equal(got, np.asarray(jax_build_prefix_lut(jdev, p)))
+
+
+@pytest.mark.parametrize("level", [1, 4, 6])
+def test_extend_level_matches_jax(setup, level):
+    """One level step, plain form and the level entry's CPU path, against
+    the JAX package's ``_extend_level`` on the same level-ℓ intervals, with
+    frozen empties: every third interval is made empty (l > u) and must
+    come through unchanged in each of its four c-blocks."""
+    jdev, tdev = setup
+    l, u = np.asarray(jdev.C[1:5]), np.asarray(jdev.C[2:6])
+    for lvl in range(1, level):
+        l, u = (np.asarray(x) for x in
+                jax_lut._extend_level(jdev, l, u, 4**lvl))
+    l, u = l.copy(), u.copy()
+    l[::3], u[::3] = u[::3] + 2, u[::3]
+    want = [np.asarray(x) for x in jax_lut._extend_level(jdev, l, u, l.size)]
+    got = extend_level_plain(tdev, t32(l), t32(u))
+    assert all(np.array_equal(np_of(g), w) for g, w in zip(got, want))
+    nl, nu = extend_level(tdev, t32(l), t32(u))
+    assert np.array_equal(np_of(nl), want[0])
+    assert np.array_equal(np_of(nu), want[1])
+    frozen = np.tile(np.arange(l.size) % 3 == 0, 4)
+    assert np.array_equal(want[0][frozen], np.tile(l[::3], 4))
+    pairs = np_of(extend_level(tdev, t32(l), t32(u), last=True))
+    empty = want[0] >= want[1]
+    assert np.array_equal(pairs[~empty], np.stack(want, 1)[~empty])
+    assert (pairs[empty] == 0).all()
 
 
 def test_lut_rejects_bad_arguments(setup):

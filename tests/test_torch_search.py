@@ -201,6 +201,37 @@ def test_search_refuses_bad_codes(setup, case):
             backward_search(d, t32(kmers), t32(lengths))
 
 
+@pytest.mark.parametrize("case", sorted(_bad_inputs()))
+def test_search_batch_refuses_on_cpu(setup, case):
+    """The engine's search (``search_batch``) on CPU tensors raises at once,
+    with or without a counter, and leaves the counter as it is; without
+    the refused query it answers as the JAX package's search does."""
+    _, _, jdevs, tdevs, jlut, tlut = setup
+    kmers, lengths, p = _bad_inputs()[case]
+    d = tdevs["rank2+rank3"]
+    kstep = lengths is None
+    ln = np.full(4, kmers.shape[1], np.int32) if kstep else lengths
+    lut = tlut if p else None
+    bad = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="1 queries hold a code"):
+        search_ops.search_batch(d, t32(kmers), t32(ln), lut, p, kstep, bad)
+    assert int(bad) == 0
+    keep = ~np_of(search_ops._refused(t32(kmers), None if kstep else t32(ln),
+                                      p))
+    k, lk = kmers[keep], ln[keep]
+    got = search_ops.search_batch(d, t32(k), t32(lk), lut, p, kstep, bad)
+    jd = jdevs["rank2+rank3"]
+    if kstep:  # every k-step case searches without the LUT
+        want = jax.jit(jax_backward_search_pair)(jd, k)
+    elif p:
+        want = jax.jit(lambda d_, t, c, n: jax_backward_search_lut(
+            d_, t, p, c, n))(jd, jlut, k, lk)
+    else:
+        want = jax.jit(jax_backward_search)(jd, k, lk)
+    _check(got, want)
+    assert int(bad) == 0
+
+
 def test_search_accepts_padding_outside_searched_columns(setup):
     _, _, _, tdevs, _, tlut = setup
     kmers, _, _ = _bad_inputs()["LUT, length < p reads padding"]
