@@ -31,29 +31,40 @@ timing phases, so each path's launch counts are its own):
    histogram-only and full ``query_batch`` on a dsa and a fused engine;
    histograms exact against per-sample oracle counts on >= 64 queries, and
    a capped engine's ``complete`` flags against the window-rounding rule;
-   K7 must have launched through both walks;
+   K7 must have launched through both walks, and K6 on the fused engine's
+   full answers;
 10. REST: counts at 0, the port's ``RestServer`` over the card engines in
    this script's event loop; every endpoint's answer equals the engine's;
 6. kernel vs plain: each kernel against its plain torch form on the card,
    bit for bit, at the main paths' shapes (K1 at the mark walk's step, the
    engine's prefix LUT and a chunked build against the plain build, K2 in
    every mode and tier set at widths 256, 8192 and 262,144 and its
-   deferred guard, K5-K7 at widths 256 and 8192, H = 64) and at edge
-   cases;
-7. timing: K2 at B=262,144 and at width 8192 over 8 distinct batches
+   deferred guard, K5-K7 at widths 256 and 8192, H = 64), at edge cases,
+   K6 at a full budget (4096 10-mers on both strands: every one of the
+   314,572 budget slots walks) and K7 through both walks at a cap-filling
+   batch (8192 cohort 8-mers, whose worklist the 1,048,576-row cap cuts);
+7. timing: the chase yardstick (``rs_chase``, no kernel of a path): one
+   warp's time per dependent 64-byte read (t_row) through both fused
+   tables, cold and warm, and the rate at K6's 76,521 walks and at a full
+   budget; K2 at B=262,144 and at width 8192 over 8 distinct batches
    (through the waiting wrapper, on the engine's no-wait path 16 batches
    back to back, plain); K1's level entry per level and for the whole
    build, the LUT start-up stage split;
    K1's generic entry at random positions, at the LUT's last level and at
-   the mark walk's step; K5-K7 at width 8192 (CUDA events and the
-   profiler's kernel time), each kernel's bytes needed and bound; and
-   where a served count, ``/reads`` and ``/samples`` request's time goes
-   (host stages, device busy share, top device ops).
+   the mark walk's step; K5-K7 at width 8192, K6 at a full budget and K7
+   at the cap-filling batch (CUDA events and the profiler's kernel time),
+   each kernel's bytes needed and bytes bound, and for K2, K6 and K7 the
+   chain bound (the longest chain's dependent reads x t_row); K8's (the
+   torch sparse pack's) bytes and time on the ``/reads`` 4096 x 2
+   request; and where a served count, ``/reads`` and ``/samples``
+   request's time goes (host stages, device busy share, top device ops).
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the one before it is the kernels' JSON summary (``launches`` summed over
-the main-path phases 4, 8, 9 and 10).  The last line is
-``{"ok": true, "device": {...}}``, printed only when every phase passed.
+the main-path phases 4, 8, 9 and 10; ``bound_ms`` the bytes bound,
+``chain_ms`` the chain bound where there is one, ``held_by`` the larger).
+The last line is ``{"ok": true, "device": {...}}``, printed only when
+every phase passed.
 Imports torch and the port, never jax.
 """
 
@@ -153,7 +164,7 @@ def kernel_device_ms(fn, iters: int, kernel: str) -> float | None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):  # the profiler now and then records no device event
+    for _ in range(5):  # the profiler now and then records no device event
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -388,17 +399,67 @@ def max_err(pairs) -> int:
 
 
 # ------------------------------------------------------------------ bounds
-# Each kernel's bound is the bytes its work needs (each input byte read
-# once, each output byte written once, table rows counted once each over
-# the rows the work actually touches) over the card's memory rate; every
-# kernel here does a few integer operations per byte, far below the
-# card's operation rates, so bytes bind all of them.
+# Each kernel's bytes bound is the bytes its work needs (each input byte
+# read once, each output byte written once, table rows counted once each
+# over the rows the work actually touches) over the card's memory rate;
+# every kernel here does a few integer operations per byte, far below the
+# card's operation rates, so of the two bounds the JSON line's `bound_ms`
+# takes, bytes bind all of them.  The walks and the search are also held
+# by a chain of dependent reads: their chain bound is the longest chain's
+# reads (off the plain form's active masks) times t_row, one read's
+# unloaded time on this card, measured by the rs_chase yardstick.
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, HBM3 (NVIDIA's data sheet)
 
 
 def bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def chase(fused, starts, steps: int, out=None):
+    """One launch of the rs_chase yardstick: a chain of ``steps``
+    dependent 64-byte reads through ``fused`` from each block in
+    ``starts`` (int32 on the card), each next block a hash of the words
+    just read.  Launched directly: it is no kernel of the port's paths."""
+    import torch
+    from readserver_tpu_torch.kernels import LIBRARY
+
+    out = torch.empty_like(starts) if out is None else out
+    rc = LIBRARY.get().rs_chase(
+        fused.data_ptr(), fused.shape[1], fused.shape[0], starts.data_ptr(),
+        starts.numel(), steps, out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"rs_chase: CUDA error {rc} at launch")
+    return out
+
+
+def chase_t_row(fused, rng, dev, cold: bool):
+    """One warp of chains (32), 32 and 64 steps → (t_row ms, the 32-step
+    launch's device ms / 32), by the profiler's device time (the host
+    cannot launch a kernel this short as fast as the card runs it), or
+    None when the profiler saw none.  t_row is the difference of the two
+    over 32 steps, so the launch's own time drops out.  ``cold``: new
+    random starts per launch (rows from the card's memory); else the same
+    starts each launch (rows from L2)."""
+    import torch
+
+    nb = fused.shape[0]
+    t = {}
+    for steps in (32, 64):
+        # cold: starts drawn anew for each launch and each step count, so
+        # no chain meets rows an earlier launch left in L2
+        starts = [torch.from_numpy(rng.integers(0, nb, size=32)
+                                   .astype(np.int32)).to(dev)
+                  for _ in range(256 if cold else 1)]
+        out = torch.empty_like(starts[0])
+        turn = itertools.cycle(starts)
+        fn = lambda: chase(fused, next(turn), steps, out)  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+        t[steps] = kernel_device_ms(fn, 32, "chase_kernel")
+        if t[steps] is None:
+            return None
+    return (t[64] - t[32]) / 32, t[32] / 32
 
 
 def distinct(*parts) -> int:
@@ -425,11 +486,13 @@ def level_bytes(idx, l, u) -> int:
     return l.numel() * 40 + distinct(*rows) * idx.rank_rows.shape[1] * 4
 
 
-def k2_needs(idx, codes, lut, p) -> tuple[int, int]:
-    """→ (bytes, steps) of K2's k-step search from the LUT on ``codes``:
-    the codes, each distinct LUT entry and each distinct rank row of the
-    steps taken (the plain schedule's active masks) read once, (l, u)
-    written; and the number of steps taken."""
+def k2_needs(idx, codes, lut, p) -> tuple[int, int, int]:
+    """→ (bytes, steps, chain) of K2's k-step search from the LUT on
+    ``codes``: the codes, each distinct LUT entry and each distinct rank
+    row of the steps taken (the plain schedule's active masks) read once,
+    (l, u) written; the number of steps taken; and the longest chain of
+    dependent reads: the code tile, the LUT entry, then one (l, u) row
+    pair per step of the longest search."""
     import torch
     from readserver_tpu_torch.ops import search as so
 
@@ -446,7 +509,7 @@ def k2_needs(idx, codes, lut, p) -> tuple[int, int]:
     tables = {3: (idx.rank3_rows, idx.C3), 2: (idx.rank2_rows, idx.C2),
               1: (idx.rank_rows, idx.C)}
     rows = {3: [], 2: [], 1: []}
-    steps = 0
+    steps = longest = 0
     for j, k in sched:
         if k == 1:
             code = codes[:, j]
@@ -456,27 +519,31 @@ def k2_needs(idx, codes, lut, p) -> tuple[int, int]:
                 code = code * 4 + (codes[:, j + t] - 1)
         act = l < u
         steps += int(act.sum())
+        longest += int(bool(act.any()))
         base = code.long() * idx.rows_per_symbol
         rows[k] += [(base + (x >> idx.log2_block).long())[act] for x in (l, u)]
         table, starts = tables[k]
         l, u = so._step_plain(idx, table, starts, code, l, u, act)
     nbytes = B * K * 4 + distinct(ids) * 8 + B * 8 + sum(
         distinct(*rows[k]) * tables[k][0].shape[1] * 4 for k in rows)
-    return nbytes, steps
+    return nbytes, steps, 2 + longest
 
 
-def fused_walk_bytes(idx_f, rows, valid) -> int:
-    """The distinct fused rows the walks of ``rows`` visit (the plain
-    walk's active lanes, terminal rows included) and their terminal
-    lookups (a sampled pair or a dollar_map entry)."""
+def fused_walk_needs(idx_f, rows, valid) -> tuple[int, int]:
+    """→ (bytes, chain) of the walks of ``rows``: the distinct fused rows
+    they visit (the plain walk's active lanes, terminal rows included) and
+    their terminal lookups (a sampled pair or a dollar_map entry); and the
+    longest walk's dependent reads, its rows and its terminal read."""
     import torch
     from readserver_tpu_torch.ops import resolve as rz
 
     cur = torch.where(valid, rows, torch.zeros_like(rows))
     done = ~valid
     seen = []
+    reads = torch.zeros_like(rows)
     for _ in range(idx_f.sample_rate):
         seen.append((cur >> idx_f.log2_block)[~done])
+        reads += (~done).to(reads.dtype)
         c, o, marked, _ = rz._fused_step_fields(idx_f, cur)
         is_term = marked | (c == 0)
         step_now = ~done & ~is_term
@@ -484,9 +551,18 @@ def fused_walk_bytes(idx_f, rows, valid) -> int:
         done = done | is_term
     _, o, marked, slot = rz._fused_step_fields(idx_f, cur)
     end = valid & done
+    reads += end.to(reads.dtype)
     return (distinct(*seen) * idx_f.fused_rows.shape[1] * 4
             + distinct(slot[end & marked]) * 8
-            + distinct(o[end & ~marked]) * 4)
+            + distinct(o[end & ~marked]) * 4,
+            int(reads.max()) if reads.numel() else 0)
+
+
+def fill_k(n: int, rows_per_query: int) -> int:
+    """The longest k at which a k-mer's interval holds, on average, at
+    least ``rows_per_query`` of ``n`` rows (10 for the E. coli index at
+    2H = 128, 8 for the cohort at 256)."""
+    return int(np.log(n / rows_per_query) / np.log(4))
 
 
 def interval_rows(l, u):
@@ -752,8 +828,9 @@ def run(args) -> dict:
               == [key(r) for r in answers["dsa", "full"]],
               "histogram-only and full answers disagree")
         launches = read_launches("samples")
-        check(launches["exact_histogram"] > 0,
-              "kernel exact_histogram was not launched on the samples path")
+        for name in ("exact_histogram", "resolve_fused"):
+            check(launches[name] > 0,
+                  f"kernel {name} was not launched on the samples path")
         t0 = time.perf_counter()
         cmat = np.stack(cohort.reads)
         want_c = hit_oracle(cmat, c256[:96])
@@ -1034,6 +1111,45 @@ def run(args) -> dict:
                       and bool((got[1] == idx_f.sample_rate - 1).any()),
                       "no walk reached the sample_rate bound")
         del nomark, dmark
+        # K6 at a full budget: 4096 10-mers drawn from the reads, on both
+        # strands; the intervals pass H, so every budget slot walks, more
+        # walks than the card holds lanes at once
+        kf = fill_k(idx_f.n, 2 * H)
+        fb = engine_f._expand_rc(decode_all(simulate.sample_query_kmers_fast(
+            corpus, 4096, kf, seed=args.seed + 4, miss_frac=0.0)))[0]
+        frows, fvalid, _ = resolve.expand_intervals(*intervals(engine_f, fb),
+                                                    H)
+        frows, fvalid, _, _ = resolve.compact_rows(frows, fvalid,
+                                                   engine_f.row_budget)
+        check(bool(fvalid.all()), "the 10-mer batch does not fill the budget")
+        err = max_err(zip(
+            resolve.resolve_rows_fused(idx_f, frows, fvalid),
+            resolve.resolve_rows_fused_plain(idx_f, frows, fvalid)))
+        k6_err = max(k6_err, err)
+        log(f"K6 full budget ({len(fb)} {kf}-mers): {frows.shape[0]} rows, "
+            f"all walking, max |err| {err}")
+        check(err == 0, "K6 disagrees with the plain form at a full budget")
+        # K7 at a cap-filling batch: 8192 cohort 8-mers, whose worklist the
+        # engine's max_sweep_rows cuts
+        kc = fill_k(ceng.index.n, 256)
+        cap_l, cap_u = intervals(ceng, decode_all(
+            simulate.sample_query_kmers_fast(cohort, 8192, kc,
+                                             seed=args.seed + 5,
+                                             miss_frac=0.0)))
+        cap_total = int((cap_u - cap_l).long().sum())
+        check(cap_total > cfg.max_sweep_rows, f"the 8-mer batch's worklist "
+              f"({cap_total}) does not pass the cap")
+        for wname, cidx in (("dsa", ceng.index), ("fused", ceng_f.index)):
+            got = resolve.exact_sample_histogram(cidx, cap_l, cap_u, 8 * 8192,
+                                                 cfg.max_sweep_rows)
+            err = max_err(zip(got, resolve.exact_sample_histogram_plain(
+                cidx, cap_l, cap_u, 8 * 8192, cfg.max_sweep_rows)))
+            k7_err = max(k7_err, err)
+            log(f"K7 cap-filling batch, {wname} walk: 8192 {kc}-mers, worklist "
+                f"{cap_total} rows, {int(got[0].sum())} counted under the cap "
+                f"{cfg.max_sweep_rows}, max |err| {err}")
+            check(err == 0, f"K7 disagrees with the plain form at the "
+                  f"cap-filling batch ({wname})")
         for width, kms in cbatches.items():
             l, u = intervals(ceng, kms)
             for wname, cidx in (("dsa", ceng.index), ("fused", ceng_f.index)):
@@ -1068,6 +1184,29 @@ def run(args) -> dict:
         from torch.profiler import ProfilerActivity, profile
 
         log(f"card: {card}")
+        # the chase yardstick: one warp's time per dependent 64-byte read,
+        # from the card's memory (cold: new random rows each launch) and
+        # from L2 (warm: the same rows again), through both fused tables.
+        # t_row is the smaller warm reading: every kernel below is timed on
+        # repeated inputs, whose rows stay in the 50 MB L2
+        warm = []
+        for tname, fr in (("E. coli", idx_f.fused_rows),
+                          ("cohort", ceng_f.index.fused_rows)):
+            for cold in (True, False):
+                got = chase_t_row(fr, rng, dev, cold)
+                what = (f"chase, one warp of 32 chains through the {tname} "
+                        f"fused table ({fr.shape[0]} rows of 64 B, "
+                        f"{'cold' if cold else 'warm'})")
+                if got is None:
+                    log(f"{what}: not measured (the profiler saw no "
+                        f"chase_kernel time)")
+                    continue
+                log(f"{what}: {got[0] * 1e3:.4f} us per dependent read (64 "
+                    f"steps less 32; the 32-step launch's device time / "
+                    f"32: {got[1] * 1e3:.4f} us) | {card}")
+                if not cold:
+                    warm.append(got[0])
+        t_row = min(warm) if warm else None  # None: no chain bounds
         # distinct batches in turn, as a bulk screen sends them: a batch
         # touches more rank and LUT sectors than the 50 MB L2 holds, and a
         # repeated batch finds part of them there (measured beside it)
@@ -1107,9 +1246,15 @@ def run(args) -> dict:
             needs = [k2_needs(idx, b, lut, p) for b in bs]
             nbytes = int(np.mean([x[0] for x in needs]))
             steps = int(np.mean([x[1] for x in needs]))
+            chain = max(x[2] for x in needs)
+            chain_ms = None if t_row is None else chain * t_row
             t_k, t_p, t_b = (float(np.median(x)) for x in (ms_k, ms_p, burst))
             k2_t[W] = (t_k, t_p, dev_ms, bound_ms(nbytes),
-                       f"{W} 31-mers, LUT p={p} + triples")
+                       f"{W} 31-mers, LUT p={p} + triples", chain_ms)
+            log(f"K2 width {W}: chain of {chain} dependent reads (the code "
+                f"tile, the LUT entry, {chain - 2} steps) x t_row = chain "
+                f"bound {fmt_ms(chain_ms)} ms, device time at "
+                f"{ratio(chain_ms, dev_ms)} of it")
             log(f"K2 width {W}, LUT p={p} + triples, {N_ROT} distinct "
                 f"batches in turn: wrapper {t_k:.4f} ms/batch = "
                 f"{W / t_k * 1e3:.0f} searches/s (median of 5 x {2 * N_ROT},"
@@ -1137,14 +1282,17 @@ def run(args) -> dict:
             levels.append(lut_ops.extend_level(idx, *levels[-1]))
         lvl_bound = [bound_ms(level_bytes(idx, l_, u_)) for l_, u_ in levels]
         build = lambda: lut_ops.build_prefix_lut(idx, p)  # noqa: E731
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            build()
-            torch.cuda.synchronize()
-        kev = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA
-                      and "lut_level_kernel" in e.name),
-                     key=lambda e: e.time_range.start)
+        for _ in range(5):  # the profiler now and then records no event
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                build()
+                torch.cuda.synchronize()
+            kev = sorted((e for e in prof.events()
+                          if e.device_type == DeviceType.CUDA
+                          and "lut_level_kernel" in e.name),
+                         key=lambda e: e.time_range.start)
+            if len(kev) == p - 1:
+                break
         lvl_dev = [e.self_device_time_total / 1e3 for e in kev]
         check(len(lvl_dev) == p - 1, f"profiled {len(lvl_dev)} level launches")
         for k, (l_, u_) in enumerate(levels):
@@ -1169,7 +1317,7 @@ def run(args) -> dict:
         t_b, t_bp, t_w = (float(np.median(x)) for x in (b_k, b_p, wall))
         b_dev, b_bound = sum(lvl_dev), sum(lvl_bound)
         summary["lut_level"] = (t_b, t_bp, b_dev, b_bound,
-                                f"whole LUT p={p}, {p - 1} launches")
+                                f"whole LUT p={p}, {p - 1} launches", None)
         log(f"K1 level entry, whole LUT p={p} ({p - 1} launches): wrapper "
             f"{t_b:.4f} ms, device {b_dev:.4f} ms, bound {b_bound:.4f} ms "
             f"(device time at {ratio(b_bound, b_dev)} of the bound) | plain "
@@ -1219,7 +1367,8 @@ def run(args) -> dict:
             nb = k1_bytes(table, c_t, i_t, lay)
             tk, tp = float(np.median(r_k)), float(np.median(r_p))
             if main:
-                summary["rank_occ"] = (tk, tp, dev_ms, bound_ms(nb), what)
+                summary["rank_occ"] = (tk, tp, dev_ms, bound_ms(nb), what,
+                                       None)
             log(f"K1 generic entry at {what}: wrapper {tk:.4f} ms = "
                 f"{c_t.numel() / tk * 1e3:.0f} ranks/s, device "
                 f"{fmt_ms(dev_ms)} ms | plain torch {tp:.4f} ms | needs {nb} "
@@ -1229,55 +1378,103 @@ def run(args) -> dict:
 
         # K5-K7 at width 8192: the E. coli 4096-on-both-strands batch (K5 on
         # the dsa engine, K6 on the fused engine's compacted rows) and the
-        # cohort's (K7 through either walk, the engine's window and cap)
+        # cohort's (K7 through either walk, the engine's window and cap);
+        # then K6 at a full budget and K7 at the cap-filling batch
         l, u = intervals(engine, batches[8192])
         rows, valid, _ = resolve.expand_intervals(l, u, H)
         crow, cval, _, _ = resolve.compact_rows(rows, valid,
                                                 engine_f.row_budget)
+        # the chase at K6's concurrency and at a full budget: the rate the
+        # card reaches for dependent random rows, without the walks' sharing
+        for what, start in (("K6's walks", crow[cval]),
+                            ("a full budget", frows)):
+            blocks = (start >> idx_f.log2_block).contiguous()
+            out = torch.empty_like(blocks)
+            fn = lambda: chase(idx_f.fused_rows, blocks, 32, out)  # noqa: E731
+            fn()
+            torch.cuda.synchronize()
+            ms = kernel_device_ms(fn, 10, "chase_kernel")
+            nc = blocks.numel()
+            if ms is None:
+                log(f"chase at {what}: not measured (the profiler saw no "
+                    f"chase_kernel time)")
+                continue
+            log(f"chase at {what}: {nc} chains x 32 dependent 64-B reads in "
+                f"{ms:.4f} ms of device time = {ms / 32 * 1e3:.4f} us per "
+                f"step, "
+                f"{nc * 32 / ms / 1e6:.4f} G rows/s "
+                f"({nc * 32 * 64 / ms / 1e6:.1f} GB/s of rows) | {card}")
         cl, cu = intervals(ceng, cbatches[8192])
         win = 8 * 8192
         wrows = interval_rows(cl, cu)
         check(wrows.numel() <= win, "the cohort batch's worklist passes "
               "one window")
-        wvalid = torch.ones_like(wrows, dtype=torch.bool)
-        wrid = resolve.resolve_rows_dsa_plain(ceng.index, wrows, wvalid)[0]
+        cap = cfg.max_sweep_rows
+        caprows = interval_rows(cap_l, cap_u)[:cap]
         rid = resolve.resolve_dsa_hits_plain(idx, l, u, H)[0]
         hist_io = 8192 * (9 + 4 * ceng._ns)
-        needs = {
-            "resolve_dsa": 8192 * 8 + distinct(rows[valid]) * 4
-            + distinct(rid[rid >= 0]) * 4 + 3 * 8192 * H * 4,
-            "resolve_fused": crow.numel() * 13
-            + fused_walk_bytes(idx_f, crow, cval),
-            "exact_histogram": hist_io + distinct(wrows) * 4
-            + distinct(wrid) * 4,
-            "exact_histogram (fused walk)": hist_io + distinct(wrid) * 4
-            + fused_walk_bytes(ceng_f.index, wrows, wvalid),
+
+        def hist_needs(wr):
+            """K7's (bytes, chain) for the worklist rows ``wr``, each walk
+            one more read for its sample: through dsa, then fused."""
+            wv = torch.ones_like(wr, dtype=torch.bool)
+            rids = distinct(resolve.resolve_rows_dsa_plain(ceng.index, wr,
+                                                           wv)[0]) * 4
+            fb, fc = fused_walk_needs(ceng_f.index, wr, wv)
+            return ((hist_io + distinct(wr) * 4 + rids, 2),
+                    (hist_io + rids + fb, fc + 1))
+
+        k6b, k6c = fused_walk_needs(idx_f, crow, cval)
+        fbb, fbc = fused_walk_needs(idx_f, frows, fvalid)
+        (h_b, h_c), (hf_b, hf_c) = hist_needs(wrows)
+        (c_b, c_c), (cf_b, cf_c) = hist_needs(caprows)
+        needs = {  # name → (bytes, chain of dependent reads or None)
+            "resolve_dsa": (8192 * 8 + distinct(rows[valid]) * 4
+                            + distinct(rid[rid >= 0]) * 4 + 3 * 8192 * H * 4,
+                            None),
+            "resolve_fused": (crow.numel() * 13 + k6b, k6c),
+            "exact_histogram": (h_b, h_c),
+            "exact_histogram (fused walk)": (hf_b, hf_c),
+            "resolve_fused (full budget)": (frows.numel() * 13 + fbb, fbc),
+            "exact_histogram (cap-filling)": (c_b, c_c),
+            "exact_histogram (cap-filling, fused walk)": (cf_b, cf_c),
         }
+
+        def k7_case(name, cidx, hl, hu, what):
+            return (name, "exact_histogram_kernel",
+                    lambda: resolve.exact_sample_histogram(cidx, hl, hu, win,
+                                                           cap),
+                    lambda: resolve.exact_sample_histogram_plain(
+                        cidx, hl, hu, win, cap), what)
+
         cases = [
             ("resolve_dsa", "resolve_dsa_kernel",
              lambda: resolve.resolve_dsa_hits(idx, l, u, H),
              lambda: resolve.resolve_dsa_hits_plain(idx, l, u, H),
-             f"{8192 * H} lanes, {int(valid.sum())} hits"),
+             f"width 8192, {8192 * H} lanes, {int(valid.sum())} hits"),
             ("resolve_fused", "resolve_fused_kernel",
              lambda: resolve.resolve_rows_fused(idx_f, crow, cval),
              lambda: resolve.resolve_rows_fused_plain(idx_f, crow, cval),
-             f"{crow.shape[0]} compacted rows, {int(cval.sum())} valid"),
-            ("exact_histogram", "exact_histogram_kernel",
-             lambda: resolve.exact_sample_histogram(
-                 ceng.index, cl, cu, win, 1 << 20),
-             lambda: resolve.exact_sample_histogram_plain(
-                 ceng.index, cl, cu, win, 1 << 20),
-             f"dsa walk, {wrows.numel()} worklist rows"),
-            ("exact_histogram (fused walk)", "exact_histogram_kernel",
-             lambda: resolve.exact_sample_histogram(
-                 ceng_f.index, cl, cu, win, 1 << 20),
-             lambda: resolve.exact_sample_histogram_plain(
-                 ceng_f.index, cl, cu, win, 1 << 20),
-             "fused walk"),
+             f"width 8192, {crow.shape[0]} compacted rows, "
+             f"{int(cval.sum())} valid"),
+            k7_case("exact_histogram", ceng.index, cl, cu,
+                    f"cohort width 8192, dsa walk, {wrows.numel()} worklist "
+                    f"rows"),
+            k7_case("exact_histogram (fused walk)", ceng_f.index, cl, cu,
+                    "cohort width 8192, fused walk"),
+            ("resolve_fused (full budget)", "resolve_fused_kernel",
+             lambda: resolve.resolve_rows_fused(idx_f, frows, fvalid),
+             lambda: resolve.resolve_rows_fused_plain(idx_f, frows, fvalid),
+             f"{frows.shape[0]} rows, all walking"),
+            k7_case("exact_histogram (cap-filling)", ceng.index, cap_l, cap_u,
+                    f"8192 {kc}-mers, dsa walk, {caprows.numel()} of "
+                    f"{cap_total} worklist rows"),
+            k7_case("exact_histogram (cap-filling, fused walk)", ceng_f.index,
+                    cap_l, cap_u, f"8192 {kc}-mers, fused walk"),
         ]
         for name, kname, kern, plain, what in cases:
             check(max_err(zip(kern(), plain())) == 0,
-                  f"{name} disagrees with its plain form at width 8192")
+                  f"{name} disagrees with its plain form ({what})")
             torch.cuda.synchronize()
             t_kern, t_plain = [], []
             for _ in range(3):  # interleaved: kernel, plain
@@ -1285,15 +1482,48 @@ def run(args) -> dict:
                 t_plain.append(time_cuda(plain, 3))
             dev_ms = kernel_device_ms(kern, 10, kname)
             tk, tp = float(np.median(t_kern)), float(np.median(t_plain))
-            bnd = bound_ms(needs[name])
-            log(f"{name} width 8192 ({what}): wrapper {tk:.4f} ms, kernel "
-                f"device time {fmt_ms(dev_ms)} ms (profiler) | plain torch "
-                f"{tp:.4f} ms (median of 3 x 20 and 3 x 3 calls, CUDA "
-                f"events), outputs equal | needs {needs[name]} B: bound "
-                f"{bnd:.4f} ms, device time at {ratio(bnd, dev_ms)} of the "
-                f"bound | {card}")
-            summary.setdefault(name, (tk, tp, dev_ms, bnd,
-                                      f"width 8192, {what}"))
+            nbytes, chain = needs[name]
+            bnd = bound_ms(nbytes)
+            chain_ms = None if chain is None or t_row is None else chain * t_row
+            log(f"{name} ({what}): wrapper {tk:.4f} ms, kernel device time "
+                f"{fmt_ms(dev_ms)} ms (profiler) | plain torch {tp:.4f} ms "
+                f"(median of 3 x 20 and 3 x 3 calls, CUDA events), outputs "
+                f"equal | needs {nbytes} B: bytes bound {bnd:.4f} ms, device "
+                f"time at {ratio(bnd, dev_ms)} of it"
+                + ("" if chain is None else
+                   f" | chain of {chain} dependent reads x t_row: chain bound "
+                   f"{fmt_ms(chain_ms)} ms, device time at "
+                   f"{ratio(chain_ms, dev_ms)} of it") + f" | {card}")
+            summary.setdefault(name, (tk, tp, dev_ms, bnd, what, chain_ms))
+        # K8, the sparse pack (torch): its bytes on the /reads 4096x2
+        # request of the dsa engine, each input read once and each output
+        # (the packed buffer and the dense hits beside it) written once
+        ce, le, nq = engine._pad_encode(engine._expand_rc(
+            decode_all(q4096))[0])
+        bad8 = engine._new_bad()
+        l8, u8, hist8, comp8, rid8, off8, smp8 = engine._pieces(
+            *engine._to_device(ce, le), *engine._routes(ce, le, nq), True,
+            bad8)
+        from readserver_tpu_torch.serve.engine import sparse_pack_device
+
+        def pack():
+            return sparse_pack_device(u8 - l8, comp8, hist8, rid8, off8, smp8,
+                                      nq, engine.COMPACT_PER_QUERY, bad8,
+                                      l=l8, u=u8)
+
+        packed8, _, dense8 = pack()
+        k8_in = sum(t.numel() * t.element_size() for t in (
+            l8, u8, comp8, hist8, rid8, off8, smp8, bad8)) + l8.numel() * 4
+        k8_bytes = k8_in + packed8.nbytes + dense8.nbytes
+        t_pack = float(np.median([time_cuda(pack, 20) for _ in range(3)]))
+        pack_dev = kernel_device_ms(pack, 10, "")
+        log(f"K8 sparse pack (torch) on the /reads request of 4096 x 2: "
+            f"{t_pack:.4f} ms per pack (CUDA events), device time "
+            f"{fmt_ms(pack_dev)} ms over all its ops (profiler) | needs "
+            f"{k8_bytes} B ({k8_in} in, {packed8.nbytes} packed, "
+            f"{dense8.nbytes} dense hits): bound {bound_ms(k8_bytes):.4f} "
+            f"ms, device time at {ratio(bound_ms(k8_bytes), pack_dev)} of "
+            f"it | {card}")
         request_breakdown(engine, decode_all(q4096), "count")
         request_breakdown(engine, decode_all(q4096), "reads")
         request_breakdown(ceng, decode_all(c4096), "samples")
@@ -1321,13 +1551,19 @@ def run(args) -> dict:
     }
     kernels = []
     for name, (src, rep_at, err) in where.items():
-        ms, plain_ms, device_ms, bnd, shape = summary[name]
+        ms, plain_ms, device_ms, bnd, shape, chain_ms = summary[name]
+        # bound_ms and bound_by are the bytes-or-operations bound; a walk's
+        # or the search's chain bound rides beside them, and held_by names
+        # the larger of the two
         kernels.append(dict(
             name=name, route="cuda",
             source=f"readserver_tpu_torch/csrc/{src}", replaces=rep_at,
             launches=total[name], max_abs_err=summary[err], ms=ms,
             device_ms=device_ms, plain_ms=plain_ms, bound_ms=bnd,
-            bound_by="bytes", library_ms=None, shape=shape))
+            bound_by="bytes", library_ms=None, shape=shape,
+            chain_ms=chain_ms,
+            held_by="chain" if chain_ms is not None and chain_ms > bnd
+            else "bytes"))
     return dict(kernels=kernels, card=card)
 
 

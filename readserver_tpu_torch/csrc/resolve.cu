@@ -9,16 +9,43 @@
 //   K6 rs_resolve_fused    resolve_rows_fused + _fused_step_fields
 //                          (258-342);
 //   K7 rs_exact_histogram  exact_sample_histogram (426-499).
-// The JAX lanes step in lockstep with frozen `done` lanes; here a thread
+// The JAX lanes step in lockstep with frozen `done` lanes; here a lane
 // carries its row through the walk and stops at its terminal, which gives
 // the same answers.
 //
-// What bounds them: K5 is one random 4-byte read per hit lane; K6 is a chain
-// of at most sample_rate dependent 64-byte row reads per row (latency-bound,
-// so one thread per row keeps as many chains in flight as there are rows);
-// K7 is K5 or K6 per worklist slot plus a binary search over the query
-// prefix sums (which stay in L1/L2) and one atomic add.  Nothing is staged in
-// shared memory.
+// What bounds them on the H100.  K5 is one random 4-byte read per hit lane:
+// bytes.  K6, and K7 through the fused walk, are chains of up to
+// sample_rate dependent 64-byte row reads and one terminal read, over tens
+// to hundreds of thousands of walks that share rows: the chain (one read's
+// latency, ~0.24 us from L2, times ~33 reads) and the instructions each
+// step issues, until the walks outnumber the lanes the card holds at once.
+// K7 through dsa is a short chain per slot (its query, its dsa word, its
+// sample) and, at a full worklist, the rate of those reads.
+//
+// What the design does about it:
+// - A persistent grid (occupancy x SMs; 64 registers a thread, so nothing
+//   spills).  Warp w takes tiles w, w + nwarps, ... of consecutive slots,
+//   so one query's neighbouring rows stay in one warp and share sectors.
+//   No counter: claiming through one atomicAdd measured slower, its queue
+//   standing in the walks' way.
+// - K6 and K7's fused walk: tiles of 32, and lane refill: a lane whose walk
+//   ended takes its warp's next slot, so lanes stay busy when the walks
+//   outnumber resident threads.  One read per lane per iteration: a walk's
+//   terminal read (its sampled pair or dollar_map entry) and K7's
+//   read_to_sample read are lane states of their own, issued beside the
+//   other lanes' row reads rather than after them.  C in registers, and
+//   W <= 2's bit planes as 64-bit words, so a row's decode is a few
+//   shifts, masks and popcounts from its arrival to the next address.
+// - K7 maps a tile's slots to (query, row) once: a 128-way search of the
+//   int64 prefix sums for the tile's first query, then the sums and
+//   interval starts the tile spans, staged in the warp's shared memory and
+//   searched there.  Through dsa, a tile is 128 slots, four a lane, whose
+//   dsa and read_to_sample reads go out four at a time.  The sweep's limit,
+//   min(total, cap), is read on the card, so no launch waits for the host.
+//
+// rs_chase is a yardstick, not a kernel of any path: chains of dependent
+// 64-byte reads through the fused table, each next row a hash of the words
+// just loaded.  One warp of chains gives the card's unloaded time per row.
 //
 // Plain C interface (built with nvcc into a shared library and bound with
 // ctypes); each entry point runs on the caller's stream and returns
@@ -31,6 +58,10 @@
 #include "rank.cuh"
 
 namespace {
+
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kThreads = 128;   // persistent blocks of 4 warps
+constexpr int kMinBlocks = 8;   // per SM: 64 registers a thread, no spill
 
 // Everything a walk reads.  dsa: one word per SA row.  fused: rows of
 // fused_words uint32 words per block of (1 << log2_block) symbols:
@@ -83,84 +114,68 @@ struct FusedRow {
     }
   }
 
-  // the bit at `within` of the plane starting at word OFF
+  // the plane starting at word OFF as one 64-bit word (W <= 2)
+  template <int OFF>
+  __device__ __forceinline__ uint64_t plane64() const {
+    if constexpr (W == 1) {
+      return w[OFF];
+    } else {
+      return (static_cast<uint64_t>(w[OFF + 1]) << 32) | w[OFF];
+    }
+  }
+
+  // the bit at `within` of the plane at OFF
   template <int OFF>
   __device__ __forceinline__ uint32_t bit(int within) const {
-    uint32_t b = 0;
+    if constexpr (W <= 2) {
+      return static_cast<uint32_t>(plane64<OFF>() >> within) & 1u;
+    } else {
+      uint32_t b = 0;
 #pragma unroll
-    for (int k = 0; k < W; ++k) {
-      if ((within >> 5) == k) b = (w[OFF + k] >> (within & 31)) & 1u;
+      for (int k = 0; k < W; ++k) {
+        if ((within >> 5) == k) b = (w[OFF + k] >> (within & 31)) & 1u;
+      }
+      return b;
     }
-    return b;
   }
 
   // set bits of the plane at OFF among its first `within` positions
   template <int OFF>
   __device__ __forceinline__ uint32_t pop(int within) const {
-    uint32_t acc = 0;
+    if constexpr (W <= 2) {
+      return __popcll(plane64<OFF>() & ((1ull << within) - 1ull));
+    } else {
+      uint32_t acc = 0;
 #pragma unroll
-    for (int k = 0; k < W; ++k) {
-      acc += __popc(w[OFF + k] & rs::low_mask(rs::clamp_bits(within - 32 * k)));
+      for (int k = 0; k < W; ++k) {
+        acc += __popc(w[OFF + k] & rs::low_mask(rs::clamp_bits(within - 32 * k)));
+      }
+      return acc;
     }
-    return acc;
   }
 
-  // occ(c, pos) for a base c = 1 + lo + 2 hi: XNOR-match of the base planes
-  // against c's bits, with $ positions (zero base planes) masked out
-  __device__ __forceinline__ uint32_t base_occ(uint32_t lo, uint32_t hi,
+  // occ(c, pos) - checkpoint for the base c = 1 + lo + 2 hi: XNOR-match of
+  // the base planes against c's bits, with $ positions (zero base planes)
+  // masked out
+  __device__ __forceinline__ uint32_t base_pop(uint32_t lo, uint32_t hi,
                                                int within) const {
-    const uint32_t t0 = lo ? 0xFFFFFFFFu : 0u, t1 = hi ? 0xFFFFFFFFu : 0u;
-    uint32_t acc = 0;
+    if constexpr (W <= 2) {
+      const uint64_t t0 = 0ull - lo, t1 = 0ull - hi;
+      const uint64_t m = ~(plane64<LO>() ^ t0) & ~(plane64<HI>() ^ t1) &
+                         ~plane64<DOLLAR>();
+      return __popcll(m & ((1ull << within) - 1ull));
+    } else {
+      const uint32_t t0 = 0u - lo, t1 = 0u - hi;
+      uint32_t acc = 0;
 #pragma unroll
-    for (int k = 0; k < W; ++k) {
-      const uint32_t m =
-          ~(w[LO + k] ^ t0) & ~(w[HI + k] ^ t1) & ~w[DOLLAR + k];
-      acc += __popc(m & rs::low_mask(rs::clamp_bits(within - 32 * k)));
+      for (int k = 0; k < W; ++k) {
+        const uint32_t m = ~(w[LO + k] ^ t0) & ~(w[HI + k] ^ t1) & ~w[DOLLAR + k];
+        acc += __popc(m & rs::low_mask(rs::clamp_bits(within - 32 * k)));
+      }
+      return acc;
     }
-    const int c = 1 + static_cast<int>(lo) + 2 * static_cast<int>(hi);
-    const uint32_t ck = c == 1 ? w[1] : (c == 2 ? w[2] : (c == 3 ? w[3] : w[4]));
-    return ck + acc;
   }
 };
-
-// The fused-row walk of one row: at most sample_rate steps; the first row
-// that is marked or holds a $ ends it (marked wins).  A walk that has not
-// ended after sample_rate steps gives -1, as the JAX loop's undone lanes do.
-template <int W>
-__device__ __forceinline__ void fused_walk(const Walk& g, int32_t cur,
-                                           int32_t& rid, int32_t& off) {
-  const int32_t mask = (1 << g.log2_block) - 1;
-  for (int steps = 0; steps < g.sample_rate; ++steps) {
-    FusedRow<W> r;
-    r.load(g.fused + static_cast<size_t>(cur >> g.log2_block) *
-                         static_cast<size_t>(g.fused_words));
-    const int within = cur & mask;
-    const uint32_t marked = r.template bit<FusedRow<W>::MARK>(within);
-    const uint32_t dollar = r.template bit<FusedRow<W>::DOLLAR>(within);
-    if (marked) {
-      const int32_t slot = static_cast<int32_t>(
-          r.w[5] + r.template pop<FusedRow<W>::MARK>(within));
-      const int2 pr = __ldg(reinterpret_cast<const int2*>(g.pairs) +
-                            clip_index(slot, g.n_pairs));
-      rid = pr.x;
-      off = pr.y + steps;
-      return;
-    }
-    if (dollar) {  // occ($, cur) is the $-rank, the dollar_map key
-      const int32_t o = static_cast<int32_t>(
-          r.w[0] + r.template pop<FusedRow<W>::DOLLAR>(within));
-      rid = __ldg(g.dollar_map + clip_index(o, g.n_dollar));
-      off = steps;
-      return;
-    }
-    const uint32_t lo = r.template bit<FusedRow<W>::LO>(within);
-    const uint32_t hi = r.template bit<FusedRow<W>::HI>(within);
-    const int c = 1 + static_cast<int>(lo) + 2 * static_cast<int>(hi);
-    cur = __ldg(g.C + c) + static_cast<int32_t>(r.base_occ(lo, hi, within));
-  }
-  rid = -1;
-  off = -1;
-}
 
 // ------------------------------------------------------------------ K5
 
@@ -193,72 +208,425 @@ __global__ void resolve_dsa_kernel(const int32_t* __restrict__ l,
   }
 }
 
-// ------------------------------------------------------------------ K6
+// ------------------------------------------------------------ K6 and K7
 
-template <int W>
-__global__ void resolve_fused_kernel(const int32_t* __restrict__ rows,
-                                     const uint8_t* __restrict__ valid,
-                                     long long R, Walk g,
-                                     int32_t* __restrict__ rid_out,
-                                     int32_t* __restrict__ off_out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long k = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       k < R; k += stride) {
-    int32_t rid = -1, off = -1;
-    if (valid[k]) fused_walk<W>(g, __ldg(rows + k), rid, off);
-    rid_out[k] = rid;
-    off_out[k] = off;
+// What a sweep walks: K6 the rows of slots 0..R-1 where valid; K7 the
+// worklist of the concatenated intervals, up to min(total, cap).
+enum Kind { kFusedRows = 0, kHistDsa = 1, kHistFused = 2 };
+
+struct Sweep {
+  const int32_t* rows;  // K6
+  const uint8_t* valid;
+  long long R;
+  int32_t* rid_out;
+  int32_t* off_out;
+  const int32_t* l;  // K7
+  const long long* cum;
+  long long B;
+  long long cap;
+  const int32_t* read_to_sample;
+  long long num_reads;
+  int S;
+  int32_t* hist;
+};
+
+// A lane's state: the one read it issues next.
+enum State { kIdle = 0, kRow, kPair, kDollar, kSample };
+
+// position of the n-th (from 0) set bit of m; n < popc(m)
+__device__ __forceinline__ int nth_set(unsigned m, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const int c = __popc(m & ((1u << s) - 1u));
+    if (n >= c) {
+      n -= c;
+      m >>= s;
+      pos += s;
+    }
+  }
+  return pos;
+}
+
+// The number of prefix sums cum[0..B) at most x, for a warp-uniform x: the
+// first query whose interval passes slot x.  A 128-way search, four
+// probes a lane a round, the four loads issued together (two rounds for
+// B up to 16,384).
+__device__ __forceinline__ long long first_query(const long long* cum,
+                                                 long long B, long long x,
+                                                 int lane) {
+  constexpr long long kNone = 0x7FFFFFFFFFFFFFFFll;
+  long long lo = 0, hi = B;  // the answer lies in [lo, hi]
+  while (true) {
+    const long long step = hi - lo > 128 ? (hi - lo + 127) / 128 : 1;
+    long long v[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const long long p = lo + (4 * lane + t + 1) * step - 1;
+      v[t] = p < hi ? __ldg(cum + p) : kNone;
+    }
+    int k = 0;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) k += __popc(__ballot_sync(kFull, v[t] <= x));
+    const long long nlo = lo + k * step;
+    if (step == 1) return nlo;
+    hi = hi < nlo + step - 1 ? hi : nlo + step - 1;
+    lo = nlo;
   }
 }
 
-// ------------------------------------------------------------------ K7
-
-// Worklist slot s (of the concatenated intervals) → its query q (the
-// right-sided search: the first q with cum[q] > s) and SA row
-// l[q] + (s - cum[q - 1]); the row's read → sample → hist[q * S + sample].
-// Slots at or past min(total, cap) do nothing (cap < 0: no cap).
-template <int KIND, int W>
-__global__ void exact_histogram_kernel(
-    const int32_t* __restrict__ l, const long long* __restrict__ cum,
-    long long B, long long cap, long long slots, Walk g,
-    const int32_t* __restrict__ read_to_sample, long long num_reads, int S,
-    int32_t* __restrict__ hist) {
-  const long long total = __ldg(cum + B - 1);
-  const long long limit = cap < 0 ? total : (total < cap ? total : cap);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long s = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       s < slots && s < limit; s += stride) {
-    long long lo = 0, hi = B;
-    while (lo < hi) {
-      const long long mid = (lo + hi) >> 1;
-      if (__ldg(cum + mid) <= s) {
-        lo = mid + 1;
+// K7's tile of 32 U slots: slot base + 32 u + lane (u < U) → its query
+// q[u] and SA row l[q] + (slot - cum[q - 1]).  The prefix sums and
+// interval starts of the 32 U queries from the tile's first are staged in
+// the warp's shared memory and searched there (more rounds only when the
+// tile spans more queries, i.e. empty or one-row intervals).  Slots at or
+// past `limit` are left alone.
+template <int U>
+__device__ __forceinline__ void map_tile(const Sweep& s, long long base,
+                                         long long limit, int lane,
+                                         long long (&q)[U],
+                                         int32_t (&row)[U]) {
+  constexpr int Q = 32 * U;
+  constexpr long long kNone = 0x7FFFFFFFFFFFFFFFll;
+  __shared__ long long staged_cum[kThreads / 32][Q];
+  __shared__ int32_t staged_l[kThreads / 32][Q];
+  long long* sc = staged_cum[threadIdx.x / 32];
+  int32_t* sl = staged_l[threadIdx.x / 32];
+  long long qf = first_query(s.cum, s.B, base, lane);
+  long long prev0 = qf > 0 ? __ldg(s.cum + qf - 1) : 0;
+  bool done[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    done[u] = base + 32 * u + lane >= limit;
+    q[u] = 0;
+    row[u] = 0;
+  }
+  while (true) {
+    long long c[U];
+    int32_t lv[U];
+#pragma unroll
+    for (int t = 0; t < U; ++t) {
+      const long long i = qf + 32 * t + lane;
+      c[t] = i < s.B ? __ldg(s.cum + i) : kNone;
+      lv[t] = i < s.B ? __ldg(s.l + i) : 0;
+    }
+#pragma unroll
+    for (int t = 0; t < U; ++t) {
+      sc[32 * t + lane] = c[t];
+      sl[32 * t + lane] = lv[t];
+    }
+    __syncwarp();
+    bool all = true;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (done[u]) continue;
+      const long long slot = base + 32 * u + lane;
+      int j = 0;  // staged sums at most `slot`
+#pragma unroll
+      for (int k = Q / 2; k > 0; k >>= 1) {
+        if (sc[j + k - 1] <= slot) j += k;
+      }
+      if (j == Q - 1 && sc[Q - 1] <= slot) j = Q;
+      if (j < Q) {
+        q[u] = qf + j;
+        row[u] = sl[j] + static_cast<int32_t>(slot - (j > 0 ? sc[j - 1] : prev0));
+        done[u] = true;
       } else {
-        hi = mid;
+        all = false;
       }
     }
-    const long long q = lo < B - 1 ? lo : B - 1;
-    const long long prev = q > 0 ? __ldg(cum + q - 1) : 0;
-    const int32_t row = __ldg(l + q) + static_cast<int32_t>(s - prev);
-    int32_t rid, off;
-    if (KIND == 0) {
-      dsa_decode(g, row, rid, off);
-    } else {
-      fused_walk<W>(g, row, rid, off);
-    }
-    // an unterminated walk (-1) clips to read 0, as the JAX package does
-    const long long seg =
-        q * S + __ldg(read_to_sample + clip_index(rid, num_reads));
-    if (seg >= 0 && seg < B * S) atomicAdd(hist + seg, 1);
+    if (__all_sync(kFull, all)) return;
+    prev0 = sc[Q - 1];
+    qf += Q;
+    __syncwarp();
   }
+}
+
+// K7 through dsa: one read a slot, so no walk to refill.  Warp w takes
+// tiles w, w + nwarps, ... of 32 U slots, U a lane, whose dsa and
+// read_to_sample reads go out U at a time.
+template <int U>
+__device__ __forceinline__ void dsa_tiles(const Walk& g, const Sweep& s,
+                                          long long limit, long long warp,
+                                          long long nwarps, int lane) {
+  for (long long base = warp * 32 * U; base < limit;
+       base += nwarps * 32 * U) {
+    long long q[U];
+    int32_t row[U];
+    map_tile<U>(s, base, limit, lane, q, row);
+    bool in[U];
+    uint32_t word[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      in[u] = base + 32 * u + lane < limit;
+      word[u] = in[u] ? __ldg(g.dsa + row[u]) : 0u;
+    }
+    int32_t smp[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int32_t rid = static_cast<int32_t>(word[u] >> g.dsa_bits);
+      smp[u] = in[u] ? __ldg(s.read_to_sample + clip_index(rid, s.num_reads))
+                     : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long seg = q[u] * s.S + smp[u];
+      if (in[u] && seg >= 0 && seg < s.B * s.S) atomicAdd(s.hist + seg, 1);
+    }
+  }
+}
+
+template <int KIND, int W>
+__device__ __forceinline__ void sweep(const Walk& g, const Sweep& s) {
+  using Row = FusedRow<W>;
+  const int lane = threadIdx.x & 31;
+  const unsigned lower = (1u << lane) - 1u;
+  const long long nwarps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  long long limit = s.R;
+  if (KIND != kFusedRows) {
+    const long long total = __ldg(s.cum + s.B - 1);
+    limit = s.cap < 0 ? total : (total < s.cap ? total : s.cap);
+  }
+
+  if constexpr (KIND == kHistDsa) {
+    // tiles of 32 while no warp has more than one, else of 128
+    if (limit <= nwarps * 32) {
+      dsa_tiles<1>(g, s, limit, warp, nwarps, lane);
+    } else {
+      dsa_tiles<4>(g, s, limit, warp, nwarps, lane);
+    }
+    return;
+  }
+
+  // C[1..4] in registers (c = 0 ends a walk and needs none)
+  const int32_t C1 = __ldg(g.C + 1), C2 = __ldg(g.C + 2),
+                C3 = __ldg(g.C + 3), C4 = __ldg(g.C + 4);
+  const int32_t block_mask = (1 << g.log2_block) - 1;
+  int st = kIdle;
+  int32_t cur = 0;       // kRow: the SA row
+  int steps = 0;
+  long long slot = 0;    // K6: the output slot; K7: the query
+  long long tidx = 0;    // kPair, kDollar, kSample: the index read
+  unsigned pending = 0;  // claimed slots not started, one per lane
+  long long p_slot = 0;
+  int32_t p_row = 0;
+  long long next = warp * 32;  // the warp's next 32 slots
+  bool more = true;
+
+  while (true) {
+    // ---- refill: idle lanes take the claimed slots, in order
+    unsigned idle = __ballot_sync(kFull, st == kIdle);
+    while (idle != 0) {
+      if (pending == 0) {
+        if (!more) break;
+        const long long base = next;
+        next += nwarps * 32;
+        if (base >= limit) {
+          more = false;
+          break;
+        }
+        const long long sl = base + lane;
+        const bool in = sl < limit;
+        if (KIND == kFusedRows) {
+          const uint8_t v = in ? s.valid[sl] : 0;
+          p_row = in ? __ldg(s.rows + sl) : 0;
+          p_slot = sl;
+          if (in && !v) {
+            s.rid_out[sl] = -1;
+            s.off_out[sl] = -1;
+          }
+          pending = __ballot_sync(kFull, v != 0);
+        } else {
+          long long q[1];
+          int32_t row[1];
+          map_tile<1>(s, base, limit, lane, q, row);
+          p_slot = q[0];
+          p_row = row[0];
+          pending = __ballot_sync(kFull, in);
+        }
+        continue;
+      }
+      const int npend = __popc(pending);
+      const int r = __popc(idle & lower);
+      const int take = __popc(idle) < npend ? __popc(idle) : npend;
+      const int src = nth_set(pending, r < take ? r : 0);
+      const long long a_slot = __shfl_sync(kFull, p_slot, src);
+      const int32_t a_row = __shfl_sync(kFull, p_row, src);
+      if (((idle >> lane) & 1u) && r < take) {
+        st = kRow;
+        cur = a_row;
+        steps = 0;
+        slot = a_slot;
+      }
+      pending = take == npend
+                    ? 0u
+                    : pending & ~((1u << nth_set(pending, take)) - 1u);
+      idle = __ballot_sync(kFull, st == kIdle);
+    }
+    if (!__any_sync(kFull, st != kIdle)) break;
+
+    // ---- one read per lane
+    Row row;
+    int2 pr = make_int2(0, 0);
+    uint32_t word = 0;
+    if (st == kRow) {
+      row.load(g.fused + static_cast<size_t>(cur >> g.log2_block) *
+                             static_cast<size_t>(g.fused_words));
+    } else if (st == kPair) {
+      pr = __ldg(reinterpret_cast<const int2*>(g.pairs) + tidx);
+    } else if (st == kDollar) {
+      word = static_cast<uint32_t>(__ldg(g.dollar_map + tidx));
+    } else if (st == kSample) {
+      word = static_cast<uint32_t>(__ldg(s.read_to_sample + tidx));
+    }
+
+    // ---- what it gives
+    int32_t rid = 0, off = 0;
+    bool ended = false;
+    if (st == kRow) {
+      // at most sample_rate steps; the first row that is marked or holds
+      // a $ ends the walk (marked wins)
+      const int within = cur & block_mask;
+      if (row.template bit<Row::MARK>(within)) {
+        st = kPair;
+        tidx = clip_index(static_cast<int32_t>(
+                              row.w[5] + row.template pop<Row::MARK>(within)),
+                          g.n_pairs);
+      } else if (row.template bit<Row::DOLLAR>(within)) {
+        // occ($, cur) is the $-rank, the dollar_map key
+        st = kDollar;
+        tidx = clip_index(static_cast<int32_t>(
+                              row.w[0] + row.template pop<Row::DOLLAR>(within)),
+                          g.n_dollar);
+      } else {
+        const uint32_t lo = row.template bit<Row::LO>(within);
+        const uint32_t hi = row.template bit<Row::HI>(within);
+        const int32_t a1 = C1 + static_cast<int32_t>(row.w[1]);
+        const int32_t a2 = C2 + static_cast<int32_t>(row.w[2]);
+        const int32_t a3 = C3 + static_cast<int32_t>(row.w[3]);
+        const int32_t a4 = C4 + static_cast<int32_t>(row.w[4]);
+        cur = (hi ? (lo ? a4 : a3) : (lo ? a2 : a1)) +
+              static_cast<int32_t>(row.base_pop(lo, hi, within));
+        if (++steps == g.sample_rate) {
+          // not ended within sample_rate steps: -1, as the JAX loop's
+          // undone lanes give
+          rid = -1;
+          off = -1;
+          ended = true;
+        }
+      }
+    } else if (st == kPair) {
+      rid = pr.x;
+      off = pr.y + steps;
+      ended = true;
+    } else if (st == kDollar) {
+      rid = static_cast<int32_t>(word);
+      off = steps;
+      ended = true;
+    } else if (st == kSample) {
+      const long long seg = slot * s.S + static_cast<int32_t>(word);
+      if (seg >= 0 && seg < s.B * s.S) atomicAdd(s.hist + seg, 1);
+      st = kIdle;
+    }
+    if (ended) {
+      if (KIND == kFusedRows) {
+        s.rid_out[slot] = rid;
+        s.off_out[slot] = off;
+        st = kIdle;
+      } else {
+        // an unterminated walk (-1) clips to read 0, as the JAX package does
+        st = kSample;
+        tidx = clip_index(rid, s.num_reads);
+      }
+    }
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    resolve_fused_kernel(Walk g, Sweep s) {
+  sweep<kFusedRows, W>(g, s);
+}
+
+template <int KIND, int W>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    exact_histogram_kernel(Walk g, Sweep s) {
+  sweep<KIND, W>(g, s);
+}
+
+// ------------------------------------------------------------- rs_chase
+
+__global__ void chase_kernel(const uint32_t* __restrict__ fused,
+                             long long n_blocks,
+                             const int32_t* __restrict__ start, long long n,
+                             int steps, int32_t* __restrict__ out) {
+  const long long t =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  uint32_t b = static_cast<uint32_t>(__ldg(start + t));
+  for (int k = 0; k < steps; ++k) {
+    const uint4* v = reinterpret_cast<const uint4*>(fused + static_cast<size_t>(b) * 16);
+    const uint4 x0 = __ldg(v), x1 = __ldg(v + 1), x2 = __ldg(v + 2),
+                x3 = __ldg(v + 3);
+    uint32_t h = static_cast<uint32_t>(k) ^ x0.x ^ x0.y ^ x0.z ^ x0.w ^ x1.x ^
+                 x1.y ^ x1.z ^ x1.w ^ x2.x ^ x2.y ^ x2.z ^ x2.w ^ x3.x ^
+                 x3.y ^ x3.z ^ x3.w;
+    h *= 0x9E3779B1u;
+    b = static_cast<uint32_t>((static_cast<uint64_t>(h) *
+                               static_cast<uint64_t>(n_blocks)) >> 32);
+  }
+  out[t] = static_cast<int32_t>(b);
 }
 
 unsigned grid_for(long long n, int threads) {
   long long blocks = (n + threads - 1) / threads;
   if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride beyond this
   return static_cast<unsigned>(blocks);
+}
+
+// The persistent grid: as many blocks as the card holds at once, no more
+// than `max_blocks`.
+template <typename F>
+unsigned persistent_grid(F kernel, long long max_blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  long long blocks = static_cast<long long>(per_sm > 0 ? per_sm : 1) * sms;
+  if (blocks > max_blocks) blocks = max_blocks;
+  return static_cast<unsigned>(blocks > 0 ? blocks : 1);
+}
+
+template <typename F>
+void launch_sweep(F kernel, const Walk& g, const Sweep& s,
+                  long long max_slots, cudaStream_t st) {
+  const unsigned grid = persistent_grid(
+      kernel, max_slots < 0 ? (1LL << 20) : (max_slots + kThreads - 1) / kThreads);
+  kernel<<<grid, kThreads, 0, st>>>(g, s);
+}
+
+// K6 (KIND kFusedRows) or K7's fused walk, for the block's words
+template <int KIND, int W>
+void launch_kind(const Walk& g, const Sweep& s, long long max_slots,
+                 cudaStream_t st) {
+  if constexpr (KIND == kFusedRows) {
+    launch_sweep(resolve_fused_kernel<W>, g, s, max_slots, st);
+  } else {
+    launch_sweep(exact_histogram_kernel<KIND, W>, g, s, max_slots, st);
+  }
+}
+
+template <int KIND>
+void launch_fused(int words_per_block, const Walk& g, const Sweep& s,
+                  long long max_slots, cudaStream_t st) {
+  switch (words_per_block) {
+    case 1: launch_kind<KIND, 1>(g, s, max_slots, st); break;
+    case 2: launch_kind<KIND, 2>(g, s, max_slots, st); break;
+    case 4: launch_kind<KIND, 4>(g, s, max_slots, st); break;
+    case 8: launch_kind<KIND, 8>(g, s, max_slots, st); break;
+  }
 }
 
 Walk make_walk(const void* dsa, int dsa_bits, const void* fused,
@@ -325,31 +693,25 @@ extern "C" int rs_resolve_fused(const void* rows, const void* valid,
   if (!fused_ok(words_per_block, fused_words)) return cudaErrorInvalidValue;
   const Walk g = make_walk(nullptr, 0, fused, fused_words, log2_block, C,
                            dollar_map, n_dollar, pairs, n_pairs, sample_rate);
-  const int threads = 128;
-  const unsigned grid = grid_for(R, threads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int32_t* r = static_cast<const int32_t*>(rows);
-  const uint8_t* v = static_cast<const uint8_t*>(valid);
-  int32_t* ro = static_cast<int32_t*>(rid);
-  int32_t* oo = static_cast<int32_t*>(off);
-  switch (words_per_block) {
-    case 1: resolve_fused_kernel<1><<<grid, threads, 0, st>>>(r, v, R, g, ro, oo); break;
-    case 2: resolve_fused_kernel<2><<<grid, threads, 0, st>>>(r, v, R, g, ro, oo); break;
-    case 4: resolve_fused_kernel<4><<<grid, threads, 0, st>>>(r, v, R, g, ro, oo); break;
-    case 8: resolve_fused_kernel<8><<<grid, threads, 0, st>>>(r, v, R, g, ro, oo); break;
-  }
+  Sweep s{};
+  s.rows = static_cast<const int32_t*>(rows);
+  s.valid = static_cast<const uint8_t*>(valid);
+  s.R = R;
+  s.rid_out = static_cast<int32_t*>(rid);
+  s.off_out = static_cast<int32_t*>(off);
+  launch_fused<kFusedRows>(words_per_block, g, s, R,
+                           static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int rs_exact_histogram(
-    const void* l, const void* cum, long long B, long long cap,
-    long long slots, int kind, const void* dsa, int dsa_bits,
-    const void* fused, int fused_words, int log2_block, int words_per_block,
-    const void* C, const void* dollar_map, long long n_dollar,
-    const void* pairs, long long n_pairs, int sample_rate,
-    const void* read_to_sample, long long num_reads, int S, void* hist,
-    void* stream) {
-  if (B <= 0 || slots <= 0) return 0;
+    const void* l, const void* cum, long long B, long long cap, int kind,
+    const void* dsa, int dsa_bits, const void* fused, int fused_words,
+    int log2_block, int words_per_block, const void* C,
+    const void* dollar_map, long long n_dollar, const void* pairs,
+    long long n_pairs, int sample_rate, const void* read_to_sample,
+    long long num_reads, int S, void* hist, void* stream) {
+  if (B <= 0 || cap == 0) return 0;
   if (kind == 0 && (dsa_bits < 1 || dsa_bits > 31)) {
     return cudaErrorInvalidValue;
   }
@@ -359,26 +721,36 @@ extern "C" int rs_exact_histogram(
   if (kind != 0 && kind != 1) return cudaErrorInvalidValue;
   const Walk g = make_walk(dsa, dsa_bits, fused, fused_words, log2_block, C,
                            dollar_map, n_dollar, pairs, n_pairs, sample_rate);
-  const int threads = 256;
-  const unsigned grid = grid_for(slots, threads);
+  Sweep s{};
+  s.l = static_cast<const int32_t*>(l);
+  s.cum = static_cast<const long long*>(cum);
+  s.B = B;
+  s.cap = cap;
+  s.read_to_sample = static_cast<const int32_t*>(read_to_sample);
+  s.num_reads = num_reads;
+  s.S = S;
+  s.hist = static_cast<int32_t*>(hist);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int32_t* lp = static_cast<const int32_t*>(l);
-  const long long* cp = static_cast<const long long*>(cum);
-  const int32_t* r2s = static_cast<const int32_t*>(read_to_sample);
-  int32_t* h = static_cast<int32_t*>(hist);
-#define RS_HIST(KIND, W)                                                  \
-  exact_histogram_kernel<KIND, W><<<grid, threads, 0, st>>>(              \
-      lp, cp, B, cap, slots, g, r2s, num_reads, S, h)
   if (kind == 0) {
-    RS_HIST(0, 1);
+    launch_sweep(exact_histogram_kernel<kHistDsa, 1>, g, s, cap, st);
   } else {
-    switch (words_per_block) {
-      case 1: RS_HIST(1, 1); break;
-      case 2: RS_HIST(1, 2); break;
-      case 4: RS_HIST(1, 4); break;
-      case 8: RS_HIST(1, 8); break;
-    }
+    launch_fused<kHistFused>(words_per_block, g, s, cap, st);
   }
-#undef RS_HIST
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rs_chase(const void* fused, int fused_words, long long n_blocks,
+                        const void* start, long long n, int steps, void* out,
+                        void* stream) {
+  if (n <= 0) return 0;
+  if (fused_words != 16 || n_blocks <= 0 || steps < 0) {
+    return cudaErrorInvalidValue;
+  }
+  const int threads = 128;
+  chase_kernel<<<static_cast<unsigned>((n + threads - 1) / threads), threads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(fused), n_blocks,
+      static_cast<const int32_t*>(start), n, steps,
+      static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

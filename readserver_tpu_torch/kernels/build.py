@@ -43,9 +43,11 @@ SIGNATURES = {
         _P, _P, _L, _P, _I, _I, _I, _P, _P, _L, _P, _L, _I, _P, _P, _P,
     ],
     "rs_exact_histogram": [
-        _P, _P, _L, _L, _L, _I, _P, _I, _P, _I, _I, _I, _P, _P, _L, _P, _L,
+        _P, _P, _L, _L, _I, _P, _I, _P, _I, _I, _I, _P, _P, _L, _P, _L,
         _I, _P, _L, _I, _P, _P,
     ],
+    # a yardstick for chip_smoke.py, launched by no path of the port
+    "rs_chase": [_P, _I, _L, _P, _L, _I, _P, _P],
 }
 
 

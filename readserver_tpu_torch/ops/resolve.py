@@ -8,11 +8,13 @@ kernel (``csrc/resolve.cu``), launched for CUDA tensors:
 * K5, the direct tier: one uint32 ``dsa`` word per hit lane, split into
   read id and offset, with the lane's sample id gathered beside it
   (:func:`resolve_rows_dsa`, :func:`resolve_dsa_hits`);
-* K6, the fused-row walk: one thread per row, ≤ ``sample_rate`` steps of
-  one 64-byte fused row each (:func:`resolve_rows_fused`);
-* K7, the exact per-sample histogram: one thread per worklist slot, a
-  binary search over the int64 prefix sums, the dsa or fused walk, and an
-  atomic add (:func:`exact_sample_histogram`).
+* K6, the fused-row walk: ≤ ``sample_rate`` steps of one 64-byte fused
+  row each, on a persistent grid whose lanes refill from the 32-slot
+  tiles their warp takes (:func:`resolve_rows_fused`);
+* K7, the exact per-sample histogram: tiles of the worklist mapped to
+  their queries through the int64 prefix sums staged in shared memory,
+  then the dsa decode or K6's walk, and an atomic add
+  (:func:`exact_sample_histogram`).
 
 The lf, marks and slow walks are plain torch on every device (in the JAX
 package they are XLA, not Pallas); :func:`select_walk` reaches them only
@@ -387,8 +389,10 @@ def resolve_rows_fused(
     """Fused-row walk: the bounded (≤ ``sample_rate`` steps) resolve at ONE
     row gather per step; a walk ends at a marked row (its sampled pair,
     offset plus steps) or a ``$`` (marked wins), and -1 where it did not
-    end within ``sample_rate`` steps.  K6 for CUDA tensors (one thread per
-    row, stopping at its terminal), the plain form for CPU tensors."""
+    end within ``sample_rate`` steps.  K6 for CUDA tensors: a persistent
+    grid whose warps take 32 slots at a time, a lane taking its warp's
+    next slot when its walk ends, with the terminal read issued beside the
+    other lanes' row reads; the plain form for CPU tensors."""
     if not on_cuda(rows):
         return resolve_rows_fused_plain(index, rows, valid)
     args = _fused_walk_args(index)
@@ -607,9 +611,9 @@ def exact_sample_histogram(
     counted under ``read_to_sample[0]`` (the JAX package clips the id).
 
     K7 for CUDA tensors when the walk :func:`select_walk` picks is dsa or
-    fused: one thread per slot, the grid sized to the cap, so nothing
-    waits for the card unless ``max_rows`` is None (then the total is read
-    back to size the grid).  Else the plain form."""
+    fused: a persistent grid sweeps tiles of slots up to ``min(total,
+    cap)``, read on the card, so nothing waits for the card whatever
+    ``max_rows`` is.  Else the plain form."""
     kind = _kernel_walk(index)
     if not on_cuda(l) or kind is None:
         return exact_sample_histogram_plain(
@@ -626,26 +630,22 @@ def exact_sample_histogram(
     cum = torch.cumsum((u - l).to(torch.int64), 0)
     total = cum[B - 1]
     cap = _rounds_cap(max_rows, window)
-    if cap is None:
-        slots = int(total)  # the one wait for the card
-        tw = (total + window - 1) // window * window
-    else:
-        slots = cap
-        tw = torch.clamp((total + window - 1) // window, max=cap // window)
-        tw = tw * window
+    tw = (total + window - 1) // window
+    if cap is not None:
+        tw = torch.clamp(tw, max=cap // window)
     hist = torch.zeros(B * S, dtype=torch.int32, device=dev)
     if kind == "dsa":
         check_int32("dsa", index.dsa, dev)
         walk = (0, ptr(index.dsa), index.dsa_bits, *_NO_FUSED_WALK)
     else:
         walk = (1, None, 0, *_fused_walk_args(index))
-    if slots > 0:
+    if cap != 0:
         EXACT_HISTOGRAM(
-            ptr(l), ptr(cum), B, -1 if cap is None else cap, slots, *walk,
+            ptr(l), ptr(cum), B, -1 if cap is None else cap, *walk,
             ptr(index.read_to_sample), index.read_to_sample.shape[0], S,
             ptr(hist), device=dev,
         )
-    return hist.reshape(B, S), cum <= tw
+    return hist.reshape(B, S), cum <= tw * window
 
 
 # K7's fused-walk arguments when it walks dsa (see _fused_walk_args)

@@ -450,9 +450,8 @@ class QueryEngine:
             hist = (u - l)[:, None].to(torch.int32)
             complete = torch.ones(l.shape[0], dtype=torch.bool, device=l.device)
         elif self.cfg.exact_attribution:
-            # the sweep window auto-sizes to 8 rows per query; with
-            # max_sweep_rows set the sweep needs no host sync (K7's grid
-            # is sized to the cap), with None it reads the total back
+            # the sweep window auto-sizes to 8 rows per query; the sweep
+            # needs no host sync (K7 reads min(total, cap) on the card)
             W = codes_t.shape[0]
             hist, complete = exact_sample_histogram(
                 idx, l, u,

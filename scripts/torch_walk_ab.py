@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""K6 and K7 of several checkouts of the port, timed in turn on one card.
+
+    python3 scripts/torch_walk_ab.py OTHER_CHECKOUT [MORE ...]
+
+Times the walk kernels of this checkout and of each named one (a
+directory holding another commit's ``readserver_tpu_torch``, e.g. unpacked
+by ``git archive``) at the shapes ``chip_smoke.py`` uses: K6 on the fused
+E. coli engine's compacted rows at width 8192 and at a full budget, and K7
+through the dsa and the fused walk at the cohort's width 8192 and at the
+cap-filling batch.  Each checkout runs in its own process (both packages
+are named ``readserver_tpu_torch``), in the order A B ... then back again,
+so that two versions are compared on one card and in turns.  Every time is
+the profiler's device time of the kernel, the mean over 10 launches.  The
+artifacts come from ``chip_smoke.py``'s cache under ``data/`` (built here
+when missing).  Prints one JSON line per run and a table of medians.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
+KMER = 31
+
+
+def measure(scale: float, seed: int) -> dict:
+    """This process's package (first on sys.path): device ms per shape."""
+    import dataclasses
+
+    import torch
+
+    # this checkout's chip_smoke.py helpers, loaded by path: the package
+    # itself comes from the checkout first on sys.path
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    decode_all, fill_k = smoke.decode_all, smoke.fill_k
+    kernel_device_ms, load_or_build = smoke.kernel_device_ms, smoke.load_or_build
+    from readserver_tpu_torch.config import ServeConfig
+    from readserver_tpu_torch.corpus import simulate
+    from readserver_tpu_torch.index import artifact, build_index
+    from readserver_tpu_torch.native import native_available
+    from readserver_tpu_torch.ops import resolve
+    from readserver_tpu_torch.serve import QueryEngine
+
+    dev = torch.device("cuda:0")
+    cache = REPO / "data" / "chip_smoke"
+    corpus = simulate.simulate_config("ecoli", scale=scale)
+    cohort = simulate.simulate_config("cohort", scale=scale)
+    packed = load_or_build(corpus, cache / f"ecoli_s{scale:g}", build_index,
+                           artifact, native_available)
+    cpacked = load_or_build(cohort, cache / f"cohort_s{scale:g}", build_index,
+                            artifact, native_available)
+    cfg = ServeConfig(batch_size=8192, warmup_query_lengths=(KMER,))
+    cfg_f = dataclasses.replace(cfg, drop_tiers=("dsa",))
+    eng_f = QueryEngine(packed, cfg_f, device=dev)
+    ceng = QueryEngine(cpacked, cfg, device=dev)
+    ceng_f = QueryEngine(cpacked, cfg_f, device=dev)
+    H = cfg.max_hits
+
+    def intervals(eng, kms):
+        ce, le, nq = eng._pad_encode(kms)
+        return eng._search(*eng._to_device(ce, le), *eng._routes(ce, le, nq),
+                           eng._new_bad())
+
+    def compacted(kms):
+        rows, valid, _ = resolve.expand_intervals(*intervals(eng_f, kms), H)
+        return resolve.compact_rows(rows, valid, eng_f.row_budget)[:2]
+
+    # the queries of chip_smoke.py's timing phase, from the same seeds
+    q4096 = simulate.sample_query_kmers_fast(
+        corpus, 4096 + 256 + 1, KMER, seed=seed, miss_frac=0.15)[257:]
+    c4096 = simulate.sample_query_kmers_fast(
+        cohort, 4096 + 256, KMER, seed=seed + 3, miss_frac=0.1)[256:]
+    ten = simulate.sample_query_kmers_fast(
+        corpus, 4096, fill_k(eng_f.index.n, 2 * H), seed=seed + 4,
+        miss_frac=0.0)
+    eight = simulate.sample_query_kmers_fast(
+        cohort, 8192, fill_k(ceng.index.n, 256), seed=seed + 5,
+        miss_frac=0.0)
+    main_rows = compacted(eng_f._expand_rc(decode_all(q4096))[0])
+    full_rows = compacted(eng_f._expand_rc(decode_all(ten))[0])
+    cl, cu = intervals(ceng, ceng._expand_rc(decode_all(c4096))[0])
+    kl, ku = intervals(ceng, decode_all(eight))
+    win, cap = 8 * 8192, cfg.max_sweep_rows
+    fused = eng_f.index
+    cases = {
+        "K6 width 8192": ("resolve_fused_kernel",
+                          lambda: resolve.resolve_rows_fused(fused,
+                                                             *main_rows)),
+        "K6 full budget": ("resolve_fused_kernel",
+                           lambda: resolve.resolve_rows_fused(fused,
+                                                              *full_rows)),
+    }
+    for wname, idx in (("dsa", ceng.index), ("fused", ceng_f.index)):
+        for shape, (hl, hu) in (("width 8192", (cl, cu)),
+                                ("cap-filling", (kl, ku))):
+            cases[f"K7 {shape}, {wname} walk"] = (
+                "exact_histogram_kernel",
+                lambda idx=idx, hl=hl, hu=hu: resolve.exact_sample_histogram(
+                    idx, hl, hu, win, cap))
+    out = {}
+    for name, (kernel, fn) in cases.items():
+        fn()
+        torch.cuda.synchronize()
+        out[name] = kernel_device_ms(fn, 10, kernel)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("others", nargs="*", help="other checkouts to time")
+    ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--measure", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.measure:
+        sys.path.insert(0, args.measure)
+        print(json.dumps(measure(args.scale, args.seed)))
+        return 0
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    checkouts = [str(REPO)] + [str(Path(o).resolve()) for o in args.others]
+    runs: dict[str, list[dict]] = {c: [] for c in checkouts}
+    for c in checkouts + checkouts[::-1]:
+        env = dict(os.environ, PYTHONPATH=c)
+        res = subprocess.run(
+            [sys.executable, __file__, "--measure", c, "--scale",
+             str(args.scale), "--seed", str(args.seed)],
+            capture_output=True, text=True, env=env, cwd=c)
+        if res.returncode != 0:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return 1
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        runs[c].append(got)
+        print(json.dumps({"checkout": c, "device_ms": got}), flush=True)
+    names = list(runs[checkouts[0]][0])
+    print(f"# device ms, median of {2} runs each ({card})")
+    print("# shape | " + " | ".join(Path(c).name for c in checkouts))
+    for n in names:
+        cells = []
+        for c in checkouts:
+            vals = [r[n] for r in runs[c] if r[n] is not None]
+            cells.append(f"{np.median(vals):.4f}" if vals else "not measured")
+        print(f"# {n} | " + " | ".join(cells))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

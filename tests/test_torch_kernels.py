@@ -433,6 +433,87 @@ def test_fused_kernel_matches_plain(cohort, cuda_device):  # noqa: F811
     assert (off == d.sample_rate - 1).any() and (off[valid] == -1).any()
 
 
+def _short_intervals(d, corpus, n, k, seed):
+    """Intervals of ``n`` k-mers drawn from the reads, short enough that
+    most intervals pass H = 64."""
+    codes, lens = _queries(corpus, n, k, seed)
+    return backward_search(d, t32(codes, d.device), t32(lens, d.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full budget", "0 valid", "1 slot",
+                                  "1013 slots", "past resident"])
+def test_fused_kernel_slot_counts(cohort, cuda_device, case):  # noqa: F811
+    """K6 at slot counts the sweep's claims must get right: a full budget
+    (every compacted slot walks, more walks than the card holds lanes at
+    once), no valid slot, one slot, a count no multiple of the warp's 32,
+    and four passes over every row under a random mask."""
+    corpus, packed = cohort
+    d = DeviceIndex.from_packed(packed, cuda_device, tiers={"fused"})
+    g = torch.Generator(device=d.device).manual_seed(7)
+    if case == "full budget":
+        rows, valid, _ = resolve.expand_intervals(
+            *_short_intervals(d, corpus, 8192, 4, seed=11), 64)
+        budget = int(0.6 * 8192 * 64)
+        rows, valid, _, _ = resolve.compact_rows(rows, valid, budget)
+        assert bool(valid.all()) and rows.shape[0] == budget
+    else:
+        R = {"0 valid": 1000, "1 slot": 1, "1013 slots": 1013,
+             "past resident": 4 * d.n}[case]
+        rows = torch.randint(0, d.n, (R,), generator=g, device=d.device,
+                             dtype=torch.int32)
+        valid = torch.rand(R, generator=g, device=d.device) > 0.1
+        if case == "0 valid":
+            valid[:] = False
+        if case == "1 slot":
+            valid[:] = True
+    before = RESOLVE_FUSED.launches
+    got = resolve.resolve_rows_fused(d, rows, valid)
+    want = resolve.resolve_rows_fused_plain(d, rows, valid)
+    torch.cuda.synchronize()
+    assert RESOLVE_FUSED.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "0 valid":
+        assert (got[0] == -1).all() and (got[1] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", [None, {"fused"}])
+def test_exact_histogram_kernel_cap_filling(cohort, cuda_device,
+                                            tiers):  # noqa: F811
+    """K7 through both walks at a batch whose worklist the cap cuts: 8192
+    6-mers of about 28 rows each against a cap of 100,352 rows."""
+    corpus, packed = cohort
+    d = DeviceIndex.from_packed(packed, cuda_device, tiers=tiers)
+    l, u = _short_intervals(d, corpus, 8192, 6, seed=12)
+    assert int((u - l).long().sum()) > 100_352
+    got = resolve.exact_sample_histogram(d, l, u, 2048, 100_000)
+    want = resolve.exact_sample_histogram_plain(d, l, u, 2048, 100_000)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0].sum()) == 100_352 and not bool(got[1].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", [None, {"fused"}])
+@pytest.mark.parametrize("max_rows", [None, 100, 1 << 20])
+def test_exact_histogram_kernel_makes_no_host_sync(cohort, cuda_device, tiers,
+                                                   max_rows):  # noqa: F811
+    """The sweep reads min(total, cap) on the card: with torch's sync
+    debug mode set to raise, no call waits for the card."""
+    corpus, packed = cohort
+    d = DeviceIndex.from_packed(packed, cuda_device, tiers=tiers)
+    l, u = _edge_intervals(*_intervals(d, corpus, 256, seed=5), d.n)
+    resolve.exact_sample_histogram(d, l, u, 256, max_rows)  # built, loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = resolve.exact_sample_histogram(d, l, u, 256, max_rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = resolve.exact_sample_histogram_plain(d, l, u, 256, max_rows)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tiers", [None, {"fused"}])
 @pytest.mark.parametrize("window, max_rows", [(2048, 1 << 20), (64, 100),
