@@ -10,9 +10,9 @@ timing phases, so each path's launch counts are its own):
 
 1. device: a CUDA card is required (no CPU path); its name and power limit;
 2. kernels: build K1 (rank and its LUT level entry), K2 (backward search),
-   K5 (dsa resolve), K6 (fused-row walk) and K7 (exact histogram) from
-   ``readserver_tpu_torch/csrc`` for sm_90a, one nvcc per source started
-   together;
+   K5 (dsa resolve), K6 (fused-row walk), the rank walks (marks, lf, slow)
+   and K7 (exact histogram) from ``readserver_tpu_torch/csrc`` for sm_90a,
+   one nvcc per source started together;
 3. artifact: simulate and build the E. coli artifact with the port's
    builder (cached under ``data/``);
 4. count path: with every kernel's launch count at 0, start a
@@ -23,16 +23,17 @@ timing phases, so each path's launch counts are its own):
    read windows (``oracle.naive.window_multiset_counts``);
 8. reads: counts at 0, ``query_batch`` requests (1, 256, 4096 on both
    strands) on the dsa engine (K5), a ``drop_tiers=("dsa",)`` engine (K6
-   after the row-budget compaction) and a mark-walk engine
-   (``drop_tiers=("dsa", "fused", "lf")``, K1's generic entry); the
-   engines' answers equal, hit sets against the windows equal to each
-   query on >= 64 queries; K5, K6 and K1 must have launched;
+   after the row-budget compaction), and the rank walks' engines: marks
+   (``drop_tiers=("dsa", "fused", "lf")``), lf (``("dsa", "fused")``) and
+   slow (``("dsa", "fused", "marks", "lf")``); the engines' answers equal,
+   hit sets against the windows equal to each query on >= 64 queries; K5,
+   K6 and the walk kernel must have launched, K1's generic entry not;
 9. samples: the 128-sample cohort artifact (built or loaded), counts at 0,
-   histogram-only and full ``query_batch`` on a dsa and a fused engine;
-   histograms exact against per-sample oracle counts on >= 64 queries, and
-   a capped engine's ``complete`` flags against the window-rounding rule;
-   K7 must have launched through both walks, and K6 on the fused engine's
-   full answers;
+   histogram-only and full ``query_batch`` on a dsa, a fused and a marks
+   engine; histograms exact against per-sample oracle counts on >= 64
+   queries (dsa and marks), and a capped engine's ``complete`` flags
+   against the window-rounding rule; K7 must have launched through the
+   three walks, K6 and the walk kernel on the full answers;
 10. REST: counts at 0, the port's ``RestServer`` over the card engines in
    this script's event loop; every endpoint's answer equals the engine's;
 6. kernel vs plain: each kernel against its plain torch form on the card,
@@ -40,9 +41,12 @@ timing phases, so each path's launch counts are its own):
    engine's prefix LUT and a chunked build against the plain build, K2 in
    every mode and tier set at widths 256, 8192 and 262,144 and its
    deferred guard, K5-K7 at widths 256 and 8192, H = 64), at edge cases,
-   K6 at a full budget (4096 10-mers on both strands: every one of the
-   314,572 budget slots walks) and K7 through both walks at a cap-filling
-   batch (8192 cohort 8-mers, whose worklist the 1,048,576-row cap cuts);
+   K6 and the rank walks at a full budget (4096 10-mers on both strands:
+   every one of the 314,572 budget slots walks), the rank walks with their
+   marks cleared, with $ rows marked, at 0 valid rows and 1 slot, the slow
+   walk below the longest read, and K7 through all five walks at width
+   8192 and through dsa, fused and marks at a cap-filling batch (8192
+   cohort 8-mers, whose worklist the 1,048,576-row cap cuts);
 7. timing: the chase yardstick (``rs_chase``, no kernel of a path): one
    warp's time per dependent 64-byte read (t_row) through both fused
    tables, cold and warm, and the rate at K6's 76,521 walks and at a full
@@ -52,17 +56,22 @@ timing phases, so each path's launch counts are its own):
    build, the LUT start-up stage split;
    K1's generic entry at random positions, at the LUT's last level and at
    the mark walk's step; K5-K7 at width 8192, K6 at a full budget and K7
-   at the cap-filling batch (CUDA events and the profiler's kernel time),
-   each kernel's bytes needed and bytes bound, and for K2, K6 and K7 the
-   chain bound (the longest chain's dependent reads x t_row); K8's (the
-   torch sparse pack's) bytes and time on the ``/reads`` 4096 x 2
-   request; and where a served count, ``/reads`` and ``/samples``
-   request's time goes (host stages, device busy share, top device ops).
+   at the cap-filling batch, the rank walks at width 8192 (the mark walk
+   also at a full budget) and K7 through them (CUDA events and the
+   profiler's kernel time; each walk's plain form: torch and K1 a step),
+   each kernel's bytes needed and bytes bound, and for K2 and the walks
+   the chain bound (the longest chain's dependent reads x t_row); K8's
+   (the torch sparse pack's) bytes and time on the ``/reads`` 4096 x 2
+   request; where a served count, ``/reads`` (dsa and mark-walk engines)
+   and ``/samples`` request's time goes (host stages, device busy share,
+   top device ops); and the mark-walk engine's ``/reads`` requests through
+   the walk kernel and through the plain walk, in turns.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the one before it is the kernels' JSON summary (``launches`` summed over
-the main-path phases 4, 8, 9 and 10; ``bound_ms`` the bytes bound,
-``chain_ms`` the chain bound where there is one, ``held_by`` the larger).
+the main-path phases 4, 8, 9 and 10, where every kernel but K1's generic
+entry must have launched; ``bound_ms`` the bytes bound, ``chain_ms`` the
+chain bound where there is one, ``held_by`` the larger).
 The last line is ``{"ok": true, "device": {...}}``, printed only when
 every phase passed.
 Imports torch and the port, never jax.
@@ -73,6 +82,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import subprocess
@@ -558,6 +568,83 @@ def fused_walk_needs(idx_f, rows, valid) -> tuple[int, int]:
             int(reads.max()) if reads.numel() else 0)
 
 
+def rank_walk_needs(idx, kind, rows, valid, max_steps=None):
+    """→ (bytes, chain) of the marks, lf or slow walks of ``rows``: the
+    distinct table words the plain walk reads on its active lanes (sym4
+    words, the rank row of each symbol's plane and the mark rows; or the
+    lf words), its terminal lookups (a mark row and a sampled pair, or a
+    dollar_map entry); and the longest walk's dependent reads: one a step
+    (the kernel reads a step's rows in one round), its terminal read, and
+    for the lf walk's sampled rows the mark row before the pair."""
+    import torch
+    from readserver_tpu_torch.ops import rank as rank_ops
+    from readserver_tpu_torch.ops import resolve as rz
+
+    lg, rps = idx.log2_block, idx.rows_per_symbol
+    kw = dict(log2_block=lg, words_per_block=idx.words_per_block)
+    cur = torch.where(valid, rows, torch.zeros_like(rows))
+    done = ~valid
+    reads = torch.zeros_like(rows)
+    seen = {"sym4": [], "rank": [], "marks": [], "lf": []}
+    limit = (idx.sample_rate if kind != "slow"
+             else max_steps or idx.max_read_len)
+    o = torch.zeros_like(rows)
+    for _ in range(limit):
+        act = ~done
+        reads += act.to(reads.dtype)
+        if kind == "lf":
+            raw = rz._take(idx.lf, cur)
+            seen["lf"].append(cur[act])
+            nxt = raw & 0x7FFFFFFF
+            is_term = (raw < 0) | (nxt < idx.C[1])
+            o = torch.where(act, nxt, o)
+        else:
+            c = rank_ops.read_symbol(idx, cur)
+            occ = rank_ops.occ_rows_plain(idx.rank_rows, c, cur,
+                                          rows_per_symbol=rps, **kw)
+            seen["sym4"].append((cur >> 3)[act])
+            seen["rank"].append((c.long() * rps + (cur >> lg).long())[act])
+            is_term = c == 0
+            if kind == "marks":
+                _, marked = rank_ops.bit_rank_and_test(idx.mark_rank, cur, **kw)
+                seen["marks"].append((cur >> lg)[act])
+                is_term = is_term | marked
+            nxt = rz._take(idx.C, c) + occ
+            o = torch.where(act, occ, o)
+        step = act & ~is_term
+        cur = torch.where(step, nxt, cur)
+        done = done | is_term
+    end = valid & done
+    if kind == "slow":
+        marked = torch.zeros_like(end)
+    elif kind == "lf":
+        marked = rz._take(idx.lf, cur) < 0
+    else:
+        _, marked = rank_ops.bit_rank_and_test(idx.mark_rank, cur, **kw)
+    slot = rank_ops.occ_rows_plain(idx.mark_rank, torch.zeros_like(cur), cur,
+                                   rows_per_symbol=idx.mark_rank.shape[0],
+                                   **kw) if kind != "slow" else cur
+    if kind == "lf":
+        seen["marks"].append((cur >> lg)[end & marked])
+    reads += end.to(reads.dtype) + (end & marked).to(reads.dtype) * (
+        kind == "lf")
+    rw = idx.rank_rows.shape[1] * 4
+    nbytes = (distinct(*seen["sym4"]) * 4 + distinct(*seen["rank"]) * rw
+              + distinct(*seen["marks"]) * rw + distinct(*seen["lf"]) * 4
+              + distinct(slot[end & marked]) * 8
+              + distinct(o[end & ~marked]) * 4)
+    return nbytes, int(reads.max()) if reads.numel() else 0
+
+
+def walk_forms():
+    """kind → (the rank walk, its plain form)."""
+    from readserver_tpu_torch.ops import resolve as rz
+
+    return {"marks": (rz.resolve_rows_marked, rz.resolve_rows_marked_plain),
+            "lf": (rz.resolve_rows_fast, rz.resolve_rows_fast_plain),
+            "slow": (rz.resolve_rows, rz.resolve_rows_plain)}
+
+
 def fill_k(n: int, rows_per_query: int) -> int:
     """The longest k at which a k-mer's interval holds, on average, at
     least ``rows_per_query`` of ``n`` rows (10 for the E. coli index at
@@ -714,50 +801,59 @@ def run(args) -> dict:
         log(f"fused engine up and warm in {time.perf_counter() - t0:.3f}s: "
             f"tiers kept {sorted(engine_f.tier_plan.keep)}, row budget "
             f"{engine_f.row_budget} of {cfg.batch_size * H} lanes")
-        # the smallest resolve tier: the mark walk, whose ranks go through
-        # K1's generic entry
-        cfg_m = dataclasses.replace(cfg, drop_tiers=("dsa", "fused", "lf"))
-        t0 = time.perf_counter()
-        engine_m = QueryEngine(packed, cfg_m, device=dev)
-        engine_m.warmup()
-        log(f"mark-walk engine up and warm in {time.perf_counter() - t0:.3f}"
-            f"s: tiers kept {sorted(engine_m.tier_plan.keep)}")
+        # the rank walks: the mark walk (the smallest resolve tier), the lf
+        # walk (artifacts that carry no dsa) and the slow walk (no sample
+        # rate), each through the walk kernel
+        walk_engines = {}
+        for wname, drop in (("mark-walk", ("dsa", "fused", "lf")),
+                            ("lf", ("dsa", "fused")),
+                            ("slow", ("dsa", "fused", "marks", "lf"))):
+            t0 = time.perf_counter()
+            e = QueryEngine(packed, dataclasses.replace(cfg, drop_tiers=drop),
+                            device=dev)
+            e.warmup()
+            walk_engines[wname] = e
+            log(f"{wname} engine up and warm in "
+                f"{time.perf_counter() - t0:.3f}s: tiers kept "
+                f"{sorted(e.tier_plan.keep)}, walk "
+                f"{resolve.walk_kind(e.index)}")
+        engine_m = walk_engines["mark-walk"]
         check(engine.index.dsa is not None, "the default plan has no dsa")
         check(engine_f.index.dsa is None
               and engine_f.index.fused_rows is not None,
               "the drop_tiers=('dsa',) plan does not walk fused rows")
-        check(engine_m.index.mark_rank is not None and engine_m.index.dsa is
-              None and engine_m.index.fused_rows is None
-              and engine_m.index.lf is None,
-              "the drop_tiers=('dsa', 'fused', 'lf') plan does not walk marks")
+        for wname, kind in (("mark-walk", "marks"), ("lf", "lf"),
+                            ("slow", "slow")):
+            check(resolve.walk_kind(walk_engines[wname].index) == kind,
+                  f"the {wname} engine's plan does not walk {kind}")
         reads_served = {}
         for name, qs, both in (("1", q1, False), ("256", q256, False),
                                ("4096x2", q4096, True)):
             kms = decode_all(qs)
-            t0 = time.perf_counter()
-            res = engine.query_batch(kms, both_strands=both)
-            dt = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            res_f = engine_f.query_batch(kms, both_strands=both)
-            dt_f = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            res_m = engine_m.query_batch(kms, both_strands=both)
-            dt_m = time.perf_counter() - t0
-            check(res == res_f, f"the dsa and fused engines disagree on the "
-                  f"request of {name}")
-            check(res == res_m, f"the dsa and mark-walk engines disagree on "
-                  f"the request of {name}")
+            took = {}
+            res = None
+            for ename, e in (("dsa", engine), ("fused", engine_f),
+                             *walk_engines.items()):
+                t0 = time.perf_counter()
+                got = e.query_batch(kms, both_strands=both)
+                took[ename] = time.perf_counter() - t0
+                if res is None:
+                    res = got
+                check(got == res, f"the dsa and {ename} engines disagree on "
+                      f"the request of {name}")
             reads_served[name] = res
-            log(f"/reads request of {name} queries: dsa engine "
-                f"{dt * 1e3:.3f} ms, fused engine {dt_f * 1e3:.3f} ms, "
-                f"mark-walk engine {dt_m * 1e3:.3f} ms, "
-                f"{sum(len(r.hits) for r in res)} hits, "
+            log(f"/reads request of {name} queries: " + ", ".join(
+                f"{ename} engine {dt * 1e3:.3f} ms"
+                for ename, dt in took.items())
+                + f", {sum(len(r.hits) for r in res)} hits, "
                 f"{sum(r.hits_truncated for r in res)} truncated, answers "
                 f"equal")
         launches = read_launches("reads")
-        for name in ("resolve_dsa", "resolve_fused", "rank_occ"):
+        for name in ("resolve_dsa", "resolve_fused", "resolve_walk"):
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the reads path")
+        check(launches["rank_occ"] == 0, "K1's generic entry launched on "
+              "the reads path: a walk ran its plain form")
         t0 = time.perf_counter()
         mat = np.stack(corpus.reads)
         fwd = np.concatenate([q1, q256[:63], q4096[:32]])
@@ -800,18 +896,23 @@ def run(args) -> dict:
         ceng.warmup()
         ceng_f = QueryEngine(cpacked, cfg_f, device=dev)
         ceng_f.warmup()
+        ceng_m = QueryEngine(cpacked, dataclasses.replace(
+            cfg, drop_tiers=("dsa", "fused", "lf")), device=dev)
+        ceng_m.warmup()
         log(f"cohort engines (dsa: {sorted(ceng.tier_plan.keep)}; fused: "
-            f"{sorted(ceng_f.tier_plan.keep)}) up and warm in "
+            f"{sorted(ceng_f.tier_plan.keep)}; marks: "
+            f"{sorted(ceng_m.tier_plan.keep)}) up and warm in "
             f"{time.perf_counter() - t0:.3f}s")
-        check(ceng.index.dsa is not None and ceng_f.index.dsa is None
-              and ceng_f.index.fused_rows is not None,
-              "the cohort engines do not walk dsa and fused")
+        check([resolve.walk_kind(e.index) for e in (ceng, ceng_f, ceng_m)]
+              == ["dsa", "fused", "marks"],
+              "the cohort engines do not walk dsa, fused and marks")
         cpool = simulate.sample_query_kmers_fast(
             cohort, 4096 + 256, KMER, seed=args.seed + 3, miss_frac=0.1)
         c256, c4096 = cpool[:256], cpool[256:]
         ckms = decode_all(c256)
         answers = {}
-        for ename, eng in (("dsa", ceng), ("fused", ceng_f)):
+        for ename, eng in (("dsa", ceng), ("fused", ceng_f),
+                           ("marks", ceng_m)):
             k7 = KERNELS["exact_histogram"].launches
             for tier, hits in (("hist", False), ("full", True)):
                 t0 = time.perf_counter()
@@ -820,30 +921,36 @@ def run(args) -> dict:
                     f"walk): {(time.perf_counter() - t0) * 1e3:.3f} ms")
             check(KERNELS["exact_histogram"].launches > k7,
                   f"K7 did not launch through the {ename} walk")
-        check(answers["dsa", "hist"] == answers["fused", "hist"]
-              and answers["dsa", "full"] == answers["fused", "full"],
-              "the dsa and fused cohort engines disagree")
+        for ename in ("fused", "marks"):
+            check(answers["dsa", "hist"] == answers[ename, "hist"]
+                  and answers["dsa", "full"] == answers[ename, "full"],
+                  f"the dsa and {ename} cohort engines disagree")
         key = lambda r: (r.count, r.sample_hist, r.sample_hist_complete)  # noqa: E731
         check([key(r) for r in answers["dsa", "hist"]]
               == [key(r) for r in answers["dsa", "full"]],
               "histogram-only and full answers disagree")
         launches = read_launches("samples")
-        for name in ("exact_histogram", "resolve_fused"):
+        for name in ("exact_histogram", "resolve_fused", "resolve_walk"):
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the samples path")
+        check(launches["rank_occ"] == 0, "K1's generic entry launched on "
+              "the samples path: a walk ran its plain form")
         t0 = time.perf_counter()
         cmat = np.stack(cohort.reads)
         want_c = hit_oracle(cmat, c256[:96])
         del cmat
         names = cpacked.sample_names
-        for res, w in zip(answers["dsa", "hist"][:96], want_c):
-            rids = np.fromiter((r for r, _ in w), dtype=np.int64)
-            per = np.bincount(cohort.sample_ids[rids], minlength=128)
-            want_hist = {names[i]: int(c) for i, c in enumerate(per) if c}
-            check(res.count == len(w) and res.sample_hist == want_hist
-                  and res.sample_hist_complete,
-                  f"{res.kmer}: histogram differs from the oracle")
-        log(f"oracle histograms: 96 cohort queries exact and complete "
+        for ename in ("dsa", "marks"):
+            for res, w in zip(answers[ename, "hist"][:96], want_c):
+                rids = np.fromiter((r for r, _ in w), dtype=np.int64)
+                per = np.bincount(cohort.sample_ids[rids], minlength=128)
+                want_hist = {names[i]: int(c) for i, c in enumerate(per) if c}
+                check(res.count == len(w) and res.sample_hist == want_hist
+                      and res.sample_hist_complete,
+                      f"{res.kmer}: the {ename} engine's histogram differs "
+                      f"from the oracle")
+        log(f"oracle histograms: 96 cohort queries exact and complete on the "
+            f"dsa and the marks engine "
             f"({sum(len(w) for w in want_c)} windows over "
             f"{len({s for r in answers['dsa', 'hist'][:96] for s in r.sample_hist})}"
             f" samples) in {time.perf_counter() - t0:.3f}s")
@@ -896,6 +1003,7 @@ def run(args) -> dict:
     batches = {256: decode_all(q256),
                8192: engine._expand_rc(decode_all(q4096))[0]}
     cbatches = {256: ckms, 8192: ceng._expand_rc(decode_all(c4096))[0]}
+    WALK_FORMS = walk_forms()
     with phase("6 kernel vs plain"):
         n, S = idx.n, idx.block_size
         k1_err = 0
@@ -917,8 +1025,9 @@ def run(args) -> dict:
             k1_err = max(k1_err, err)
             log(f"K1 {tname}: {len(ii)} ranks, max |err| {err}")
             check(err == 0, f"K1 disagrees with the plain rank on {tname}")
-        # K1's generic entry at the main path's shape: the first step of
-        # the mark walk over the engine's 8192-wide batch (compacted rows)
+        # K1's generic entry at the shape the mark walk gave it until the
+        # walk kernel took its ranks over: the first step of the mark walk
+        # over the engine's 8192-wide batch (compacted rows)
         idx_m = engine_m.index
         ml, mu = intervals(engine_m, batches[8192])
         rows, valid, _ = resolve.expand_intervals(ml, mu, H)
@@ -1129,6 +1238,64 @@ def run(args) -> dict:
         log(f"K6 full budget ({len(fb)} {kf}-mers): {frows.shape[0]} rows, "
             f"all walking, max |err| {err}")
         check(err == 0, "K6 disagrees with the plain form at a full budget")
+        # the rank walks (marks, lf, slow) on the compacted rows of the
+        # E. coli batch of 8192 (the engines' row budget), at a full budget,
+        # with 0 valid rows and 1 slot; with the marks cleared (walks run
+        # past sample_rate and give -1) and with $ rows also marked, on
+        # every row of the first 2^20 and the batch's rows; the slow walk
+        # bounded below the longest read
+        walk_idx = {"marks": engine_m.index,
+                    "lf": walk_engines["lf"].index,
+                    "slow": walk_engines["slow"].index}
+        wrows8, wvalid8 = mrows, mvalid  # K1's check's compacted rows
+        erows = torch.cat([torch.arange(1 << 20, dtype=torch.int32,
+                                        device=dev), wrows8])
+        evalid = torch.ones_like(erows, dtype=torch.bool)
+        kw_err = 0
+        for kind, widx in walk_idx.items():
+            walk, plain = WALK_FORMS[kind]
+            W = widx.words_per_block
+            cases = [("width 8192", widx, wrows8, wvalid8, {}),
+                     ("full budget", widx, frows, fvalid, {}),
+                     ("0 valid", widx, wrows8[:1000],
+                      torch.zeros(1000, dtype=torch.bool, device=dev), {}),
+                     ("1 slot", widx, frows[:1], fvalid[:1], {})]
+            if kind == "slow":
+                cases.append(("max_steps below the longest read", widx,
+                              erows, evalid,
+                              {"max_steps": widx.max_read_len // 2}))
+            else:
+                dm = widx.mark_rank.clone()
+                dm[:, 1:1 + W] |= widx.rank_rows[:widx.rows_per_symbol,
+                                                 1:1 + W]
+                cleared = dict(mark_rank=torch.zeros_like(widx.mark_rank))
+                dollar = dict(mark_rank=dm)
+                if kind == "lf":
+                    cleared["lf"] = widx.lf & 0x7FFFFFFF
+                    dollar["lf"] = torch.where(
+                        (widx.lf & 0x7FFFFFFF) < widx.C[1],
+                        widx.lf | (-(1 << 31)), widx.lf)
+                cases += [("marks cleared",
+                           dataclasses.replace(widx, **cleared), erows,
+                           evalid, {}),
+                          ("$ rows marked",
+                           dataclasses.replace(widx, **dollar), erows,
+                           evalid, {})]
+            for cname, v, r, vv, kw in cases:
+                got = walk(v, r, vv, **kw)
+                err = max_err(zip(got, plain(v, r, vv, **kw)))
+                kw_err = max(kw_err, err)
+                log(f"rank walk {kind}, {cname}: {r.shape[0]} rows "
+                    f"({int(vv.sum())} valid), {int((got[0] < 0).sum())} "
+                    f"give -1, max |err| {err}")
+                check(err == 0, f"the {kind} walk kernel disagrees with its "
+                      f"plain form: {cname}")
+                if cname == "marks cleared":
+                    check(bool((got[1] == widx.sample_rate - 1).any())
+                          and bool((got[0][vv] < 0).any()),
+                          f"no {kind} walk reached the sample_rate bound")
+            del cases
+        summary["kw_err"] = kw_err
         # K7 at a cap-filling batch: 8192 cohort 8-mers, whose worklist the
         # engine's max_sweep_rows cuts
         kc = fill_k(ceng.index.n, 256)
@@ -1139,7 +1306,16 @@ def run(args) -> dict:
         cap_total = int((cap_u - cap_l).long().sum())
         check(cap_total > cfg.max_sweep_rows, f"the 8-mer batch's worklist "
               f"({cap_total}) does not pass the cap")
-        for wname, cidx in (("dsa", ceng.index), ("fused", ceng_f.index)):
+        hist_idx = {"dsa": ceng.index, "fused": ceng_f.index,
+                    "marks": ceng_m.index,
+                    "lf": DeviceIndex.from_packed(cpacked, dev,
+                                                  tiers={"marks", "lf"}),
+                    "slow": DeviceIndex.from_packed(cpacked, dev,
+                                                    tiers=set())}
+        check(all(resolve.walk_kind(x) == k for k, x in hist_idx.items()),
+              "a cohort index does not walk its kind")
+        for wname in ("dsa", "fused", "marks"):
+            cidx = hist_idx[wname]
             got = resolve.exact_sample_histogram(cidx, cap_l, cap_u, 8 * 8192,
                                                  cfg.max_sweep_rows)
             err = max_err(zip(got, resolve.exact_sample_histogram_plain(
@@ -1152,7 +1328,7 @@ def run(args) -> dict:
                   f"cap-filling batch ({wname})")
         for width, kms in cbatches.items():
             l, u = intervals(ceng, kms)
-            for wname, cidx in (("dsa", ceng.index), ("fused", ceng_f.index)):
+            for wname, cidx in hist_idx.items():
                 for window, max_rows in ((8 * width, 1 << 20), (64, 100)):
                     got = resolve.exact_sample_histogram(cidx, l, u, window,
                                                          max_rows)
@@ -1333,8 +1509,8 @@ def run(args) -> dict:
 
         # K1's generic entry: random positions, the LUT's last level's
         # ranks (the same work as the level entry's last launch), and the
-        # mark walk's first step (its main path, the shape in the kernels
-        # line)
+        # mark walk's first step (the shape in the kernels line; no main
+        # path launches K1 since the walk kernel ranks for the walks)
         l_last, u_last = levels[-1]
         cc = torch.arange(1, 5, dtype=torch.int32, device=dev)
         cc = cc.repeat_interleave(l_last.numel())
@@ -1374,6 +1550,28 @@ def run(args) -> dict:
                 f"{fmt_ms(dev_ms)} ms | plain torch {tp:.4f} ms | needs {nb} "
                 f"B: bound {bound_ms(nb):.4f} ms, device time at "
                 f"{ratio(bound_ms(nb), dev_ms)} of the bound | {card}")
+            if table is idx.rank_rows and c_t is rnd_c:
+                # the 32-byte sectors the random ranks touch, and the rate
+                # of random sector reads: torch's index_select of one word
+                # from each of the same sectors (a yardstick, no path's)
+                rrow = (c_t.long() * lay["rows_per_symbol"]
+                        + (i_t >> lay["log2_block"]).long())
+                sec = rrow * table.shape[1] * 4 // 32
+                n_sec = distinct(sec)
+                words = (sec * 8).contiguous()
+                flat = table.view(-1)
+                yard = lambda: flat.index_select(0, words)  # noqa: E731
+                yard()
+                y_ms = kernel_device_ms(yard, iters, "")
+                sb = c_t.numel() * 12 + n_sec * 32
+                log(f"K1 generic entry at {what}: {n_sec} distinct 32-byte "
+                    f"sectors ({n_sec / c_t.numel():.4f} a rank): sector "
+                    f"bound {bound_ms(sb):.4f} ms, device time at "
+                    f"{ratio(bound_ms(sb), dev_ms)} of it | random-sector "
+                    f"yardstick (torch index_select, one word from each of "
+                    f"the same {c_t.numel()} sectors) device "
+                    f"{fmt_ms(y_ms)} ms, K1 at {ratio(y_ms, dev_ms)} of its "
+                    f"rate | {card}")
         summary["backward_search"] = k2_t[B_TIME]
 
         # K5-K7 at width 8192: the E. coli 4096-on-both-strands batch (K5 on
@@ -1414,20 +1612,33 @@ def run(args) -> dict:
         rid = resolve.resolve_dsa_hits_plain(idx, l, u, H)[0]
         hist_io = 8192 * (9 + 4 * ceng._ns)
 
-        def hist_needs(wr):
-            """K7's (bytes, chain) for the worklist rows ``wr``, each walk
-            one more read for its sample: through dsa, then fused."""
+        def hist_needs(wr, kinds):
+            """K7's (bytes, chain) for the worklist rows ``wr`` through
+            each walk of ``kinds``, each walk one more read for its
+            sample."""
             wv = torch.ones_like(wr, dtype=torch.bool)
             rids = distinct(resolve.resolve_rows_dsa_plain(ceng.index, wr,
                                                            wv)[0]) * 4
-            fb, fc = fused_walk_needs(ceng_f.index, wr, wv)
-            return ((hist_io + distinct(wr) * 4 + rids, 2),
-                    (hist_io + rids + fb, fc + 1))
+            out = {"dsa": (hist_io + distinct(wr) * 4 + rids, 2)}
+            for kind in kinds:
+                if kind == "fused":
+                    wb, wc = fused_walk_needs(ceng_f.index, wr, wv)
+                else:
+                    wb, wc = rank_walk_needs(hist_idx[kind], kind, wr, wv)
+                out[kind] = (hist_io + rids + wb, wc + 1)
+            return out
 
         k6b, k6c = fused_walk_needs(idx_f, crow, cval)
         fbb, fbc = fused_walk_needs(idx_f, frows, fvalid)
-        (h_b, h_c), (hf_b, hf_c) = hist_needs(wrows)
-        (c_b, c_c), (cf_b, cf_c) = hist_needs(caprows)
+        hn = hist_needs(wrows, ("fused", "marks", "lf", "slow"))
+        (h_b, h_c), (hf_b, hf_c) = hn["dsa"], hn["fused"]
+        cn = hist_needs(caprows, ("fused", "marks"))
+        (c_b, c_c), (cf_b, cf_c) = cn["dsa"], cn["fused"]
+        walk_needs = {
+            kind: rank_walk_needs(widx, kind, crow, cval)
+            for kind, widx in walk_idx.items()}
+        walk_needs["full"] = rank_walk_needs(engine_m.index, "marks", frows,
+                                             fvalid)
         needs = {  # name → (bytes, chain of dependent reads or None)
             "resolve_dsa": (8192 * 8 + distinct(rows[valid]) * 4
                             + distinct(rid[rid >= 0]) * 4 + 3 * 8192 * H * 4,
@@ -1438,6 +1649,20 @@ def run(args) -> dict:
             "resolve_fused (full budget)": (frows.numel() * 13 + fbb, fbc),
             "exact_histogram (cap-filling)": (c_b, c_c),
             "exact_histogram (cap-filling, fused walk)": (cf_b, cf_c),
+            "resolve_walk": (crow.numel() * 13 + walk_needs["marks"][0],
+                             walk_needs["marks"][1]),
+            "resolve_walk (lf)": (crow.numel() * 13 + walk_needs["lf"][0],
+                                  walk_needs["lf"][1]),
+            "resolve_walk (slow)": (crow.numel() * 13
+                                    + walk_needs["slow"][0],
+                                    walk_needs["slow"][1]),
+            "resolve_walk (full budget)": (frows.numel() * 13
+                                           + walk_needs["full"][0],
+                                           walk_needs["full"][1]),
+            "exact_histogram (marks walk)": hn["marks"],
+            "exact_histogram (lf walk)": hn["lf"],
+            "exact_histogram (slow walk)": hn["slow"],
+            "exact_histogram (cap-filling, marks walk)": cn["marks"],
         }
 
         def k7_case(name, cidx, hl, hu, what):
@@ -1471,6 +1696,32 @@ def run(args) -> dict:
                     f"{cap_total} worklist rows"),
             k7_case("exact_histogram (cap-filling, fused walk)", ceng_f.index,
                     cap_l, cap_u, f"8192 {kc}-mers, fused walk"),
+        ]
+        # the rank walks on the same compacted rows as K6 (the mark walk's
+        # is the main path's shape), the mark walk at a full budget, and K7
+        # through each; their plain forms run torch and K1 a step on the card
+        # (torch a step, K1 for its ranks)
+        for kind, widx in walk_idx.items():
+            walk, plain = WALK_FORMS[kind]
+            name = "resolve_walk" + ("" if kind == "marks" else f" ({kind})")
+            cases.append((name, "resolve_walk_kernel",
+                          lambda w=walk, x=widx: w(x, crow, cval),
+                          lambda p=plain, x=widx: p(x, crow, cval),
+                          f"{kind} walk, width 8192, {crow.shape[0]} "
+                          f"compacted rows, {int(cval.sum())} valid"))
+        cases += [
+            ("resolve_walk (full budget)", "resolve_walk_kernel",
+             lambda: resolve.resolve_rows_marked(engine_m.index, frows,
+                                                 fvalid),
+             lambda: resolve.resolve_rows_marked_plain(engine_m.index, frows,
+                                                       fvalid),
+             f"marks walk, {frows.shape[0]} rows, all walking"),
+            *(k7_case(f"exact_histogram ({kind} walk)", hist_idx[kind], cl,
+                      cu, f"cohort width 8192, {kind} walk")
+              for kind in ("marks", "lf", "slow")),
+            k7_case("exact_histogram (cap-filling, marks walk)",
+                    hist_idx["marks"], cap_l, cap_u,
+                    f"8192 {kc}-mers, marks walk"),
         ]
         for name, kname, kern, plain, what in cases:
             check(max_err(zip(kern(), plain())) == 0,
@@ -1526,16 +1777,49 @@ def run(args) -> dict:
             f"it | {card}")
         request_breakdown(engine, decode_all(q4096), "count")
         request_breakdown(engine, decode_all(q4096), "reads")
+        request_breakdown(engine_m, decode_all(q4096), "reads")
         request_breakdown(ceng, decode_all(c4096), "samples")
+        # the mark-walk engine's /reads requests through the walk kernel
+        # and through the plain walk (torch and K1 a step), in turns whose
+        # order rotates, beside the dsa engine's; the garbage collector runs
+        # before each, so that no turn pays for another's hit objects
+        marks_walks = resolve._WALKS["marks"]
+        for name, qs, both in (("1", q1, False), ("256", q256, False),
+                               ("4096x2", q4096, True)):
+            kms = decode_all(qs)
+            t = {"dsa": [], "kernel": [], "plain walk": []}
+            order = list(t)
+            for rep in range(6):
+                for tname in order[rep % 3:] + order[:rep % 3]:
+                    e = engine if tname == "dsa" else engine_m
+                    gc.collect()
+                    resolve._WALKS["marks"] = (
+                        marks_walks[1] if tname == "plain walk"
+                        else marks_walks[0], marks_walks[1])
+                    try:
+                        t0 = time.perf_counter()
+                        got = e.query_batch(kms, both_strands=both)
+                        t[tname].append((time.perf_counter() - t0) * 1e3)
+                    finally:
+                        resolve._WALKS["marks"] = marks_walks
+                    check(got == reads_served[name], f"the {tname} path "
+                          f"disagrees on the /reads request of {name}")
+            log(f"/reads request of {name} queries, median of 6 in turns: "
+                + ", ".join(f"{k} {float(np.median(v)):.3f} ms"
+                            for k, v in t.items())
+                + " (mark-walk engine: the walk kernel, and the plain walk,"
+                f" torch and K1 a step) | {card}")
         log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
             f" GiB")
 
     # launches: summed over the main-path phases (count, reads, samples,
-    # REST), each counted from 0
+    # REST), each counted from 0.  K1's generic entry is on no main path:
+    # the walks that ranked through it run in the walk kernel; it stays
+    # held against its plain form and timed (phases 6 and 7)
     total = {name: sum(c[name] for c in path_launches.values())
              for name in KERNELS}
-    check(all(total.values()), f"a kernel never launched on a main path: "
-          f"{total}")
+    check(all(n for name, n in total.items() if name != "rank_occ"),
+          f"a kernel never launched on a main path: {total}")
     where = {
         "rank_occ": ("rank.cu", "readserver_tpu/kernels/pallas_rank.py:144",
                      "k1_err"),
@@ -1546,6 +1830,8 @@ def run(args) -> dict:
                         "k5_err"),
         "resolve_fused": ("resolve.cu", "readserver_tpu/ops/resolve.py:295",
                           "k6_err"),
+        "resolve_walk": ("resolve.cu", "readserver_tpu/ops/resolve.py:165",
+                         "kw_err"),
         "exact_histogram": ("resolve.cu",
                             "readserver_tpu/ops/resolve.py:426", "k7_err"),
     }

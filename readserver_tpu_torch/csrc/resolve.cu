@@ -1,5 +1,5 @@
-// K5-K7: resolve SA rows to (read id, offset), and exact per-sample
-// histograms over whole query intervals.
+// K5-K7 and the rank walks: resolve SA rows to (read id, offset), and exact
+// per-sample histograms over whole query intervals.
 //
 // Replaces the XLA loops of readserver_tpu/ops/resolve.py, which the JAX
 // package never wrote in Pallas:
@@ -8,19 +8,26 @@
 //                          (serve/engine.py:548-561);
 //   K6 rs_resolve_fused    resolve_rows_fused + _fused_step_fields
 //                          (258-342);
-//   K7 rs_exact_histogram  exact_sample_histogram (426-499).
-// The JAX lanes step in lockstep with frozen `done` lanes; here a lane
-// carries its row through the walk and stops at its terminal, which gives
-// the same answers.
+//   rs_resolve_walk        the walks that rank through K1's table layout
+//                          (rank.cuh): resolve_rows_marked (165),
+//                          resolve_rows_fast (91, the lf walk) and
+//                          resolve_rows (24, the slow walk);
+//   K7 rs_exact_histogram  exact_sample_histogram (426-499), through any of
+//                          the five walks.
+// The JAX lanes step in lockstep with frozen `done` lanes, one XLA gather (or
+// K1 launch) per table a step; here a lane carries its row through the whole
+// walk and stops at its terminal, which gives the same answers.  This is the
+// fusion across steps that the TPU design ruled out
+// (kernels/pallas_rank.py:23-27).
 //
 // What bounds them on the H100.  K5 is one random 4-byte read per hit lane:
-// bytes.  K6, and K7 through the fused walk, are chains of up to
-// sample_rate dependent 64-byte row reads and one terminal read, over tens
+// bytes.  The walks, and K7 through them, are chains of up to sample_rate
+// (slow walk: max_steps) dependent row reads and one terminal read, over tens
 // to hundreds of thousands of walks that share rows: the chain (one read's
-// latency, ~0.24 us from L2, times ~33 reads) and the instructions each
-// step issues, until the walks outnumber the lanes the card holds at once.
-// K7 through dsa is a short chain per slot (its query, its dsa word, its
-// sample) and, at a full worklist, the rate of those reads.
+// latency, ~0.25 us from L2, times the reads a walk makes) and the
+// instructions each step issues, until the walks outnumber the lanes the
+// card holds at once.  K7 through dsa is a short chain per slot (its query,
+// its dsa word, its sample) and, at a full worklist, the rate of those reads.
 //
 // What the design does about it:
 // - A persistent grid (occupancy x SMs; 64 registers a thread, so nothing
@@ -28,14 +35,27 @@
 //   so one query's neighbouring rows stay in one warp and share sectors.
 //   No counter: claiming through one atomicAdd measured slower, its queue
 //   standing in the walks' way.
-// - K6 and K7's fused walk: tiles of 32, and lane refill: a lane whose walk
-//   ended takes its warp's next slot, so lanes stay busy when the walks
-//   outnumber resident threads.  One read per lane per iteration: a walk's
-//   terminal read (its sampled pair or dollar_map entry) and K7's
-//   read_to_sample read are lane states of their own, issued beside the
-//   other lanes' row reads rather than after them.  C in registers, and
-//   W <= 2's bit planes as 64-bit words, so a row's decode is a few
-//   shifts, masks and popcounts from its arrival to the next address.
+// - The walks: tiles of 32, and lane refill: a lane whose walk ended takes
+//   its warp's next slot, so lanes stay busy when the walks outnumber
+//   resident threads.  Each iteration a lane issues the reads of its state
+//   before any lane uses one: a walk's terminal read (its sampled pair or
+//   dollar_map entry) and K7's read_to_sample read are lane states of their
+//   own, issued beside the other lanes' row reads rather than after them.
+//   C in registers.
+// - The fused walk: one 64-byte row a step, W <= 2's bit planes as 64-bit
+//   words, so a row's decode is a few shifts, masks and popcounts.
+// - The marks and slow walks: while a warp's walks fit its lanes, one
+//   round of independent 16-byte reads a step, the four base planes' rank
+//   rows at the row's block (and for marks the mark row).  The five planes
+//   partition the BWT, so the symbol is the base plane whose bit is set, or
+//   $ when none is, and occ($, i) = i less the four base counts: a step is
+//   one latency where the symbol read and the rank read of its plane would
+//   be two.  Once walks queue for lanes the sweep is held by the rate of
+//   sector reads, and a step takes those two rounds, the sym4 word (and
+//   mark row), then the symbol's rank row: 3 sectors where one round reads
+//   5.  Ranks count with rank.cuh's code, K1's own.
+// - The lf walk: one 4-byte LF word a step; a sampled row's slot is its
+//   mark row's rank, read as a state of its own.
 // - K7 maps a tile's slots to (query, row) once: a 128-way search of the
 //   int64 prefix sums for the tile's first query, then the sums and
 //   interval starts the tile spans, staged in the warp's shared memory and
@@ -63,22 +83,35 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kThreads = 128;   // persistent blocks of 4 warps
 constexpr int kMinBlocks = 8;   // per SM: 64 registers a thread, no spill
 
-// Everything a walk reads.  dsa: one word per SA row.  fused: rows of
-// fused_words uint32 words per block of (1 << log2_block) symbols:
-//   [occ ckpt c=0..4, mark ckpt, dollar plane, base-low plane,
-//    base-high plane, mark plane, pad]   (index/packing.pack_fused_rows)
+// The walk kinds, numbered as the entry points take them.
+enum WalkKind { kDsa = 0, kFused = 1, kMarks = 2, kLf = 3, kSlow = 4 };
+
+// Everything a walk reads; each kind reads its own tables:
+//   dsa:   one word per SA row;
+//   fused: rows of fused_words uint32 words per block of (1 << log2_block)
+//          symbols: [occ ckpt c=0..4, mark ckpt, dollar plane, base-low
+//          plane, base-high plane, mark plane, pad]
+//          (index/packing.pack_fused_rows);
+//   marks, slow: the base rank table (rank.cuh's layout, planes c = 0..4)
+//          and the sym4 words (8 symbols a word, 4 bits each);
+//   marks, lf: the mark table, one plane of that layout (pack_bit_rank);
+//   lf:    one int32 a row, the LF value with the sign bit set where sampled.
 struct Walk {
   const uint32_t* dsa;
   int dsa_bits;
   const uint32_t* fused;
   int fused_words;
-  int log2_block;
+  const uint32_t* rank;
+  const uint32_t* sym4;
+  const uint32_t* marks;
+  const int32_t* lf;
+  rs::Layout layout;  // rank and marks; its log2_block is the fused rows' too
   const int32_t* C;
   const int32_t* dollar_map;
   long long n_dollar;
   const int32_t* pairs;  // [n_pairs, 2] (read id, offset)
   long long n_pairs;
-  int sample_rate;
+  int max_steps;  // the walk's bound: sample_rate, or the slow walk's steps
 };
 
 __device__ __forceinline__ long long clip_index(long long i, long long n) {
@@ -177,6 +210,39 @@ struct FusedRow {
   }
 };
 
+// One row of rank.cuh's layout, held for a walk step.  R4: a 16-byte row
+// (row_words == 4, the default) in registers from one vector load.  Else the
+// row's address, its words read where they are counted.
+template <bool R4>
+struct RankRow {
+  uint4 v;
+  __device__ __forceinline__ void load(const uint32_t* r) {
+    v = __ldg(reinterpret_cast<const uint4*>(r));
+  }
+  // the checkpoint plus the plane's set bits before `within`
+  __device__ __forceinline__ int32_t count(int within, int wpb) const {
+    return rs::count_row4(v, within, wpb);
+  }
+  // the plane's bit at `within`
+  __device__ __forceinline__ uint32_t bit(int within) const {
+    const int k = within >> 5;
+    const uint32_t w = k == 0 ? v.y : (k == 1 ? v.z : v.w);
+    return (w >> (within & 31)) & 1u;
+  }
+};
+
+template <>
+struct RankRow<false> {
+  const uint32_t* r;
+  __device__ __forceinline__ void load(const uint32_t* p) { r = p; }
+  __device__ __forceinline__ int32_t count(int within, int wpb) const {
+    return rs::count_row(r, within, wpb);
+  }
+  __device__ __forceinline__ uint32_t bit(int within) const {
+    return (__ldg(r + 1 + (within >> 5)) >> (within & 31)) & 1u;
+  }
+};
+
 // ------------------------------------------------------------------ K5
 
 __global__ void resolve_dsa_kernel(const int32_t* __restrict__ l,
@@ -208,14 +274,13 @@ __global__ void resolve_dsa_kernel(const int32_t* __restrict__ l,
   }
 }
 
-// ------------------------------------------------------------ K6 and K7
+// ------------------------------------------------- the sweep: walks and K7
 
-// What a sweep walks: K6 the rows of slots 0..R-1 where valid; K7 the
-// worklist of the concatenated intervals, up to min(total, cap).
-enum Kind { kFusedRows = 0, kHistDsa = 1, kHistFused = 2 };
-
+// What a sweep gives: the walk kernels (K6, rs_resolve_walk) write (read id,
+// offset) for the rows of slots 0..R-1 where valid; K7 counts the worklist
+// of the concatenated intervals, up to min(total, cap).
 struct Sweep {
-  const int32_t* rows;  // K6
+  const int32_t* rows;  // the walk kernels
   const uint8_t* valid;
   long long R;
   int32_t* rid_out;
@@ -230,8 +295,10 @@ struct Sweep {
   int32_t* hist;
 };
 
-// A lane's state: the one read it issues next.
-enum State { kIdle = 0, kRow, kPair, kDollar, kSample };
+// A lane's state: the read it issues next.  kRow: the walk's step from its
+// row; kRank: the rank row of the symbol just read (two-round steps);
+// kMark: a sampled row's mark row (the lf walk's slot rank).
+enum State { kIdle = 0, kRow, kPair, kDollar, kSample, kRank, kMark };
 
 // position of the n-th (from 0) set bit of m; n < popc(m)
 __device__ __forceinline__ int nth_set(unsigned m, int n) {
@@ -376,38 +443,29 @@ __device__ __forceinline__ void dsa_tiles(const Walk& g, const Sweep& s,
   }
 }
 
-template <int KIND, int W>
-__device__ __forceinline__ void sweep(const Walk& g, const Sweep& s) {
-  using Row = FusedRow<W>;
-  const int lane = threadIdx.x & 31;
+// The walks of the sweep's slots up to `limit`, warp w taking tiles w,
+// w + nwarps, ...: walk WALK; HIST: K7 (else a walk kernel).  L: the fused
+// walk's words per block; for the rank walks 1 when rows are 16 bytes, 0
+// when they are read word by word.  ONE: the marks and slow walks' step in
+// one round (else two; see sweep).
+template <int WALK, bool HIST, int L, bool ONE>
+__device__ __forceinline__ void walk_tiles(const Walk& g, const Sweep& s,
+                                           long long limit, long long warp,
+                                           long long nwarps, int lane) {
+  constexpr bool kTwoRounds = (WALK == kMarks || WALK == kSlow) && !ONE;
   const unsigned lower = (1u << lane) - 1u;
-  const long long nwarps = static_cast<long long>(gridDim.x) * (kThreads / 32);
-  const long long warp =
-      static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
-  long long limit = s.R;
-  if (KIND != kFusedRows) {
-    const long long total = __ldg(s.cum + s.B - 1);
-    limit = s.cap < 0 ? total : (total < s.cap ? total : s.cap);
-  }
-
-  if constexpr (KIND == kHistDsa) {
-    // tiles of 32 while no warp has more than one, else of 128
-    if (limit <= nwarps * 32) {
-      dsa_tiles<1>(g, s, limit, warp, nwarps, lane);
-    } else {
-      dsa_tiles<4>(g, s, limit, warp, nwarps, lane);
-    }
-    return;
-  }
-
+  using Row = FusedRow<WALK == kFused ? L : 1>;
+  using RRow = RankRow<L != 0>;
   // C[1..4] in registers (c = 0 ends a walk and needs none)
   const int32_t C1 = __ldg(g.C + 1), C2 = __ldg(g.C + 2),
                 C3 = __ldg(g.C + 3), C4 = __ldg(g.C + 4);
-  const int32_t block_mask = (1 << g.log2_block) - 1;
+  const int lg = g.layout.log2_block;
+  const int32_t block_mask = (1 << lg) - 1;
   int st = kIdle;
-  int32_t cur = 0;       // kRow: the SA row
+  int32_t cur = 0;       // kRow, kRank, kMark: the SA row
   int steps = 0;
-  long long slot = 0;    // K6: the output slot; K7: the query
+  int sym = 0;           // kRank: the symbol whose rank row it reads
+  long long slot = 0;    // walk kernels: the output slot; K7: the query
   long long tidx = 0;    // kPair, kDollar, kSample: the index read
   unsigned pending = 0;  // claimed slots not started, one per lane
   long long p_slot = 0;
@@ -429,7 +487,7 @@ __device__ __forceinline__ void sweep(const Walk& g, const Sweep& s) {
         }
         const long long sl = base + lane;
         const bool in = sl < limit;
-        if (KIND == kFusedRows) {
+        if (!HIST) {
           const uint8_t v = in ? s.valid[sl] : 0;
           p_row = in ? __ldg(s.rows + sl) : 0;
           p_slot = sl;
@@ -467,54 +525,121 @@ __device__ __forceinline__ void sweep(const Walk& g, const Sweep& s) {
     }
     if (!__any_sync(kFull, st != kIdle)) break;
 
-    // ---- one read per lane
+    // ---- the lane's reads, all issued before any is used
     Row row;
+    RRow base[4];  // marks, slow: the base planes c = 1..4 at the block
+    RRow mrow;     // marks, and lf's kMark: the mark row at the block
     int2 pr = make_int2(0, 0);
     uint32_t word = 0;
     if (st == kRow) {
-      row.load(g.fused + static_cast<size_t>(cur >> g.log2_block) *
-                             static_cast<size_t>(g.fused_words));
+      const int32_t blk = cur >> lg;
+      if constexpr (WALK == kFused) {
+        row.load(g.fused + static_cast<size_t>(blk) *
+                               static_cast<size_t>(g.fused_words));
+      } else if constexpr (WALK == kLf) {
+        word = static_cast<uint32_t>(__ldg(g.lf + cur));
+      } else {
+        if constexpr (ONE) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            base[c].load(rs::row_ptr(g.rank, c + 1, blk, g.layout));
+          }
+        } else {
+          word = __ldg(g.sym4 + (cur >> 3));
+        }
+        if constexpr (WALK == kMarks) {
+          mrow.load(rs::row_ptr(g.marks, 0, blk, g.layout));
+        }
+      }
     } else if (st == kPair) {
       pr = __ldg(reinterpret_cast<const int2*>(g.pairs) + tidx);
     } else if (st == kDollar) {
       word = static_cast<uint32_t>(__ldg(g.dollar_map + tidx));
     } else if (st == kSample) {
       word = static_cast<uint32_t>(__ldg(s.read_to_sample + tidx));
+    } else if (kTwoRounds && st == kRank) {
+      base[0].load(rs::row_ptr(g.rank, sym, cur >> lg, g.layout));
+    } else if (WALK == kLf && st == kMark) {
+      mrow.load(rs::row_ptr(g.marks, 0, cur >> lg, g.layout));
     }
 
-    // ---- what it gives
+    // ---- what they give.  A walk ends at a marked row (its sampled pair,
+    // marked wins) or a $ (occ($, cur) is the $-rank, the dollar_map key),
+    // else it steps; a walk still going after max_steps steps gives -1, as
+    // the JAX loop's undone lanes do
     int32_t rid = 0, off = 0;
     bool ended = false;
+    const int wpb = g.layout.words_per_block;
     if (st == kRow) {
-      // at most sample_rate steps; the first row that is marked or holds
-      // a $ ends the walk (marked wins)
       const int within = cur & block_mask;
-      if (row.template bit<Row::MARK>(within)) {
+      if constexpr (WALK == kFused) {
+        if (row.template bit<Row::MARK>(within)) {
+          st = kPair;
+          tidx = clip_index(static_cast<int32_t>(
+                                row.w[5] + row.template pop<Row::MARK>(within)),
+                            g.n_pairs);
+        } else if (row.template bit<Row::DOLLAR>(within)) {
+          st = kDollar;
+          tidx = clip_index(static_cast<int32_t>(
+                                row.w[0] + row.template pop<Row::DOLLAR>(within)),
+                            g.n_dollar);
+        } else {
+          const uint32_t lo = row.template bit<Row::LO>(within);
+          const uint32_t hi = row.template bit<Row::HI>(within);
+          const int32_t a1 = C1 + static_cast<int32_t>(row.w[1]);
+          const int32_t a2 = C2 + static_cast<int32_t>(row.w[2]);
+          const int32_t a3 = C3 + static_cast<int32_t>(row.w[3]);
+          const int32_t a4 = C4 + static_cast<int32_t>(row.w[4]);
+          cur = (hi ? (lo ? a4 : a3) : (lo ? a2 : a1)) +
+                static_cast<int32_t>(row.base_pop(lo, hi, within));
+          if (++steps == g.max_steps) {
+            rid = -1;
+            off = -1;
+            ended = true;
+          }
+        }
+      } else if constexpr (WALK == kLf) {
+        // sign bit: sampled; an LF value below C[1] is a $ row's $-rank
+        const int32_t raw = static_cast<int32_t>(word);
+        if (raw < 0) {
+          st = kMark;
+        } else if (raw < C1) {
+          st = kDollar;
+          tidx = clip_index(raw, g.n_dollar);
+        } else {
+          cur = raw;
+          if (++steps == g.max_steps) {
+            rid = -1;
+            off = -1;
+            ended = true;
+          }
+        }
+      } else if (WALK == kMarks && mrow.bit(within)) {
         st = kPair;
-        tidx = clip_index(static_cast<int32_t>(
-                              row.w[5] + row.template pop<Row::MARK>(within)),
-                          g.n_pairs);
-      } else if (row.template bit<Row::DOLLAR>(within)) {
-        // occ($, cur) is the $-rank, the dollar_map key
-        st = kDollar;
-        tidx = clip_index(static_cast<int32_t>(
-                              row.w[0] + row.template pop<Row::DOLLAR>(within)),
-                          g.n_dollar);
+        tidx = clip_index(mrow.count(within, wpb), g.n_pairs);
+      } else if constexpr (kTwoRounds) {
+        sym = (word >> ((cur & 7) * 4)) & 0xF;
+        st = kRank;
       } else {
-        const uint32_t lo = row.template bit<Row::LO>(within);
-        const uint32_t hi = row.template bit<Row::HI>(within);
-        const int32_t a1 = C1 + static_cast<int32_t>(row.w[1]);
-        const int32_t a2 = C2 + static_cast<int32_t>(row.w[2]);
-        const int32_t a3 = C3 + static_cast<int32_t>(row.w[3]);
-        const int32_t a4 = C4 + static_cast<int32_t>(row.w[4]);
-        cur = (hi ? (lo ? a4 : a3) : (lo ? a2 : a1)) +
-              static_cast<int32_t>(row.base_pop(lo, hi, within));
-        if (++steps == g.sample_rate) {
-          // not ended within sample_rate steps: -1, as the JAX loop's
-          // undone lanes give
-          rid = -1;
-          off = -1;
-          ended = true;
+        const uint32_t b1 = base[0].bit(within), b2 = base[1].bit(within),
+                       b3 = base[2].bit(within);
+        if ((b1 | b2 | b3 | base[3].bit(within)) == 0) {
+          // $: the five planes partition the BWT, so occ($, cur) is cur
+          // less the four base planes' counts
+          const int32_t o0 = cur - base[0].count(within, wpb) -
+                             base[1].count(within, wpb) -
+                             base[2].count(within, wpb) -
+                             base[3].count(within, wpb);
+          st = kDollar;
+          tidx = clip_index(o0, g.n_dollar);
+        } else {
+          const RRow r = b1 ? base[0] : (b2 ? base[1] : (b3 ? base[2] : base[3]));
+          cur = (b1 ? C1 : (b2 ? C2 : (b3 ? C3 : C4))) + r.count(within, wpb);
+          if (++steps == g.max_steps) {
+            rid = -1;
+            off = -1;
+            ended = true;
+          }
         }
       }
     } else if (st == kPair) {
@@ -529,9 +654,26 @@ __device__ __forceinline__ void sweep(const Walk& g, const Sweep& s) {
       const long long seg = slot * s.S + static_cast<int32_t>(word);
       if (seg >= 0 && seg < s.B * s.S) atomicAdd(s.hist + seg, 1);
       st = kIdle;
+    } else if (kTwoRounds && st == kRank) {
+      const int32_t o = base[0].count(cur & block_mask, wpb);
+      if (sym == 0) {
+        st = kDollar;
+        tidx = clip_index(o, g.n_dollar);
+      } else {
+        cur = (sym == 1 ? C1 : (sym == 2 ? C2 : (sym == 3 ? C3 : C4))) + o;
+        st = kRow;
+        if (++steps == g.max_steps) {
+          rid = -1;
+          off = -1;
+          ended = true;
+        }
+      }
+    } else if (WALK == kLf && st == kMark) {
+      st = kPair;
+      tidx = clip_index(mrow.count(cur & block_mask, wpb), g.n_pairs);
     }
     if (ended) {
-      if (KIND == kFusedRows) {
+      if (!HIST) {
         s.rid_out[slot] = rid;
         s.off_out[slot] = off;
         st = kIdle;
@@ -544,16 +686,75 @@ __device__ __forceinline__ void sweep(const Walk& g, const Sweep& s) {
   }
 }
 
+// The sweep of walk WALK (see walk_tiles).  The marks and slow walks' step
+// is one round of the four base planes' rank rows (one latency) while a
+// warp's walks fit its 32 lanes, and two rounds, the sym4 word and then the
+// symbol's rank row (3 sectors a step for marks where one round reads 5),
+// once walks queue for lanes and the rate of sector reads holds the sweep.
+// K7 counts its walks from the limit, a walk kernel from the valid slots of
+// the warp's first 4 tiles; each warp then runs the loop of its design.
+template <int WALK, bool HIST, int L>
+__device__ __forceinline__ void sweep(const Walk& g, const Sweep& s) {
+  const int lane = threadIdx.x & 31;
+  const long long nwarps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  long long limit = s.R;
+  if (HIST) {
+    const long long total = __ldg(s.cum + s.B - 1);
+    limit = s.cap < 0 ? total : (total < s.cap ? total : s.cap);
+  }
+  if constexpr (WALK == kDsa) {
+    // tiles of 32 while no warp has more than one, else of 128
+    if (limit <= nwarps * 32) {
+      dsa_tiles<1>(g, s, limit, warp, nwarps, lane);
+    } else {
+      dsa_tiles<4>(g, s, limit, warp, nwarps, lane);
+    }
+  } else if constexpr (WALK == kMarks || WALK == kSlow) {
+    bool one_round;
+    if (HIST) {
+      one_round = limit <= nwarps * 32;
+    } else {
+      uint8_t v[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const long long sl = (warp + t * nwarps) * 32 + lane;
+        v[t] = sl < limit ? s.valid[sl] : 0;
+      }
+      int walks = 0;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        walks += __popc(__ballot_sync(kFull, v[t] != 0));
+      }
+      one_round = walks <= 32;
+    }
+    if (one_round) {
+      walk_tiles<WALK, HIST, L, true>(g, s, limit, warp, nwarps, lane);
+    } else {
+      walk_tiles<WALK, HIST, L, false>(g, s, limit, warp, nwarps, lane);
+    }
+  } else {
+    walk_tiles<WALK, HIST, L, true>(g, s, limit, warp, nwarps, lane);
+  }
+}
+
 template <int W>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     resolve_fused_kernel(Walk g, Sweep s) {
-  sweep<kFusedRows, W>(g, s);
+  sweep<kFused, false, W>(g, s);
 }
 
-template <int KIND, int W>
+template <int WALK, int L>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    resolve_walk_kernel(Walk g, Sweep s) {
+  sweep<WALK, false, L>(g, s);
+}
+
+template <int WALK, int L>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     exact_histogram_kernel(Walk g, Sweep s) {
-  sweep<KIND, W>(g, s);
+  sweep<WALK, true, L>(g, s);
 }
 
 // ------------------------------------------------------------- rs_chase
@@ -607,43 +808,28 @@ void launch_sweep(F kernel, const Walk& g, const Sweep& s,
   kernel<<<grid, kThreads, 0, st>>>(g, s);
 }
 
-// K6 (KIND kFusedRows) or K7's fused walk, for the block's words
-template <int KIND, int W>
-void launch_kind(const Walk& g, const Sweep& s, long long max_slots,
-                 cudaStream_t st) {
-  if constexpr (KIND == kFusedRows) {
-    launch_sweep(resolve_fused_kernel<W>, g, s, max_slots, st);
+// One sweep kernel: K7 (HIST) or a walk kernel, for the walk and layout.
+template <bool HIST, int WALK, int L>
+void launch_one(const Walk& g, const Sweep& s, long long max_slots,
+                cudaStream_t st) {
+  if constexpr (HIST) {
+    launch_sweep(exact_histogram_kernel<WALK, L>, g, s, max_slots, st);
+  } else if constexpr (WALK == kFused) {
+    launch_sweep(resolve_fused_kernel<L>, g, s, max_slots, st);
   } else {
-    launch_sweep(exact_histogram_kernel<KIND, W>, g, s, max_slots, st);
+    launch_sweep(resolve_walk_kernel<WALK, L>, g, s, max_slots, st);
   }
 }
 
-template <int KIND>
-void launch_fused(int words_per_block, const Walk& g, const Sweep& s,
-                  long long max_slots, cudaStream_t st) {
-  switch (words_per_block) {
-    case 1: launch_kind<KIND, 1>(g, s, max_slots, st); break;
-    case 2: launch_kind<KIND, 2>(g, s, max_slots, st); break;
-    case 4: launch_kind<KIND, 4>(g, s, max_slots, st); break;
-    case 8: launch_kind<KIND, 8>(g, s, max_slots, st); break;
+// The rank walks' instantiation for the table's row width.
+template <bool HIST, int WALK>
+void launch_rank(const Walk& g, const Sweep& s, long long max_slots,
+                 cudaStream_t st) {
+  if (g.layout.row_words == 4) {
+    launch_one<HIST, WALK, 1>(g, s, max_slots, st);
+  } else {
+    launch_one<HIST, WALK, 0>(g, s, max_slots, st);
   }
-}
-
-Walk make_walk(const void* dsa, int dsa_bits, const void* fused,
-               int fused_words, int log2_block, const void* C,
-               const void* dollar_map, long long n_dollar, const void* pairs,
-               long long n_pairs, int sample_rate) {
-  return Walk{static_cast<const uint32_t*>(dsa),
-              dsa_bits,
-              static_cast<const uint32_t*>(fused),
-              fused_words,
-              log2_block,
-              static_cast<const int32_t*>(C),
-              static_cast<const int32_t*>(dollar_map),
-              n_dollar,
-              static_cast<const int32_t*>(pairs),
-              n_pairs,
-              sample_rate};
 }
 
 template <int W>
@@ -651,17 +837,74 @@ bool fused_layout_ok(int fused_words) {
   return fused_words == FusedRow<W>::R;
 }
 
-bool fused_ok(int words_per_block, int fused_words) {
-  switch (words_per_block) {
-    case 1: return fused_layout_ok<1>(fused_words);
-    case 2: return fused_layout_ok<2>(fused_words);
-    case 4: return fused_layout_ok<4>(fused_words);
-    case 8: return fused_layout_ok<8>(fused_words);
-    default: return false;
+// Whether `kind` can walk these tables, the sweep's caller HIST or not.
+bool walk_ok(int kind, bool hist, const Walk& g) {
+  const rs::Layout& y = g.layout;
+  switch (kind) {
+    case kDsa:
+      return hist && g.dsa_bits >= 1 && g.dsa_bits <= 31;
+    case kFused:
+      switch (y.words_per_block) {
+        case 1: return fused_layout_ok<1>(g.fused_words);
+        case 2: return fused_layout_ok<2>(g.fused_words);
+        case 4: return fused_layout_ok<4>(g.fused_words);
+        case 8: return fused_layout_ok<8>(g.fused_words);
+        default: return false;
+      }
+    case kMarks:
+    case kLf:
+    case kSlow:
+      return y.words_per_block >= 1 && y.row_words >= y.words_per_block + 1 &&
+             (y.words_per_block << 5) == (1 << y.log2_block);
+    default:
+      return false;
+  }
+}
+
+template <bool HIST>
+void launch(int kind, const Walk& g, const Sweep& s, long long max_slots,
+            cudaStream_t st) {
+  switch (kind) {
+    case kDsa:
+      if constexpr (HIST) launch_one<true, kDsa, 1>(g, s, max_slots, st);
+      break;
+    case kFused:
+      switch (g.layout.words_per_block) {
+        case 1: launch_one<HIST, kFused, 1>(g, s, max_slots, st); break;
+        case 2: launch_one<HIST, kFused, 2>(g, s, max_slots, st); break;
+        case 4: launch_one<HIST, kFused, 4>(g, s, max_slots, st); break;
+        case 8: launch_one<HIST, kFused, 8>(g, s, max_slots, st); break;
+      }
+      break;
+    case kMarks: launch_rank<HIST, kMarks>(g, s, max_slots, st); break;
+    case kLf: launch_rank<HIST, kLf>(g, s, max_slots, st); break;
+    case kSlow: launch_rank<HIST, kSlow>(g, s, max_slots, st); break;
   }
 }
 
 }  // namespace
+
+// The walk's tables, in the order every sweep entry point takes them (see
+// Walk); a kind's unused tables may be null.
+#define RS_WALK_PARAMS                                                       \
+  const void *dsa, int dsa_bits, const void *fused, int fused_words,         \
+      const void *rank, const void *sym4, const void *marks, const void *lf, \
+      long long rows_per_symbol, int log2_block, int words_per_block,        \
+      int row_words, const void *C, const void *dollar_map,                  \
+      long long n_dollar, const void *pairs, long long n_pairs, int max_steps
+#define RS_WALK_OF_PARAMS                                                    \
+  Walk {                                                                     \
+    static_cast<const uint32_t*>(dsa), dsa_bits,                             \
+        static_cast<const uint32_t*>(fused), fused_words,                    \
+        static_cast<const uint32_t*>(rank),                                  \
+        static_cast<const uint32_t*>(sym4),                                  \
+        static_cast<const uint32_t*>(marks),                                 \
+        static_cast<const int32_t*>(lf),                                     \
+        rs::Layout{rows_per_symbol, log2_block, words_per_block, row_words}, \
+        static_cast<const int32_t*>(C),                                      \
+        static_cast<const int32_t*>(dollar_map), n_dollar,                   \
+        static_cast<const int32_t*>(pairs), n_pairs, max_steps               \
+  }
 
 extern "C" int rs_resolve_dsa(const void* l, const void* u, long long B,
                               int H, const void* dsa, int dsa_bits,
@@ -669,8 +912,9 @@ extern "C" int rs_resolve_dsa(const void* l, const void* u, long long B,
                               void* rid, void* off, void* smp, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (dsa_bits < 1 || dsa_bits > 31) return cudaErrorInvalidValue;
-  const Walk g = make_walk(dsa, dsa_bits, nullptr, 0, 0, nullptr, nullptr, 0,
-                           nullptr, 0, 0);
+  Walk g{};
+  g.dsa = static_cast<const uint32_t*>(dsa);
+  g.dsa_bits = dsa_bits;
   const int threads = 256;
   resolve_dsa_kernel<<<grid_for(B * H, threads), threads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
@@ -681,46 +925,52 @@ extern "C" int rs_resolve_dsa(const void* l, const void* u, long long B,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int rs_resolve_fused(const void* rows, const void* valid,
-                                long long R, const void* fused,
-                                int fused_words, int log2_block,
-                                int words_per_block, const void* C,
-                                const void* dollar_map, long long n_dollar,
-                                const void* pairs, long long n_pairs,
-                                int sample_rate, void* rid, void* off,
-                                void* stream) {
+// K6 (kind fused) and the rank walks (marks, lf, slow): rows [R] where
+// valid → (read id, offset), -1 where invalid or unterminated.
+static int resolve_rows(int kind, const void* rows, const void* valid,
+                        long long R, const Walk& g, void* rid, void* off,
+                        void* stream) {
   if (R <= 0) return 0;
-  if (!fused_ok(words_per_block, fused_words)) return cudaErrorInvalidValue;
-  const Walk g = make_walk(nullptr, 0, fused, fused_words, log2_block, C,
-                           dollar_map, n_dollar, pairs, n_pairs, sample_rate);
+  if (kind == kDsa || !walk_ok(kind, false, g) || g.max_steps < 1) {
+    return cudaErrorInvalidValue;
+  }
   Sweep s{};
   s.rows = static_cast<const int32_t*>(rows);
   s.valid = static_cast<const uint8_t*>(valid);
   s.R = R;
   s.rid_out = static_cast<int32_t*>(rid);
   s.off_out = static_cast<int32_t*>(off);
-  launch_fused<kFusedRows>(words_per_block, g, s, R,
-                           static_cast<cudaStream_t>(stream));
+  launch<false>(kind, g, s, R, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int rs_exact_histogram(
-    const void* l, const void* cum, long long B, long long cap, int kind,
-    const void* dsa, int dsa_bits, const void* fused, int fused_words,
-    int log2_block, int words_per_block, const void* C,
-    const void* dollar_map, long long n_dollar, const void* pairs,
-    long long n_pairs, int sample_rate, const void* read_to_sample,
-    long long num_reads, int S, void* hist, void* stream) {
+extern "C" int rs_resolve_fused(const void* rows, const void* valid,
+                                long long R, RS_WALK_PARAMS, void* rid,
+                                void* off, void* stream) {
+  return resolve_rows(kFused, rows, valid, R, RS_WALK_OF_PARAMS, rid, off,
+                      stream);
+}
+
+extern "C" int rs_resolve_walk(int kind, const void* rows, const void* valid,
+                               long long R, RS_WALK_PARAMS, void* rid,
+                               void* off, void* stream) {
+  if (kind != kMarks && kind != kLf && kind != kSlow) {
+    return cudaErrorInvalidValue;
+  }
+  return resolve_rows(kind, rows, valid, R, RS_WALK_OF_PARAMS, rid, off,
+                      stream);
+}
+
+extern "C" int rs_exact_histogram(const void* l, const void* cum, long long B,
+                                  long long cap, int kind, RS_WALK_PARAMS,
+                                  const void* read_to_sample,
+                                  long long num_reads, int S, void* hist,
+                                  void* stream) {
   if (B <= 0 || cap == 0) return 0;
-  if (kind == 0 && (dsa_bits < 1 || dsa_bits > 31)) {
+  const Walk g = RS_WALK_OF_PARAMS;
+  if (!walk_ok(kind, true, g) || (kind != kDsa && g.max_steps < 1)) {
     return cudaErrorInvalidValue;
   }
-  if (kind == 1 && !fused_ok(words_per_block, fused_words)) {
-    return cudaErrorInvalidValue;
-  }
-  if (kind != 0 && kind != 1) return cudaErrorInvalidValue;
-  const Walk g = make_walk(dsa, dsa_bits, fused, fused_words, log2_block, C,
-                           dollar_map, n_dollar, pairs, n_pairs, sample_rate);
   Sweep s{};
   s.l = static_cast<const int32_t*>(l);
   s.cum = static_cast<const long long*>(cum);
@@ -730,12 +980,7 @@ extern "C" int rs_exact_histogram(
   s.num_reads = num_reads;
   s.S = S;
   s.hist = static_cast<int32_t*>(hist);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kind == 0) {
-    launch_sweep(exact_histogram_kernel<kHistDsa, 1>, g, s, cap, st);
-  } else {
-    launch_fused<kHistFused>(words_per_block, g, s, cap, st);
-  }
+  launch<true>(kind, g, s, cap, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

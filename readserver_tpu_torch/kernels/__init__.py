@@ -8,9 +8,11 @@
 * ``BACKWARD_SEARCH`` (K2, ``csrc/search.cu``): the whole backward search,
   one thread per query; launched by the search functions of
   ``ops/search.py`` for CUDA tensors.
-* ``RESOLVE_DSA`` (K5), ``RESOLVE_FUSED`` (K6) and ``EXACT_HISTOGRAM``
-  (K7), ``csrc/resolve.cu``: the dsa decode, the fused-row walk and the
-  exact per-sample histogram sweep; launched by ``ops/resolve.py``.
+* ``RESOLVE_DSA`` (K5), ``RESOLVE_FUSED`` (K6), ``RESOLVE_WALK`` and
+  ``EXACT_HISTOGRAM`` (K7), ``csrc/resolve.cu``: the dsa decode, the
+  fused-row walk, the marks, lf and slow walks (ranking through K1's table
+  layout) and the exact per-sample histogram sweep through any walk;
+  launched by ``ops/resolve.py``.
 
 Each is a :class:`~readserver_tpu_torch.kernels.build.Kernel` carrying its
 launch count in ``launches``.
@@ -23,6 +25,7 @@ LUT_LEVEL = Kernel("rs_lut_level")
 BACKWARD_SEARCH = Kernel("rs_backward_search")
 RESOLVE_DSA = Kernel("rs_resolve_dsa")
 RESOLVE_FUSED = Kernel("rs_resolve_fused")
+RESOLVE_WALK = Kernel("rs_resolve_walk")
 EXACT_HISTOGRAM = Kernel("rs_exact_histogram")
 KERNELS = {
     "rank_occ": RANK_OCC,
@@ -30,10 +33,11 @@ KERNELS = {
     "backward_search": BACKWARD_SEARCH,
     "resolve_dsa": RESOLVE_DSA,
     "resolve_fused": RESOLVE_FUSED,
+    "resolve_walk": RESOLVE_WALK,
     "exact_histogram": EXACT_HISTOGRAM,
 }
 
 __all__ = [
     "BACKWARD_SEARCH", "EXACT_HISTOGRAM", "KERNELS", "LIBRARY", "LUT_LEVEL",
-    "Kernel", "RANK_OCC", "RESOLVE_DSA", "RESOLVE_FUSED",
+    "Kernel", "RANK_OCC", "RESOLVE_DSA", "RESOLVE_FUSED", "RESOLVE_WALK",
 ]

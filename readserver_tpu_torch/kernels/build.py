@@ -30,6 +30,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
+# the walk's tables, as csrc/resolve.cu's sweep entry points take them
+# (RS_WALK_PARAMS; ops/resolve._walk_args builds them)
+_WALK = [_P, _I, _P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P, _L, _P, _L, _I]
+
 # C entry points: name → argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
     "rs_rank_occ": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
@@ -39,13 +43,9 @@ SIGNATURES = {
         _L, _I, _I, _I, _P, _P, _P, _P,
     ],
     "rs_resolve_dsa": [_P, _P, _L, _I, _P, _I, _P, _L, _P, _P, _P, _P],
-    "rs_resolve_fused": [
-        _P, _P, _L, _P, _I, _I, _I, _P, _P, _L, _P, _L, _I, _P, _P, _P,
-    ],
-    "rs_exact_histogram": [
-        _P, _P, _L, _L, _I, _P, _I, _P, _I, _I, _I, _P, _P, _L, _P, _L,
-        _I, _P, _L, _I, _P, _P,
-    ],
+    "rs_resolve_fused": [_P, _P, _L, *_WALK, _P, _P, _P],
+    "rs_resolve_walk": [_I, _P, _P, _L, *_WALK, _P, _P, _P],
+    "rs_exact_histogram": [_P, _P, _L, _L, _I, *_WALK, _P, _L, _I, _P, _P],
     # a yardstick for chip_smoke.py, launched by no path of the port
     "rs_chase": [_P, _I, _L, _P, _L, _I, _P, _P],
 }

@@ -1,9 +1,10 @@
 """Resolve: SA rows → read ids / offsets / sample attribution.
 
 A port of the JAX package's ``ops/resolve.py``.  Every walk has a plain
-torch form that advances the whole batch one step at a time with frozen
-``done`` lanes, as the JAX lockstep loops do.  Three of them also have a
-kernel (``csrc/resolve.cu``), launched for CUDA tensors:
+torch form (``*_plain``) that advances the whole batch one step at a time
+with frozen ``done`` lanes, as the JAX lockstep loops do; the public names
+launch a kernel (``csrc/resolve.cu``) for CUDA tensors and take the plain
+form for CPU tensors, with no fallback between them:
 
 * K5, the direct tier: one uint32 ``dsa`` word per hit lane, split into
   read id and offset, with the lane's sample id gathered beside it
@@ -11,15 +12,20 @@ kernel (``csrc/resolve.cu``), launched for CUDA tensors:
 * K6, the fused-row walk: ≤ ``sample_rate`` steps of one 64-byte fused
   row each, on a persistent grid whose lanes refill from the 32-slot
   tiles their warp takes (:func:`resolve_rows_fused`);
+* the rank walks, on K6's sweep: the marks and slow walks (a step is one
+  round of the four base planes' rank rows, and the mark row, while a
+  warp's walks fit its lanes; two rounds, the sym4 word and then the
+  symbol's rank row, once they queue) and the lf walk (one LF word a step)
+  (:func:`resolve_rows_marked`, :func:`resolve_rows`,
+  :func:`resolve_rows_fast`);
 * K7, the exact per-sample histogram: tiles of the worklist mapped to
   their queries through the int64 prefix sums staged in shared memory,
-  then the dsa decode or K6's walk, and an atomic add
+  then the dsa decode or any of the four walks, and an atomic add
   (:func:`exact_sample_histogram`).
 
-The lf, marks and slow walks are plain torch on every device (in the JAX
-package they are XLA, not Pallas); :func:`select_walk` reaches them only
-when neither ``dsa`` nor ``fused`` shipped.  With one of those walks the
-histogram sweep is plain torch too, since K7 walks only dsa and fused.
+In the JAX package the walks are XLA loops, not Pallas.  The slow walk's
+``rank_fn``/``sym_fn`` hooks (the sharded path's rank, ROADMAP P10) run
+only in the plain form; on CUDA tensors they raise.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from readserver_tpu_torch.kernels import (
     EXACT_HISTOGRAM,
     RESOLVE_DSA,
     RESOLVE_FUSED,
+    RESOLVE_WALK,
 )
 from readserver_tpu_torch.kernels.build import check_int32, on_cuda, ptr
 from readserver_tpu_torch.ops import rank as rank_ops
@@ -39,6 +46,8 @@ from readserver_tpu_torch.ops.types import DeviceIndex
 # words per block the fused-walk kernels are compiled for (block sizes
 # 32, 64, 128, 256; csrc/resolve.cu)
 FUSED_WORDS_PER_BLOCK = (1, 2, 4, 8)
+# the walk kinds, numbered as csrc/resolve.cu's entry points take them
+WALK_KINDS = {"dsa": 0, "fused": 1, "marks": 2, "lf": 3, "slow": 4}
 
 
 def _take(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -56,7 +65,7 @@ def _neg(t: torch.Tensor) -> torch.Tensor:
     return torch.full_like(t, -1)
 
 
-def resolve_rows(
+def resolve_rows_plain(
     index: DeviceIndex,
     rows: torch.Tensor,   # int32 [R] starting SA rows
     valid: torch.Tensor,  # bool  [R]
@@ -64,9 +73,8 @@ def resolve_rows(
     rank_fn=None,
     sym_fn=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The slow walk, one symbol per step up to ``max_steps`` (default the
-    longest read): → ``(read_id, offset)`` int32 [R]; -1 where invalid or
-    unterminated.  At a ``$`` the LF rank ``occ(0, i)`` is the ``$``-rank."""
+    """Plain form of :func:`resolve_rows`, with the ``rank_fn``/``sym_fn``
+    hooks (default K1's rank and the sym4 read)."""
     if max_steps is None:
         max_steps = index.max_read_len
     if rank_fn is None:
@@ -107,14 +115,12 @@ def expand_intervals(
     return torch.where(valid, rows, torch.zeros_like(rows)), valid, seg
 
 
-def resolve_rows_fast(
+def resolve_rows_fast_plain(
     index: DeviceIndex,
     rows: torch.Tensor,
     valid: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Sampled-LF walk over the ``lf`` array (sign bit = sampled row): a
-    walk ends at a ``$`` (``lf value < num_reads``, the dollar_map key) or
-    at a sampled row, whose mark rank indexes ``sample_pairs``."""
+    """Plain form of :func:`resolve_rows_fast`."""
     assert index.lf is not None and index.sample_rate > 0
     m = index.C[1]
     n_marked = index.sample_pairs.shape[0]
@@ -146,13 +152,14 @@ def resolve_rows_fast(
     return torch.where(ok, rid, _neg(rid)), torch.where(ok, off, _neg(off))
 
 
-def resolve_rows_marked(
+def resolve_rows_marked_plain(
     index: DeviceIndex,
     rows: torch.Tensor,
     valid: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mark walk without the ``lf`` array: per step one sym4 gather, one
-    rank row and one mark row (terminal test and slot rank in one gather)."""
+    """Plain form of :func:`resolve_rows_marked`: per step one sym4 gather,
+    one rank (K1 on the card) and one mark row (terminal test and slot rank
+    in one gather)."""
     assert index.mark_rank is not None and index.sample_rate > 0
     kw = dict(log2_block=index.log2_block,
               words_per_block=index.words_per_block)
@@ -352,33 +359,128 @@ def resolve_rows_fused_plain(
     return torch.where(ok, rid, _neg(rid)), torch.where(ok, off, _neg(off))
 
 
-def _fused_walk_args(index: DeviceIndex) -> tuple:
-    """The fused walk's arguments to K6 and K7, after checking them."""
+# ------------------------------------------- the walk kernels' arguments
+
+
+def _check_rows(name: str, t: torch.Tensor, device, row_words: int) -> None:
+    """A table of rank.cuh's layout the walks read: contiguous int32 on
+    ``device``, ``row_words`` wide, rows 16-byte aligned for the vector
+    load when ``row_words == 4``."""
+    check_int32(name, t, device)
+    if t.dim() != 2 or t.shape[1] != row_words or (
+            row_words == 4 and t.data_ptr() % 16):
+        raise ValueError(
+            f"{name} must be a 16-byte aligned [rows, {row_words}] table, "
+            f"got {tuple(t.shape)}"
+        )
+
+
+def _walk_args(
+    index: DeviceIndex, kind: str, max_steps: int | None = None
+) -> tuple:
+    """The tables walk ``kind`` reads, in the order of csrc/resolve.cu's
+    ``RS_WALK_PARAMS``, after checking them; a kind's unused tables go as
+    null.  The slow walk stops within ``max_steps`` steps (default the
+    longest read), the others within ``sample_rate``."""
     dev = index.device
-    if index.fused_rows is None or index.sample_rate <= 0:
-        raise ValueError("index carries no fused walk tier")
-    if index.words_per_block not in FUSED_WORDS_PER_BLOCK:
-        raise ValueError(
-            f"the fused-walk kernels take {FUSED_WORDS_PER_BLOCK} words per "
-            f"block, got {index.words_per_block}"
-        )
-    fr = index.fused_rows
-    check_int32("fused_rows", fr, dev)
-    words = -(-(6 + 4 * index.words_per_block) // 4) * 4
-    if fr.dim() != 2 or fr.shape[1] != words or fr.data_ptr() % 16:
-        raise ValueError(
-            f"fused rows must be 16-byte aligned [NB, {words}] words, got "
-            f"{tuple(fr.shape)}"
-        )
-    check_int32("C", index.C, dev, (6,))
-    check_int32("dollar_map", index.dollar_map, dev)
-    check_int32("sample_pairs", index.sample_pairs, dev)
+    rw = index.rank_rows.shape[1]
+    t = {}  # the tables `kind` reads, by RS_WALK_PARAMS name
+    if kind == "dsa":
+        if index.dsa is None or index.dsa_bits <= 0:
+            raise ValueError("index carries no dsa tier")
+        check_int32("dsa", index.dsa, dev)
+        t["dsa"] = index.dsa
+    elif kind == "fused":
+        if index.fused_rows is None or index.sample_rate <= 0:
+            raise ValueError("index carries no fused walk tier")
+        if index.words_per_block not in FUSED_WORDS_PER_BLOCK:
+            raise ValueError(
+                f"the fused-walk kernels take {FUSED_WORDS_PER_BLOCK} words "
+                f"per block, got {index.words_per_block}"
+            )
+        fr = index.fused_rows
+        check_int32("fused_rows", fr, dev)
+        words = -(-(6 + 4 * index.words_per_block) // 4) * 4
+        if fr.dim() != 2 or fr.shape[1] != words or fr.data_ptr() % 16:
+            raise ValueError(
+                f"fused rows must be 16-byte aligned [NB, {words}] words, "
+                f"got {tuple(fr.shape)}"
+            )
+        t["fused"] = fr
+    else:
+        if kind in ("marks", "slow"):
+            _check_rows("rank_rows", index.rank_rows, dev, rw)
+            check_int32("sym4", index.sym4, dev)
+            t["rank"], t["sym4"] = index.rank_rows, index.sym4
+        if kind in ("marks", "lf"):
+            if index.mark_rank is None or index.sample_rate <= 0:
+                raise ValueError(f"index carries no {kind} walk tier")
+            _check_rows("mark_rank", index.mark_rank, dev, rw)
+            t["marks"] = index.mark_rank
+        if kind == "lf":
+            if index.lf is None:
+                raise ValueError("index carries no lf tier")
+            check_int32("lf", index.lf, dev, (index.n,))
+            t["lf"] = index.lf
+    pairs = None
+    steps = 0
+    if kind in ("fused", "marks", "lf"):
+        pairs = index.sample_pairs
+        check_int32("sample_pairs", pairs, dev)
+        if pairs.dim() != 2 or pairs.shape[1] != 2 or pairs.data_ptr() % 8:
+            raise ValueError(
+                f"sample_pairs must be 8-byte aligned [n, 2] pairs, got "
+                f"{tuple(pairs.shape)}"
+            )
+        steps = index.sample_rate
+    elif kind == "slow":
+        steps = index.max_read_len if max_steps is None else int(max_steps)
+        if steps < 1:
+            raise ValueError(f"the slow walk's kernel takes max_steps >= 1, "
+                             f"got {steps}")
+    if kind != "dsa":
+        check_int32("C", index.C, dev, (6,))
+        check_int32("dollar_map", index.dollar_map, dev)
+    # the slow walk clips its $-rank to num_reads, the others to dollar_map
+    n_dollar = (index.num_reads if kind == "slow" or index.dollar_map is None
+                else index.dollar_map.shape[0])
+    fr = t.get("fused")
     return (
-        ptr(fr), fr.shape[1], index.log2_block, index.words_per_block,
-        ptr(index.C), ptr(index.dollar_map), index.dollar_map.shape[0],
-        ptr(index.sample_pairs), index.sample_pairs.shape[0],
-        index.sample_rate,
+        ptr(t.get("dsa")), index.dsa_bits if "dsa" in t else 0,
+        ptr(fr), 0 if fr is None else fr.shape[1],
+        ptr(t.get("rank")), ptr(t.get("sym4")), ptr(t.get("marks")),
+        ptr(t.get("lf")),
+        index.rows_per_symbol, index.log2_block, index.words_per_block, rw,
+        ptr(index.C), ptr(index.dollar_map), n_dollar,
+        ptr(pairs), 0 if pairs is None else pairs.shape[0], steps,
     )
+
+
+def _launch_walk(
+    index: DeviceIndex,
+    kind: str,
+    rows: torch.Tensor,
+    valid: torch.Tensor,
+    max_steps: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6 (``kind`` fused) or the rank walks' kernel over ``rows`` where
+    ``valid`` → ``(read_id, offset)``, -1 where invalid or unterminated."""
+    args = _walk_args(index, kind, max_steps)
+    R = rows.shape[0]
+    check_int32("rows", rows, index.device, (R,))
+    if valid.dtype != torch.bool or valid.shape != rows.shape:
+        raise ValueError("valid must be a bool tensor shaped like rows")
+    valid = valid.contiguous()
+    rid = torch.empty_like(rows)
+    off = torch.empty_like(rows)
+    if R:
+        if kind == "fused":
+            RESOLVE_FUSED(ptr(rows), ptr(valid), R, *args, ptr(rid),
+                          ptr(off), device=index.device)
+        else:
+            RESOLVE_WALK(WALK_KINDS[kind], ptr(rows), ptr(valid), R, *args,
+                         ptr(rid), ptr(off), device=index.device)
+    return rid, off
 
 
 def resolve_rows_fused(
@@ -395,47 +497,111 @@ def resolve_rows_fused(
     other lanes' row reads; the plain form for CPU tensors."""
     if not on_cuda(rows):
         return resolve_rows_fused_plain(index, rows, valid)
-    args = _fused_walk_args(index)
-    R = rows.shape[0]
-    check_int32("rows", rows, index.device, (R,))
-    if valid.dtype != torch.bool or valid.shape != rows.shape:
-        raise ValueError("valid must be a bool tensor shaped like rows")
-    valid = valid.contiguous()
-    rid = torch.empty_like(rows)
-    off = torch.empty_like(rows)
-    if R:
-        RESOLVE_FUSED(ptr(rows), ptr(valid), R, *args, ptr(rid), ptr(off),
-                      device=index.device)
-    return rid, off
+    return _launch_walk(index, "fused", rows, valid)
+
+
+# ------------------------------------------------------ the rank walks
+
+
+def resolve_rows_marked(
+    index: DeviceIndex,
+    rows: torch.Tensor,   # int32 [R] starting SA rows
+    valid: torch.Tensor,  # bool  [R]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mark walk without the ``lf`` array: ≤ ``sample_rate`` steps, each
+    the row's symbol, its rank and its mark bit; a walk ends at a marked
+    row (its sampled pair through the mark rank, offset plus steps) or a
+    ``$`` (``occ($, i)`` is the dollar_map key; marked wins), -1 where it
+    did not end.  The walk kernel for CUDA tensors (on K6's sweep, a step
+    in one or two rounds of row reads, see the module docstring), the
+    plain form for CPU tensors."""
+    if not on_cuda(rows):
+        return resolve_rows_marked_plain(index, rows, valid)
+    return _launch_walk(index, "marks", rows, valid)
+
+
+def resolve_rows_fast(
+    index: DeviceIndex,
+    rows: torch.Tensor,   # int32 [R] starting SA rows
+    valid: torch.Tensor,  # bool  [R]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sampled-LF walk over the ``lf`` array (sign bit = sampled row): a
+    walk ends at a ``$`` (``lf value < num_reads``, the dollar_map key) or
+    at a sampled row, whose mark rank indexes ``sample_pairs``.  The walk
+    kernel for CUDA tensors (one LF word a step, the mark row read at a
+    sampled row), the plain form for CPU tensors."""
+    if not on_cuda(rows):
+        return resolve_rows_fast_plain(index, rows, valid)
+    return _launch_walk(index, "lf", rows, valid)
+
+
+def _kernel_steps(max_steps=None, rank_fn=None, sym_fn=None) -> int | None:
+    """The slow walk's options the kernel takes: ``max_steps``.  Its hooks
+    are the sharded path's rank (ROADMAP P10), which has no kernel yet."""
+    if rank_fn is not None or sym_fn is not None:
+        raise NotImplementedError(
+            "the slow walk's rank_fn/sym_fn hooks (the sharded path's rank, "
+            "ROADMAP P10) run only in the plain form, on CPU tensors"
+        )
+    return max_steps
+
+
+def resolve_rows(
+    index: DeviceIndex,
+    rows: torch.Tensor,   # int32 [R] starting SA rows
+    valid: torch.Tensor,  # bool  [R]
+    max_steps: int | None = None,
+    rank_fn=None,
+    sym_fn=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slow walk, one symbol per step up to ``max_steps`` (default the
+    longest read): → ``(read_id, offset)`` int32 [R]; -1 where invalid or
+    unterminated.  At a ``$`` the LF rank ``occ(0, i)`` is the ``$``-rank.
+    The walk kernel for CUDA tensors (the marks walk's step without the
+    mark row), which takes no hooks; the plain form for CPU tensors."""
+    if not on_cuda(rows):
+        return resolve_rows_plain(index, rows, valid, max_steps, rank_fn,
+                                  sym_fn)
+    steps = _kernel_steps(max_steps, rank_fn, sym_fn)
+    return _launch_walk(index, "slow", rows, valid, steps)
 
 
 # --------------------------------------------------------------- selection
 
+# walk kind → the walk, and its plain form
+_WALKS = {
+    "dsa": (resolve_rows_dsa, resolve_rows_dsa_plain),
+    "lf": (resolve_rows_fast, resolve_rows_fast_plain),
+    "fused": (resolve_rows_fused, resolve_rows_fused_plain),
+    "marks": (resolve_rows_marked, resolve_rows_marked_plain),
+    "slow": (resolve_rows, resolve_rows_plain),
+}
 
-def select_walk(index: DeviceIndex, **slow_kw):
+
+def walk_kind(index: DeviceIndex) -> str:
     """The best resolve strategy the shipped tiers support, best-first:
     dsa (1 gather, no walk) > lf (1×4B gather/step) > fused (1×64B
     gather/step) > marks (3 gathers/step) > slow (2 gathers × read_len)."""
     if index.dsa is not None and index.dsa_bits > 0:
-        return lambda r, v: resolve_rows_dsa(index, r, v)
-    if index.lf is not None and index.sample_rate > 0:
-        return lambda r, v: resolve_rows_fast(index, r, v)
-    if index.fused_rows is not None and index.sample_rate > 0:
-        return lambda r, v: resolve_rows_fused(index, r, v)
-    if index.mark_rank is not None and index.sample_rate > 0:
-        return lambda r, v: resolve_rows_marked(index, r, v)
-    return lambda r, v: resolve_rows(index, r, v, **slow_kw)
-
-
-def _kernel_walk(index: DeviceIndex) -> str | None:
-    """The walk :func:`select_walk` picks when K7 can run it, else None."""
-    if index.dsa is not None and index.dsa_bits > 0:
         return "dsa"
     if index.lf is not None and index.sample_rate > 0:
-        return None
+        return "lf"
     if index.fused_rows is not None and index.sample_rate > 0:
         return "fused"
-    return None
+    if index.mark_rank is not None and index.sample_rate > 0:
+        return "marks"
+    return "slow"
+
+
+def select_walk(index: DeviceIndex, plain: bool = False, **slow_kw):
+    """``(rows, valid) → (read_id, offset)`` through the walk
+    :func:`walk_kind` names (its plain form when ``plain``); ``slow_kw``
+    goes to the slow walk."""
+    kind = walk_kind(index)
+    fn = _WALKS[kind][1 if plain else 0]
+    if kind == "slow":
+        return lambda r, v: fn(index, r, v, **slow_kw)
+    return lambda r, v: fn(index, r, v)
 
 
 def compact_rows(rows: torch.Tensor, valid: torch.Tensor, R_c: int):
@@ -480,7 +646,7 @@ def resolve_intervals(
     the compaction round trip)."""
     rows, valid, _ = expand_intervals(l, u, max_hits)
     if use_fast is False:
-        # explicit opt-out of every accelerated tier (parity tests)
+        # explicit request for the slow walk (parity tests)
         walk = lambda r, v: resolve_rows(index, r, v, **kw)  # noqa: E731
     elif use_fast is True:
         # explicit request for the lf sampled walk (parity tests)
@@ -556,7 +722,8 @@ def exact_sample_histogram_plain(
     **walk_kw,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain form of :func:`exact_sample_histogram`: window after window
-    of the worklist, as the JAX ``while_loop`` sweeps it."""
+    of the worklist, as the JAX ``while_loop`` sweeps it, each through the
+    plain form of the walk."""
     B = l.shape[0]
     S = max(index.num_samples, 1)
     dev = l.device
@@ -564,7 +731,7 @@ def exact_sample_histogram_plain(
     cum = torch.cumsum(counts, 0)
     total = int(cum[B - 1])
     span = torch.arange(window, dtype=torch.int64, device=dev)
-    walk = select_walk(index, **walk_kw)
+    walk = select_walk(index, plain=True, **walk_kw)
     hist = torch.zeros(B * S, dtype=torch.int32, device=dev)
     t = 0
     while t * window < total and (max_rows is None or t * window < max_rows):
@@ -610,15 +777,17 @@ def exact_sample_histogram(
     ``cum[b] <= t_end * window``.  A valid slot whose walk returns -1 is
     counted under ``read_to_sample[0]`` (the JAX package clips the id).
 
-    K7 for CUDA tensors when the walk :func:`select_walk` picks is dsa or
-    fused: a persistent grid sweeps tiles of slots up to ``min(total,
+    K7 for CUDA tensors, through the walk :func:`walk_kind` names
+    (``walk_kw`` goes to the slow walk, whose hooks the kernel does not
+    take): a persistent grid sweeps tiles of slots up to ``min(total,
     cap)``, read on the card, so nothing waits for the card whatever
-    ``max_rows`` is.  Else the plain form."""
-    kind = _kernel_walk(index)
-    if not on_cuda(l) or kind is None:
+    ``max_rows`` is.  The plain form for CPU tensors."""
+    if not on_cuda(l):
         return exact_sample_histogram_plain(
             index, l, u, window, max_rows, **walk_kw
         )
+    kind = walk_kind(index)
+    walk = _walk_args(index, kind, _kernel_steps(**walk_kw))
     dev = index.device
     B = l.shape[0]
     S = max(index.num_samples, 1)
@@ -634,22 +803,13 @@ def exact_sample_histogram(
     if cap is not None:
         tw = torch.clamp(tw, max=cap // window)
     hist = torch.zeros(B * S, dtype=torch.int32, device=dev)
-    if kind == "dsa":
-        check_int32("dsa", index.dsa, dev)
-        walk = (0, ptr(index.dsa), index.dsa_bits, *_NO_FUSED_WALK)
-    else:
-        walk = (1, None, 0, *_fused_walk_args(index))
     if cap != 0:
         EXACT_HISTOGRAM(
-            ptr(l), ptr(cum), B, -1 if cap is None else cap, *walk,
-            ptr(index.read_to_sample), index.read_to_sample.shape[0], S,
-            ptr(hist), device=dev,
+            ptr(l), ptr(cum), B, -1 if cap is None else cap,
+            WALK_KINDS[kind], *walk, ptr(index.read_to_sample),
+            index.read_to_sample.shape[0], S, ptr(hist), device=dev,
         )
     return hist.reshape(B, S), cum <= tw * window
-
-
-# K7's fused-walk arguments when it walks dsa (see _fused_walk_args)
-_NO_FUSED_WALK = (None, 0, 0, 0, None, None, 0, None, 0, 0)
 
 
 def sample_histogram(

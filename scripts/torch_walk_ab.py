@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""K6 and K7 of several checkouts of the port, timed in turn on one card.
+"""The walk kernels of several checkouts of the port, timed in turn on one
+card.
 
     python3 scripts/torch_walk_ab.py OTHER_CHECKOUT [MORE ...]
 
@@ -8,7 +9,10 @@ directory holding another commit's ``readserver_tpu_torch``, e.g. unpacked
 by ``git archive``) at the shapes ``chip_smoke.py`` uses: K6 on the fused
 E. coli engine's compacted rows at width 8192 and at a full budget, and K7
 through the dsa and the fused walk at the cohort's width 8192 and at the
-cap-filling batch.  Each checkout runs in its own process (both packages
+cap-filling batch; where the checkout has the rank walks' kernel
+(``resolve_walk``), the marks, lf and slow walks on the same compacted
+rows, the marks walk at a full budget, and K7 through the marks walk at
+width 8192 and at the cap-filling batch.  Each checkout runs in its own process (both packages
 are named ``readserver_tpu_torch``), in the order A B ... then back again,
 so that two versions are compared on one card and in turns.  Every time is
 the profiler's device time of the kernel, the mean over 10 launches.  The
@@ -49,8 +53,9 @@ def measure(scale: float, seed: int) -> dict:
     from readserver_tpu_torch.config import ServeConfig
     from readserver_tpu_torch.corpus import simulate
     from readserver_tpu_torch.index import artifact, build_index
+    from readserver_tpu_torch.index.budget import plan_tiers
     from readserver_tpu_torch.native import native_available
-    from readserver_tpu_torch.ops import resolve
+    from readserver_tpu_torch.ops import DeviceIndex, resolve
     from readserver_tpu_torch.serve import QueryEngine
 
     dev = torch.device("cuda:0")
@@ -66,6 +71,7 @@ def measure(scale: float, seed: int) -> dict:
     eng_f = QueryEngine(packed, cfg_f, device=dev)
     ceng = QueryEngine(cpacked, cfg, device=dev)
     ceng_f = QueryEngine(cpacked, cfg_f, device=dev)
+    rank_walks = hasattr(resolve, "walk_kind")  # this checkout has them
     H = cfg.max_hits
 
     def intervals(eng, kms):
@@ -109,6 +115,30 @@ def measure(scale: float, seed: int) -> dict:
                 "exact_histogram_kernel",
                 lambda idx=idx, hl=hl, hu=hu: resolve.exact_sample_histogram(
                     idx, hl, hu, win, cap))
+    if rank_walks:
+        forms = {"marks": (("dsa", "fused", "lf"), resolve.resolve_rows_marked),
+                 "lf": (("dsa", "fused"), resolve.resolve_rows_fast),
+                 "slow": (("dsa", "fused", "marks", "lf"),
+                          resolve.resolve_rows)}
+        for kind, (drop, walk) in forms.items():
+            widx = DeviceIndex.from_packed(packed, dev,
+                                           tiers=plan_tiers(packed, None,
+                                                            drop).keep)
+            assert resolve.walk_kind(widx) == kind
+            cases[f"{kind} walk width 8192"] = (
+                "resolve_walk_kernel",
+                lambda w=walk, x=widx: w(x, *main_rows))
+            if kind == "marks":
+                cases["marks walk full budget"] = (
+                    "resolve_walk_kernel",
+                    lambda w=walk, x=widx: w(x, *full_rows))
+        cidx = DeviceIndex.from_packed(cpacked, dev, tiers={"marks"})
+        for shape, (hl, hu) in (("width 8192", (cl, cu)),
+                                ("cap-filling", (kl, ku))):
+            cases[f"K7 {shape}, marks walk"] = (
+                "exact_histogram_kernel",
+                lambda hl=hl, hu=hu: resolve.exact_sample_histogram(
+                    cidx, hl, hu, win, cap))
     out = {}
     for name, (kernel, fn) in cases.items():
         fn()
@@ -146,13 +176,14 @@ def main() -> int:
         got = json.loads(res.stdout.strip().splitlines()[-1])
         runs[c].append(got)
         print(json.dumps({"checkout": c, "device_ms": got}), flush=True)
-    names = list(runs[checkouts[0]][0])
+    names = list(dict.fromkeys(n for c in checkouts for r in runs[c]
+                               for n in r))
     print(f"# device ms, median of {2} runs each ({card})")
     print("# shape | " + " | ".join(Path(c).name for c in checkouts))
     for n in names:
         cells = []
         for c in checkouts:
-            vals = [r[n] for r in runs[c] if r[n] is not None]
+            vals = [r[n] for r in runs[c] if r.get(n) is not None]
             cells.append(f"{np.median(vals):.4f}" if vals else "not measured")
         print(f"# {n} | " + " | ".join(cells))
     return 0

@@ -2,7 +2,7 @@
 PackedIndex: counts at tiered widths 1 and 256, uniform and mixed lengths
 (k-step, LUT and plain routes), both strands; full answers (hits,
 histogram-only, both strands) on a single-sample and a 128-sample corpus,
-through the dsa and the fused walk, the dense fallback, the capped
+through each of the five walks, the dense fallback, the capped
 histogram; read text, names and metadata — and the port's CLI."""
 
 import dataclasses
@@ -21,6 +21,7 @@ from readserver_tpu.index import build_index
 from readserver_tpu.serve import QueryEngine as JaxQueryEngine
 from readserver_tpu_torch import cli
 from readserver_tpu_torch.config import ServeConfig
+from readserver_tpu_torch.ops.resolve import walk_kind
 from readserver_tpu_torch.serve import QueryEngine, rc_string
 
 CFG = dict(batch_size=512, small_batch_sizes=(1, 256))
@@ -167,19 +168,29 @@ def test_query_batch_single_sample_matches_jax(engines, mode):
     assert any(r.hits for r in got) or mode == "hist"
 
 
-@pytest.mark.parametrize("tiers", [(), ("dsa",)])
+# dropped tiers → the walk the engine then resolves and sweeps through.
+# On the CPU no budget binds, so the planner keeps lf beside fused and lf
+# serves (select_walk: dsa > lf > fused > marks > slow)
+PLANS = {(): "dsa", ("dsa",): "lf", ("dsa", "lf"): "fused",
+         ("dsa", "fused"): "lf", ("dsa", "fused", "lf"): "marks",
+         ("dsa", "fused", "marks", "lf"): "slow"}
+
+
+@pytest.mark.parametrize("tiers", list(PLANS))
 @pytest.mark.parametrize("mode", ["hits", "hist", "both strands"])
 def test_query_batch_cohort_matches_jax(cohort_packed, tiers, mode):
     """128 samples: exact per-sample histograms through the dsa walk, or
-    through the fused walk (with the row-budget compaction) when dsa is
-    dropped, as the chr20 serving profile drops it."""
+    through the walk the other plans leave (with the row-budget compaction)
+    when dsa is dropped: lf, fused (the chr20 serving profile), marks (the
+    whole-genome per-shard profile) and slow."""
     corpus, packed = cohort_packed
+    # the plain slow sweep walks max_read_len steps a window: a small cap
+    cap = dict(max_sweep_rows=4096) if PLANS[tiers] == "slow" else {}
     jax_engine, engine = _pair(
         packed, batch_size=256, small_batch_sizes=(16,), max_hits=8,
-        drop_tiers=tiers, resolve_budget_frac=0.05,
+        drop_tiers=tiers, resolve_budget_frac=0.05, **cap,
     )
-    walk = "fused_rows" if tiers else "dsa"
-    assert getattr(engine.index, walk) is not None
+    assert walk_kind(engine.index) == PLANS[tiers]
     kms = [jax_alphabet.decode(k) for k in
            jax_simulate.sample_query_kmers(corpus, 100, 31, seed=22,
                                            miss_frac=0.1)]

@@ -29,6 +29,7 @@ from readserver_tpu_torch.kernels import (
     RANK_OCC,
     RESOLVE_DSA,
     RESOLVE_FUSED,
+    RESOLVE_WALK,
 )
 from readserver_tpu_torch.kernels import build as kbuild
 from readserver_tpu_torch.ops import (
@@ -344,7 +345,7 @@ def test_rank_kernel_from_worker_thread(dev):
                                                     **_layout(dev)))
 
 
-# ------------------------------------------------------------ K5, K6, K7
+# --------------------------------------------- K5, K6, the rank walks, K7
 
 
 @pytest.fixture(scope="module")
@@ -477,11 +478,122 @@ def test_fused_kernel_slot_counts(cohort, cuda_device, case):  # noqa: F811
         assert (got[0] == -1).all() and (got[1] == -1).all()
 
 
+# the rank walks: kind → (tiers shipped, the walk, its plain form)
+RANK_WALKS = {
+    "marks": ({"marks"}, resolve.resolve_rows_marked,
+              resolve.resolve_rows_marked_plain),
+    "lf": ({"marks", "lf"}, resolve.resolve_rows_fast,
+           resolve.resolve_rows_fast_plain),
+    "slow": (set(), resolve.resolve_rows, resolve.resolve_rows_plain),
+}
+# K7's walks: dsa, fused, lf, marks, slow
+HIST_TIERS = [None, {"fused"}, {"marks", "lf"}, {"marks"}, set()]
+
+
+def _rank_walk_variants(d):
+    """The index itself; its marks cleared (walks end only at $, so those
+    needing sample_rate steps or more give -1); and every $ row also
+    marked (marked wins).  The lf walk's marks are its sign bits and its
+    mark table both."""
+    W = d.words_per_block
+    if d.mark_rank is None:
+        return {"index": d}
+    lf = d.lf
+    dm = d.mark_rank.clone()
+    dm[:, 1:1 + W] |= d.rank_rows[:d.rows_per_symbol, 1:1 + W]
+    cleared = dict(mark_rank=torch.zeros_like(d.mark_rank))
+    dollar = dict(mark_rank=dm)
+    if lf is not None:
+        cleared["lf"] = lf & 0x7FFFFFFF
+        dollar["lf"] = torch.where((lf & 0x7FFFFFFF) < d.C[1],
+                                   lf | (-(1 << 31)), lf)
+    return {"index": d,
+            "no marks": dataclasses.replace(d, **cleared),
+            "$ also marked": dataclasses.replace(d, **dollar)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tiers", [None, {"fused"}])
+@pytest.mark.parametrize("kind", sorted(RANK_WALKS))
+def test_rank_walk_kernel_matches_plain(cohort, cuda_device, kind):  # noqa: F811
+    """The marks, lf and slow walks' kernel against their plain forms on
+    every row, with the marks cleared and with $ rows marked."""
+    corpus, packed = cohort
+    tiers, walk, plain = RANK_WALKS[kind]
+    d = DeviceIndex.from_packed(packed, cuda_device, tiers=tiers)
+    assert resolve.walk_kind(d) == kind
+    rows = torch.arange(d.n, dtype=torch.int32, device=d.device)
+    valid = torch.rand(d.n, device=d.device) > 0.1
+    for name, v in _rank_walk_variants(d).items():
+        before = RESOLVE_WALK.launches, RANK_OCC.launches
+        got = walk(v, rows, valid)
+        torch.cuda.synchronize()
+        assert (RESOLVE_WALK.launches, RANK_OCC.launches) == (
+            before[0] + 1, before[1]), name
+        want = plain(v, rows, valid)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), name
+        if name == "no marks":
+            off = got[1]
+            assert (off == d.sample_rate - 1).any() and (off[valid] == -1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(RANK_WALKS))
+@pytest.mark.parametrize("case", ["full budget", "0 valid", "1 slot",
+                                  "1013 slots", "past resident"])
+def test_rank_walk_kernel_slot_counts(cohort, cuda_device, kind,
+                                      case):  # noqa: F811
+    """The rank walks at K6's slot counts: a full budget, no valid slot,
+    one slot, a count no multiple of 32, and four passes over every row."""
+    corpus, packed = cohort
+    tiers, walk, plain = RANK_WALKS[kind]
+    d = DeviceIndex.from_packed(packed, cuda_device, tiers=tiers)
+    g = torch.Generator(device=d.device).manual_seed(8)
+    if case == "full budget":
+        rows, valid, _ = resolve.expand_intervals(
+            *_short_intervals(d, corpus, 8192, 4, seed=11), 64)
+        rows, valid, _, _ = resolve.compact_rows(rows, valid,
+                                                 int(0.6 * 8192 * 64))
+        assert bool(valid.all())
+    else:
+        R = {"0 valid": 1000, "1 slot": 1, "1013 slots": 1013,
+             "past resident": 4 * d.n}[case]
+        rows = torch.randint(0, d.n, (R,), generator=g, device=d.device,
+                             dtype=torch.int32)
+        valid = torch.rand(R, generator=g, device=d.device) > 0.1
+        if case == "0 valid":
+            valid[:] = False
+        if case == "1 slot":
+            valid[:] = True
+    got = walk(d, rows, valid)
+    want = plain(d, rows, valid)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "0 valid":
+        assert (got[0] == -1).all() and (got[1] == -1).all()
+
+
+@pytest.mark.cuda
+def test_slow_walk_kernel_short_max_steps(cohort, cuda_device):  # noqa: F811
+    """A slow walk bounded below the longest read gives -1 past it, as the
+    plain form does; its hooks have no kernel and raise."""
+    _, packed = cohort
+    d = DeviceIndex.from_packed(packed, cuda_device, tiers=set())
+    rows = torch.arange(d.n, dtype=torch.int32, device=d.device)
+    valid = torch.ones_like(rows, dtype=torch.bool)
+    steps = d.max_read_len // 2
+    got = resolve.resolve_rows(d, rows, valid, max_steps=steps)
+    want = resolve.resolve_rows_plain(d, rows, valid, max_steps=steps)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[0] == -1).any() and int(got[1].max()) == steps - 1
+    with pytest.raises(NotImplementedError, match="P10"):
+        resolve.resolve_rows(d, rows, valid,
+                             rank_fn=lambda c, i: rank_ops.occ(d, c, i))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", HIST_TIERS)
 def test_exact_histogram_kernel_cap_filling(cohort, cuda_device,
                                             tiers):  # noqa: F811
-    """K7 through both walks at a batch whose worklist the cap cuts: 8192
+    """K7 through every walk at a batch whose worklist the cap cuts: 8192
     6-mers of about 28 rows each against a cap of 100,352 rows."""
     corpus, packed = cohort
     d = DeviceIndex.from_packed(packed, cuda_device, tiers=tiers)
@@ -494,7 +606,7 @@ def test_exact_histogram_kernel_cap_filling(cohort, cuda_device,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tiers", [None, {"fused"}])
+@pytest.mark.parametrize("tiers", HIST_TIERS)
 @pytest.mark.parametrize("max_rows", [None, 100, 1 << 20])
 def test_exact_histogram_kernel_makes_no_host_sync(cohort, cuda_device, tiers,
                                                    max_rows):  # noqa: F811
@@ -515,7 +627,7 @@ def test_exact_histogram_kernel_makes_no_host_sync(cohort, cuda_device, tiers,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tiers", [None, {"fused"}])
+@pytest.mark.parametrize("tiers", HIST_TIERS)
 @pytest.mark.parametrize("window, max_rows", [(2048, 1 << 20), (64, 100),
                                               (256, None)])
 def test_exact_histogram_kernel_matches_plain(cohort, cuda_device, tiers,
@@ -543,11 +655,16 @@ def test_exact_histogram_kernel_int64_totals(cohort, cuda_device):  # noqa: F811
     assert not got[1].any() and int(got[0][0].sum()) == 1024
 
 
+# the serving plans: dsa, fused, lf, marks, slow on the card's budget
+DROPS = [(), ("dsa",), ("dsa", "fused"), ("dsa", "fused", "lf"),
+         ("dsa", "fused", "marks", "lf")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("drop", [(), ("dsa",)])
+@pytest.mark.parametrize("drop", DROPS)
 def test_engine_on_card_matches_cpu(cohort, cuda_device, drop):  # noqa: F811
-    """The whole full-answer path on the card (K2, K5 or K6, K7) gives the
-    CPU engine's answers, field by field."""
+    """The whole full-answer path on the card (K2, K5 or a walk kernel,
+    K7) gives the CPU engine's answers, field by field."""
     corpus, packed = cohort
     cfg = ServeConfig(batch_size=512, max_hits=8, drop_tiers=drop,
                       resolve_budget_frac=0.05)
@@ -557,3 +674,36 @@ def test_engine_on_card_matches_cpu(cohort, cuda_device, drop):  # noqa: F811
         corpus, 200, 31, seed=9)[0]] + ["ACGTAC", "GGATC"]
     for kw in (dict(), dict(include_hits=False), dict(both_strands=True)):
         assert card.query_batch(kms, **kw) == cpu.query_batch(kms, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop", DROPS[2:])
+def test_engine_on_card_runs_no_plain_walk(cohort, cuda_device, drop,
+                                           monkeypatch):  # noqa: F811
+    """On the lf, marks and slow plans the card's query_batch runs no
+    plain walk and no plain sweep (each made to raise here) and no K1
+    rank: the walk kernel and K7 carry every resolve."""
+    corpus, packed = cohort
+    cfg = ServeConfig(batch_size=512, max_hits=8, drop_tiers=drop,
+                      resolve_budget_frac=0.05)
+    card = QueryEngine(packed, cfg, device=cuda_device)
+    assert resolve.walk_kind(card.index) == {
+        2: "lf", 3: "marks", 4: "slow"}[len(drop)]
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain form ran on the card")
+
+    for name in ("resolve_rows_plain", "resolve_rows_fast_plain",
+                 "resolve_rows_marked_plain", "resolve_rows_fused_plain",
+                 "resolve_rows_dsa_plain", "exact_sample_histogram_plain"):
+        monkeypatch.setattr(resolve, name, refuse)
+    monkeypatch.setattr(rank_ops, "occ_rows_plain", refuse)
+    kms = ["".join("ACGT"[c - 1] for c in row) for row in _queries(
+        corpus, 200, 31, seed=9)[0]] + ["ACGTAC", "GGATC"]
+    before = RESOLVE_WALK.launches, EXACT_HISTOGRAM.launches, RANK_OCC.launches
+    for kw in (dict(), dict(include_hits=False), dict(both_strands=True)):
+        card.query_batch(kms, **kw)
+    torch.cuda.synchronize()
+    assert RESOLVE_WALK.launches > before[0]
+    assert EXACT_HISTOGRAM.launches > before[1]
+    assert RANK_OCC.launches == before[2]

@@ -1,8 +1,9 @@
 """Port's resolve (ops/resolve.py) against the JAX package's on the same
 PackedIndex: every walk on every row, resolve_intervals with and without a
-row budget, the exact per-sample histogram (capped, and with int64 totals),
-the capped histogram, the bit-rank helpers, and hit sets against the naive
-scan.  Every output is an integer, so every comparison is exact."""
+row budget, the exact per-sample histogram through every walk (capped, and
+with int64 totals), the capped histogram, the bit-rank helpers, the slow
+walk's hooks, and hit sets against the naive scan.  Every output is an
+integer, so every comparison is exact."""
 
 import dataclasses
 
@@ -178,7 +179,8 @@ def test_resolve_intervals_matches_jax(packed, tiny_corpus, tiers, use_fast,
         assert int(np_of(got[2]).sum()) == 64 < int(np.minimum(u - l, H).sum())
 
 
-@pytest.mark.parametrize("tiers", [None, {"fused"}, {"marks"}])
+@pytest.mark.parametrize("tiers", [None, {"fused"}, {"marks"},
+                                   {"marks", "lf"}, set()])
 @pytest.mark.parametrize("window, max_rows", [
     (64, None), (256, 1 << 20), (64, 100), (1000, 1), (16, 0),
 ])
@@ -200,6 +202,70 @@ def test_exact_histogram_matches_jax(cohort, tiers, window, max_rows):
     reach = total if max_rows is None else -(-max_rows // window) * window
     assert hist.shape == (48, 128) and hist.sum() == min(total, reach)
     np.testing.assert_array_equal(complete, np.cumsum(u - l) <= reach)
+
+
+def test_walk_kind_names_the_walk_select_walk_takes(packed):
+    """walk_kind (what K7 sweeps through on the card) follows the JAX
+    package's select_walk order: dsa > lf > fused > marks > slow."""
+    want = {None: "dsa", ("marks", "lf", "fused"): "lf",
+            ("fused", "marks"): "fused", ("marks",): "marks", (): "slow"}
+    for tiers, kind in want.items():
+        tdev = DeviceIndex.from_packed(
+            packed, "cpu", tiers=None if tiers is None else set(tiers))
+        assert resolve.walk_kind(tdev) == kind
+        rows = t32(np.arange(0, packed.n, 7))
+        valid = rows >= 0
+        got = resolve.select_walk(tdev)(rows, valid)
+        plain = resolve.select_walk(tdev, plain=True)(rows, valid)
+        _same(got, [np_of(x) for x in plain])
+
+
+def test_slow_walk_hooks_match_jax(packed):
+    """The slow walk's rank_fn/sym_fn hooks (the sharded path's rank) run
+    in the plain form as in the JAX package."""
+    jdev, tdev = _pair(packed, set())
+    rows = np.arange(0, packed.n, 3, dtype=np.int32)
+    valid = np.ones(rows.shape, dtype=bool)
+    calls = []
+
+    def rank_fn(c, i):
+        calls.append(c.shape[0])
+        return rank_ops.occ(tdev, c, i)
+
+    want = jax_resolve.resolve_rows(
+        jdev, rows, valid, max_steps=40,
+        rank_fn=lambda c, i: jax_rank.occ(jdev, c, i),
+        sym_fn=lambda i: jax_rank.read_symbol(jdev, i))
+    got = resolve.resolve_rows(tdev, t32(rows), t32(valid).bool(),
+                               max_steps=40, rank_fn=rank_fn,
+                               sym_fn=lambda i: rank_ops.read_symbol(tdev, i))
+    _same(got, want)
+    assert len(calls) == 40
+
+
+def test_walk_kernels_refuse_what_they_do_not_take(packed, monkeypatch):
+    """On CUDA tensors (stood in for here: the check comes before any
+    launch) the slow walk's hooks raise NotImplementedError naming P10,
+    through the walk and through the histogram sweep, and a walk's missing
+    tier or a slow walk of no steps raises ValueError; no plain form
+    runs."""
+    tdev = DeviceIndex.from_packed(packed, "cpu", tiers=set())
+    monkeypatch.setattr(resolve, "on_cuda", lambda t: True)
+    for name in ("resolve_rows_plain", "exact_sample_histogram_plain"):
+        monkeypatch.setattr(resolve, name, None)
+    rows = t32(np.arange(8))
+    valid = rows >= 0
+    with pytest.raises(NotImplementedError, match="P10"):
+        resolve.resolve_rows(tdev, rows, valid, rank_fn=lambda c, i: i)
+    with pytest.raises(NotImplementedError, match="P10"):
+        resolve.exact_sample_histogram(tdev, rows, rows + 1, 8,
+                                       sym_fn=lambda i: i)
+    with pytest.raises(ValueError, match="max_steps"):
+        resolve.resolve_rows(tdev, rows, valid, max_steps=0)
+    with pytest.raises(ValueError, match="marks walk tier"):
+        resolve.resolve_rows_marked(tdev, rows, valid)
+    with pytest.raises(ValueError, match="lf walk tier"):
+        resolve.resolve_rows_fast(tdev, rows, valid)
 
 
 def test_exact_histogram_int64_totals(packed):
