@@ -5,8 +5,9 @@
     python3 chip_smoke.py --scale 0.05 # 5% of each, for a quick check
 
 Phases, each printed with its seconds on a ``#`` line, run in the order
-1-5, 8-10, 6, 7 (every main path is driven before the kernel-vs-plain and
-timing phases, so each path's launch counts are its own):
+1-5, 8, 9, 9b, 10, 6, 7 (every main path is driven before the
+kernel-vs-plain and timing phases, so each path's launch counts are its
+own):
 
 1. device: a CUDA card is required (no CPU path); its name and power limit;
 2. kernels: build K1 (rank and its LUT level entry), K2 (backward search),
@@ -34,6 +35,20 @@ timing phases, so each path's launch counts are its own):
    queries (dsa and marks), and a capped engine's ``complete`` flags
    against the window-rounding rule; K7 must have launched through the
    three walks, K6 and the walk kernel on the full answers;
+9b. cohort: the same corpus built by ``index.cohort.build_cohort`` into 4
+   doc shards (cached under ``data/``); phase 9's monolithic engine answers
+   the requests first, then, counts at 0, three ``MultiEngine`` fronts (4
+   partitions on the card each, dsa, fused and marks plans, a quarter of
+   the budget each) serve them at B = 4096 queries a batch and H = 64;
+   ``/count``, ``/samples`` and ``/reads`` on both strands equal across the
+   fronts, exact against the windows on >= 96 queries (hit sets by global
+   read id) and equal to the monolithic engine's; the int64 merge of
+   synthetic partition buffers whose counts sum past 2^31; the REST front
+   over the cohort; every kernel but K1's generic entry must have launched
+   in that window.  Then, counted no more, each front's kernels against
+   their plain forms on one partition: the LUT (K1's level entry), K2 on
+   the width-4096 batch the front serves, its resolve kernel (K5, K6 or
+   the mark walk) on that batch's intervals and K7 at the engine's window;
 10. REST: counts at 0, the port's ``RestServer`` over the card engines in
    this script's event loop; every endpoint's answer equals the engine's;
 6. kernel vs plain: each kernel against its plain torch form on the card,
@@ -64,14 +79,21 @@ timing phases, so each path's launch counts are its own):
    (the torch sparse pack's) bytes and time on the ``/reads`` 4096 x 2
    request; where a served count, ``/reads`` (dsa and mark-walk engines)
    and ``/samples`` request's time goes (host stages, device busy share,
-   top device ops); and the mark-walk engine's ``/reads`` requests through
-   the walk kernel and through the plain walk, in turns.
+   top device ops); the mark-walk engine's ``/reads`` requests through
+   the walk kernel and through the plain walk, in turns; and the cohort
+   front's ``/samples`` and ``/reads`` requests of 4096 queries on both
+   strands, its merge's device time against its bytes bound, and
+   ``query_batches`` / ``count_batches`` over 8 batches of 4096 against 8
+   single-batch calls, in turns, with the spread.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the one before it is the kernels' JSON summary (``launches`` summed over
-the main-path phases 4, 8, 9 and 10, where every kernel but K1's generic
-entry must have launched; ``bound_ms`` the bytes bound, ``chain_ms`` the
-chain bound where there is one, ``held_by`` the larger).
+the main-path phases 4, 8, 9, 9b and 10, where every kernel but K1's
+generic entry must have launched, ``cohort_launches`` those of phase 9b;
+``max_abs_err`` the largest over every check, ``cohort_max_abs_err`` that
+over phase 9b's partition checks;
+``bound_ms`` the bytes bound, ``chain_ms`` the chain bound where there is
+one, ``held_by`` the larger).
 The last line is ``{"ok": true, "device": {...}}``, printed only when
 every phase passed.
 Imports torch and the port, never jax.
@@ -96,6 +118,7 @@ REPO = Path(__file__).resolve().parent
 B_TIME = 262_144        # timing batch (queries)
 N_ROT = 8               # distinct timing batches, searched in turn
 KMER = 31
+SHARDS = 4              # the cohort's doc shards (scripts/bench_cohort.py)
 
 
 class PhaseFailed(RuntimeError):
@@ -200,11 +223,25 @@ def ratio(a: float | None, b: float | None) -> str:
     return "not measured" if a is None or not b else f"{a / b:.3f}"
 
 
-def request_breakdown(engine, kms: list[str], tier: str) -> None:
+def engine_stage(engine, tier: str):
+    """A ``QueryEngine``'s device program for one padded batch of ``tier``
+    (see :func:`request_breakdown`): (codes, lengths, nq) → the buffer its
+    answer copies out."""
+    if tier == "count":
+        return engine._counted
+    return lambda codes, lengths, nq: engine._served(
+        *engine._to_device(codes, lengths), nq,
+        *engine._routes(codes, lengths, nq), tier == "reads")[0]
+
+
+def request_breakdown(engine, kms: list[str], tier: str, stage) -> None:
     """Where one served both-strands request's time goes: host stages by
     wall clock, and the device's busy share from a profiler window.
     ``tier``: "count" (``count_batch``), "reads" (``query_batch``) or
-    "samples" (``query_batch(include_hits=False)``)."""
+    "samples" (``query_batch(include_hits=False)``).  ``stage(codes,
+    lengths, nq)``: the engine's device program for the padded batch, the
+    "copy in + device" stage (:func:`engine_stage` for a
+    ``QueryEngine``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -222,12 +259,7 @@ def request_breakdown(engine, kms: list[str], tier: str) -> None:
     codes, lengths, nq = engine._pad_encode(exp)
     stages["pad + encode"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    if tier == "count":
-        out = engine._counted(codes, lengths, nq)
-    else:
-        use_lut, use_pair = engine._routes(codes, lengths, nq)
-        out = engine._served(*engine._to_device(codes, lengths), nq, use_lut,
-                             use_pair, tier == "reads")[0]
+    out = stage(codes, lengths, nq)
     torch.cuda.synchronize()
     stages["copy in + device"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -237,8 +269,8 @@ def request_breakdown(engine, kms: list[str], tier: str) -> None:
     whole_fn()
     whole = time.perf_counter() - t0
     stages["results (rest)"] = whole - sum(stages.values())
-    log(f"{tier} request of {len(kms)} queries on both strands ({nq} "
-        f"searched): {whole * 1e3:.3f} ms = " + ", ".join(
+    log(f"{type(engine).__name__} {tier} request of {len(kms)} queries on "
+        f"both strands ({nq} searched): {whole * 1e3:.3f} ms = " + ", ".join(
             f"{k} {v * 1e3:.3f}" for k, v in stages.items()))
     reps = 3
     with profile(activities=[ProfilerActivity.CPU,
@@ -317,6 +349,23 @@ def check_hits(res, want: set, H: int, sample_ids, strand=None) -> None:
               f"{res.kmer}: wrong sample for read {h['read_id']}")
 
 
+def check_cohort_hits(res, want: set, H: int, sample_ids, strand) -> None:
+    """A cohort front's hit list on one strand against the oracle's set:
+    each partition resolves up to H of its own rows, so the union is the
+    whole set when the count fits H, else a subset of at least H hits."""
+    got = {(h["read_id"], h["offset"]) for h in res.hits
+           if h["strand"] == strand}
+    if len(want) <= H:
+        check(got == want, f"{res.kmer} {strand}: cohort hit set differs "
+              f"from the oracle ({len(got)} vs {len(want)})")
+    else:
+        check(got <= want and len(got) >= H, f"{res.kmer} {strand}: cohort "
+              "hits past the cap are not a subset of H or more")
+    for h in res.hits:
+        check(h["sample_id"] == int(sample_ids[h["read_id"]]),
+              f"{res.kmer}: wrong sample for read {h['read_id']}")
+
+
 def rest_exchange(server_cls, dispatcher, requests):
     """Start a REST server over ``dispatcher`` on a free local port in this
     process's event loop, send ``requests`` ((method, path, body)) over one
@@ -349,9 +398,11 @@ def rest_exchange(server_cls, dispatcher, requests):
     return asyncio.run(go())
 
 
-def rest_check(engine, kms: list[str], server_cls, Dispatcher) -> int:
+def rest_check(engine, kms: list[str], server_cls, Dispatcher,
+               read_sample) -> int:
     """Every endpoint through the port's REST front over ``engine``, each
-    answer against what the engine gives directly → requests sent."""
+    answer against what the engine gives directly, ``/read``'s sample
+    against ``read_sample(read id)`` → requests sent."""
     km = kms[:4]
     batch = kms[:64]
     rid = next(h["read_id"] for r in engine.query_batch(kms[:16])
@@ -380,7 +431,7 @@ def rest_check(engine, kms: list[str], server_cls, Dispatcher) -> int:
             False),
         {"read_id": rid, "name": engine.read_name(rid),
          "sequence": engine.read_sequence(rid),
-         "sample": engine.sample_names[engine._sample_of(rid)]},
+         "sample": read_sample(rid)},
         {"status": "ok"},
         {"results": [pay(r, "count", False)
                      for r in engine.count_batch(batch)]},
@@ -400,6 +451,303 @@ def rest_check(engine, kms: list[str], server_cls, Dispatcher) -> int:
         f"{stats['queries']} queries in {stats['batches']} batches, p50 "
         f"{stats['p50_latency_ms']} ms")
     return len(reqs)
+
+
+def serve_cohort(args, cohort, cpacked, ceng, cfg, dev, c256, c4096,
+                 zero_launches, read_launches):
+    """Phase 9b: the 128-sample cohort in SHARDS doc shards, served by
+    ``MultiEngine`` fronts on the card, checked against the windows,
+    phase 9's monolithic engine ``ceng`` and the REST front, then each
+    front's kernels against their plain forms on one partition → (the
+    dsa front, which phase 7 times; the partition checks' max |err| by
+    the summary's keys)."""
+    import torch
+    from readserver_tpu_torch.index.cohort import (
+        build_cohort,
+        is_cohort,
+        load_cohort,
+    )
+    from readserver_tpu_torch.kernels import KERNELS
+    from readserver_tpu_torch.native import native_available
+    from readserver_tpu_torch.ops import lut as lut_ops
+    from readserver_tpu_torch.ops import resolve
+    from readserver_tpu_torch.ops import search as search_ops
+    from readserver_tpu_torch.serve import Dispatcher, MultiEngine
+    from readserver_tpu_torch.serve.engine import _copy_out
+    from readserver_tpu_torch.serve.http import RestServer
+
+    H = cfg.max_hits
+    ckms = decode_all(c256)
+    scache = (REPO / "data" / "chip_smoke"
+              / f"cohort{SHARDS}_s{args.scale:g}")
+    t0 = time.perf_counter()
+    if not is_cohort(scache):
+        check(native_available(), "the native SA-IS (g++) did not build")
+        build_cohort(cohort.reads, cohort.sample_ids, SHARDS, scache)
+        log(f"built the cohort in {SHARDS} doc shards in "
+            f"{time.perf_counter() - t0:.3f}s")
+        t0 = time.perf_counter()
+    parts, _ = load_cohort(scache, mmap=False)
+    log(f"loaded {len(parts)} shards (n = {[p.n for p in parts]}, "
+        f"{sum(p.num_reads for p in parts)} reads) in "
+        f"{time.perf_counter() - t0:.3f}s")
+    check(len(parts) == SHARDS
+          and sum(p.num_reads for p in parts) == len(cohort.reads)
+          and sum(p.n for p in parts) == cpacked.n
+          and all(p.num_samples == 128 for p in parts),
+          "the cohort's shards do not cover the corpus")
+    # phase 9's monolithic engine answers the same requests first, outside
+    # the cohort path's counted window: 256 queries on both strands, and a
+    # full batch of 4096 on one strand
+    c4096_kms = decode_all(c4096)
+    mono = (ceng.count_batch(ckms, both_strands=True),
+            ceng.query_batch(ckms, both_strands=True, include_hits=False),
+            ceng.query_batch(ckms, both_strands=True),
+            ceng.query_batch(c4096_kms, include_hits=False))
+    zero_launches()
+    # B = 4096 queries a batch (scripts/bench_cohort.py), served at the
+    # width 4096; a batch_size of 8192 lets a request of 4096 queries
+    # on both strands in.  The partitions share the card: each plans
+    # its tiers against a quarter of the budget
+    share = ceng.budget_bytes / SHARDS / 2**30
+    mcfg = dataclasses.replace(cfg, small_batch_sizes=(256, 4096),
+                               hbm_budget_gb=share)
+    multis = {}
+    t0 = time.perf_counter()
+    for wname, drop in (("dsa", ()), ("fused", ("dsa",)),
+                        ("marks", ("dsa", "fused", "lf"))):
+        m = MultiEngine(parts, dataclasses.replace(mcfg, drop_tiers=drop),
+                        device=dev)
+        m.warmup()
+        check(all(resolve.walk_kind(e.index) == wname
+                  for e in m.engines),
+              f"the {wname} cohort front's partitions do not walk "
+              f"{wname}")
+        multis[wname] = m
+    meng = multis["dsa"]
+    log(f"cohort fronts (dsa, fused, marks; {SHARDS} partitions each) "
+        f"up and warm in {time.perf_counter() - t0:.3f}s: "
+        f"{share:.2f} GiB a partition, dsa partitions keep "
+        f"{sorted(meng.engines[0].tier_plan.keep)}, LUT p="
+        f"{[e.lut_p for e in meng.engines]}")
+    answers_c = {}
+    for ename, m in multis.items():
+        t0 = time.perf_counter()
+        got = (m.count_batch(ckms, both_strands=True),
+               m.query_batch(ckms, both_strands=True, include_hits=False),
+               m.query_batch(ckms, both_strands=True))
+        took = time.perf_counter() - t0
+        check(not answers_c or got == answers_c["dsa"],
+              f"the dsa and {ename} cohort fronts disagree")
+        answers_c[ename] = got
+        log(f"cohort front ({ename}): /count, /samples and /reads of "
+            f"256 queries on both strands in {took * 1e3:.3f} ms")
+    ccount, csamples, creads = answers_c["dsa"]
+    # 96 queries on both strands against every matching read window
+    t0 = time.perf_counter()
+    rcm = np.array([4, 3, 2, 1], dtype=np.uint8)
+    c_rc = rcm[c256[:96] - 1][:, ::-1]
+    cmat = np.stack(cohort.reads)
+    want_w = hit_oracle(cmat, np.concatenate([c256[:96], c_rc]))
+    del cmat
+    names = parts[0].sample_names
+    for i in range(96):
+        wf, wr = want_w[i], want_w[96 + i]
+        rids = np.fromiter((r for r, _ in [*wf, *wr]), dtype=np.int64)
+        per = np.bincount(cohort.sample_ids[rids], minlength=128)
+        want_hist = {names[j]: int(c) for j, c in enumerate(per) if c}
+        n = len(wf) + len(wr)
+        r = creads[i]
+        check(ccount[i].count == csamples[i].count == r.count == n,
+              f"{r.kmer}: cohort counts differ from the oracle ({n})")
+        check(csamples[i].sample_hist == r.sample_hist == want_hist,
+              f"{r.kmer}: cohort histogram differs from the oracle")
+        check_cohort_hits(r, wf, H, cohort.sample_ids, "+")
+        check_cohort_hits(r, wr, H, cohort.sample_ids, "-")
+        check(r.hits_truncated == (r.count > len(r.hits)),
+              f"{r.kmer}: hits_truncated is not count > len(hits)")
+    log(f"oracle: 96 cohort queries on both strands, counts, "
+        f"histograms and hit sets (global read ids) exact "
+        f"({sum(len(w) for w in want_w)} windows) in "
+        f"{time.perf_counter() - t0:.3f}s")
+    # the monolithic engine's answers to the same requests
+    hkey = lambda h: (h["read_id"], h["offset"], h["strand"],  # noqa: E731
+                      h["sample_id"])
+    same_hits = 0
+    for a, b in zip(mono[2], creads):
+        if not (a.hits_truncated or b.hits_truncated):
+            check(sorted(map(hkey, a.hits)) == sorted(map(hkey, b.hits)),
+                  f"{a.kmer}: monolithic and cohort hit sets differ")
+            same_hits += 1
+    akey = lambda r: (r.count, r.sample_hist)  # noqa: E731
+    for a, b in zip(mono, (ccount, csamples, creads,
+                           meng.query_batch(c4096_kms, include_hits=False))):
+        check([akey(r) for r in a] == [akey(r) for r in b],
+              "monolithic and cohort counts or histograms differ")
+    check(meng.engines[0].last_width == 4096, "the batch of 4096 did "
+          "not run at the width 4096")
+    log(f"monolithic engine against the cohort front: counts and "
+        f"histograms equal on 256 queries on both strands and 4096 on "
+        f"one, hit sets equal on {same_hits} of 256 untruncated")
+    # the int64 merge: synthetic partition buffers, counts 2^31 - 5
+    big, w8 = 2**31 - 5, 8
+    outs = []
+    for e in meng.engines:
+        o = torch.full((w8, 4 + e._ns + 3 * H), -1, dtype=torch.int32,
+                       device=dev)
+        o[:, :4 + e._ns] = 0
+        o[:, 2], o[:, 3] = big, 1
+        outs.append(o)
+    want64 = big * SHARDS
+    check(meng._merge_count(outs).tolist() == [want64] * w8,
+          "the count tier's merge wraps past 2^31")
+    for with_hits in (True, False):
+        merged = meng._merge_full(outs, 3, with_hits, meng._new_bad())
+        res = meng._assemble_merged(["A"] * 3, 3, with_hits,
+                                    (_copy_out(merged[0]), *merged[1:]))
+        check([r.count for r in res] == [want64] * 3,
+              f"the merge wraps past 2^31 (hits {with_hits})")
+    log(f"int64 merge on the card: {SHARDS} x (2^31 - 5) = {want64} on "
+        f"the count, full and histogram tiers")
+    # the JAX MultiEngine has no _sample_of: /read answers "sample": None
+    n_req = rest_check(meng, ckms, RestServer, Dispatcher, lambda rid: None)
+    launches = read_launches("cohort")
+    for name in KERNELS:
+        if name != "rank_occ":
+            check(launches[name] > 0,
+                  f"kernel {name} was not launched on the cohort path")
+    check(launches["rank_occ"] == 0, "K1's generic entry launched on "
+          "the cohort path: a walk ran its plain form")
+    log(f"{n_req} REST requests over the cohort front answered as it "
+        f"answers")
+    # each front's kernels against their plain forms on its first
+    # partition, on the width-4096 batch the front serves (not counted)
+    cerr = dict.fromkeys(("k1l_err", "k2_err", "k5_err", "k6_err", "kw_err",
+                          "k7_err"), 0)
+    resolve_err = {"dsa": "k5_err", "fused": "k6_err", "marks": "kw_err"}
+    for wname, m in multis.items():
+        e = m.engines[0]
+        idx = e.index
+        ce, le, nq = e._pad_encode(c4096_kms)
+        check(ce.shape[0] == 4096, f"the {wname} partition's batch is not "
+              "4096 wide")
+        err = {"k1l_err": max_err([(e.lut, lut_ops.build_prefix_lut_plain(
+            idx, e.lut_p))])}
+        l, u = e._search(*e._to_device(ce, le), *e._routes(ce, le, nq),
+                         e._new_bad())
+        err["k2_err"] = max_err(zip(
+            (l, u), search_ops.backward_search_pair_plain(
+                idx, torch.from_numpy(ce).to(dev), e.lut, e.lut_p)))
+        if wname == "dsa":
+            rerr = max_err(zip(resolve.resolve_dsa_hits(idx, l, u, H),
+                               resolve.resolve_dsa_hits_plain(idx, l, u, H)))
+            shape = f"{l.shape[0]} x H={H}"
+        else:
+            rows, valid, _ = resolve.expand_intervals(l, u, H)
+            if e.row_budget is not None and e.row_budget < rows.shape[0]:
+                rows, valid, _, _ = resolve.compact_rows(rows, valid,
+                                                         e.row_budget)
+            rerr = max_err(zip(resolve.select_walk(idx)(rows, valid),
+                               resolve.select_walk(idx, plain=True)(rows,
+                                                                    valid)))
+            shape = f"{rows.shape[0]} rows ({int(valid.sum())} valid)"
+        err[resolve_err[wname]] = rerr
+        window = e.cfg.sweep_window or min(ce.shape[0] * H, 8 * ce.shape[0])
+        err["k7_err"] = max_err(zip(
+            resolve.exact_sample_histogram(idx, l, u, window,
+                                           e.cfg.max_sweep_rows),
+            resolve.exact_sample_histogram_plain(idx, l, u, window,
+                                                 e.cfg.max_sweep_rows)))
+        log(f"{wname} front, partition 0 (n = {idx.n}): LUT p={e.lut_p}, K2 "
+            f"on the batch of 4096, the {wname} resolve on {shape}, K7 at "
+            f"window {window} against their plain forms: max |err| {err}")
+        check(not any(err.values()), f"a kernel disagrees with its plain "
+              f"form on the {wname} front's partition: {err}")
+        for k, v in err.items():
+            cerr[k] = max(cerr[k], v)
+    return meng, cerr
+
+
+def time_cohort(meng, cohort, c4096, seed: int, card: str) -> None:
+    """Phase 7's cohort timing, on the dsa front ``meng``: where a
+    /samples and a /reads request of 4096 queries on both strands go,
+    the merge against its bytes bound, and the pipelined bulk paths
+    against one batch at a time, in turns, with the spread."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from readserver_tpu_torch.corpus import simulate
+
+    t_start = time.perf_counter()
+    for tier in ("samples", "reads"):
+        request_breakdown(
+            meng, decode_all(c4096), tier,
+            lambda c, le, nq, h=tier == "reads": meng._served(c, le, nq,
+                                                              h)[0])
+    ce, le, nq = meng._pad_encode(decode_all(c4096))
+    badm = meng._new_bad()
+    mouts = [e._dispatch_single(ce, le, nq, "full", bad=badm)
+             for e in meng.engines]
+    nbytes = lambda ts: sum(  # noqa: E731
+        t.numel() * t.element_size() for t in ts if t is not None)
+    m_in = nbytes(mouts)
+    m_dense = nbytes(meng._merge_dense(mouts, True))
+    m_full = nbytes(meng._merge_full(mouts, nq, True, badm)) + 4
+    for what, fn, nb in (
+            ("merge (_merge_dense)",
+             lambda: meng._merge_dense(mouts, True), m_in + m_dense),
+            ("merge + K8 pack (_merge_full)",
+             lambda: meng._merge_full(mouts, nq, True, badm),
+             m_in + m_full)):
+        t_m = float(np.median([time_cuda(fn, 20) for _ in range(3)]))
+        dev_ms = kernel_device_ms(fn, 10, "")
+        log(f"cohort {what}, {SHARDS} partitions x {list(mouts[0].shape)}"
+            f" int32 ({m_in} B in): {t_m:.4f} ms a call (CUDA events), "
+            f"device {fmt_ms(dev_ms)} ms over all its ops (profiler) | "
+            f"needs {nb} B: bytes bound {bound_ms(nb):.4f} ms, device "
+            f"time at {ratio(bound_ms(nb), dev_ms)} of it | {card}")
+    bulk = decode_all(simulate.sample_query_kmers_fast(
+        cohort, 8 * 4096, KMER, seed=seed + 6, miss_frac=0.1))
+    bb = [bulk[i : i + 4096] for i in range(0, len(bulk), 4096)]
+    check(meng.query_batches(bb) == [meng.query_batch(b) for b in bb]
+          and meng.count_batches(bb) == [meng.count_batch(b)
+                                         for b in bb],
+          "the pipelined bulk paths disagree with one batch at a time")
+    runs = {
+        "query_batches": lambda: meng.query_batches(bb),
+        "8 x query_batch": lambda: [meng.query_batch(b) for b in bb],
+        "count_batches": lambda: meng.count_batches(bb),
+        "8 x count_batch": lambda: [meng.count_batch(b) for b in bb],
+    }
+    t = {name: [] for name in runs}
+    order = list(runs)
+    for rep in range(5):  # in turns whose order rotates
+        for name in order[rep % 4:] + order[:rep % 4]:
+            gc.collect()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            t[name].append((time.perf_counter() - t0) * 1e3)
+    for name, v in t.items():
+        med = float(np.median(v))
+        log(f"cohort bulk, 8 batches of 4096 31-mers, {name}: median "
+            f"{med:.3f} ms = {len(bulk) / med * 1e3:.0f} queries/s, min "
+            f"{min(v):.3f}, max {max(v):.3f} (max/min "
+            f"{max(v) / min(v):.3f}; runs "
+            + ", ".join(f"{x:.3f}" for x in v) + f") | {card}")
+    for name in ("query_batches", "8 x query_batch"):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        log(f"cohort bulk, {name} under the profiler: device busy "
+            f"{busy_us:.1f} us of {wall_us:.1f} us wall (idle share "
+            f"{1 - busy_us / wall_us:.4f}) | {card}")
+    log(f"cohort timing in {time.perf_counter() - t_start:.3f}s")
 
 
 def max_err(pairs) -> int:
@@ -973,14 +1321,23 @@ def run(args) -> dict:
             f"{int(counts.sum())} rows): {int(got_complete.sum())} of 256 "
             f"queries complete, exactly those with cum <= {window}")
 
+    # ------------------------------------------------------ 9b. cohort
+    with phase("9b cohort"):
+        meng, cohort_err = serve_cohort(args, cohort, cpacked, ceng, cfg, dev,
+                                        c256, c4096, zero_launches,
+                                        read_launches)
+
     # ------------------------------------------------------------ 10. REST
     with phase("10 REST"):
         from readserver_tpu_torch.serve import Dispatcher
         from readserver_tpu_torch.serve.http import RestServer
 
         zero_launches()
-        n_req = rest_check(engine, decode_all(q256), RestServer, Dispatcher)
-        n_req += rest_check(ceng, ckms, RestServer, Dispatcher)
+        n_req = 0
+        for e, kms in ((engine, decode_all(q256)), (ceng, ckms)):
+            n_req += rest_check(
+                e, kms, RestServer, Dispatcher,
+                lambda rid, e=e: e.sample_names[e._sample_of(rid)])
         launches = read_launches("REST")
         for name in ("backward_search", "resolve_dsa", "exact_histogram"):
             check(launches[name] > 0,
@@ -1353,6 +1710,8 @@ def run(args) -> dict:
               "K7 wraps worklist totals past 2^31")
         log(f"K7 totals of 3.6e9 rows (int64), cap 1024: max |err| {err}")
         summary.update(k5_err=k5_err, k6_err=k6_err, k7_err=k7_err)
+        for k, v in cohort_err.items():
+            summary[k] = max(summary[k], v)
 
     # ---------------------------------------------------------- 7. timing
     with phase("7 timing"):
@@ -1775,10 +2134,11 @@ def run(args) -> dict:
             f"{dense8.nbytes} dense hits): bound {bound_ms(k8_bytes):.4f} "
             f"ms, device time at {ratio(bound_ms(k8_bytes), pack_dev)} of "
             f"it | {card}")
-        request_breakdown(engine, decode_all(q4096), "count")
-        request_breakdown(engine, decode_all(q4096), "reads")
-        request_breakdown(engine_m, decode_all(q4096), "reads")
-        request_breakdown(ceng, decode_all(c4096), "samples")
+        for e, qs, tier in ((engine, q4096, "count"),
+                            (engine, q4096, "reads"),
+                            (engine_m, q4096, "reads"),
+                            (ceng, c4096, "samples")):
+            request_breakdown(e, decode_all(qs), tier, engine_stage(e, tier))
         # the mark-walk engine's /reads requests through the walk kernel
         # and through the plain walk (torch and K1 a step), in turns whose
         # order rotates, beside the dsa engine's; the garbage collector runs
@@ -1809,13 +2169,14 @@ def run(args) -> dict:
                             for k, v in t.items())
                 + " (mark-walk engine: the walk kernel, and the plain walk,"
                 f" torch and K1 a step) | {card}")
+        time_cohort(meng, cohort, c4096, args.seed, card)
         log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
             f" GiB")
 
     # launches: summed over the main-path phases (count, reads, samples,
-    # REST), each counted from 0.  K1's generic entry is on no main path:
-    # the walks that ranked through it run in the walk kernel; it stays
-    # held against its plain form and timed (phases 6 and 7)
+    # cohort, REST), each counted from 0.  K1's generic entry is on no main
+    # path: the walks that ranked through it run in the walk kernel; it
+    # stays held against its plain form and timed (phases 6 and 7)
     total = {name: sum(c[name] for c in path_launches.values())
              for name in KERNELS}
     check(all(n for name, n in total.items() if name != "rank_occ"),
@@ -1844,7 +2205,10 @@ def run(args) -> dict:
         kernels.append(dict(
             name=name, route="cuda",
             source=f"readserver_tpu_torch/csrc/{src}", replaces=rep_at,
-            launches=total[name], max_abs_err=summary[err], ms=ms,
+            launches=total[name],
+            cohort_launches=path_launches["cohort"][name],
+            max_abs_err=summary[err], cohort_max_abs_err=cohort_err.get(err),
+            ms=ms,
             device_ms=device_ms, plain_ms=plain_ms, bound_ms=bnd,
             bound_by="bytes", library_ms=None, shape=shape,
             chain_ms=chain_ms,

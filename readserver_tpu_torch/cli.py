@@ -1,14 +1,18 @@
 """CLI of the port: build an artifact, query or serve it on one device.
 
     python -m readserver_tpu_torch.cli build --config ecoli --out data/idx
+    python -m readserver_tpu_torch.cli build --config cohort --doc-shards 4 \\
+        --out data/pop
     python -m readserver_tpu_torch.cli query --index data/idx --kmer ACGTT \\
         --both-strands --hits --samples
     python -m readserver_tpu_torch.cli serve --index data/idx --port 8080 \\
         --batch 8192 --warmup-k 31
 
 Artifacts are the JAX package's on-disk format; either package's CLI can
-build one and query the other's.  Cohort artifacts and multi-host serving
-are not ported yet (ROADMAP.md).
+build one and query the other's.  A cohort directory (``--doc-shards N``)
+is served by ``MultiEngine``, every shard on the one device.  File ingest,
+document sharding across devices and multi-host serving are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,6 +36,19 @@ def cmd_build(args) -> int:
         f"sample_{i:03d}" for i in range(int(np.max(sample_ids)) + 1)
     ]
     print(f"# {len(corpus.reads)} reads", file=sys.stderr)
+    if args.doc_shards > 1:
+        from readserver_tpu_torch.index.cohort import build_cohort
+
+        build_cohort(
+            corpus.reads, sample_ids, args.doc_shards, args.out,
+            sample_names=sample_names,
+        )
+        print(
+            f"# built cohort of {args.doc_shards} shards, {len(corpus.reads)}"
+            f" reads in {time.time()-t0:.1f}s → {args.out}",
+            file=sys.stderr,
+        )
+        return 0
     packed = build_index(
         corpus.reads, sample_ids=sample_ids, sample_names=sample_names
     )
@@ -46,12 +63,19 @@ def cmd_build(args) -> int:
 
 def _load_engine(index_path: str, batch_size: int, device: str,
                  warmup_k: tuple = ()):
+    """One artifact → a ``QueryEngine``; a cohort directory → a
+    ``MultiEngine`` over its shards, all on ``device`` (there is no
+    document sharding across devices yet; its answers are the same)."""
     from readserver_tpu_torch.config import ServeConfig
     from readserver_tpu_torch.index import artifact
-    from readserver_tpu_torch.serve import QueryEngine
+    from readserver_tpu_torch.index.cohort import is_cohort, load_cohort
+    from readserver_tpu_torch.serve import MultiEngine, QueryEngine
 
-    packed = artifact.load_artifact(index_path, mmap=False)
     cfg = ServeConfig(batch_size=batch_size, warmup_query_lengths=warmup_k)
+    if is_cohort(index_path):
+        parts, _ = load_cohort(index_path, mmap=False)
+        return MultiEngine(parts, cfg, device=device)
+    packed = artifact.load_artifact(index_path, mmap=False)
     return QueryEngine(packed, cfg, device=device)
 
 
@@ -101,11 +125,15 @@ def main(argv=None) -> int:
     b = sub.add_parser("build", help="build an index artifact")
     b.add_argument("--config", default="tiny", help="simulated config name")
     b.add_argument("--scale", type=float, default=1.0)
+    b.add_argument("--doc-shards", type=int, default=1,
+                   help="build a document-sharded cohort artifact of N "
+                        "independent sub-indexes (out-of-core path)")
     b.add_argument("--out", required=True)
     b.set_defaults(fn=cmd_build)
 
     q = sub.add_parser("query", help="query an index artifact")
-    q.add_argument("--index", required=True)
+    q.add_argument("--index", required=True,
+                   help="an artifact or a cohort directory")
     q.add_argument("--kmer", nargs="+", required=True)
     q.add_argument("--hits", action="store_true")
     q.add_argument("--samples", action="store_true")
@@ -116,7 +144,8 @@ def main(argv=None) -> int:
     q.set_defaults(fn=cmd_query)
 
     s = sub.add_parser("serve", help="REST server over an index artifact")
-    s.add_argument("--index", required=True)
+    s.add_argument("--index", required=True,
+                   help="an artifact or a cohort directory")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8080)
     s.add_argument("--batch", type=int, default=256)

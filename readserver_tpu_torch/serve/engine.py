@@ -1,15 +1,21 @@
 """QueryEngine: artifact → device tensors → batched queries on one device.
 
-The single-device slice of the JAX package's ``serve/engine.py``: plan tiers
-for the device's memory, ship the ``DeviceIndex``, build the prefix LUT,
-then per batch pad and encode on the host, search on the device (k-step for
-uniform batches, masked 1-step otherwise) and bring back one buffer: (l, u,
-count) for counts, or the sparse pack of counts, exact per-sample
+The single-device engine of the JAX package's ``serve/engine.py``: plan
+tiers for the device's memory, ship the ``DeviceIndex``, build the prefix
+LUT, then per batch pad and encode on the host, search on the device (k-step
+for uniform batches, masked 1-step otherwise) and bring back one buffer: (l,
+u, count) for counts, or the sparse pack of counts, exact per-sample
 histograms and resolved hits for full answers.
+
+``MultiEngine`` serves a cohort's partitions time-multiplexed on that one
+device: each partition's engine answers the whole batch, one merge on the
+device sums counts, unions hit sets and adds histograms, and one small
+buffer comes back to the host.
 """
 
 from __future__ import annotations
 
+import bisect
 import logging
 import time
 from dataclasses import dataclass, field
@@ -53,6 +59,52 @@ class QueryResult:
 def rc_string(kmer: str) -> str:
     """Reverse complement of an ACGT query string."""
     return alphabet.decode(alphabet.revcomp(alphabet.encode(kmer)))
+
+
+def _require_global_sample_space(partitions, names) -> None:
+    """Partition merges (device-side column sums) are by sample ID, so every
+    partition's sample names must be a prefix of the global name table.
+    Independently-built artifacts that each call their local sample 0
+    something different would otherwise have their counts silently added
+    together under one label — refuse instead (build through the cohort
+    API, which keeps the space global)."""
+    for s, p in enumerate(partitions):
+        for i, nm in enumerate(p.sample_names):
+            if i < len(names) and nm != names[i]:
+                raise ValueError(
+                    f"partition {s} calls sample id {i} {nm!r} but the "
+                    f"cohort calls it {names[i]!r}: partitions must share "
+                    "the GLOBAL sample-id space (merges are by id) — "
+                    "rebuild or append via the cohort API"
+                )
+
+
+def expand_rc(kmers: list[str]) -> tuple[list[str], dict[int, int]]:
+    """→ (kmers + non-palindromic RCs appended, original→rc index map).
+
+    Both-strands batches therefore hold up to 2× the queries; callers
+    must stay within ``batch_size`` after expansion.
+    """
+    rcs = [rc_string(k) for k in kmers]
+    exp = list(kmers)
+    back: dict[int, int] = {}
+    for i, (km, rc) in enumerate(zip(kmers, rcs)):
+        if rc != km:
+            back[i] = len(exp)
+            exp.append(rc)
+    return exp, back
+
+
+def both_strands_batch(answer, kmers: list[str], **kw) -> list[QueryResult]:
+    """``answer`` (an engine's one-strand ``count_batch`` or
+    ``query_batch``) over ``kmers`` and their reverse complements in one
+    batch, folded back to one both-strands result per query."""
+    exp, back = expand_rc(kmers)
+    res = answer(exp, **kw)
+    return [
+        fold_strand_results(km, res[i], res[back[i]] if i in back else None)
+        for i, km in enumerate(kmers)
+    ]
 
 
 def fold_strand_results(
@@ -116,16 +168,19 @@ def _compact_cols(mask: torch.Tensor, cols, R: int):
 
 def sparse_pack_device(
     count, complete, hist, rid, off, smp, nq, cpq, bad, l=None, u=None,
-    trunc=None,
+    trunc=None, count_hi=None,
 ):
     """Device-side sparse pack of a query batch's answers into ONE small
     int32 buffer (one short device→host copy per batch):
 
-      [count(W), complete(W), trunc(W)?, (l(W), u(W))?,
+      [count(W), count_hi(W)?, complete(W), trunc(W)?, (l(W), u(W))?,
        n_hist, hist_idx(R), hist_val(R),
        (n_hits, hit_idx(R), read_id(R), offset(R), sample(R))?, bad]
 
     ``bad`` (int32 [1]) is the search's refused-query count.
+    ``count_hi`` carries bits 31+ of an int64 cross-partition count sum as
+    a second int32 lane (each partition's count fits int32, their sum over
+    a cohort's partitions need not).
 
     ``rid=None`` packs a histogram-only answer (the /samples shape).
     Returns ``(packed, hist, dense_hits)``: the dense device tensors back
@@ -133,7 +188,10 @@ def sparse_pack_device(
     W = count.shape[0]
     R = cpq * W
     dev = count.device
-    segs = [count.to(torch.int32), complete.to(torch.int32)]
+    segs = [count.to(torch.int32)]
+    if count_hi is not None:
+        segs.append(count_hi.to(torch.int32))
+    segs.append(complete.to(torch.int32))
     if trunc is not None:
         # hist-only tier: whether a follow-up hits query would truncate
         segs.append(trunc.to(torch.int32))
@@ -175,6 +233,7 @@ def assemble_sparse(
     has_hits,
     dense_hist_dev,
     dense_hits_dev,
+    has_count_hi=False,
     stats=None,
 ) -> list[QueryResult]:
     """Host-side assembly of the sparse packed buffer → QueryResults (NumPy;
@@ -189,6 +248,9 @@ def assemble_sparse(
         stats["sparse_bytes"] += int(arr.nbytes)
     p = W
     count_m = arr[:W].astype(np.int64)
+    if has_count_hi:  # recombine the int64 cross-partition count sum
+        count_m = count_m + (arr[p : p + W].astype(np.int64) << 31)
+        p += W
     complete_m = arr[p : p + W].astype(bool)
     p += W
     trunc_m = None
@@ -277,12 +339,29 @@ def assemble_sparse(
     return out
 
 
+def _copy_out(buf: torch.Tensor):
+    """Start the device→host copy of ``buf`` without waiting → ``(host
+    tensor, event)``.  On the card the copy goes into pinned host memory,
+    queued on the stream behind the work that made ``buf``, and the event
+    is recorded right after it: waiting on the event waits for this copy
+    only, not for the batches queued after it.  A CPU tensor needs no copy
+    (event None)."""
+    if buf.device.type != "cuda":
+        return buf, None
+    host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+    host.copy_(buf, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(buf.device))
+    return host, done
+
+
 class QueryEngine:
     """Batched queries over a built index on one device: counts, hit sets
     and exact per-sample histograms.
 
     ``QueryEngine(packed, device="cuda")``.  A list of partitions (document
-    sharding) and a mesh (interval sharding) are not ported yet.  The
+    sharding across devices) and a mesh (interval sharding) are not ported
+    yet; :class:`MultiEngine` serves partitions on one device.  The
     dispatcher and REST front read ``B``, ``H``, ``K``, ``cfg``,
     ``sample_names``, ``pack_stats``, ``tier_plan``, ``packed``, ``_ns``,
     ``_doc`` and ``_sharded`` (both False here).
@@ -380,7 +459,16 @@ class QueryEngine:
         """The batch's ONE device→host copy of ``buf`` (flat int32), whose
         last word is the search's refused-query count; raises
         ``ValueError`` when that count is not 0, else → the other words."""
-        arr = buf.cpu().numpy()
+        return self._collect(_copy_out(buf))
+
+    def _collect(self, pending) -> np.ndarray:
+        """Wait for a copy that :func:`_copy_out` started — for its event
+        only, so device work queued after it runs on — then check the
+        refused-query count as :meth:`_fetch` does."""
+        host, done = pending
+        if done is not None:
+            done.synchronize()
+        arr = host.numpy()
         raise_if_refused(int(arr[-1]), self.K)
         return arr[:-1]
 
@@ -579,33 +667,13 @@ class QueryEngine:
     def _sample_of(self, rid: int) -> int:
         return int(self.packed.read_to_sample[rid])
 
-    def _expand_rc(self, kmers: list[str]) -> tuple[list[str], dict[int, int]]:
-        """→ (kmers + non-palindromic RCs appended, original→rc index map).
-
-        Both-strands batches therefore hold up to 2× the queries; callers
-        must stay within ``batch_size`` after expansion.
-        """
-        rcs = [rc_string(k) for k in kmers]
-        exp = list(kmers)
-        back: dict[int, int] = {}
-        for i, (km, rc) in enumerate(zip(kmers, rcs)):
-            if rc != km:
-                back[i] = len(exp)
-                exp.append(rc)
-        return exp, back
+    _expand_rc = staticmethod(expand_rc)
 
     def count_batch(
         self, kmers: list[str], both_strands: bool = False
     ) -> list[QueryResult]:
         if both_strands:
-            exp, back = self._expand_rc(kmers)
-            res = self.count_batch(exp)
-            return [
-                fold_strand_results(
-                    km, res[i], res[back[i]] if i in back else None
-                )
-                for i, km in enumerate(kmers)
-            ]
+            return both_strands_batch(self.count_batch, kmers)
         out = self._run(kmers)
         return [
             QueryResult(
@@ -626,14 +694,8 @@ class QueryEngine:
         unless ``include_hits=False`` (the /samples shape — skipping hit
         resolution also skips shipping the hit tensor)."""
         if both_strands:
-            exp, back = self._expand_rc(kmers)
-            res = self.query_batch(exp, include_hits=include_hits)
-            return [
-                fold_strand_results(
-                    km, res[i], res[back[i]] if i in back else None
-                )
-                for i, km in enumerate(kmers)
-            ]
+            return both_strands_batch(self.query_batch, kmers,
+                                      include_hits=include_hits)
         codes, lengths, nq = self._pad_encode(kmers)
         use_lut, use_pair = self._routes(codes, lengths, nq)
         codes_t, lengths_t = self._to_device(codes, lengths)
@@ -661,3 +723,279 @@ class QueryEngine:
     def read_meta(self, read_id: int) -> bytes | None:
         """Opaque per-read metadata bytes (None when absent)."""
         return self.packed.read_meta(read_id)
+
+
+class MultiEngine:
+    """Time-multiplexed front over per-partition engines on ONE device (a
+    cohort artifact's doc shards served where there are fewer devices than
+    shards): each partition's :class:`QueryEngine` answers the full batch
+    on the same device; counts sum (int64), hit sets union with global
+    read-id offsets and histograms add by sample id in one merge on the
+    device, then one small copy to the host — the JAX package's
+    ``MultiEngine``, answer for answer.
+
+    Duck-types ``QueryEngine`` for the dispatcher and REST front.  As in
+    the JAX package it has no ``_sample_of`` (``/read`` answers ``"sample":
+    None``), ``packed`` is partition 0 (``/info`` reports its
+    ``n_symbols``), and every partition's engine plans its tiers against
+    the whole device budget: a caller sharing the card passes
+    ``hbm_budget_gb`` divided by the number of partitions.
+    """
+
+    # see module-level COMPACT_PER_QUERY; class attribute so tests can pin
+    # the budget per engine class
+    COMPACT_PER_QUERY = COMPACT_PER_QUERY
+    _doc = True
+
+    def __init__(self, partitions, serve_config: ServeConfig | None = None,
+                 *, device):
+        if not partitions:
+            raise ValueError("no partitions")
+        self.cfg = serve_config or ServeConfig()
+        # sparse-pack transfer accounting (see assemble_sparse)
+        self.pack_stats = {
+            "batches": 0, "sparse_bytes": 0, "dense_bytes": 0,
+            "hist_dense_fallbacks": 0, "hits_dense_fallbacks": 0,
+        }
+        self.partitions = list(partitions)
+        self.packed = self.partitions[0]
+        self.device = torch.device(device)
+        self.engines = [QueryEngine(p, self.cfg, device=self.device)
+                        for p in self.partitions]
+        self._read_base = []
+        base = 0
+        for p in self.partitions:
+            self._read_base.append(base)
+            base += p.num_reads
+        self.K = self.engines[0].K
+        self.B = self.cfg.batch_size
+        self.H = self.cfg.max_hits
+        ns = max(p.num_samples for p in self.partitions)
+        self.sample_names = [f"sample_{i}" for i in range(ns)]
+        for p in self.partitions:
+            for i, nm in enumerate(p.sample_names):
+                if i < ns:
+                    self.sample_names[i] = nm
+        _require_global_sample_space(self.partitions, self.sample_names)
+        self._ns = ns
+
+    _new_bad = QueryEngine._new_bad
+    _fetch = QueryEngine._fetch
+    _collect = QueryEngine._collect
+    _expand_rc = staticmethod(expand_rc)
+
+    def _pad_encode(self, kmers: list[str]):
+        return self.engines[0]._pad_encode(kmers)
+
+    # ------------------------------------------------------- device merges
+
+    def _merge_count(self, outs) -> torch.Tensor:
+        """The count tier's sum over the partitions' [W, 3] buffers → int64
+        [W]: each partition's count fits int32 (its n < 2^31), the cohort's
+        sum need not."""
+        return sum(o[:, 2].to(torch.int64) for o in outs)
+
+    def _merge_dense(self, outs, with_hits: bool):
+        """Merge of the partitions' dense [W, 4+ns(+3H)] buffers on the
+        device → ``(count, complete, hist, read_id, offset, sample,
+        trunc)``: counts add in int64; ``complete`` is the product of the
+        partitions' flags; each partition's histogram adds into columns
+        ``[:, :ns_s]`` (its sample space may be narrower than the cohort's);
+        read ids shift by the partition's first global id, -1 kept, and hit
+        lanes concatenate partition by partition.  Without hits the three
+        hit tensors are None and ``trunc`` is the histogram tier's flag;
+        with hits ``trunc`` is None."""
+        W = outs[0].shape[0]
+        dev = outs[0].device
+        count = torch.zeros(W, dtype=torch.int64, device=dev)
+        complete = torch.ones(W, dtype=torch.int32, device=dev)
+        trunc = torch.zeros(W, dtype=torch.bool, device=dev)
+        hist = torch.zeros((W, self._ns), dtype=torch.int32, device=dev)
+        rids, offs, smps = [], [], []
+        H = self.H
+        for e, o, base in zip(self.engines, outs, self._read_base):
+            ns_s = e._ns
+            count += o[:, 2].to(torch.int64)
+            complete *= o[:, 3]
+            hist[:, :ns_s] += o[:, 4 : 4 + ns_s]
+            if with_hits:
+                rid = o[:, 4 + ns_s : 4 + ns_s + H]
+                rids.append(torch.where(rid >= 0, rid + base, -1))
+                offs.append(o[:, 4 + ns_s + H : 4 + ns_s + 2 * H])
+                smps.append(o[:, 4 + ns_s + 2 * H : 4 + ns_s + 3 * H])
+            else:
+                # a follow-up hits query truncates iff some PARTITION's
+                # count exceeds the per-query cap, visible only here.  As
+                # in the JAX package, the flag reflects that cap only, not
+                # the whole-batch row budget of a follow-up /reads
+                trunc |= o[:, 2] > H
+        if not with_hits:
+            return count, complete, hist, None, None, None, trunc
+        return (count, complete, hist, *(torch.cat(x, dim=1)
+                                         for x in (rids, offs, smps)), None)
+
+    def _merge_full(self, outs, nq: int, with_hits: bool, bad):
+        """:meth:`_merge_dense`, then :func:`sparse_pack_device` with the
+        int64 count as two int32 lanes (bits 0-30, then 31+) → ``(packed,
+        hist, dense_hits)``, ``bad`` the packed buffer's last word."""
+        count, complete, hist, rid, off, smp, trunc = self._merge_dense(
+            outs, with_hits)
+        return sparse_pack_device(
+            count & 0x7FFFFFFF, complete, hist, rid, off, smp, nq,
+            self.COMPACT_PER_QUERY, bad, trunc=trunc, count_hi=count >> 31,
+        )
+
+    def _counted(self, codes, lengths, nq: int) -> torch.Tensor:
+        """The count tier on the device → flat int32 [count bits 0-30 (nq),
+        bits 31+ (nq), bad], ``bad`` the sum of every partition's refused
+        queries: the buffer :meth:`_assemble_counts` reads."""
+        bad = self._new_bad()
+        outs = [e._dispatch_single(codes, lengths, nq, "count", bad=bad)
+                for e in self.engines]
+        count = self._merge_count(outs)[:nq]
+        return torch.cat([(count & 0x7FFFFFFF).to(torch.int32),
+                          (count >> 31).to(torch.int32), bad])
+
+    def _served(self, codes, lengths, nq: int, with_hits: bool):
+        """Every partition's full (or histogram-only) program, then the
+        merge → ``(packed, hist, dense_hits)`` on the device.  The
+        histogram-only tier resolves no hits anywhere."""
+        bad = self._new_bad()
+        mode = "full" if with_hits else "hist"
+        outs = [e._dispatch_single(codes, lengths, nq, mode, bad=bad)
+                for e in self.engines]
+        return self._merge_full(outs, nq, with_hits, bad)
+
+    # --------------------------------------------------- dispatch, assemble
+    # A dispatch queues a batch's device work and its copy to the host and
+    # returns without waiting; an assembly waits for that copy's event only.
+    # So the bulk paths queue batch i+1 before they assemble batch i, and
+    # the card runs it while the host builds batch i's results.
+
+    def _dispatch_counts(self, kmers: list[str]):
+        codes, lengths, nq = self._pad_encode(kmers)
+        return kmers, nq, _copy_out(self._counted(codes, lengths, nq))
+
+    def _assemble_counts(self, kmers, nq, pending) -> list[QueryResult]:
+        arr = self._collect(pending)
+        counts = arr[:nq].astype(np.int64) + (arr[nq:].astype(np.int64) << 31)
+        return [
+            QueryResult(kmer=km, count=int(counts[i]))
+            for i, km in enumerate(kmers)
+        ]
+
+    def _dispatch_merged(self, kmers: list[str], include_hits: bool = True):
+        codes, lengths, nq = self._pad_encode(kmers)
+        packed_dev, hist_dev, hits_dev = self._served(codes, lengths, nq,
+                                                      include_hits)
+        return kmers, nq, include_hits, (_copy_out(packed_dev), hist_dev,
+                                         hits_dev)
+
+    def _assemble_merged(
+        self, kmers, nq, include_hits, merged
+    ) -> list[QueryResult]:
+        pending, dense_hist_dev, dense_hits_dev = merged
+        arr = self._collect(pending)  # the one (small) copy
+        NS, SH = self._ns, len(self.engines) * self.H
+        cpq = self.COMPACT_PER_QUERY
+        if include_hits:  # [count, count_hi, complete] + hist + hits
+            W = (len(arr) - 2) // (3 + cpq * 6)
+        else:  # [count, count_hi, complete, trunc] + hist sections
+            W = (len(arr) - 1) // (4 + cpq * 2)
+        return assemble_sparse(
+            kmers, nq, W, arr, NS, SH, cpq, self.sample_names,
+            has_lu=False, has_hits=include_hits,
+            dense_hist_dev=dense_hist_dev, dense_hits_dev=dense_hits_dev,
+            has_count_hi=True, stats=self.pack_stats,
+        )
+
+    # ------------------------------------------------------------ public
+
+    def warmup(self) -> None:
+        """Run the merged paths (count, full, histogram-only) once at every
+        configured width and warmup length; the partitions' engines run as
+        part of them."""
+        widths = sorted(
+            {w for w in self.cfg.small_batch_sizes if w < self.B}
+            | {self.B}
+        )
+        lengths = sorted(
+            {int(k) for k in self.cfg.warmup_query_lengths} | {self.K}
+        )
+        for kmers in [["A"]] + [
+            ["A" * k] * w for w in widths for k in lengths
+        ]:
+            self.query_batch(kmers)
+            self.query_batch(kmers, include_hits=False)
+            self.count_batch(kmers)
+
+    def _locate(self, rid: int) -> tuple[int, int]:
+        """Global read id → (partition, local id)."""
+        s = bisect.bisect_right(self._read_base, rid) - 1
+        return s, rid - self._read_base[s]
+
+    def count_batch(
+        self, kmers: list[str], both_strands: bool = False
+    ) -> list[QueryResult]:
+        """Summed counts across partitions.  ``interval`` is None: each
+        partition is its own BWT, so no single global (l, u) exists."""
+        if both_strands:
+            return both_strands_batch(self.count_batch, kmers)
+        return self._assemble_counts(*self._dispatch_counts(kmers))
+
+    def count_batches(
+        self, batches: list[list[str]]
+    ) -> list[list[QueryResult]]:
+        """Bulk count tier, pipelined like :meth:`query_batches`."""
+        results: list[list[QueryResult]] = []
+        pend = None
+        for kmers in batches:
+            cur = self._dispatch_counts(kmers)
+            if pend is not None:
+                results.append(self._assemble_counts(*pend))
+            pend = cur
+        if pend is not None:
+            results.append(self._assemble_counts(*pend))
+        return results
+
+    def query_batch(
+        self,
+        kmers: list[str],
+        both_strands: bool = False,
+        include_hits: bool = True,
+    ) -> list[QueryResult]:
+        if both_strands:
+            return both_strands_batch(self.query_batch, kmers,
+                                      include_hits=include_hits)
+        return self._assemble_merged(*self._dispatch_merged(kmers,
+                                                            include_hits))
+
+    def query_batches(
+        self, batches: list[list[str]], include_hits: bool = True
+    ) -> list[list[QueryResult]]:
+        """Bulk path: batch i+1's device work is queued before batch i is
+        assembled on the host."""
+        results: list[list[QueryResult]] = []
+        pend = None
+        for kmers in batches:
+            cur = self._dispatch_merged(kmers, include_hits)
+            if pend is not None:
+                results.append(self._assemble_merged(*pend))
+            pend = cur
+        if pend is not None:
+            results.append(self._assemble_merged(*pend))
+        return results
+
+    def read_sequence(self, read_id: int) -> str:
+        """Read text from the partition's host-side cold store."""
+        s, local = self._locate(read_id)
+        return alphabet.decode(self.partitions[s].extract_read(local))
+
+    def read_name(self, read_id: int) -> str:
+        s, local = self._locate(read_id)
+        nm = self.partitions[s].read_name(local)
+        return nm if nm is not None else f"read_{read_id}"
+
+    def read_meta(self, read_id: int) -> bytes | None:
+        s, local = self._locate(read_id)
+        return self.partitions[s].read_meta(local)

@@ -31,6 +31,10 @@ COPIED = [
     "index/packing.py",
     "index/builder.py",
     "index/artifact.py",
+    "index/cohort.py",
+    "index/merge.py",
+    "index/from_bwt.py",
+    "parallel/stats.py",
     "corpus/simulate.py",
     "oracle/__init__.py",
     "oracle/fm.py",
@@ -177,3 +181,19 @@ def test_plan_tiers_matches_jax(built, budget_gib):
 def test_device_budget_is_none_on_cpu():
     assert budget.device_budget_bytes("cpu") is None
     assert budget.device_budget_bytes() is None
+
+
+@pytest.mark.parametrize("kw", [
+    dict(K=31),
+    dict(K=31, lut_p=12, kstep=3, direct_resolve=True),
+    dict(K=32, lut_p=11, kstep=2, sample_rate=32, fast_resolve=True),
+    dict(K=20, kstep=1, max_read_len=100),
+    dict(K=25, lut_p=8, kstep=3, sample_rate=16, fast_resolve=True),
+])
+def test_psum_estimate_matches_jax(kw):
+    """The port's copy of parallel/stats.py (imported by /info for an
+    interval-sharded engine) counts the JAX package's step schedules."""
+    from readserver_tpu.parallel.stats import query_psum_estimate as want
+    from readserver_tpu_torch.parallel.stats import query_psum_estimate
+
+    assert query_psum_estimate(**kw) == want(**kw)

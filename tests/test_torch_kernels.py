@@ -22,6 +22,7 @@ import torch
 from readserver_tpu_torch.config import ServeConfig
 from readserver_tpu_torch.corpus import simulate
 from readserver_tpu_torch.index import build_index
+from readserver_tpu_torch.index.cohort import build_cohort, load_cohort
 from readserver_tpu_torch.kernels import (
     BACKWARD_SEARCH,
     EXACT_HISTOGRAM,
@@ -44,7 +45,8 @@ from readserver_tpu_torch.ops import lut as lut_ops
 from readserver_tpu_torch.ops import rank as rank_ops
 from readserver_tpu_torch.ops import resolve
 from readserver_tpu_torch.ops import search as search_ops
-from readserver_tpu_torch.serve import QueryEngine
+from readserver_tpu_torch.serve import MultiEngine, QueryEngine
+from readserver_tpu_torch.serve.engine import _copy_out
 from torch_common import cuda_device, t32  # noqa: F401
 
 P = 5
@@ -707,3 +709,88 @@ def test_engine_on_card_runs_no_plain_walk(cohort, cuda_device, drop,
     assert RESOLVE_WALK.launches > before[0]
     assert EXACT_HISTOGRAM.launches > before[1]
     assert RANK_OCC.launches == before[2]
+
+
+@pytest.fixture(scope="module")
+def cohort_parts(cohort, tmp_path_factory):
+    """The cohort corpus in 4 doc shards (``build_cohort``)."""
+    corpus, _ = cohort
+    out = build_cohort(corpus.reads, corpus.sample_ids, 4,
+                       tmp_path_factory.mktemp("cohort") / "pop")
+    return corpus, load_cohort(out, mmap=False)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop", DROPS)
+def test_multi_engine_on_card_matches_cpu(cohort_parts, cuda_device, drop,
+                                          monkeypatch):  # noqa: F811
+    """``MultiEngine`` over 4 partitions on the card gives the CPU's counts,
+    hits and histograms on every plan, one batch at a time and pipelined;
+    on the card it runs no plain walk, no plain sweep and no K1 rank: the
+    plan's resolve kernel and K7 launch in every partition."""
+    corpus, parts = cohort_parts
+    cfg = ServeConfig(batch_size=512, max_hits=8, drop_tiers=drop,
+                      resolve_budget_frac=0.05)
+    cpu = MultiEngine(parts, cfg, device="cpu")
+    kms = ["".join("ACGT"[c - 1] for c in row) for row in _queries(
+        corpus, 200, 31, seed=9)[0]] + ["ACGTAC", "GGATC"]
+    tiers = (dict(), dict(include_hits=False), dict(both_strands=True))
+    want = [cpu.query_batch(kms, **kw) for kw in tiers]
+    want_counts = cpu.count_batch(kms, both_strands=True)
+    want_bulk = cpu.query_batches([kms[:100], kms[100:]])
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain form ran on the card")
+
+    for name in ("resolve_rows_plain", "resolve_rows_fast_plain",
+                 "resolve_rows_marked_plain", "resolve_rows_fused_plain",
+                 "resolve_rows_dsa_plain", "resolve_dsa_hits_plain",
+                 "exact_sample_histogram_plain"):
+        monkeypatch.setattr(resolve, name, refuse)
+    monkeypatch.setattr(rank_ops, "occ_rows_plain", refuse)
+    kernel = {0: RESOLVE_DSA, 1: RESOLVE_FUSED}.get(len(drop), RESOLVE_WALK)
+    before = kernel.launches, EXACT_HISTOGRAM.launches, RANK_OCC.launches
+    card = MultiEngine(parts, cfg, device=cuda_device)
+    # the card's budget binds where the CPU's does not: ("dsa",) walks
+    # fused rows there and lf rows here, with the same answers
+    assert {resolve.walk_kind(e.index) for e in card.engines} == {
+        ("dsa", "fused", "lf", "marks", "slow")[len(drop)]}
+    for kw, w in zip(tiers, want):
+        assert card.query_batch(kms, **kw) == w
+    assert card.count_batch(kms, both_strands=True) == want_counts
+    assert card.query_batches([kms[:100], kms[100:]]) == want_bulk
+    torch.cuda.synchronize()
+    assert kernel.launches >= before[0] + 4
+    assert EXACT_HISTOGRAM.launches >= before[1] + 4
+    assert RANK_OCC.launches == before[2]
+
+
+@pytest.mark.cuda
+def test_multi_engine_merge_on_card(cohort_parts, cuda_device):  # noqa: F811
+    """The merge on the card: per-partition counts of 2^31 - 5 sum past
+    2^31 exactly (int64, two int32 lanes), and the refused-query word
+    rides last and raises at the copy."""
+    _, parts = cohort_parts
+    eng = MultiEngine(parts, ServeConfig(batch_size=8, max_hits=4),
+                      device=cuda_device)
+    W, H, nq, big = 8, 4, 3, 2**31 - 5
+    outs = []
+    for e in eng.engines:
+        o = torch.full((W, 4 + e._ns + 3 * H), -1, dtype=torch.int32,
+                       device=cuda_device)
+        o[:, :4 + e._ns] = 0
+        o[:, 2], o[:, 3] = big, 1
+        outs.append(o)
+    want = big * len(outs)
+    assert eng._merge_count(outs).tolist() == [want] * W
+    for with_hits in (True, False):
+        bad = eng._new_bad()
+        merged = eng._merge_full(outs, nq, with_hits, bad)
+        res = eng._assemble_merged(["A"] * nq, nq, with_hits,
+                                   (_copy_out(merged[0]), *merged[1:]))
+        assert [r.count for r in res] == [want] * nq
+        bad += 2
+        merged = eng._merge_full(outs, nq, with_hits, bad)
+        with pytest.raises(ValueError, match="2 queries hold a code"):
+            eng._assemble_merged(["A"] * nq, nq, with_hits,
+                                 (_copy_out(merged[0]), *merged[1:]))

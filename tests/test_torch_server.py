@@ -1,11 +1,13 @@
 """Port's serving tier (serve/dispatcher.py, serve/http.py over the port's
-QueryEngine) against the JAX package's server on the same artifact: for the
-same requests, the same status and the same JSON body — plus the
-dispatcher's batching, error and mixed-tier behaviour."""
+QueryEngine and MultiEngine) against the JAX package's server on the same
+artifact or cohort: for the same requests, the same status and the same
+JSON body — plus the dispatcher's batching, error and mixed-tier
+behaviour."""
 
 import asyncio
 import http.client
 import json
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -14,12 +16,20 @@ from readserver_tpu import alphabet
 from readserver_tpu.config import ServeConfig as JaxServeConfig
 from readserver_tpu.corpus.simulate import sample_query_kmers
 from readserver_tpu.index.builder import build_index
+from readserver_tpu.index.cohort import build_cohort, load_cohort
 from readserver_tpu.serve import Dispatcher as JaxDispatcher
+from readserver_tpu.serve import MultiEngine as JaxMultiEngine
 from readserver_tpu.serve import QueryEngine as JaxQueryEngine
 from readserver_tpu.serve.http import RestServer as JaxRestServer
 from readserver_tpu_torch.config import ServeConfig
 from readserver_tpu_torch.oracle import naive_count
-from readserver_tpu_torch.serve import Dispatcher, Metrics, QueryEngine
+from readserver_tpu_torch.index.cohort import load_cohort as port_load_cohort
+from readserver_tpu_torch.serve import (
+    Dispatcher,
+    Metrics,
+    MultiEngine,
+    QueryEngine,
+)
 from readserver_tpu_torch.serve.http import RestServer
 
 CFG = dict(batch_size=64, max_hits=32, batch_deadline_ms=5.0,
@@ -136,8 +146,7 @@ def test_rest_batch_post_matches_jax(servers, mode):
 
 def test_rest_stats_answers(servers):
     """/stats reports the port's dispatcher metrics and the engine's pack
-    accounting (the parallel.stats import is reached only by an interval-
-    sharded engine, which the port does not build)."""
+    accounting."""
     *_, port_side = servers
     kms = _kmers(servers[0], 3, seed=37)
     got = _exchange(port_side, [("GET", f"/samples?kmer={k}", None)
@@ -213,3 +222,92 @@ def test_dispatcher_propagates_errors(servers):
 
     ok, errors = asyncio.run(go())
     assert ok.count >= 0 and errors == 1
+
+
+@pytest.fixture(scope="module")
+def cohort_servers(tiny_corpus, tmp_path_factory):
+    """The tiny corpus in 4 doc shards, 4 samples and read names, served by
+    each package's MultiEngine."""
+    reads = tiny_corpus.reads
+    out = build_cohort(
+        reads, np.arange(len(reads), dtype=np.int32) % 4, 4,
+        tmp_path_factory.mktemp("rest_cohort") / "pop",
+        sample_names=["a", "b", "c", "d"],
+        read_names=[f"SRR000.{i}/1" for i in range(len(reads))],
+    )
+    jax_engine = JaxMultiEngine(load_cohort(out, mmap=False)[0],
+                                JaxServeConfig(**CFG))
+    engine = MultiEngine(port_load_cohort(out, mmap=False)[0],
+                         ServeConfig(**CFG), device="cpu")
+    return (tiny_corpus, (JaxRestServer, JaxDispatcher, jax_engine),
+            (RestServer, Dispatcher, engine))
+
+
+def test_rest_on_a_cohort_matches_jax(cohort_servers):
+    """Every endpoint over both packages' MultiEngine.  Pinned quirks of
+    the JAX front that the port repeats: ``/read`` answers ``"sample":
+    None`` (no ``_sample_of``), and ``/info`` reports partition 0's
+    ``n_symbols`` beside the cohort's ``num_reads``."""
+    corpus = cohort_servers[0]
+    km = _kmers(corpus, 6, seed=40)
+    engine = cohort_servers[2][2]
+    last = len(corpus.reads) - 1
+    reqs = [("GET", p, None) for p in (
+        "/info",
+        "/read?id=3",
+        f"/read?id={last}",
+        f"/read?id={last + 1}",
+        f"/count?kmer={km[0]}",
+        f"/count?kmer={km[1]}&both_strands=1",
+        f"/reads?kmer={km[2]}&sequences=1",
+        f"/reads?kmer={km[3]}&both_strands=1",
+        "/reads?kmer=ACG",
+        f"/samples?kmer={km[4]}",
+        "/samples?kmer=ACG&both_strands=1",
+        "/health",
+    )] + [
+        ("POST", "/batch", {"kmers": km, "mode": mode, "both_strands": True})
+        for mode in ("count", "reads", "samples")
+    ]
+    got = _same_answers(cohort_servers, reqs)
+    assert [s for s, _ in got] == [200, 200, 200, 404] + [200] * 11
+    info = got[0][1]
+    assert info["sharding"] == "document"
+    assert info["n_symbols"] == engine.partitions[0].n < sum(
+        p.n for p in engine.partitions)
+    assert info["num_reads"] == len(corpus.reads)
+    assert got[1][1] == {"read_id": 3, "name": "SRR000.3/1",
+                         "sequence": alphabet.decode(corpus.reads[3]),
+                         "sample": None}
+    assert got[2][1]["name"] == f"SRR000.{last}/1"
+    assert got[8][1]["hits_truncated"] and len(got[8][1]["hits"]) > 32
+    assert len(got[10][1]["samples"]) == 4
+    for res in got[12][1]["results"]:
+        assert res["count"] >= naive_count(corpus.reads, res["kmer"])
+
+
+def test_info_on_an_interval_sharded_engine_matches_jax():
+    """``/info`` on an engine that reports interval sharding reads
+    ``parallel.stats.query_psum_estimate``: the port carries that module
+    now, so the answer is the JAX server's (it raised
+    ``ModuleNotFoundError`` before)."""
+    stub = SimpleNamespace(
+        packed=SimpleNamespace(n=1000, num_reads=10), _doc=False,
+        _sharded=True, sample_names=["a"], K=32, H=64, B=256, lut_p=8,
+        tier_plan=None,
+        sidx=SimpleNamespace(rank3_rows=object(), rank2_rows=None,
+                             sample_rate=32, has_fast_resolve=True,
+                             max_read_len=100, dsa_chunk=None, num_shards=4),
+    )
+
+    async def info(server_cls, dispatcher_cls):
+        d = dispatcher_cls(stub)
+        try:
+            return await server_cls(d, "127.0.0.1", 0)._route("/info", {})
+        finally:
+            d._executor.shutdown()
+
+    got = asyncio.run(info(RestServer, Dispatcher))
+    assert got == asyncio.run(info(JaxRestServer, JaxDispatcher))
+    body = json.loads(got.split(b"\r\n\r\n", 1)[1])
+    assert body["psums_per_batch"]["total"] > 0 and body["num_shards"] == 4
