@@ -5,15 +5,17 @@
     python3 chip_smoke.py --scale 0.05 # 5% of each, for a quick check
 
 Phases, each printed with its seconds on a ``#`` line, run in the order
-1-5, 8, 9, 9b, 10, 6, 7 (every main path is driven before the
+1-5, 8, 9, 9b, 10, 11, 6, 7, 11b (every main path is driven before the
 kernel-vs-plain and timing phases, so each path's launch counts are its
 own):
 
 1. device: a CUDA card is required (no CPU path); its name and power limit;
 2. kernels: build K1 (rank and its LUT level entry), K2 (backward search),
-   K5 (dsa resolve), K6 (fused-row walk), the rank walks (marks, lf, slow)
-   and K7 (exact histogram) from ``readserver_tpu_torch/csrc`` for sm_90a,
-   one nvcc per source started together;
+   K5 (dsa resolve), K6 (fused-row walk), the rank walks (marks, lf, slow),
+   K7 (exact histogram) and the interval-sharded kernels (K9 rank, the
+   sharded search, K11 LUT level, K10 lookups, walks and sweep) from
+   ``readserver_tpu_torch/csrc`` for sm_90a, one nvcc per source started
+   together;
 3. artifact: simulate and build the E. coli artifact with the port's
    builder (cached under ``data/``);
 4. count path: with every kernel's launch count at 0, start a
@@ -51,6 +53,18 @@ own):
    the mark walk) on that batch's intervals and K7 at the engine's window;
 10. REST: counts at 0, the port's ``RestServer`` over the card engines in
    this script's event loop; every endpoint's answer equals the engine's;
+11. interval shards: phase 9's monolithic engine answers the cohort
+   requests first; then counts at 0, E. coli in 4 BWT-interval shards on
+   the card through ``QueryEngine(packed, ServeConfig(num_shards=4),
+   make_mesh(num_shards=4, device=...))``, one engine per route: dsa, lf
+   (``dsa`` dropped from the packed index) and slow (``dsa`` and the fast
+   tier dropped): ``build_sharded`` host seconds, K11's LUT equal to the
+   monolithic engine's, the counts of phases 4-5 and the ``/reads`` of
+   phase 8 equal on each route, the 128-sample cohort in 4 shards with
+   exact ``/samples`` equal to phase 9's monolithic engine, ``/info`` and
+   the query endpoints over REST; the sharded search, K11 and K10 must
+   have launched, and neither K9's generic entry, nor any single-device
+   kernel, nor a plain form of ``ops/sharded.py`` on a CUDA tensor;
 6. kernel vs plain: each kernel against its plain torch form on the card,
    bit for bit, at the main paths' shapes (K1 at the mark walk's step, the
    engine's prefix LUT and a chunked build against the plain build, K2 in
@@ -84,12 +98,21 @@ own):
    front's ``/samples`` and ``/reads`` requests of 4096 queries on both
    strands, its merge's device time against its bytes bound, and
    ``query_batches`` / ``count_batches`` over 8 batches of 4096 against 8
-   single-batch calls, in turns, with the spread.
+   single-batch calls, in turns, with the spread;
+11b. interval kernels: each sharded kernel against its plain form at
+   phase 11's shapes, max |err| 0 (K9 on 2 x 262,144 random ranks, K11 at
+   every level of the p = 12 build, the sharded search in every mode at
+   width 8192, K10 on each route's engine at 8192 x 64 lanes and its
+   exact sweep on the cohort's width-8192 batch at window 32,768), and on
+   distinct input sets of those shapes, enough that together they need
+   twice the 50 MB L2; then, the sets in turn, each one's wrapper, device
+   and plain times, bytes bound (of the sets' mean bytes) and, for the
+   search and the walks, chain bound.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the one before it is the kernels' JSON summary (``launches`` summed over
-the main-path phases 4, 8, 9, 9b and 10, where every kernel but K1's
-generic entry must have launched, ``cohort_launches`` those of phase 9b;
+the main-path phases 4, 8, 9, 9b, 10 and 11, where every kernel but K1's
+and K9's generic entries must have launched, ``cohort_launches`` those of phase 9b;
 ``max_abs_err`` the largest over every check, ``cohort_max_abs_err`` that
 over phase 9b's partition checks;
 ``bound_ms`` the bytes bound, ``chain_ms`` the chain bound where there is
@@ -117,6 +140,7 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 B_TIME = 262_144        # timing batch (queries)
 N_ROT = 8               # distinct timing batches, searched in turn
+L2_BYTES = 50 * 2**20   # the H100's L2 cache
 KMER = 31
 SHARDS = 4              # the cohort's doc shards (scripts/bench_cohort.py)
 
@@ -189,30 +213,44 @@ def latencies_ms(fn, iters: int) -> np.ndarray:
     return np.asarray(lat)
 
 
-def kernel_device_ms(fn, iters: int, kernel: str) -> float | None:
-    """Mean device milliseconds per call of the CUDA kernel named
-    ``kernel`` over ``iters`` calls of ``fn`` (``torch.profiler``); None
-    when the profiler saw none of its device time."""
+def kernel_device_ms(fn, iters: int, kernel: str,
+                     launches: int | None = None) -> float | None:
+    """Mean device milliseconds per call of the CUDA kernels whose name
+    holds ``kernel`` over ``iters`` calls of ``fn`` (``torch.profiler``).
+    The profiler can miss the first launches after it starts, so ``iters``
+    untimed calls run first, and only device events that start inside the
+    timed calls' range count.  None when it saw none of their device time,
+    or, where ``launches`` (the kernel's launches in ``iters`` calls) is
+    given, when it never saw that many there."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    mark = "timed calls"
     for _ in range(5):  # the profiler now and then records no device event
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        us = sum(e.self_device_time_total for e in events if kernel in e.key)
-        if us > 0:
+            with record_function(mark):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        span = next(e.time_range for e in events
+                    if e.name == mark and e.device_type == DeviceType.CPU)
+        mine = [e for e in events if e.device_type == DeviceType.CUDA
+                and kernel in e.name and e.name != mark
+                and span.start <= e.time_range.start <= span.end]
+        us = sum(e.self_device_time_total for e in mine)
+        ok = us > 0 and launches in (None, len(mine))
+        if ok:
             break
-    if us <= 0:
-        log(f"profiler saw no device time for {kernel}; its device events: "
-            + ", ".join(f"{e.key[:60]} {e.self_device_time_total:.1f} us"
-                        for e in events[:4]))
-    return us / iters / 1e3 if us > 0 else None
+    if not ok:
+        log(f"profiler saw {len(mine)} launches of {kernel!r} in the timed "
+            f"calls (expected {launches}) and {us:.1f} us")
+    return us / iters / 1e3 if ok else None
 
 
 def fmt_ms(ms: float | None) -> str:
@@ -613,7 +651,7 @@ def serve_cohort(args, cohort, cpacked, ceng, cfg, dev, c256, c4096,
     n_req = rest_check(meng, ckms, RestServer, Dispatcher, lambda rid: None)
     launches = read_launches("cohort")
     for name in KERNELS:
-        if name != "rank_occ":
+        if name != "rank_occ" and not name.startswith("shard"):
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the cohort path")
     check(launches["rank_occ"] == 0, "K1's generic entry launched on "
@@ -748,6 +786,534 @@ def time_cohort(meng, cohort, c4096, seed: int, card: str) -> None:
             f"{busy_us:.1f} us of {wall_us:.1f} us wall (idle share "
             f"{1 - busy_us / wall_us:.4f}) | {card}")
     log(f"cohort timing in {time.perf_counter() - t_start:.3f}s")
+
+
+
+# ops/sharded.py's plain forms: none may run on a CUDA tensor on the path
+SHARD_PLAIN = ("occ_plain", "_lookup_plain", "sym_plain", "sample_plain",
+               "walk_plain", "resolve_plain", "sweep_plain",
+               "lut_level_plain", "search_plain")
+
+
+@contextlib.contextmanager
+def plain_calls_on_card():
+    """Count the calls of ops/sharded.py's plain forms that are handed a
+    CUDA tensor or an index on the card → {"n": count}."""
+    import torch
+    from readserver_tpu_torch.ops import sharded as sops
+
+    calls = {"n": 0}
+    saved = {name: getattr(sops, name) for name in SHARD_PLAIN}
+
+    def on_card(a) -> bool:
+        if isinstance(a, torch.Tensor):
+            return a.is_cuda
+        starts = getattr(a, "starts", None)
+        return isinstance(starts, torch.Tensor) and starts.is_cuda
+
+    def counted(fn):
+        def inner(*args, **kw):
+            if any(on_card(a) for a in (*args, *kw.values())):
+                calls["n"] += 1
+            return fn(*args, **kw)
+        return inner
+
+    for name, fn in saved.items():
+        setattr(sops, name, counted(fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(sops, name, fn)
+
+
+# the packed index as each route's deployment ships it: the lf route's
+# artifact carries no dsa, the slow route's neither dsa nor the fast tier
+ROUTE_DROPS = {
+    "dsa": {},
+    "lf": dict(dsa=None, dsa_bits=0),
+    "slow": dict(dsa=None, dsa_bits=0, lf=None, mark_rank=None,
+                 sample_pairs=None, sample_rate=0),
+}
+
+
+def serve_interval(packed, engine, cpacked, ceng, cfg, dev, qs, served,
+                   reads_served, c256, c4096, zero_launches, read_launches):
+    """Phase 11: E. coli in SHARDS interval shards on the card through
+    ``QueryEngine(packed, ServeConfig(num_shards=SHARDS), make_mesh(...))``,
+    one engine per route (dsa, lf, slow) from the packed index with the
+    route's tiers dropped: start-up (build_sharded on the host, the
+    placement, K11's LUT), counts and ``/reads`` against the monolithic
+    engine's answers (phases 4 and 8, which the oracle checked), the
+    128-sample cohort's exact ``/samples`` against phase 9's monolithic
+    engine, and ``/info`` and the query endpoints over REST; no plain form
+    of ops/sharded.py on a CUDA tensor, and no single-device kernel → (the
+    E. coli sharded engines by route, the cohort's sharded engine)."""
+    import torch
+    from readserver_tpu_torch.ops import sharded as sops
+    from readserver_tpu_torch.parallel import make_mesh
+    from readserver_tpu_torch.parallel.stats import query_psum_estimate
+    from readserver_tpu_torch.serve import Dispatcher, QueryEngine
+    from readserver_tpu_torch.serve.http import RestServer
+
+    # phase 9's monolithic engine answers the cohort requests first, outside
+    # the interval path's counted window
+    ckms = {"256": (decode_all(c256), False),
+            "4096x2": (decode_all(c4096), True)}
+    mono = {name: ceng.query_batch(kms, both_strands=both, include_hits=False)
+            for name, (kms, both) in ckms.items()}
+    mono_reads = ceng.query_batch(ckms["256"][0])
+    zero_launches()
+    scfg = dataclasses.replace(cfg, num_shards=SHARDS)
+    mesh = make_mesh(num_shards=SHARDS, device=dev)
+    engines = {}
+    with plain_calls_on_card() as plain:
+        for route, drop in ROUTE_DROPS.items():
+            t0 = time.perf_counter()
+            e = QueryEngine(dataclasses.replace(packed, **drop), scfg, mesh,
+                            device=dev)
+            st = e.startup_seconds
+            s = e.sidx
+            log(f"interval engine, {route} route ({SHARDS} shards of "
+                f"{s.lens.tolist()} positions) up in "
+                f"{time.perf_counter() - t0:.3f}s: build_sharded (host) "
+                f"{st['build_sharded']:.3f}s, placement {st['ship']:.3f}s, "
+                f"prefix LUT p={e.lut_p} through K11 {st['lut']:.3f}s; "
+                f"{sum(t.nbytes for t in vars(s).values() if isinstance(t, torch.Tensor)) / 2**30:.3f}"
+                f" GiB on card")
+            t0 = time.perf_counter()
+            e.warmup()
+            log(f"warmup in {time.perf_counter() - t0:.3f}s")
+            check(sops.walk_kind(s) == route,
+                  f"the {route} engine does not walk {route}")
+            check(e.lut_p == engine.lut_p
+                  and torch.equal(e.lut.cpu(), engine.lut.long().cpu()),
+                  f"K11's sharded LUT ({route} engine) differs from the "
+                  f"monolithic engine's")
+            engines[route] = e
+        eng = engines["dsa"]
+        s = eng.sidx
+        log(f"K11's LUT (4^{eng.lut_p} entries, int64) equals the monolithic"
+            f" engine's (K1's level entry, int32), as integers, on every "
+            f"route's engine")
+        for name, q, both in qs:
+            kms = decode_all(q)
+            t0 = time.perf_counter()
+            res = eng.count_batch(kms, both_strands=both)
+            dt = time.perf_counter() - t0
+            check(np.array_equal([r.count for r in res], served[name]),
+                  f"interval counts of the request of {name} differ from "
+                  f"the monolithic engine's")
+            log(f"count request of {name} queries: {dt * 1e3:.3f} ms, equal "
+                f"to the monolithic engine's (and so to the oracle's)")
+        for route, e in engines.items():
+            for name, q, both in qs:
+                t0 = time.perf_counter()
+                got = e.query_batch(decode_all(q), both_strands=both)
+                dt = time.perf_counter() - t0
+                check(got == reads_served[name], f"interval /reads of {name} "
+                      f"on the {route} route differ from the monolithic "
+                      f"engine's")
+                log(f"/reads request of {name} queries, {route} route: "
+                    f"{dt * 1e3:.3f} ms, {sum(len(r.hits) for r in got)} "
+                    f"hits, equal to the monolithic engine's")
+        t0 = time.perf_counter()
+        ceng_s = QueryEngine(cpacked, scfg, mesh, device=dev)
+        log(f"cohort interval engine ({ceng_s.sidx.num_samples} samples, "
+            f"n={cpacked.n}) up in {time.perf_counter() - t0:.3f}s: "
+            f"build_sharded (host) "
+            f"{ceng_s.startup_seconds['build_sharded']:.3f}s")
+        key = lambda r: (r.count, r.sample_hist, r.sample_hist_complete)  # noqa: E731
+        for name, (kms, both) in ckms.items():
+            t0 = time.perf_counter()
+            got = ceng_s.query_batch(kms, both_strands=both,
+                                     include_hits=False)
+            dt = time.perf_counter() - t0
+            check([key(r) for r in got] == [key(r) for r in mono[name]],
+                  f"interval /samples of {name} differ from the monolithic "
+                  f"engine's")
+            log(f"/samples request of {name} cohort queries: {dt * 1e3:.3f} "
+                f"ms, exact histograms equal to the monolithic engine's "
+                f"({sum(not r.sample_hist_complete for r in got)} cut by the "
+                f"sweep cap)")
+        check(ceng_s.query_batch(ckms["256"][0]) == mono_reads,
+              "interval cohort /reads differ from the monolithic engine's")
+        # REST: /info and the query endpoints over the port's front
+        km = decode_all(qs[1][1][:3])
+        reqs = [("GET", "/info", None)] + [
+            ("GET", f"{path}?kmer={k}&both_strands=1", None)
+            for k in km for path in ("/count", "/reads", "/samples")]
+        got, server = rest_exchange(RestServer, Dispatcher(eng), reqs)
+        status, info = got[0]
+        kstep = 3 if s.rank3_rows is not None else 2
+        psums = query_psum_estimate(
+            eng.K, lut_p=eng.lut_p or 0, kstep=kstep,
+            sample_rate=s.sample_rate, fast_resolve=s.has_fast_resolve,
+            max_read_len=s.max_read_len,
+            direct_resolve=s.dsa_chunk is not None)
+        check(status == 200 and info["sharding"] == "interval"
+              and info["num_shards"] == SHARDS
+              and info["psums_per_batch"] == psums,
+              f"/info on the interval engine: {status} {info}")
+        pay = server._result_payload
+        for (_, path, _), (status, body) in zip(reqs[1:], got[1:]):
+            mode = path[1:path.index("?")]
+            k = path[path.index("=") + 1 : path.index("&")]
+            r = (eng.count_batch([k], both_strands=True)[0] if mode == "count"
+                 else eng.query_batch([k], both_strands=True)[0])
+            check(status == 200 and body == pay(r, mode, False),
+                  f"REST {path} on the interval engine differs")
+        log(f"REST over the interval engine: /info (sharding interval, "
+            f"{SHARDS} shards, psums_per_batch {info['psums_per_batch']}) "
+            f"and {len(reqs) - 1} query requests answered as the engine "
+            f"answers")
+    launches = read_launches("interval")
+    for name in ("sharded_search", "sharded_lut_level", "sharded_resolve"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the interval path")
+    check(launches["shard_occ"] == 0, "K9's generic entry launched on the "
+          "interval path")
+    single = {n: c for n, c in launches.items() if not n.startswith("shard")}
+    check(not any(single.values()), f"single-device kernels launched on the "
+          f"interval path: {single}")
+    check(plain["n"] == 0, f"{plain['n']} plain forms of ops/sharded.py ran "
+          "on the card on the interval path")
+    log("no plain form of ops/sharded.py ran on a CUDA tensor on the "
+        "interval path")
+    return engines, ceng_s
+
+
+def owner_rows(s, planes: int, rps: int, c, i):
+    """The row each owner-form rank (c, i) reads, as one int64 id per
+    lane (shard, plane, block), -1 where it reads none (i <= 0)."""
+    import torch
+
+    n = s.n
+    sh = torch.searchsorted(s.starts, i.clamp(0, n - 1), right=True) - 1
+    loc = torch.where(i >= n, s.lens.index_select(0, sh),
+                      i - s.starts.index_select(0, sh))
+    rows = (sh * planes + c.long()) * rps + (loc >> s.log2_block)
+    return torch.where(i > 0, rows, torch.full_like(rows, -1))
+
+
+def row_bytes(s, *row_sets) -> int:
+    """Distinct rows of one table over id tensors (ids -1 read nothing),
+    a row of row_words words each."""
+    import torch
+
+    sets = [r.reshape(-1) for r in row_sets if r.numel()]
+    if not sets:
+        return 0
+    ids = torch.cat(sets)
+    ids = ids[ids >= 0]
+    return int(torch.unique(ids).numel()) * s.rank_rows.shape[2] * 4
+
+
+def search_needs(s, codes, lut, p) -> tuple[int, int]:
+    """→ (bytes, chain) of the sharded k-step search from the LUT: codes,
+    each distinct LUT entry and owner row of the steps taken (the plain
+    schedule's active lanes) read once, (l, u) int64 written; and the
+    longest search's dependent reads (codes, LUT entry, a row pair a
+    step)."""
+    import torch
+    from readserver_tpu_torch.ops import search as so
+    from readserver_tpu_torch.ops import sharded as sops
+
+    B, K = codes.shape
+    ids = so.prefix_ids(codes, p).long()
+    lu = lut.index_select(0, ids)
+    l, u = lu[:, 0], lu[:, 1]
+    r = K - p
+    rem = r - 3 * (r // 3)
+    sched = ([("rank3", 64, s.C3, j, 3) for j in range(r - 3, rem - 1, -3)]
+             + [("rank2", 16, s.C2, j, 2)
+                for j in range(rem - 2, rem % 2 - 1, -2)]
+             + ([("rank", 5, s.C, 0, 1)] if rem % 2 else []))
+    rows, longest = [], 0
+    for table, planes, starts, j, k in sched:
+        code = codes[:, 0] if k == 1 else torch.zeros_like(codes[:, 0])
+        for t in range(k if k > 1 else 0):
+            code = code * 4 + (codes[:, j + t] - 1)
+        act = l < u
+        longest += int(bool(act.any()))
+        for x in (l, u):
+            rows.append(owner_rows(s, planes, s.rows_per_symbol, code,
+                                   x)[act])
+        occ2 = sops.occ_plain(s, table, torch.cat([code, code]),
+                              torch.cat([l, u]))
+        base = starts.index_select(0, code.long())
+        l = torch.where(act, base + occ2[:B], l)
+        u = torch.where(act, base + occ2[B:], u)
+    return (B * K * 4 + distinct(ids) * 16 + B * 16 + row_bytes(s, *rows),
+            2 + longest)
+
+
+def walk_needs(s, rows, valid) -> tuple[int, int]:
+    """→ (bytes, chain) of K10's resolve of ``rows`` on the index's route:
+    rows (8 B) and valid (1 B) in and three int32 out a lane, and the
+    distinct words the walks read (dsa words; lf words, mark rows, pairs
+    and dollar entries; sym4 words and rank rows), each once, plus each
+    hit's sample entry; and the longest lane's dependent reads."""
+    import torch
+    from readserver_tpu_torch.ops import sharded as sops
+
+    kind = sops.walk_kind(s)
+    lanes = rows.numel() * 21
+    m = s.num_reads
+    if kind == "dsa":
+        rid, _ = sops.walk_plain(s, rows, valid)
+        return (lanes + distinct(rows[valid]) * 4
+                + distinct(rid[valid]) * 4, 2)
+    cur, done = rows, ~valid
+    reads = torch.zeros_like(rows)
+    words, rank_rows, marks, pairs, dollars = [], [], [], [], []
+    limit = max(s.sample_rate, 1) if kind == "lf" else s.max_read_len
+    for t in range(limit):
+        act = ~done
+        if not bool(act.any()):
+            break
+        if kind == "lf":
+            reads += act.long()
+            words.append(cur[act])
+            raw = sops._lookup_plain(s.lf_chunk, s.starts, s.lens, cur)
+            val = (raw & 0x7FFFFFFF).long()
+            term = (raw < 0) | (val < m)
+            slot = sops.occ_plain(s, "marks", torch.zeros_like(raw), cur)
+            marks.append(owner_rows(s, 1, s.mark_table.shape[1],
+                                    torch.zeros_like(raw), cur)[act & (raw < 0)])
+            pairs.append(slot[act & (raw < 0)])
+            dollars.append(val[act & term & (raw >= 0)])
+            reads += (act & term).long() * (1 + (raw < 0).long())
+            cur = torch.where(act & ~term, val, cur)
+            done = done | term
+        else:
+            reads += act.long() * 2
+            c = sops.sym_plain(s, cur)
+            o = sops.occ_plain(s, "rank", c, cur)
+            words.append((cur >> 3)[act])
+            rank_rows.append(owner_rows(s, 5, s.rows_per_symbol, c, cur)[act])
+            term = c == 0
+            dollars.append(o[act & term])
+            reads += (act & term).long()
+            cur = torch.where(act & ~term, s.C.index_select(0, c.long()) + o,
+                              cur)
+            done = done | term
+    rid, _ = sops.walk_plain(s, rows, valid)
+    nbytes = (lanes + distinct(*words) * 4 + row_bytes(s, *rank_rows)
+              + row_bytes(s, *marks)
+              + distinct(*pairs) * 8 + distinct(*dollars) * 4
+              + distinct(rid[rid >= 0]) * 4)
+    return nbytes, int(reads.max()) + 1 if reads.numel() else 0
+
+
+def sets_past_l2(nbytes: int) -> int:
+    """How many distinct input sets of ``nbytes`` each to time in turn:
+    N_ROT, or more (up to 64) where together they would not need twice
+    the card's L2, so that no call finds its inputs left there by the
+    calls before it."""
+    return min(64, max(N_ROT, -(-2 * L2_BYTES // max(nbytes, 1))))
+
+
+def sweep_needs(s, l, u, window: int, cap: int) -> tuple[int, None]:
+    """→ (bytes, no chain) of the exact sweep of intervals (l, u): the
+    intervals in, each distinct dsa word and read's sample entry of the
+    rows swept read once, the histograms written."""
+    import torch
+    from readserver_tpu_torch.ops import sharded as sops
+
+    total = int((u - l).sum())
+    limit = min(total, -(-cap // window) * window)
+    wl = torch.repeat_interleave(l, (u - l))[:limit]
+    first = torch.repeat_interleave(torch.cumsum(u - l, 0) - (u - l),
+                                    u - l)[:limit]
+    rows = wl + torch.arange(limit, device=l.device) - first
+    rid, _ = sops.walk_plain(s, rows, torch.ones_like(rows, dtype=torch.bool))
+    return (l.numel() * 16 + distinct(rows) * 4 + distinct(rid) * 4
+            + l.numel() * s.num_samples * 4, None)
+
+
+def check_interval_kernels(engines, ceng_s, batch, cbatch, rot, cohort,
+                           seed: int, t_row, card):
+    """Phase 11b: each sharded kernel against its plain form on the card,
+    max |err| 0, at phase 11's shapes and on distinct input sets of those
+    shapes, enough that together they need twice the L2 (K11's one build
+    writes many times the L2); then, the sets taken in turn, its wrapper
+    time (CUDA events), device time (profiler), plain time, bytes bound
+    (of the sets' mean bytes) and, for the search and the walks, chain
+    bound (the longest over the sets) → ({name: summary entry}, max |err|
+    by kernel).  ``rot``: phase 7's distinct E. coli batches on the card."""
+    import torch
+    from readserver_tpu_torch.corpus import simulate
+    from readserver_tpu_torch.kernels import KERNELS
+    from readserver_tpu_torch.ops import sharded as sops
+    from readserver_tpu_torch.parallel import build_prefix_lut_sharded
+
+    eng = engines["dsa"]
+    s = eng.sidx
+    dev = s.starts.device
+    rng = np.random.default_rng(11)
+
+    def in_turn(make, needs):
+        """Input sets make(0), make(1), ... until together they pass the
+        L2 → (sets, their mean bytes, their longest chain or None)."""
+        sets = [make(0)]
+        got = [needs(*sets[0])]
+        for j in range(1, sets_past_l2(got[0][0])):
+            sets.append(make(j))
+            got.append(needs(*sets[-1]))
+        chains = [g[1] for g in got if g[1] is not None]
+        return (sets, int(np.mean([g[0] for g in got])),
+                max(chains) if chains else None)
+
+    cases = []  # (name, kernel name, fn, plain, sets, what, bytes, chain)
+    X = 2 * 262_144
+
+    def ranks(_):
+        return (torch.from_numpy(rng.integers(0, 5, size=X).astype(np.int32))
+                .to(dev), torch.from_numpy(rng.integers(0, s.n + 1, size=X))
+                .to(dev))
+
+    sets, nb, _ = in_turn(ranks, lambda c, i: (X * 20 + row_bytes(
+        s, owner_rows(s, 5, s.rows_per_symbol, c, i)), None))
+    cases.append(("shard_occ", "shard_occ_kernel",
+                  lambda c, i: sops.occ(s, "rank", c, i),
+                  lambda c, i: sops.occ_plain(s, "rank", c, i), sets,
+                  f"{X} random ranks over {SHARDS} shards", nb, None))
+    # K11: every level against the plain level on the same inputs
+    p = eng.lut_p
+    l, u = s.C[1:5].contiguous(), s.C[2:6].contiguous()
+    lut_err, lut_bytes = 0, 0
+    for _ in range(p - 1):
+        got = sops.lut_level(s, l, u)
+        want = sops.lut_level_plain(s, l, u)
+        lut_err = max(lut_err, max_err(zip(got, want)))
+        alive = l < u
+        rows = [owner_rows(s, 5, s.rows_per_symbol,
+                           torch.full_like(x[alive], cc, dtype=torch.int32),
+                           x[alive]) for cc in range(1, 5) for x in (l, u)]
+        lut_bytes += l.numel() * 80 + row_bytes(s, *rows)
+        l, u = got
+    check(lut_err == 0, f"K11 disagrees with its plain level (|err| "
+          f"{lut_err})")
+
+    def plain_lut():
+        a, b = s.C[1:5], s.C[2:6]
+        for _ in range(p - 1):
+            a, b = sops.lut_level_plain(s, a, b)
+        empty = a >= b
+        return torch.stack([torch.where(empty, 0, a),
+                            torch.where(empty, 0, b)], dim=1)
+
+    cases.append(("sharded_lut_level", "sharded_lut_level_kernel",
+                  lambda: build_prefix_lut_sharded(s, None, p), plain_lut,
+                  [()], f"the p={p} build, {p - 1} levels", lut_bytes, None))
+    # the search on the served width-8192 batch, every mode checked; then
+    # timed over it and width-8192 slices of phase 7's distinct batches
+    ce, le, nq = eng._pad_encode(batch)
+    codes, lengths = eng._to_device(ce, le)
+    for kstep, lt, pp in ((3, eng.lut, p), (2, eng.lut, p), (1, eng.lut, p),
+                          (1, None, 0), (3, None, 0)):
+        got = sops.search(s, codes, lengths, lt, pp, kstep)
+        want = sops.search_plain(s, codes, lengths, lt, pp, kstep)
+        check(max_err(zip(got, want)) == 0,
+              f"the sharded search (kstep {kstep}, LUT {lt is not None}) "
+              f"disagrees with its plain form")
+    W = codes.shape[0]
+    slices = [codes] + [b[j * W:(j + 1) * W] for b in rot
+                        for j in range(b.shape[0] // W)]
+    sets, nb, chain = in_turn(lambda j: (slices[j],),
+                              lambda q: search_needs(s, q, eng.lut, p))
+    cases.append(("sharded_search", "sharded_search_kernel",
+                  lambda q: sops.search(s, q, None, eng.lut, p, 3),
+                  lambda q: sops.search_plain(s, q, None, eng.lut, p, 3),
+                  sets, f"width {W}, {codes.shape[1]}-mers, k-step from the "
+                  f"p={p} LUT", nb, chain))
+    # K10 on each route's engine over those batches' hit lanes, H = 64
+    H = eng.H
+    span = torch.arange(H, device=dev)
+    lanes = {}
+
+    def hit_lanes(j):
+        if j not in lanes:
+            l, u = sops.search(s, slices[j], None, eng.lut, p, 3)
+            rows = (l[:, None] + span).reshape(-1)
+            valid = (span[None, :] < (u - l)[:, None]).reshape(-1)
+            lanes[j] = (torch.where(valid, rows, torch.zeros_like(rows)),
+                        valid)
+        return lanes[j]
+
+    for route, e in engines.items():
+        sr = e.sidx
+        sets, nb, chain = in_turn(
+            hit_lanes, lambda rows, valid, sr=sr: walk_needs(sr, rows, valid))
+        cases.append((
+            f"sharded_resolve ({route})", "sharded_resolve_kernel",
+            lambda rows, valid, sr=sr: sops.resolve(sr, rows, valid),
+            lambda rows, valid, sr=sr: sops.resolve_plain(sr, rows, valid),
+            sets, f"{W} x {H} lanes ({int(sets[0][1].sum())} hits in the "
+            f"served batch), {route} route", nb, chain))
+    # the exact sweep on the cohort's served width-8192 batch, then on
+    # cohort batches of 8192 31-mers
+    cs = ceng_s.sidx
+    ce, le, nq = ceng_s._pad_encode(cbatch)
+    cqs = [ceng_s._to_device(ce, le)[0]]
+
+    def cohort_set(j):
+        while len(cqs) <= j:
+            q = simulate.sample_query_kmers_fast(
+                cohort, W, KMER, seed=seed + 5 + len(cqs), miss_frac=0.1)
+            cqs.append(torch.from_numpy(q.astype(np.int32)).to(dev))
+        return sops.search(cs, cqs[j], None, ceng_s.lut, ceng_s.lut_p, 3)
+
+    SW, cap = 32_768, ceng_s.cfg.max_sweep_rows
+    sets, nb, _ = in_turn(cohort_set,
+                          lambda cl, cu: sweep_needs(cs, cl, cu, SW, cap))
+    rows0 = int((sets[0][1] - sets[0][0]).sum())
+    cases.append((
+        "sharded_resolve (sweep)", "sharded_sweep_kernel",
+        lambda cl, cu: sops.sweep(cs, cl, cu, SW, cap),
+        lambda cl, cu: sops.sweep_plain(cs, cl, cu, SW, cap), sets,
+        f"exact sweep of {min(rows0, -(-cap // SW) * SW)} of {rows0} rows "
+        f"in the served "
+        f"batch over 128 samples, window {SW}, dsa route", nb, None))
+
+    def outs(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    errs = {"sharded_lut_level": lut_err}
+    out = {}
+    for name, kname, kern, plain, sets, what, nbytes, chain in cases:
+        err = max(max_err(zip(outs(kern(*x)), outs(plain(*x)))) for x in sets)
+        check(err == 0, f"{name} disagrees with its plain form ({what})")
+        key = name.split(" ")[0]
+        errs[key] = max(errs.get(key, 0), err)
+        before = KERNELS[key].launches
+        kern(*sets[0])
+        per_call = KERNELS[key].launches - before
+        k_turn, p_turn = itertools.cycle(sets), itertools.cycle(sets)
+        iters = max(len(sets), N_ROT)
+        torch.cuda.synchronize()
+        t_kern, t_plain = [], []
+        for _ in range(3):  # interleaved: kernel, plain
+            t_kern.append(time_cuda(lambda: kern(*next(k_turn)), iters))
+            t_plain.append(time_cuda(lambda: plain(*next(p_turn)), 1))
+        dev_ms = kernel_device_ms(lambda: kern(*next(k_turn)), iters, kname,
+                                  launches=iters * per_call)
+        tk, tp = float(np.median(t_kern)), float(np.median(t_plain))
+        bnd = bound_ms(nbytes)
+        chain_ms = None if chain is None or t_row is None else chain * t_row
+        log(f"{name} ({what}; {len(sets)} distinct input sets in turn): "
+            f"wrapper {tk:.4f} ms, kernel device time {fmt_ms(dev_ms)} ms "
+            f"(profiler) | plain torch {tp:.4f} ms (median of 3 x {iters} "
+            f"and 3 x 1 calls, CUDA events), outputs equal on every set | "
+            f"needs {nbytes} B a set (mean): bytes bound {bnd:.4f} ms, "
+            f"device time at {ratio(bnd, dev_ms)} of it"
+            + ("" if chain is None else
+               f" | chain of {chain} dependent reads x t_row: chain bound "
+               f"{fmt_ms(chain_ms)} ms, device time at "
+               f"{ratio(chain_ms, dev_ms)} of it") + f" | {card}")
+        out.setdefault(key, (tk, tp, dev_ms, bnd, what, chain_ms))
+    return out, errs
 
 
 def max_err(pairs) -> int:
@@ -1343,6 +1909,13 @@ def run(args) -> dict:
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the REST path")
         log(f"{n_req} REST requests answered as the engines answer")
+
+    # ------------------------------------------------- 11. interval shards
+    with phase("11 interval shards"):
+        shard_engines, ceng_s = serve_interval(
+            packed, engine, cpacked, ceng, cfg, dev,
+            (("1", q1, False), ("256", q256, False), ("4096x2", q4096, True)),
+            served, reads_served, c256, c4096, zero_launches, read_launches)
 
     # -------------------------------------------------- 6. kernel vs plain
     idx = engine.index
@@ -2173,13 +2746,23 @@ def run(args) -> dict:
         log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f}"
             f" GiB")
 
+    # ------------------------------------- 11b. interval kernels vs plain
+    with phase("11b interval kernels"):
+        shard_summary, shard_err = check_interval_kernels(
+            shard_engines, ceng_s, batches[8192], cbatches[8192], rot,
+            cohort, args.seed, t_row, card)
+        summary.update(shard_summary)
+        summary.update({f"{k}_err": v for k, v in shard_err.items()})
+
     # launches: summed over the main-path phases (count, reads, samples,
-    # cohort, REST), each counted from 0.  K1's generic entry is on no main
-    # path: the walks that ranked through it run in the walk kernel; it
-    # stays held against its plain form and timed (phases 6 and 7)
+    # cohort, REST, interval), each counted from 0.  K1's and K9's generic
+    # entries are on no main path: the walks that ranked through K1 run in
+    # the walk kernel, and K9's rank runs inside the other sharded kernels;
+    # both stay held against their plain forms and timed (phases 6, 7, 11b)
     total = {name: sum(c[name] for c in path_launches.values())
              for name in KERNELS}
-    check(all(n for name, n in total.items() if name != "rank_occ"),
+    check(all(n for name, n in total.items()
+              if name not in ("rank_occ", "shard_occ")),
           f"a kernel never launched on a main path: {total}")
     where = {
         "rank_occ": ("rank.cu", "readserver_tpu/kernels/pallas_rank.py:144",
@@ -2195,6 +2778,17 @@ def run(args) -> dict:
                          "kw_err"),
         "exact_histogram": ("resolve.cu",
                             "readserver_tpu/ops/resolve.py:426", "k7_err"),
+        "shard_occ": ("sharded.cu", "readserver_tpu/parallel/sharded.py:395",
+                      "shard_occ_err"),
+        "sharded_search": ("sharded.cu",
+                           "readserver_tpu/parallel/sharded.py:622",
+                           "sharded_search_err"),
+        "sharded_lut_level": ("sharded.cu",
+                              "readserver_tpu/parallel/sharded.py:1075",
+                              "sharded_lut_level_err"),
+        "sharded_resolve": ("sharded.cu",
+                            "readserver_tpu/parallel/sharded.py:834",
+                            "sharded_resolve_err"),
     }
     kernels = []
     for name, (src, rep_at, err) in where.items():

@@ -7,12 +7,14 @@
         --both-strands --hits --samples
     python -m readserver_tpu_torch.cli serve --index data/idx --port 8080 \\
         --batch 8192 --warmup-k 31
+    python -m readserver_tpu_torch.cli serve --index data/idx --shards 4
 
 Artifacts are the JAX package's on-disk format; either package's CLI can
 build one and query the other's.  A cohort directory (``--doc-shards N``)
-is served by ``MultiEngine``, every shard on the one device.  File ingest,
-document sharding across devices and multi-host serving are not ported yet
-(ROADMAP.md).
+is served by ``MultiEngine``, every shard on the one device.  ``--shards
+S`` serves one artifact in S BWT-interval shards, all resident on the one
+device.  File ingest, document sharding across devices and multi-host
+serving are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -62,27 +64,39 @@ def cmd_build(args) -> int:
 
 
 def _load_engine(index_path: str, batch_size: int, device: str,
-                 warmup_k: tuple = ()):
-    """One artifact → a ``QueryEngine``; a cohort directory → a
-    ``MultiEngine`` over its shards, all on ``device`` (there is no
-    document sharding across devices yet; its answers are the same)."""
+                 warmup_k: tuple = (), num_shards: int = 1):
+    """One artifact → a ``QueryEngine``, in ``num_shards`` BWT-interval
+    shards when above 1; a cohort directory → a ``MultiEngine`` over its
+    shards (``num_shards`` unused, as in the JAX package's CLI); all on
+    ``device`` (there is no document sharding across devices yet; its
+    answers are the same)."""
     from readserver_tpu_torch.config import ServeConfig
     from readserver_tpu_torch.index import artifact
     from readserver_tpu_torch.index.cohort import is_cohort, load_cohort
     from readserver_tpu_torch.serve import MultiEngine, QueryEngine
 
-    cfg = ServeConfig(batch_size=batch_size, warmup_query_lengths=warmup_k)
     if is_cohort(index_path):
+        cfg = ServeConfig(batch_size=batch_size,
+                          warmup_query_lengths=warmup_k)
         parts, _ = load_cohort(index_path, mmap=False)
         return MultiEngine(parts, cfg, device=device)
     packed = artifact.load_artifact(index_path, mmap=False)
-    return QueryEngine(packed, cfg, device=device)
+    cfg = ServeConfig(batch_size=batch_size, num_shards=num_shards,
+                      warmup_query_lengths=warmup_k)
+    mesh = None
+    if num_shards > 1:
+        from readserver_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(data_parallel=1, num_shards=num_shards,
+                         device=device)
+    return QueryEngine(packed, cfg, mesh, device=device)
 
 
 def cmd_query(args) -> int:
     # sized to both strands: the reverse complements join the same batch
     width = max(len(args.kmer) * (2 if args.both_strands else 1), 16)
-    engine = _load_engine(args.index, width, args.device)
+    engine = _load_engine(args.index, width, args.device,
+                          num_shards=args.shards)
     if args.hits or args.samples:
         results = engine.query_batch(args.kmer, both_strands=args.both_strands)
     else:
@@ -109,7 +123,7 @@ def cmd_serve(args) -> int:
     from readserver_tpu_torch.serve.http import serve_forever
 
     engine = _load_engine(args.index, args.batch, args.device,
-                          warmup_k=_warmup_k(args))
+                          warmup_k=_warmup_k(args), num_shards=args.shards)
     engine.warmup()
     try:
         asyncio.run(serve_forever(engine, args.host, args.port))
@@ -139,6 +153,8 @@ def main(argv=None) -> int:
     q.add_argument("--samples", action="store_true")
     q.add_argument("--both-strands", action="store_true",
                    help="also search the reverse complement")
+    q.add_argument("--shards", type=int, default=1,
+                   help="BWT-interval shards, all on the one device")
     q.add_argument("--device", default="cuda",
                    help="torch device to serve from (cuda, cuda:1, cpu)")
     q.set_defaults(fn=cmd_query)
@@ -152,6 +168,8 @@ def main(argv=None) -> int:
     s.add_argument("--warmup-k", default="",
                    help="comma-separated uniform query lengths to run at "
                         "startup (e.g. 31)")
+    s.add_argument("--shards", type=int, default=1,
+                   help="BWT-interval shards, all on the one device")
     s.add_argument("--device", default="cuda",
                    help="torch device to serve from (cuda, cuda:1, cpu)")
     s.set_defaults(fn=cmd_serve)

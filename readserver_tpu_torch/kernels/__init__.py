@@ -13,6 +13,10 @@
   fused-row walk, the marks, lf and slow walks (ranking through K1's table
   layout) and the exact per-sample histogram sweep through any walk;
   launched by ``ops/resolve.py``.
+* ``SHARD_OCC`` (K9), ``SHARDED_SEARCH``, ``SHARDED_LUT_LEVEL`` (K11) and
+  ``SHARDED_RESOLVE`` (K10), ``csrc/sharded.cu``: the interval-sharded
+  index's rank, search, LUT level, and lookups, walks and exact sweep,
+  every shard on one device; launched by ``ops/sharded.py``.
 
 Each is a :class:`~readserver_tpu_torch.kernels.build.Kernel` carrying its
 launch count in ``launches``.
@@ -27,6 +31,10 @@ RESOLVE_DSA = Kernel("rs_resolve_dsa")
 RESOLVE_FUSED = Kernel("rs_resolve_fused")
 RESOLVE_WALK = Kernel("rs_resolve_walk")
 EXACT_HISTOGRAM = Kernel("rs_exact_histogram")
+SHARD_OCC = Kernel("rs_shard_occ")
+SHARDED_SEARCH = Kernel("rs_sharded_search")
+SHARDED_LUT_LEVEL = Kernel("rs_sharded_lut_level")
+SHARDED_RESOLVE = Kernel("rs_sharded_resolve")
 KERNELS = {
     "rank_occ": RANK_OCC,
     "lut_level": LUT_LEVEL,
@@ -35,9 +43,14 @@ KERNELS = {
     "resolve_fused": RESOLVE_FUSED,
     "resolve_walk": RESOLVE_WALK,
     "exact_histogram": EXACT_HISTOGRAM,
+    "shard_occ": SHARD_OCC,
+    "sharded_search": SHARDED_SEARCH,
+    "sharded_lut_level": SHARDED_LUT_LEVEL,
+    "sharded_resolve": SHARDED_RESOLVE,
 }
 
 __all__ = [
     "BACKWARD_SEARCH", "EXACT_HISTOGRAM", "KERNELS", "LIBRARY", "LUT_LEVEL",
     "Kernel", "RANK_OCC", "RESOLVE_DSA", "RESOLVE_FUSED", "RESOLVE_WALK",
+    "SHARD_OCC", "SHARDED_LUT_LEVEL", "SHARDED_RESOLVE", "SHARDED_SEARCH",
 ]

@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "kernels"
-_SOURCES = ("rank.cu", "search.cu", "resolve.cu")
+_SOURCES = ("rank.cu", "search.cu", "resolve.cu", "sharded.cu")
 _HEADERS = ("rank.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -48,6 +48,14 @@ SIGNATURES = {
     "rs_exact_histogram": [_P, _P, _L, _L, _I, *_WALK, _P, _L, _I, _P, _P],
     # a yardstick for chip_smoke.py, launched by no path of the port
     "rs_chase": [_P, _I, _L, _P, _L, _I, _P, _P],
+    # the interval-sharded index (csrc/sharded.cu); the first argument is
+    # the address of an ops/sharded.ShardView
+    "rs_shard_occ": [_P, _I, _P, _P, _P, _L, _P],
+    "rs_sharded_search": [_P, _P, _P, _L, _I, _P, _I, _I, _P, _P, _P, _P],
+    "rs_sharded_lut_level": [_P, _P, _P, _L, _P, _P, _L, _P],
+    "rs_sharded_resolve": [
+        _P, _I, _P, _P, _L, _P, _P, _P, _P, _P, _L, _L, _I, _P, _P,
+    ],
 }
 
 

@@ -24,8 +24,9 @@ form for CPU tensors, with no fallback between them:
   (:func:`exact_sample_histogram`).
 
 In the JAX package the walks are XLA loops, not Pallas.  The slow walk's
-``rank_fn``/``sym_fn`` hooks (the sharded path's rank, ROADMAP P10) run
-only in the plain form; on CUDA tensors they raise.
+``rank_fn``/``sym_fn`` hooks run only in the plain form; on CUDA tensors
+they raise.  No caller passes them: the interval-sharded walks have their
+own kernel (``ops/sharded.py``).
 """
 
 from __future__ import annotations
@@ -536,12 +537,14 @@ def resolve_rows_fast(
 
 
 def _kernel_steps(max_steps=None, rank_fn=None, sym_fn=None) -> int | None:
-    """The slow walk's options the kernel takes: ``max_steps``.  Its hooks
-    are the sharded path's rank (ROADMAP P10), which has no kernel yet."""
+    """The slow walk's options the kernel takes: ``max_steps``.  Its
+    ``rank_fn``/``sym_fn`` hooks are plain-only: the sharded walks run in
+    their own kernel (``ops/sharded.resolve``)."""
     if rank_fn is not None or sym_fn is not None:
         raise NotImplementedError(
-            "the slow walk's rank_fn/sym_fn hooks (the sharded path's rank, "
-            "ROADMAP P10) run only in the plain form, on CPU tensors"
+            "the slow walk's rank_fn/sym_fn hooks run only in the plain "
+            "form, on CPU tensors; the interval-sharded walks have their "
+            "own kernel (ops/sharded.resolve)"
         )
     return max_steps
 

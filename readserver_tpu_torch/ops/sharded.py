@@ -1,0 +1,570 @@
+"""The interval-sharded index's device functions: rank (K9), lookups and
+walks (K10) and the prefix-LUT level (K11), over a ``ShardedIndex``
+(``parallel/sharded.py``) whose S shards all live on one device.
+
+Each function has two forms:
+
+* a plain torch form (``*_plain``), the JAX package's masked-contribution
+  form literally: every shard computes a clamped local value and the S
+  values are summed in int64 (a rank, where the shards below the position
+  add their totals) or at most one of them is nonzero (a lookup, clipped
+  to the shard's last entry and masked);
+* kernels ``csrc/sharded.cu`` (K9 ``rs_shard_occ``, the search
+  ``rs_sharded_search``, K11 ``rs_sharded_lut_level`` and K10
+  ``rs_sharded_resolve``), where each position has one owner: a lane
+  finds the shard holding its position by a binary search over the
+  shards' starts and reads one row there, ``rank(c, i) = prefix[s][c] +
+  occ_s(c, i - start_s)``, or the owning shard's chunk for a lookup, 0
+  where no shard owns the key.  The same integers as the clamped sums.
+
+The public functions take the plain form for CPU tensors and launch the
+kernel for CUDA tensors, with no fallback between them.  The walks are the
+JAX package's ``do_walk`` routes: the dsa gather when ``dsa_chunk`` ships,
+the sampled-LF walk with its terminal when the fast tier does, else the
+slow walk that carries the $-rank and looks the read up once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from readserver_tpu_torch.kernels import (
+    SHARD_OCC,
+    SHARDED_LUT_LEVEL,
+    SHARDED_RESOLVE,
+    SHARDED_SEARCH,
+)
+from readserver_tpu_torch.kernels.build import check_int32, on_cuda, ptr
+from readserver_tpu_torch.ops.rank import _WORD, occ_rows_plain
+from readserver_tpu_torch.ops.resolve import WALK_KINDS, _rounds_cap
+from readserver_tpu_torch.ops.search import (
+    SEARCH_MAX_K,
+    _refused,
+    prefix_ids,
+    raise_if_refused,
+)
+
+MAX_SHARDS = 64  # owner keys the kernels stage in shared memory
+# K9's tables, numbered as csrc/sharded.cu takes them
+TABLES = {"rank": 0, "rank2": 1, "rank3": 2, "marks": 3}
+
+
+def _table(sidx, table: str):
+    """→ (stacked table, its prefix over shards, rows per plane)."""
+    if table == "rank":
+        return sidx.rank_rows, sidx.sym_prefix, sidx.rows_per_symbol
+    if table == "rank2":
+        return sidx.rank2_rows, sidx.prefix2, sidx.rows_per_symbol
+    if table == "rank3":
+        return sidx.rank3_rows, sidx.prefix3, sidx.rows_per_symbol
+    if table == "marks":
+        t = sidx.mark_table
+        return t, sidx.mark_prefix, None if t is None else t.shape[1]
+    raise ValueError(f"no sharded table {table!r}")
+
+
+def _ranges(starts: torch.Tensor, lens: torch.Tensor):
+    return list(zip(starts.tolist(), lens.tolist()))
+
+
+def walk_kind(sidx) -> str:
+    """The resolve route the index's tiers give: dsa, lf or slow."""
+    if sidx.dsa_chunk is not None and sidx.dsa_bits > 0:
+        return "dsa"
+    if sidx.has_fast_resolve:
+        return "lf"
+    return "slow"
+
+
+# ---------------------------------------------------------------- plain forms
+
+
+def occ_plain(sidx, table: str, c: torch.Tensor, i: torch.Tensor):
+    """K9's plain form: Σ_s occ_s(c, clip(i - start_s, 0, len_s)) in int64.
+    c int [X] (a plane of ``table``), i int64 [X] → int64 [X]."""
+    t, _, rps = _table(sidx, table)
+    out = torch.zeros(i.shape, dtype=torch.int64, device=i.device)
+    for s, (st, ln) in enumerate(_ranges(sidx.starts, sidx.lens)):
+        loc = (i - st).clamp(0, ln).to(torch.int32)
+        out += occ_rows_plain(
+            t[s], c, loc, rows_per_symbol=rps, log2_block=sidx.log2_block,
+            words_per_block=sidx.words_per_block,
+        ).to(torch.int64)
+    return out
+
+
+def _lookup_plain(chunk, starts, lens, x):
+    """Σ_s where(x in range s, chunk[s][clip(x - start_s, 0, len_s - 1)],
+    0): the masked lookup (x int64 [X])."""
+    out = None
+    for s, (st, ln) in enumerate(_ranges(starts, lens)):
+        inr = (x >= st) & (x < st + ln)
+        loc = (x - st).clamp(0, max(ln - 1, 0))
+        v = chunk[s].index_select(0, loc.reshape(-1)).reshape(
+            *x.shape, *chunk.shape[2:])
+        mask = inr.reshape(*inr.shape, *([1] * (chunk.dim() - 2)))
+        v = torch.where(mask, v, torch.zeros_like(v))
+        out = v if out is None else out + v
+    return out
+
+
+def sym_plain(sidx, i: torch.Tensor) -> torch.Tensor:
+    """BWT symbol at global positions i (int64 [X]) → int32 [X]."""
+    out = torch.zeros(i.shape, dtype=torch.int64, device=i.device)
+    for s, (st, ln) in enumerate(_ranges(sidx.starts, sidx.lens)):
+        inr = (i >= st) & (i < st + ln)
+        loc = (i - st).clamp(0, max(ln - 1, 0))
+        word = sidx.sym4[s].index_select(0, loc >> 3).to(torch.int64) & _WORD
+        v = (word >> ((loc & 7) << 2)) & 0xF
+        out += torch.where(inr, v, torch.zeros_like(v))
+    return out.to(torch.int32)
+
+
+def sample_plain(sidx, rid: torch.Tensor) -> torch.Tensor:
+    """Read id (int32 [X], clipped to [0, m)) → sample id int32 [X]."""
+    r = rid.to(torch.int64).clamp(0, max(sidx.num_reads - 1, 0))
+    return _lookup_plain(sidx.sample_chunk, sidx.rstarts, sidx.rlens, r)
+
+
+def walk_plain(sidx, rows, valid, walk_early_exit: bool = False):
+    """K10's walks in plain form, the JAX ``do_walk``: rows int64 [R],
+    valid bool [R] → (read_id, offset) int32 [R], -1 where invalid or
+    unterminated.  ``walk_early_exit`` stops once every lane is done, which
+    changes no answer."""
+    m = sidx.num_reads
+    kind = walk_kind(sidx)
+    neg = torch.full(rows.shape, -1, dtype=torch.int32, device=rows.device)
+    if kind == "dsa":
+        p = _lookup_plain(sidx.dsa_chunk, sidx.starts, sidx.lens, rows)
+        p = p.to(torch.int64) & _WORD
+        bits = sidx.dsa_bits
+        rid = (p >> bits).to(torch.int32)
+        off = (p & ((1 << bits) - 1)).to(torch.int32)
+        return torch.where(valid, rid, neg), torch.where(valid, off, neg)
+    if kind == "lf":
+        cur, done = rows, ~valid
+        steps = torch.zeros(rows.shape, dtype=torch.int32, device=rows.device)
+        for _ in range(max(sidx.sample_rate, 1)):
+            if walk_early_exit and bool(done.all()):
+                break
+            raw = _lookup_plain(sidx.lf_chunk, sidx.starts, sidx.lens, cur)
+            val = (raw & 0x7FFFFFFF).to(torch.int64)
+            is_term = (raw < 0) | (val < m)
+            step_now = ~done & ~is_term
+            cur = torch.where(step_now, val, cur)
+            steps = steps + step_now.to(torch.int32)
+            done = done | is_term
+        raw = _lookup_plain(sidx.lf_chunk, sidx.starts, sidx.lens, cur)
+        slot = occ_plain(sidx, "marks", torch.zeros_like(raw), cur)
+        is_marked = raw < 0
+        val = (raw & 0x7FFFFFFF).to(torch.int64)
+        rid_d = _lookup_plain(sidx.dollar_chunk, sidx.dstarts, sidx.dlens, val)
+        pair = _lookup_plain(sidx.spairs_chunk, sidx.sstarts, sidx.slens, slot)
+        read_id = torch.where(is_marked, pair[:, 0], rid_d)
+        offset = torch.where(is_marked, pair[:, 1] + steps, steps)
+        ok = valid & done
+        return torch.where(ok, read_id, neg), torch.where(ok, offset, neg)
+    # slow walk: carry the terminal $-rank, look the read id up once
+    cur, done = rows, ~valid
+    drank = torch.full(rows.shape, -1, dtype=torch.int64, device=rows.device)
+    offset = neg.clone()
+    for t in range(sidx.max_read_len):
+        if walk_early_exit and bool(done.all()):
+            break
+        c = sym_plain(sidx, cur)
+        o = occ_plain(sidx, "rank", c, cur)
+        hit = (c == 0) & ~done
+        drank = torch.where(hit, o, drank)
+        offset = torch.where(hit, torch.full_like(offset, t), offset)
+        done = done | (c == 0)
+        nxt = sidx.C.index_select(0, c.to(torch.int64)) + o
+        cur = torch.where(done, cur, nxt)
+    rid = _lookup_plain(sidx.dollar_chunk, sidx.dstarts, sidx.dlens,
+                        drank.clamp(min=0))
+    ok = valid & done
+    return torch.where(ok, rid, neg), torch.where(ok, offset, neg)
+
+
+def resolve_plain(sidx, rows, valid, walk_early_exit: bool = False):
+    """Plain form of :func:`resolve`."""
+    rid, off = walk_plain(sidx, rows, valid, walk_early_exit)
+    return rid, off, sample_plain(sidx, rid)
+
+
+def sweep_plain(sidx, l, u, window: int, max_rows: int | None = None,
+                walk_early_exit: bool = False):
+    """Plain form of :func:`sweep`: the JAX exact sweep, window after
+    window of the concatenated intervals."""
+    B = l.shape[0]
+    S = sidx.num_samples
+    dev = l.device
+    cum = torch.cumsum(u - l, 0)
+    total = int(cum[B - 1])
+    span = torch.arange(window, dtype=torch.int64, device=dev)
+    hist = torch.zeros(B * S, dtype=torch.int32, device=dev)
+    t = 0
+    while t * window < total and (max_rows is None or t * window < max_rows):
+        g = t * window + span
+        gvalid = g < total
+        qc = torch.searchsorted(cum, g, right=True).clamp(max=B - 1)
+        prev = torch.where(qc > 0, cum.index_select(0, (qc - 1).clamp(min=0)),
+                           torch.zeros_like(qc))
+        wrows = l.index_select(0, qc) + (g - prev)
+        rid, _ = walk_plain(sidx, torch.where(gvalid, wrows, 0), gvalid,
+                            walk_early_exit)
+        seg = qc * S + sample_plain(sidx, rid).to(torch.int64)
+        hist.index_add_(0, seg, gvalid.to(torch.int32))
+        t += 1
+    return hist.reshape(B, S), cum <= t * window
+
+
+def lut_level_plain(sidx, l, u):
+    """K11's plain form: [X] level-ℓ intervals → [4X] of level ℓ+1
+    (c-major), empties frozen; int64."""
+    X = l.shape[0]
+    cc = torch.arange(1, 5, dtype=torch.int32, device=l.device)
+    cc = cc.repeat_interleave(X)
+    l4, u4 = l.repeat(4), u.repeat(4)
+    occ2 = occ_plain(sidx, "rank", torch.cat([cc, cc]), torch.cat([l4, u4]))
+    base = sidx.C.index_select(0, cc.to(torch.int64))
+    alive = l4 < u4
+    return (torch.where(alive, base + occ2[: 4 * X], l4),
+            torch.where(alive, base + occ2[4 * X :], u4))
+
+
+def search_plain(sidx, kmers, lengths, lut, p: int, kstep: int,
+                 early_exit: bool = False):
+    """Plain form of :func:`search` (the JAX ``_query_body``'s search):
+    int64 (l, u) [B], empties (0, 0).  Refused queries raise
+    ``ValueError`` (the kernel's guard)."""
+    B, K = kmers.shape
+    if lut is None:
+        p = 0
+    raise_if_refused(
+        int(_refused(kmers, lengths if kstep == 1 else None, p).sum()), K)
+    C = sidx.C
+    if lut is not None:
+        rows0 = lut.index_select(0, prefix_ids(kmers, p).to(torch.int64))
+        l, u = rows0[:, 0], rows0[:, 1]
+        last_col = K - p
+    else:
+        c_last = kmers[:, K - 1].to(torch.int64)
+        l, u = C.index_select(0, c_last), C.index_select(0, c_last + 1)
+        last_col = K - 1
+
+    def apply(table, starts, code, l, u, active):
+        occ2 = occ_plain(sidx, table, torch.cat([code, code]),
+                         torch.cat([l, u]))
+        base = starts.index_select(0, code.to(torch.int64))
+        return (torch.where(active, base + occ2[:B], l),
+                torch.where(active, base + occ2[B:], u))
+
+    if kstep >= 2:
+        r = last_col
+        ntriples = r // 3 if kstep >= 3 else 0
+        rem = r - 3 * ntriples
+        sched = [("rank3", sidx.C3, j, 3) for j in range(r - 3, rem - 1, -3)]
+        sched += [("rank2", sidx.C2, j, 2)
+                  for j in range(rem - 2, rem % 2 - 1, -2)]
+        sched += [("rank", C, 0, 1)] if rem % 2 else []
+        for table, starts, j, k in sched:
+            if early_exit and not bool((l < u).any()):
+                break
+            code = torch.zeros_like(kmers[:, 0])
+            for t in range(k):
+                code = code * 4 + (kmers[:, j + t] - 1)
+            if k == 1:
+                code = kmers[:, 0]
+            l, u = apply(table, starts, code, l, u, l < u)
+    else:
+        first = K - lengths
+        for j in range(last_col - 1, -1, -1):
+            active = (j >= first) & (l < u)
+            l, u = apply("rank", C, kmers[:, j], l, u, active)
+    empty = l >= u
+    zero = torch.zeros_like(l)
+    return torch.where(empty, zero, l), torch.where(empty, zero, u)
+
+
+# ----------------------------------------------------------------- kernels
+
+
+# The owner view every entry point of csrc/sharded.cu takes (struct
+# ShardView there, in this order): every field 8 bytes, a pointer as an
+# integer address, 0 for a missing table.
+_VIEW_FIELDS = (
+    "S", "n", "num_reads", "log2_block", "words_per_block", "row_words",
+    "rows_per_symbol", "sample_rate", "max_read_len", "dsa_bits",
+    "starts", "lens", "C", "C2", "C3",
+    "rank", "rank_stride", "rank_prefix",
+    "rank2", "rank2_stride", "rank2_prefix",
+    "rank3", "rank3_stride", "rank3_prefix",
+    "sym4", "sym4_stride",
+    "dollar", "dollar_stride", "dstarts", "dlens",
+    "sample", "sample_stride", "rstarts", "rlens",
+    "dsa", "dsa_stride",
+    "lf", "lf_stride",
+    "marks", "marks_stride", "mark_prefix",
+    "spairs", "spairs_stride", "sstarts", "slens",
+)
+
+
+class ShardView(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_longlong) for name in _VIEW_FIELDS]
+
+
+def _check64(name: str, t, dev, shape=None) -> None:
+    if t.device != dev or t.dtype != torch.int64 or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous int64 tensor on {dev}, got "
+            f"{t.dtype} on {t.device}"
+        )
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+
+
+def _check_stack(name: str, t, dev, S: int, row_words: int | None = None):
+    """A stacked int32 table [S, ...]: contiguous on ``dev``; a rank table
+    [S, rows, row_words] with every shard's rows 16-byte aligned when
+    ``row_words == 4`` (the kernels' vector load)."""
+    check_int32(name, t, dev)
+    if t.shape[0] != S:
+        raise ValueError(f"{name} must stack {S} shards, got {tuple(t.shape)}")
+    if row_words is not None:
+        if t.dim() != 3 or t.shape[2] != row_words:
+            raise ValueError(
+                f"{name} must be [S, rows, {row_words}], got {tuple(t.shape)}")
+        if row_words == 4 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _view(sidx) -> ShardView:
+    """The checked owner view of a placed index on the card."""
+    S = sidx.num_shards
+    if not 1 <= S <= MAX_SHARDS:
+        raise ValueError(
+            f"the sharded kernels take 1..{MAX_SHARDS} shards, got {S}")
+    dev = sidx.starts.device
+    rw = sidx.rank_rows.shape[2]
+    for f in ("starts", "lens", "dstarts", "dlens", "rstarts", "rlens"):
+        _check64(f, getattr(sidx, f), dev, (S,))
+    _check64("C", sidx.C, dev, (6,))
+    _check64("sym_prefix", sidx.sym_prefix, dev, (S + 1, 5))
+    _check_stack("rank_rows", sidx.rank_rows, dev, S, rw)
+    for f in ("sym4", "dollar_chunk", "sample_chunk"):
+        _check_stack(f, getattr(sidx, f), dev, S)
+    v = ShardView()
+    v.S, v.n, v.num_reads = S, sidx.n, sidx.num_reads
+    v.log2_block, v.words_per_block = sidx.log2_block, sidx.words_per_block
+    v.row_words, v.rows_per_symbol = rw, sidx.rows_per_symbol
+    v.max_read_len = sidx.max_read_len
+    v.starts, v.lens, v.C = ptr(sidx.starts), ptr(sidx.lens), ptr(sidx.C)
+    v.rank, v.rank_stride = ptr(sidx.rank_rows), sidx.rank_rows[0].numel()
+    v.rank_prefix = ptr(sidx.sym_prefix)
+    for k, (tab, cs, pre, P) in {
+        2: (sidx.rank2_rows, sidx.C2, sidx.prefix2, 16),
+        3: (sidx.rank3_rows, sidx.C3, sidx.prefix3, 64),
+    }.items():
+        if tab is None:
+            continue
+        _check_stack(f"rank{k}_rows", tab, dev, S, rw)
+        _check64(f"C{k}", cs, dev, (P,))
+        _check64(f"prefix{k}", pre, dev, (S + 1, P))
+        setattr(v, f"rank{k}", ptr(tab))
+        setattr(v, f"rank{k}_stride", tab[0].numel())
+        setattr(v, f"rank{k}_prefix", ptr(pre))
+        setattr(v, f"C{k}", ptr(cs))
+    v.sym4, v.sym4_stride = ptr(sidx.sym4), sidx.sym4.shape[1]
+    v.dollar, v.dollar_stride = ptr(sidx.dollar_chunk), sidx.dollar_chunk.shape[1]
+    v.dstarts, v.dlens = ptr(sidx.dstarts), ptr(sidx.dlens)
+    v.sample, v.sample_stride = ptr(sidx.sample_chunk), sidx.sample_chunk.shape[1]
+    v.rstarts, v.rlens = ptr(sidx.rstarts), ptr(sidx.rlens)
+    if sidx.dsa_chunk is not None and sidx.dsa_bits > 0:
+        if not 1 <= sidx.dsa_bits <= 31:
+            raise ValueError(f"dsa_bits must be in [1, 31], got {sidx.dsa_bits}")
+        _check_stack("dsa_chunk", sidx.dsa_chunk, dev, S)
+        v.dsa, v.dsa_stride = ptr(sidx.dsa_chunk), sidx.dsa_chunk.shape[1]
+        v.dsa_bits = sidx.dsa_bits
+    if sidx.mark_table is not None:
+        _check_stack("mark_table", sidx.mark_table, dev, S, rw)
+        _check64("mark_prefix", sidx.mark_prefix, dev, (S + 1,))
+        v.marks, v.marks_stride = ptr(sidx.mark_table), sidx.mark_table[0].numel()
+        v.mark_prefix = ptr(sidx.mark_prefix)
+    if sidx.has_fast_resolve:
+        _check_stack("lf_chunk", sidx.lf_chunk, dev, S)
+        _check_stack("spairs_chunk", sidx.spairs_chunk, dev, S)
+        if sidx.mark_table is None or sidx.spairs_chunk.shape[2:] != (2,):
+            raise ValueError("the lf tier needs the mark table and [S, n, 2] "
+                             "sample pairs")
+        for f in ("sstarts", "slens"):
+            _check64(f, getattr(sidx, f), dev, (S,))
+        v.lf, v.lf_stride = ptr(sidx.lf_chunk), sidx.lf_chunk.shape[1]
+        v.spairs = ptr(sidx.spairs_chunk)
+        v.spairs_stride = sidx.spairs_chunk.shape[1]
+        v.sstarts, v.slens = ptr(sidx.sstarts), ptr(sidx.slens)
+        v.sample_rate = sidx.sample_rate
+    return v
+
+
+def occ(sidx, table: str, c: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """Global rank over a sharded table (``rank``, ``rank2``, ``rank3`` or
+    ``marks``): c int32 [X], i int64 [X] → int64 [X].  K9 for a CUDA
+    index, the plain form for a CPU index."""
+    if not on_cuda(sidx.starts):
+        return occ_plain(sidx, table, c, i)
+    t, _, _ = _table(sidx, table)
+    if t is None:
+        raise ValueError(f"the index carries no {table} table")
+    v = _view(sidx)
+    dev = sidx.starts.device
+    X = i.shape[0]
+    check_int32("c", c, dev, (X,))
+    _check64("i", i, dev, (X,))
+    out = torch.empty(X, dtype=torch.int64, device=dev)
+    if X:
+        SHARD_OCC(ctypes.addressof(v), TABLES[table], ptr(c), ptr(i),
+                  ptr(out), X, device=dev)
+    return out
+
+
+def lut_level(sidx, l, u, *, max_chunk: int = 1 << 22):
+    """K11: [X] level-ℓ intervals (int64) → level ℓ+1's [4X], c-major,
+    empties frozen.  One launch per ``max_chunk`` intervals for a CUDA
+    index; the plain form for a CPU index."""
+    if not on_cuda(sidx.starts):
+        return lut_level_plain(sidx, l, u)
+    v = _view(sidx)
+    dev = sidx.starts.device
+    X = l.shape[0]
+    _check64("l", l, dev, (X,))
+    _check64("u", u, dev, (X,))
+    nl = torch.empty(4 * X, dtype=torch.int64, device=dev)
+    nu = torch.empty_like(nl)
+    for a in range(0, X, max_chunk):
+        SHARDED_LUT_LEVEL(
+            ctypes.addressof(v), ptr(l) + 8 * a, ptr(u) + 8 * a,
+            min(max_chunk, X - a), ptr(nl) + 8 * a, ptr(nu) + 8 * a, X,
+            device=dev,
+        )
+    return nl, nu
+
+
+def search(sidx, kmers, lengths, lut, p: int, kstep: int, *,
+           early_exit: bool = False, bad=None):
+    """The sharded backward search → int64 (l, u) [B], empties (0, 0).
+    ``kstep`` 1: the masked 1-step scan (``lengths`` required); 2 or 3:
+    the pair (and triple) schedule, every query of length K.  From the
+    int64 LUT of order ``p`` when ``lut`` is given.
+
+    The search kernel for a CUDA index: one thread per query through all
+    of its steps, each rank at the owner shard.  With ``bad`` (int32 [1]
+    on the card) refused queries are counted there and the call does not
+    wait; without it the wrapper reads the count and raises
+    ``ValueError``.  The plain form for a CPU index."""
+    if lut is None:
+        p = 0
+    if not on_cuda(sidx.starts):
+        return search_plain(sidx, kmers, lengths, lut, p, kstep, early_exit)
+    v = _view(sidx)
+    dev = sidx.starts.device
+    check_int32("kmers", kmers, dev)
+    if kmers.dim() != 2 or not 1 <= kmers.shape[1] <= SEARCH_MAX_K:
+        raise ValueError(f"kmers must be [B, K] with K <= {SEARCH_MAX_K}, "
+                         f"got {tuple(kmers.shape)}")
+    B, K = kmers.shape
+    if kstep >= 2:
+        if sidx.rank2_rows is None or (kstep >= 3 and sidx.rank3_rows is None):
+            raise ValueError(f"the index has no tier for kstep={kstep}")
+        lengths = None
+    else:
+        if lengths is None:
+            raise ValueError("the masked search needs per-query lengths")
+        check_int32("lengths", lengths, dev, (B,))
+    if lut is not None:
+        if not 1 <= p <= K:
+            raise ValueError(f"LUT order {p} outside [1, K={K}]")
+        _check64("lut", lut, dev, (4**p, 2))
+    wait = bad is None
+    if wait:
+        bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    else:
+        check_int32("bad", bad, dev, (1,))
+    l = torch.empty(B, dtype=torch.int64, device=dev)
+    u = torch.empty_like(l)
+    if B:
+        SHARDED_SEARCH(
+            ctypes.addressof(v), ptr(kmers), ptr(lengths), B, K, ptr(lut), p,
+            kstep, ptr(l), ptr(u), ptr(bad), device=dev,
+        )
+        if wait:
+            raise_if_refused(int(bad.item()), K)
+    return l, u
+
+
+def _walk_code(sidx) -> int:
+    return WALK_KINDS[walk_kind(sidx)]
+
+
+def resolve(sidx, rows, valid, *, walk_early_exit: bool = False):
+    """K10 over SA rows: rows int64 [R] (0 where invalid), valid bool [R]
+    → (read_id, offset, sample) int32 [R]; read_id and offset -1 where the
+    lane is invalid or its walk did not end, sample that of read id
+    ``clip(read_id, 0, m - 1)``.  One launch for a CUDA index, each lane
+    carrying its row through the whole walk (``walk_early_exit`` is
+    implied); the plain form for a CPU index."""
+    if not on_cuda(sidx.starts):
+        return resolve_plain(sidx, rows, valid, walk_early_exit)
+    v = _view(sidx)
+    dev = sidx.starts.device
+    R = rows.shape[0]
+    _check64("rows", rows, dev, (R,))
+    if valid.dtype != torch.bool or valid.shape != rows.shape:
+        raise ValueError("valid must be a bool tensor shaped like rows")
+    valid = valid.contiguous()
+    rid = torch.empty(R, dtype=torch.int32, device=dev)
+    off = torch.empty_like(rid)
+    smp = torch.empty_like(rid)
+    if R:
+        SHARDED_RESOLVE(
+            ctypes.addressof(v), _walk_code(sidx), ptr(rows), ptr(valid), R,
+            ptr(rid), ptr(off), ptr(smp), None, None, 0, 0, 0, None,
+            device=dev,
+        )
+    return rid, off, smp
+
+
+def sweep(sidx, l, u, window: int, max_rows: int | None = None, *,
+          walk_early_exit: bool = False):
+    """Exact per-sample attribution over the full intervals (the JAX
+    sharded ``exact_hist`` sweep): → (hist int32 [B, num_samples],
+    complete bool [B]).  The rows swept are ``min(total, ceil(max_rows /
+    window) * window)`` of the concatenated intervals, and ``complete[b]``
+    is ``cum[b] <= t_end * window``.  K10's sweep mode for a CUDA index
+    (slots mapped to their queries on the card, one walk each and an
+    atomic add; the limit is read on the card, so nothing waits); the
+    plain form for a CPU index."""
+    if not on_cuda(sidx.starts):
+        return sweep_plain(sidx, l, u, window, max_rows, walk_early_exit)
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    v = _view(sidx)
+    dev = sidx.starts.device
+    B = l.shape[0]
+    S = sidx.num_samples
+    _check64("l", l, dev, (B,))
+    _check64("u", u, dev, (B,))
+    cum = torch.cumsum(u - l, 0)
+    cap = _rounds_cap(max_rows, window)
+    tw = (cum[B - 1] + window - 1) // window
+    if cap is not None:
+        tw = torch.clamp(tw, max=cap // window)
+    hist = torch.zeros(B * S, dtype=torch.int32, device=dev)
+    if cap != 0:
+        SHARDED_RESOLVE(
+            ctypes.addressof(v), _walk_code(sidx), None, None, 0, None, None,
+            None, ptr(l), ptr(cum), B, -1 if cap is None else cap, S,
+            ptr(hist), device=dev,
+        )
+    return hist.reshape(B, S), cum <= tw * window

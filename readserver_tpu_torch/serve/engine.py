@@ -16,6 +16,7 @@ buffer comes back to the host.
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import logging
 import time
 from dataclasses import dataclass, field
@@ -359,12 +360,21 @@ class QueryEngine:
     """Batched queries over a built index on one device: counts, hit sets
     and exact per-sample histograms.
 
-    ``QueryEngine(packed, device="cuda")``.  A list of partitions (document
-    sharding across devices) and a mesh (interval sharding) are not ported
+    Two deployment shapes:
+
+    * single device: ``QueryEngine(packed, device="cuda")``;
+    * interval-sharded: ``QueryEngine(packed, ServeConfig(num_shards=S),
+      make_mesh(num_shards=S, device="cuda"), device="cuda")``, the
+      JAX package's shape, with all S BWT-range shards resident on the one
+      device (``parallel/sharded.py``; ``_sharded`` True, the index in
+      ``sidx``).  A ``dp`` axis above 1, or shards across devices, is
+      ROADMAP P11 and raises ``NotImplementedError``.
+
+    A list of partitions (document sharding across devices) is not ported
     yet; :class:`MultiEngine` serves partitions on one device.  The
     dispatcher and REST front read ``B``, ``H``, ``K``, ``cfg``,
     ``sample_names``, ``pack_stats``, ``tier_plan``, ``packed``, ``_ns``,
-    ``_doc`` and ``_sharded`` (both False here).
+    ``_doc`` (False) and ``_sharded``.
     """
 
     COMPACT_PER_QUERY = COMPACT_PER_QUERY
@@ -381,8 +391,6 @@ class QueryEngine:
     ):
         if isinstance(packed, (list, tuple)):
             raise NotImplementedError(f"document sharding: {_NOT_PORTED}")
-        if mesh is not None:
-            raise NotImplementedError(f"interval sharding: {_NOT_PORTED}")
         self.cfg = serve_config or ServeConfig()
         # sparse-pack transfer accounting (see assemble_sparse)
         self.pack_stats = {
@@ -396,6 +404,16 @@ class QueryEngine:
         self.H = self.cfg.max_hits
         self.sample_names = packed.sample_names or ["sample_0"]
         self._ns = max(packed.num_samples, 1)
+        # wall seconds of each start-up stage, each ended by a device sync
+        self.startup_seconds: dict[str, float] = {}
+        # a mesh with one shard and dp 1 serves the single-device path, as
+        # in the JAX package
+        self._sharded = mesh is not None and (
+            self.cfg.num_shards > 1 or self.cfg.data_parallel > 1
+        )
+        if self._sharded:
+            self._init_sharded(packed, mesh)
+            return
         frac = self.cfg.resolve_budget_frac
         self.row_budget = int(frac * self.B * self.H) if frac else None
         self.budget_bytes = (
@@ -415,8 +433,6 @@ class QueryEngine:
                 self.tier_plan.total_bytes / 2**30,
                 list(self.tier_plan.dropped),
             )
-        # wall seconds of each start-up stage, each ended by a device sync
-        self.startup_seconds: dict[str, float] = {}
         t0 = time.perf_counter()
         self.index = DeviceIndex.from_packed(
             packed, self.device, tiers=self.tier_plan.keep
@@ -433,6 +449,139 @@ class QueryEngine:
         )
         self._mark("lut", t0)
         self.has_pair = self.index.rank2_rows is not None
+
+    def _init_sharded(self, packed: PackedIndex, mesh) -> None:
+        """The interval-sharded start-up (the JAX engine's): build the S
+        shards on the host, place them on the device, build the prefix LUT
+        through K11, and make the four query functions (k-step or 1-step,
+        LUT or plain), each running the whole program per batch."""
+        from readserver_tpu_torch.parallel import (
+            build_prefix_lut_sharded,
+            build_sharded,
+            make_sharded_query_fn,
+            place_sharded,
+        )
+        from readserver_tpu_torch.parallel.mesh import _P11
+
+        dp = max(self.cfg.data_parallel, 1)
+        if dp > 1 or int(mesh.shape["dp"]) > 1:
+            raise NotImplementedError(_P11)
+        if int(mesh.shape["shard"]) != self.cfg.num_shards:
+            raise ValueError(
+                f"mesh has {mesh.shape['shard']} shards, the config "
+                f"{self.cfg.num_shards}"
+            )
+        if torch.device(mesh.device).type != self.device.type:
+            raise ValueError(
+                f"mesh is on {mesh.device}, the engine on {self.device}"
+            )
+        self.mesh = dataclasses.replace(mesh, device=self.device)
+        self.tier_plan = None  # every tier the artifact carries ships
+        t0 = time.perf_counter()
+        host = build_sharded(packed, self.cfg.num_shards)
+        self.startup_seconds["build_sharded"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.sidx = place_sharded(host, self.mesh)
+        self._mark("ship", t0)
+        self.lut_p = (
+            self.cfg.prefix_lut_order
+            if self.cfg.prefix_lut_order is not None
+            else default_lut_order(packed.n)
+        )
+        t0 = time.perf_counter()
+        self.lut = (
+            build_prefix_lut_sharded(self.sidx, self.mesh, self.lut_p)
+            if self.lut_p
+            else None
+        )
+        self._mark("lut", t0)
+        # the resolve budget: hit lanes compacted to frac * B * H before
+        # the walk
+        frac = self.cfg.resolve_budget_frac
+        budget = max(int(frac * (self.B // dp) * self.H), 1) if frac else None
+        ex = dict(
+            exact_hist=self.cfg.exact_attribution,
+            exact_max_rows=self.cfg.max_sweep_rows,
+            resolve_budget=budget,
+            walk_early_exit=True,
+            owner_route=True,
+            route_capacity=self.cfg.owner_route_capacity,
+        )
+        self._query_fn = make_sharded_query_fn(
+            self.sidx, self.mesh, max_hits=self.H, lut_p=0, **ex
+        )
+        self._query_fn_1 = make_sharded_query_fn(
+            self.sidx, self.mesh, max_hits=self.H, lut_p=0, kstep=1, **ex
+        )
+        self._query_fn_lut = self._query_fn_lut_1 = None
+        if self.lut is not None:
+            self._query_fn_lut = make_sharded_query_fn(
+                self.sidx, self.mesh, max_hits=self.H, lut_p=self.lut_p, **ex
+            )
+            self._query_fn_lut_1 = make_sharded_query_fn(
+                self.sidx, self.mesh, max_hits=self.H, lut_p=self.lut_p,
+                kstep=1, **ex,
+            )
+
+    def _run_sharded(self, kmers: list[str]) -> dict[str, np.ndarray]:
+        """One batch through the sharded program → its answers on the host
+        (``l, u, count`` int64, ``read_id, offset`` int32, ``valid``,
+        ``sample_hist``, ``hist_complete``), the first ``len(kmers)``
+        rows.  Routes as the JAX engine does: the k-step functions for a
+        uniform full-width batch, the LUT ones when every query reaches
+        the LUT's order."""
+        codes, lengths, nq = self._pad_encode(kmers)
+        use_lut = bool(
+            self.lut is not None and nq
+            and int(lengths[:nq].min()) >= self.lut_p
+        )
+        uniform = bool(nq and int(lengths.min()) == codes.shape[1])
+        if use_lut:
+            fn = self._query_fn_lut if uniform else self._query_fn_lut_1
+        else:
+            fn = self._query_fn if uniform else self._query_fn_1
+        bad = self._new_bad() if self.device.type == "cuda" else None
+        out = fn(self.sidx, self.lut if use_lut else None,
+                 *self._to_device(codes, lengths), bad=bad)
+        host = {k: v[:nq].cpu().numpy() for k, v in out.items()}
+        if bad is not None:
+            raise_if_refused(int(bad.item()), self.K)
+        return host
+
+    def _sharded_results(self, kmers, out) -> list[QueryResult]:
+        """The JAX engine's assembly of a sharded batch's full answers:
+        each hit's sample from the host's ``read_to_sample``, hits
+        truncated when the count exceeds the hits returned."""
+        rid_m, off_m, val_m = out["read_id"], out["offset"], out["valid"]
+        sample_m = np.asarray(self.packed.read_to_sample)[
+            np.clip(rid_m, 0, None)
+        ]
+        hist_m = out["sample_hist"]
+        results = []
+        for i, km in enumerate(kmers):
+            count = int(out["count"][i])
+            v = val_m[i]
+            hits = [
+                dict(read_id=r, sample_id=s, offset=o)
+                for r, s, o in zip(
+                    rid_m[i][v].tolist(),
+                    sample_m[i][v].tolist(),
+                    off_m[i][v].tolist(),
+                )
+            ]
+            nz = np.nonzero(hist_m[i])[0]
+            results.append(QueryResult(
+                kmer=km,
+                count=count,
+                interval=(int(out["l"][i]), int(out["u"][i])),
+                hits=hits,
+                sample_hist={
+                    self.sample_names[int(s)]: int(hist_m[i][s]) for s in nz
+                },
+                hits_truncated=count > len(hits),
+                sample_hist_complete=bool(out["hist_complete"][i]),
+            ))
+        return results
 
     def _mark(self, stage: str, t0: float) -> None:
         if self.device.type == "cuda":
@@ -661,8 +810,11 @@ class QueryEngine:
             ["A" * k] * w for w in widths for k in lengths
         ]:
             self.count_batch(q)
-            self.query_batch(q)
-            self.query_batch(q, include_hits=False)
+            if self._sharded:
+                self._run_sharded(q)
+            else:
+                self.query_batch(q)
+                self.query_batch(q, include_hits=False)
 
     def _sample_of(self, rid: int) -> int:
         return int(self.packed.read_to_sample[rid])
@@ -674,7 +826,7 @@ class QueryEngine:
     ) -> list[QueryResult]:
         if both_strands:
             return both_strands_batch(self.count_batch, kmers)
-        out = self._run(kmers)
+        out = self._run_sharded(kmers) if self._sharded else self._run(kmers)
         return [
             QueryResult(
                 kmer=km,
@@ -696,6 +848,10 @@ class QueryEngine:
         if both_strands:
             return both_strands_batch(self.query_batch, kmers,
                                       include_hits=include_hits)
+        if self._sharded:
+            # the whole sharded program runs for either tier, as in the
+            # JAX engine
+            return self._sharded_results(kmers, self._run_sharded(kmers))
         codes, lengths, nq = self._pad_encode(kmers)
         use_lut, use_pair = self._routes(codes, lengths, nq)
         codes_t, lengths_t = self._to_device(codes, lengths)

@@ -91,14 +91,19 @@ def test_engine_plan_and_warmup(engines):
 
 
 def test_unported_surfaces_raise(engines, small_corpus):
-    """Document sharding (a list of partitions) and interval sharding (a
-    mesh) are the surfaces still to port."""
+    """Document sharding across devices (a list of partitions), and
+    interval shards across devices or on a dp axis above 1 (a mesh that
+    is not one device's), are the surfaces still to port."""
+    from readserver_tpu_torch.parallel import Mesh
+
     _, _, engine = engines
     assert not engine._doc and not engine._sharded
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         QueryEngine([engine.packed, engine.packed], device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QueryEngine(engine.packed, mesh=object(), device="cpu")
+        QueryEngine(engine.packed, ServeConfig(num_shards=2, data_parallel=2),
+                    mesh=Mesh(shape={"dp": 2, "shard": 2}, device="cpu"),
+                    device="cpu")
 
 
 def test_cli_build_and_query_match_jax_cli(tmp_path, capsys):

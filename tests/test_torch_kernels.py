@@ -31,6 +31,10 @@ from readserver_tpu_torch.kernels import (
     RESOLVE_DSA,
     RESOLVE_FUSED,
     RESOLVE_WALK,
+    SHARD_OCC,
+    SHARDED_LUT_LEVEL,
+    SHARDED_RESOLVE,
+    SHARDED_SEARCH,
 )
 from readserver_tpu_torch.kernels import build as kbuild
 from readserver_tpu_torch.ops import (
@@ -45,6 +49,8 @@ from readserver_tpu_torch.ops import lut as lut_ops
 from readserver_tpu_torch.ops import rank as rank_ops
 from readserver_tpu_torch.ops import resolve
 from readserver_tpu_torch.ops import search as search_ops
+from readserver_tpu_torch.ops import sharded as sops
+from readserver_tpu_torch import parallel as shard_par
 from readserver_tpu_torch.serve import MultiEngine, QueryEngine
 from readserver_tpu_torch.serve.engine import _copy_out
 from torch_common import cuda_device, t32  # noqa: F401
@@ -586,7 +592,7 @@ def test_slow_walk_kernel_short_max_steps(cohort, cuda_device):  # noqa: F811
     want = resolve.resolve_rows_plain(d, rows, valid, max_steps=steps)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert (got[0] == -1).any() and int(got[1].max()) == steps - 1
-    with pytest.raises(NotImplementedError, match="P10"):
+    with pytest.raises(NotImplementedError, match="only in the plain form"):
         resolve.resolve_rows(d, rows, valid,
                              rank_fn=lambda c, i: rank_ops.occ(d, c, i))
 
@@ -794,3 +800,177 @@ def test_multi_engine_merge_on_card(cohort_parts, cuda_device):  # noqa: F811
         with pytest.raises(ValueError, match="2 queries hold a code"):
             eng._assemble_merged(["A"] * nq, nq, with_hits,
                                  (_copy_out(merged[0]), *merged[1:]))
+
+
+# ------------------------------------------- interval sharding (K9-K11)
+
+SHARD_CASES = [("small", 1), ("small", 4), ("small", 8), ("six reads", 8)]
+
+
+@pytest.fixture(scope="module")
+def shard_packs(packed):
+    """The small corpus, and 6 of its reads (at S = 8 three shards are
+    empty and start at an unaligned n)."""
+    corpus, pk = packed
+    six = build_index(corpus.reads[:6], sample_ids=corpus.sample_ids[:6])
+    return corpus, {"small": pk, "six reads": six}
+
+
+def _placed(pk, S, device):
+    return shard_par.place_sharded(
+        shard_par.build_sharded(pk, S),
+        shard_par.make_mesh(num_shards=S, device=device))
+
+
+def _no_dsa(s):
+    return dataclasses.replace(s, dsa_chunk=None, dsa_bits=0)
+
+
+def _slow(s):
+    return dataclasses.replace(_no_dsa(s), lf_chunk=None, sample_rate=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, S", SHARD_CASES)
+def test_shard_occ_kernel_matches_plain(shard_packs, cuda_device, case, S):  # noqa: F811
+    """K9 on every table at i = 0, 1, n - 1, n, past n, below 0, at every
+    shard start and at random positions equals the clamped sum."""
+    s = _placed(shard_packs[1][case], S, cuda_device)
+    rng = np.random.default_rng(S)
+    n = s.n
+    i = np.concatenate([[0, 1, n - 1, n, n + 5, -2], s.starts.cpu().numpy(),
+                        rng.integers(0, n + 1, size=20000)])
+    i = torch.from_numpy(i.astype(np.int64)).to(cuda_device)
+    for table, P in (("rank", 5), ("rank2", 16), ("rank3", 64), ("marks", 1)):
+        c = torch.from_numpy(rng.integers(0, P, size=i.numel()).astype(
+            np.int32)).to(cuda_device)
+        before = SHARD_OCC.launches
+        got = sops.occ(s, table, c, i)
+        assert SHARD_OCC.launches == before + 1
+        assert got.dtype == torch.int64
+        assert torch.equal(got, sops.occ_plain(s, table, c, i)), table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, S", SHARD_CASES)
+def test_sharded_lut_kernel_matches_plain(shard_packs, cuda_device, case, S):  # noqa: F811
+    """K11 at every level, in one launch a level and in chunks, equals the
+    plain build (on the CPU copy of the same index)."""
+    pk = shard_packs[1][case]
+    s, cpu = _placed(pk, S, cuda_device), _placed(pk, S, "cpu")
+    for p, chunk in ((8, 1 << 22), (6, 100), (1, 1)):
+        before = SHARDED_LUT_LEVEL.launches
+        got = shard_par.build_prefix_lut_sharded(s, None, p, max_chunk=chunk)
+        assert SHARDED_LUT_LEVEL.launches - before == sum(
+            -(-(4 ** lv) // chunk) for lv in range(1, p))
+        want = shard_par.build_prefix_lut_sharded(cpu, None, p)
+        assert torch.equal(got.cpu(), want), (p, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, S", SHARD_CASES)
+def test_sharded_search_kernel_matches_plain(shard_packs, cuda_device, case,
+                                             S):  # noqa: F811
+    """The sharded search in every mode (1-step over mixed lengths, pairs,
+    triples), from C and from the LUT, equals the plain form; refused
+    queries are counted without waiting, or raise."""
+    corpus, packs = shard_packs
+    s = _placed(packs[case], S, cuda_device)
+    lut = shard_par.build_prefix_lut_sharded(s, None, 5)
+    for kstep, min_len in ((1, 5), (2, None), (3, None)):
+        codes, lengths = _queries(corpus, 4096, 31, seed=kstep,
+                                  min_len=min_len)
+        codes, lengths = t32(codes, cuda_device), t32(lengths, cuda_device)
+        for lt in (None, lut):
+            before = SHARDED_SEARCH.launches
+            got = sops.search(s, codes, lengths, lt, 5, kstep)
+            assert SHARDED_SEARCH.launches == before + 1
+            want = sops.search_plain(s, codes, lengths, lt, 5 if lt is not None
+                                     else 0, kstep)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            assert got[0].dtype == torch.int64
+    bad_codes = codes.clone()
+    bad_codes[3, 7] = 5
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    l, u = sops.search(s, bad_codes, lengths, None, 0, 3, bad=counter)
+    assert int(counter.item()) == 1 and int(l[3]) == int(u[3]) == 0
+    with pytest.raises(ValueError, match="code outside"):
+        sops.search(s, bad_codes, lengths, None, 0, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, S", SHARD_CASES)
+@pytest.mark.parametrize("route", ["dsa", "lf", "slow"])
+def test_sharded_resolve_kernel_matches_plain(shard_packs, cuda_device, case,
+                                              S, route):  # noqa: F811
+    """K10 on each route over a width-1024 batch's hit lanes (H = 64) and
+    its exact sweep (window 4096, uncapped and capped) equal the plain
+    forms."""
+    corpus, packs = shard_packs
+    s = {"dsa": lambda x: x, "lf": _no_dsa, "slow": _slow}[route](
+        _placed(packs[case], S, cuda_device))
+    assert sops.walk_kind(s) == route
+    codes, lengths = _queries(corpus, 1024, 12, seed=5, min_len=8)
+    l, u = sops.search(s, t32(codes, cuda_device), t32(lengths, cuda_device),
+                       None, 0, 1)
+    H = 64
+    span = torch.arange(H, device=cuda_device)
+    rows = (l[:, None] + span).reshape(-1)
+    valid = (span[None, :] < (u - l)[:, None]).reshape(-1)
+    rows = torch.where(valid, rows, torch.zeros_like(rows))
+    before = SHARDED_RESOLVE.launches
+    got = sops.resolve(s, rows, valid)
+    assert SHARDED_RESOLVE.launches == before + 1
+    want = sops.resolve_plain(s, rows, valid)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int((got[0] >= 0).sum()) == int(valid.sum()) > 0
+    for cap in (None, 5000, 0):
+        got = sops.sweep(s, l, u, 4096, cap)
+        want = sops.sweep_plain(s, l, u, 4096, cap)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_sharded_engine_on_card_runs_no_plain_form(shard_packs, cuda_device,
+                                                   monkeypatch):  # noqa: F811
+    """A 4-shard engine on the card answers as the same engine on the CPU,
+    on the dsa, lf and slow routes, with every plain form of
+    ops/sharded.py (and K1's rank) made to raise: the search, K10 and, at
+    start-up, K11 carry the whole program."""
+    corpus, packs = shard_packs
+    cfg = ServeConfig(batch_size=512, max_hits=8, num_shards=4,
+                      resolve_budget_frac=0.05)
+    lut_before = SHARDED_LUT_LEVEL.launches
+    card = QueryEngine(packs["small"], cfg,
+                       shard_par.make_mesh(num_shards=4, device=cuda_device),
+                       device=cuda_device)
+    cpu = QueryEngine(packs["small"], cfg,
+                      shard_par.make_mesh(num_shards=4, device="cpu"),
+                      device="cpu")
+    assert SHARDED_LUT_LEVEL.launches > lut_before
+    kms = ["".join("ACGT"[c - 1] for c in row) for row in _queries(
+        corpus, 200, 31, seed=9)[0]] + ["ACGTAC", "GGATC"]
+    want = {}
+    for route, fn in (("dsa", None), ("lf", _no_dsa), ("slow", _slow)):
+        if fn is not None:
+            cpu.sidx = fn(cpu.sidx)
+        want[route] = [cpu.query_batch(kms, both_strands=b) for b in (0, 1)]
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain form ran on the card")
+
+    for name in ("occ_plain", "_lookup_plain", "sym_plain", "sample_plain",
+                 "walk_plain", "resolve_plain", "sweep_plain",
+                 "lut_level_plain", "search_plain"):
+        monkeypatch.setattr(sops, name, refuse)
+    monkeypatch.setattr(rank_ops, "occ_rows_plain", refuse)
+    before = SHARDED_SEARCH.launches, SHARDED_RESOLVE.launches
+    for route, fn in (("dsa", None), ("lf", _no_dsa), ("slow", _slow)):
+        if fn is not None:
+            card.sidx = fn(card.sidx)
+        got = [card.query_batch(kms, both_strands=b) for b in (0, 1)]
+        assert got == want[route], route
+    torch.cuda.synchronize()
+    assert SHARDED_SEARCH.launches > before[0]
+    assert SHARDED_RESOLVE.launches > before[1]

@@ -245,8 +245,8 @@ def test_slow_walk_hooks_match_jax(packed):
 
 def test_walk_kernels_refuse_what_they_do_not_take(packed, monkeypatch):
     """On CUDA tensors (stood in for here: the check comes before any
-    launch) the slow walk's hooks raise NotImplementedError naming P10,
-    through the walk and through the histogram sweep, and a walk's missing
+    launch) the slow walk's hooks raise NotImplementedError (plain-only:
+    the sharded walks have their own kernel), through the walk and through the histogram sweep, and a walk's missing
     tier or a slow walk of no steps raises ValueError; no plain form
     runs."""
     tdev = DeviceIndex.from_packed(packed, "cpu", tiers=set())
@@ -255,9 +255,9 @@ def test_walk_kernels_refuse_what_they_do_not_take(packed, monkeypatch):
         monkeypatch.setattr(resolve, name, None)
     rows = t32(np.arange(8))
     valid = rows >= 0
-    with pytest.raises(NotImplementedError, match="P10"):
+    with pytest.raises(NotImplementedError, match="only in the plain form"):
         resolve.resolve_rows(tdev, rows, valid, rank_fn=lambda c, i: i)
-    with pytest.raises(NotImplementedError, match="P10"):
+    with pytest.raises(NotImplementedError, match="only in the plain form"):
         resolve.exact_sample_histogram(tdev, rows, rows + 1, 8,
                                        sym_fn=lambda i: i)
     with pytest.raises(ValueError, match="max_steps"):

@@ -311,3 +311,39 @@ def test_info_on_an_interval_sharded_engine_matches_jax():
     assert got == asyncio.run(info(JaxRestServer, JaxDispatcher))
     body = json.loads(got.split(b"\r\n\r\n", 1)[1])
     assert body["psums_per_batch"]["total"] > 0 and body["num_shards"] == 4
+
+
+def test_info_on_a_real_interval_sharded_engine_matches_jax(servers):
+    """The second case: ``/info`` and the query endpoints of a real
+    interval-sharded port engine (4 shards on the CPU) against the JAX
+    server over its sharded engine (dp 2 x 4 shards)."""
+    import jax
+
+    from readserver_tpu.parallel import make_mesh as jax_make_mesh
+    from readserver_tpu_torch.parallel import make_mesh
+    from readserver_tpu_torch.parallel.stats import query_psum_estimate
+
+    corpus, (jsrv, jdisp, jeng), (srv, disp, eng) = servers
+    cfg = dict(CFG, num_shards=4)
+    jax_side = (jsrv, jdisp, JaxQueryEngine(
+        jeng.packed, JaxServeConfig(**cfg),
+        mesh=jax_make_mesh(2, 4, devices=jax.devices()[:8])))
+    port_side = (srv, disp, QueryEngine(
+        eng.packed, ServeConfig(**cfg), make_mesh(num_shards=4, device="cpu"),
+        device="cpu"))
+    km = _kmers(corpus, 3, seed=17)
+    requests = [("GET", "/info", None)] + [
+        ("GET", f"{path}?kmer={k}{both}", None)
+        for k in km for path in ("/count", "/reads", "/samples")
+        for both in ("", "&both_strands=1")
+    ] + [("GET", "/read?id=3", None)]
+    got = _exchange(port_side, requests)
+    assert got == _exchange(jax_side, requests)
+    info = got[0][1]
+    sidx = port_side[2].sidx
+    assert info["sharding"] == "interval" and info["num_shards"] == 4
+    assert info["psums_per_batch"] == query_psum_estimate(
+        eng.K, lut_p=port_side[2].lut_p, kstep=3,
+        sample_rate=sidx.sample_rate, fast_resolve=sidx.has_fast_resolve,
+        max_read_len=sidx.max_read_len, direct_resolve=True)
+    assert any(body.get("count") for _, body in got[1:])
