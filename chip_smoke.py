@@ -272,14 +272,16 @@ def engine_stage(engine, tier: str):
         *engine._routes(codes, lengths, nq), tier == "reads")[0]
 
 
-def request_breakdown(engine, kms: list[str], tier: str, stage) -> None:
+def request_breakdown(engine, kms: list[str], tier: str, stage,
+                      fetch=None) -> None:
     """Where one served both-strands request's time goes: host stages by
     wall clock, and the device's busy share from a profiler window.
     ``tier``: "count" (``count_batch``), "reads" (``query_batch``) or
     "samples" (``query_batch(include_hits=False)``).  ``stage(codes,
     lengths, nq)``: the engine's device program for the padded batch, the
     "copy in + device" stage (:func:`engine_stage` for a
-    ``QueryEngine``)."""
+    ``QueryEngine``); ``fetch(out)``: its copy out (the engine's
+    ``_fetch`` by default)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -301,7 +303,7 @@ def request_breakdown(engine, kms: list[str], tier: str, stage) -> None:
     torch.cuda.synchronize()
     stages["copy in + device"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    engine._fetch(out)
+    (fetch or engine._fetch)(out)
     stages["copy out"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     whole_fn()
@@ -1015,37 +1017,25 @@ def search_needs(s, codes, lut, p) -> tuple[int, int]:
     schedule's active lanes) read once, (l, u) int64 written; and the
     longest search's dependent reads (codes, LUT entry, a row pair a
     step)."""
-    import torch
     from readserver_tpu_torch.ops import search as so
     from readserver_tpu_torch.ops import sharded as sops
 
     B, K = codes.shape
     ids = so.prefix_ids(codes, p).long()
     lu = lut.index_select(0, ids)
-    l, u = lu[:, 0], lu[:, 1]
-    r = K - p
-    rem = r - 3 * (r // 3)
-    sched = ([("rank3", 64, s.C3, j, 3) for j in range(r - 3, rem - 1, -3)]
-             + [("rank2", 16, s.C2, j, 2)
-                for j in range(rem - 2, rem % 2 - 1, -2)]
-             + ([("rank", 5, s.C, 0, 1)] if rem % 2 else []))
-    rows, longest = [], 0
-    for table, planes, starts, j, k in sched:
-        code = codes[:, 0] if k == 1 else torch.zeros_like(codes[:, 0])
-        for t in range(k if k > 1 else 0):
-            code = code * 4 + (codes[:, j + t] - 1)
-        act = l < u
-        longest += int(bool(act.any()))
+    planes = {3: 64, 2: 16, 1: 5}
+    rows, longest = [], [0]
+
+    def step(k, code, l, u, act):
+        longest[0] += int(bool(act.any()))
         for x in (l, u):
-            rows.append(owner_rows(s, planes, s.rows_per_symbol, code,
+            rows.append(owner_rows(s, planes[k], s.rows_per_symbol, code,
                                    x)[act])
-        occ2 = sops.occ_plain(s, table, torch.cat([code, code]),
-                              torch.cat([l, u]))
-        base = starts.index_select(0, code.long())
-        l = torch.where(act, base + occ2[:B], l)
-        u = torch.where(act, base + occ2[B:], u)
+        return sops.step_plain(s, k, code, l, u, act)
+
+    so.run_kstep(codes, lu[:, 0], lu[:, 1], K - p, 3, step)
     return (B * K * 4 + distinct(ids) * 16 + B * 16 + row_bytes(s, *rows),
-            2 + longest)
+            2 + longest[0])
 
 
 def walk_needs(s, rows, valid) -> tuple[int, int]:
@@ -1053,7 +1043,8 @@ def walk_needs(s, rows, valid) -> tuple[int, int]:
     rows (8 B) and valid (1 B) in and three int32 out a lane, and the
     distinct words the walks read (dsa words; lf words, mark rows, pairs
     and dollar entries; sym4 words and rank rows), each once, plus each
-    hit's sample entry; and the longest lane's dependent reads."""
+    hit's sample entry; and the longest lane's dependent reads (one a
+    step, its terminal reads, and the sample)."""
     import torch
     from readserver_tpu_torch.ops import sharded as sops
 
@@ -1087,7 +1078,7 @@ def walk_needs(s, rows, valid) -> tuple[int, int]:
             cur = torch.where(act & ~term, val, cur)
             done = done | term
         else:
-            reads += act.long() * 2
+            reads += act.long()  # the kernel reads a step's rows in one round
             c = sops.sym_plain(s, cur)
             o = sops.occ_plain(s, "rank", c, cur)
             words.append((cur >> 3)[act])
@@ -1114,12 +1105,13 @@ def sets_past_l2(nbytes: int) -> int:
     return min(64, max(N_ROT, -(-2 * L2_BYTES // max(nbytes, 1))))
 
 
-def sweep_needs(s, l, u, window: int, cap: int) -> tuple[int, None]:
-    """→ (bytes, no chain) of the exact sweep of intervals (l, u): the
-    intervals in, each distinct dsa word and read's sample entry of the
-    rows swept read once, the histograms written."""
+def sweep_needs(s, l, u, window: int, cap: int) -> tuple[int, int]:
+    """→ (bytes, chain) of the exact sweep of intervals (l, u) on the
+    index's route: the intervals in, the histograms written, and what the
+    walks of the rows swept read (:func:`walk_needs`: each distinct dsa
+    word, or lf or slow walk word and row, and each read's sample entry,
+    once); the chain is the longest walk's."""
     import torch
-    from readserver_tpu_torch.ops import sharded as sops
 
     total = int((u - l).sum())
     limit = min(total, -(-cap // window) * window)
@@ -1127,13 +1119,27 @@ def sweep_needs(s, l, u, window: int, cap: int) -> tuple[int, None]:
     first = torch.repeat_interleave(torch.cumsum(u - l, 0) - (u - l),
                                     u - l)[:limit]
     rows = wl + torch.arange(limit, device=l.device) - first
-    rid, _ = sops.walk_plain(s, rows, torch.ones_like(rows, dtype=torch.bool))
-    return (l.numel() * 16 + distinct(rows) * 4 + distinct(rid) * 4
-            + l.numel() * s.num_samples * 4, None)
+    walk, chain = walk_needs(s, rows, torch.ones_like(rows, dtype=torch.bool))
+    # walk_needs counts each lane's row, valid flag and three outputs
+    return (l.numel() * 16 + walk - rows.numel() * 21
+            + l.numel() * s.num_samples * 4, chain)
 
 
-def check_interval_kernels(engines, ceng_s, batch, cbatch, rot, cohort,
-                           seed: int, t_row, card):
+def sharded_stage(engine):
+    """An interval-sharded ``QueryEngine``'s device program for one padded
+    batch, the "copy in + device" stage of :func:`request_breakdown`."""
+    return lambda codes, lengths, nq: engine._sharded_program(
+        codes, lengths, nq, engine._new_bad())
+
+
+def sharded_fetch(out) -> dict:
+    """The sharded program's outputs on the host (``_run_sharded``'s
+    copies out)."""
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def check_interval_kernels(engines, ceng_s, cpacked, batch, cbatch, rot,
+                           cohort, q4096, c4096, seed: int, t_row, card):
     """Phase 11b: each sharded kernel against its plain form on the card,
     max |err| 0, at phase 11's shapes and on distinct input sets of those
     shapes, enough that together they need twice the L2 (K11's one build
@@ -1141,12 +1147,18 @@ def check_interval_kernels(engines, ceng_s, batch, cbatch, rot, cohort,
     time (CUDA events), device time (profiler), plain time, bytes bound
     (of the sets' mean bytes) and, for the search and the walks, chain
     bound (the longest over the sets) → ({name: summary entry}, max |err|
-    by kernel).  ``rot``: phase 7's distinct E. coli batches on the card."""
+    by kernel).  K10's entry also holds each route's reading under
+    ``routes``: the resolve on the dsa, lf and slow engines, and the exact
+    sweep on cohort engines of each route.  ``rot``: phase 7's distinct
+    E. coli batches on the card.  Last, the served ``/reads`` of 4096 x 2
+    on each route and the cohort's ``/samples``, split into host stages
+    and the device's busy share (:func:`request_breakdown`)."""
     import torch
     from readserver_tpu_torch.corpus import simulate
     from readserver_tpu_torch.kernels import KERNELS
     from readserver_tpu_torch.ops import sharded as sops
     from readserver_tpu_torch.parallel import build_prefix_lut_sharded
+    from readserver_tpu_torch.serve import QueryEngine
 
     eng = engines["dsa"]
     s = eng.sidx
@@ -1266,22 +1278,35 @@ def check_interval_kernels(engines, ceng_s, batch, cbatch, rot, cohort,
         return sops.search(cs, cqs[j], None, ceng_s.lut, ceng_s.lut_p, 3)
 
     SW, cap = 32_768, ceng_s.cfg.max_sweep_rows
-    sets, nb, _ = in_turn(cohort_set,
-                          lambda cl, cu: sweep_needs(cs, cl, cu, SW, cap))
-    rows0 = int((sets[0][1] - sets[0][0]).sum())
-    cases.append((
-        "sharded_resolve (sweep)", "sharded_sweep_kernel",
-        lambda cl, cu: sops.sweep(cs, cl, cu, SW, cap),
-        lambda cl, cu: sops.sweep_plain(cs, cl, cu, SW, cap), sets,
-        f"exact sweep of {min(rows0, -(-cap // SW) * SW)} of {rows0} rows "
-        f"in the served "
-        f"batch over 128 samples, window {SW}, dsa route", nb, None))
+    # the cohort as each route's deployment ships it (phase 11's drops)
+    croutes = {"dsa": cs}
+    for route in ("lf", "slow"):
+        t0 = time.perf_counter()
+        e = QueryEngine(dataclasses.replace(cpacked, **ROUTE_DROPS[route]),
+                        ceng_s.cfg, ceng_s.mesh, device=dev)
+        check(sops.walk_kind(e.sidx) == route,
+              f"the cohort's {route} engine does not walk {route}")
+        croutes[route] = e.sidx
+        log(f"cohort interval engine, {route} route, up in "
+            f"{time.perf_counter() - t0:.3f}s")
+    for route, cr in croutes.items():
+        sets, nb, chain = in_turn(
+            cohort_set,
+            lambda cl, cu, cr=cr: sweep_needs(cr, cl, cu, SW, cap))
+        rows0 = int((sets[0][1] - sets[0][0]).sum())
+        cases.append((
+            f"sharded_resolve (sweep, {route})", "sharded_sweep_kernel",
+            lambda cl, cu, cr=cr: sops.sweep(cr, cl, cu, SW, cap),
+            lambda cl, cu, cr=cr: sops.sweep_plain(cr, cl, cu, SW, cap), sets,
+            f"exact sweep of {min(rows0, -(-cap // SW) * SW)} of {rows0} "
+            f"rows in the served batch over 128 samples, window {SW}, "
+            f"{route} route", nb, chain))
 
     def outs(x):
         return x if isinstance(x, tuple) else (x,)
 
     errs = {"sharded_lut_level": lut_err}
-    out = {}
+    out, routes = {}, {}
     for name, kname, kern, plain, sets, what, nbytes, chain in cases:
         err = max(max_err(zip(outs(kern(*x)), outs(plain(*x)))) for x in sets)
         check(err == 0, f"{name} disagrees with its plain form ({what})")
@@ -1313,7 +1338,21 @@ def check_interval_kernels(engines, ceng_s, batch, cbatch, rot, cohort,
                f"{fmt_ms(chain_ms)} ms, device time at "
                f"{ratio(chain_ms, dev_ms)} of it") + f" | {card}")
         out.setdefault(key, (tk, tp, dev_ms, bnd, what, chain_ms))
-    return out, errs
+        if key == "sharded_resolve":
+            held = max(bnd, chain_ms or 0.0)
+            routes[name[name.index("(") + 1:-1]] = dict(
+                device_ms=dev_ms, ms=tk, plain_ms=tp, bound_ms=bnd,
+                chain_ms=chain_ms, share=None if not dev_ms else held / dev_ms,
+                shape=what)
+    # where a served interval request's time goes, by route
+    for route, e in engines.items():
+        log(f"served on the interval engine, {route} route:")
+        request_breakdown(e, decode_all(q4096), "reads", sharded_stage(e),
+                          fetch=sharded_fetch)
+    log("served on the cohort's interval engine, dsa route:")
+    request_breakdown(ceng_s, decode_all(c4096), "samples",
+                      sharded_stage(ceng_s), fetch=sharded_fetch)
+    return out, errs, routes
 
 
 def max_err(pairs) -> int:
@@ -1423,34 +1462,24 @@ def k2_needs(idx, codes, lut, p) -> tuple[int, int, int]:
     B, K = codes.shape
     ids = so.prefix_ids(codes, p).long()
     lu = lut.index_select(0, ids)
-    l, u = lu[:, 0].contiguous(), lu[:, 1].contiguous()
-    r = K - p
-    ntri = r // 3 if idx.rank3_rows is not None else 0
-    rem = r - 3 * ntri
-    sched = ([(j, 3) for j in range(r - 3, rem - 1, -3)]
-             + [(j, 2) for j in range(rem - 2, rem % 2 - 1, -2)]
-             + ([(0, 1)] if rem % 2 else []))
     tables = {3: (idx.rank3_rows, idx.C3), 2: (idx.rank2_rows, idx.C2),
               1: (idx.rank_rows, idx.C)}
     rows = {3: [], 2: [], 1: []}
-    steps = longest = 0
-    for j, k in sched:
-        if k == 1:
-            code = codes[:, j]
-        else:
-            code = torch.zeros_like(l)
-            for t in range(k):
-                code = code * 4 + (codes[:, j + t] - 1)
-        act = l < u
-        steps += int(act.sum())
-        longest += int(bool(act.any()))
+    count = {"steps": 0, "longest": 0}
+
+    def step(k, code, l, u, act):
+        count["steps"] += int(act.sum())
+        count["longest"] += int(bool(act.any()))
         base = code.long() * idx.rows_per_symbol
         rows[k] += [(base + (x >> idx.log2_block).long())[act] for x in (l, u)]
-        table, starts = tables[k]
-        l, u = so._step_plain(idx, table, starts, code, l, u, act)
+        return so._step_plain(idx, *tables[k], code, l, u, act)
+
+    kstep = 3 if idx.rank3_rows is not None else 2
+    so.run_kstep(codes, lu[:, 0].contiguous(), lu[:, 1].contiguous(), K - p,
+                 kstep, step)
     nbytes = B * K * 4 + distinct(ids) * 8 + B * 8 + sum(
         distinct(*rows[k]) * tables[k][0].shape[1] * 4 for k in rows)
-    return nbytes, steps, 2 + longest
+    return nbytes, count["steps"], 2 + count["longest"]
 
 
 def fused_walk_needs(idx_f, rows, valid) -> tuple[int, int]:
@@ -2748,9 +2777,9 @@ def run(args) -> dict:
 
     # ------------------------------------- 11b. interval kernels vs plain
     with phase("11b interval kernels"):
-        shard_summary, shard_err = check_interval_kernels(
-            shard_engines, ceng_s, batches[8192], cbatches[8192], rot,
-            cohort, args.seed, t_row, card)
+        shard_summary, shard_err, shard_routes = check_interval_kernels(
+            shard_engines, ceng_s, cpacked, batches[8192], cbatches[8192],
+            rot, cohort, q4096, c4096, args.seed, t_row, card)
         summary.update(shard_summary)
         summary.update({f"{k}_err": v for k, v in shard_err.items()})
 
@@ -2808,6 +2837,10 @@ def run(args) -> dict:
             chain_ms=chain_ms,
             held_by="chain" if chain_ms is not None and chain_ms > bnd
             else "bytes"))
+    # K10's reading on each route: the resolve (dsa, lf, slow) and the
+    # exact sweep through each
+    next(k for k in kernels if k["name"] == "sharded_resolve")["routes"] = \
+        shard_routes
     return dict(kernels=kernels, card=card)
 
 

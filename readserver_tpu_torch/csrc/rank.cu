@@ -72,7 +72,7 @@ __global__ void lut_level_kernel(const uint32_t* __restrict__ table,
       nu[k] = u;
       if (alive) {
         const int32_t base = __ldg(C + k + 1);
-        rs::occ_pair(table, k + 1, l, u, g, nl[k], nu[k]);
+        rs::occ_pair(table, table, k + 1, l, u, g, nl[k], nu[k]);
         nl[k] += base;
         nu[k] += base;
       }

@@ -4,8 +4,9 @@
 // c * rows_per_symbol + (i >> log2_block) holds
 // [checkpoint, plane words..., padding], and occ(c, i) is the checkpoint plus
 // the popcount of the plane words masked to the first i & (block - 1) bits
-// (index/packing.py).  Shared by the rank kernels (rank.cu) and the search
-// kernel (search.cu), so all of them give the same answer bit for bit.
+// (index/packing.py).  Shared by the rank kernels (rank.cu), the search
+// (search.cu, search.cuh), the walks (walk.cuh) and the sharded kernels
+// (sharded.cu), so all of them give the same answer bit for bit.
 #pragma once
 
 #include <cstddef>
@@ -80,12 +81,14 @@ __device__ __forceinline__ int32_t occ_row(const uint32_t* __restrict__ table,
   return count_row(r, within, g.words_per_block);
 }
 
-// The two ranks of one interval step, occ(c, l) and occ(c, u), their two
-// independent row loads issued back to back.  (Loading the row once when l
-// and u fall in one rank block measured slower on the H100, PERF.md: the
-// second load then waits on the comparison, and a repeated address costs
-// the memory system little.)
-__device__ __forceinline__ void occ_pair(const uint32_t* __restrict__ table,
+// The two ranks of one interval step, occ(c, l) in table tl and occ(c, u)
+// in table tu (one table, or two shards of one), their two independent row
+// loads issued back to back.  (Loading the row once when l and u fall in
+// one rank block measured slower on the H100, PERF.md: the second load then
+// waits on the comparison, and a repeated address costs the memory system
+// little.)
+__device__ __forceinline__ void occ_pair(const uint32_t* __restrict__ tl,
+                                         const uint32_t* __restrict__ tu,
                                          int c, int32_t l, int32_t u,
                                          const Layout& g, int32_t& ol,
                                          int32_t& ou) {
@@ -94,15 +97,13 @@ __device__ __forceinline__ void occ_pair(const uint32_t* __restrict__ table,
   const int wl = l - (bl << g.log2_block);
   const int wu = u - (bu << g.log2_block);
   if (g.row_words == 4) {
-    const uint4 rl =
-        __ldg(reinterpret_cast<const uint4*>(row_ptr(table, c, bl, g)));
-    const uint4 ru =
-        __ldg(reinterpret_cast<const uint4*>(row_ptr(table, c, bu, g)));
+    const uint4 rl = __ldg(reinterpret_cast<const uint4*>(row_ptr(tl, c, bl, g)));
+    const uint4 ru = __ldg(reinterpret_cast<const uint4*>(row_ptr(tu, c, bu, g)));
     ol = count_row4(rl, wl, g.words_per_block);
     ou = count_row4(ru, wu, g.words_per_block);
   } else {
-    ol = count_row(row_ptr(table, c, bl, g), wl, g.words_per_block);
-    ou = count_row(row_ptr(table, c, bu, g), wu, g.words_per_block);
+    ol = count_row(row_ptr(tl, c, bl, g), wl, g.words_per_block);
+    ou = count_row(row_ptr(tu, c, bu, g), wu, g.words_per_block);
   }
 }
 

@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "kernels"
 _SOURCES = ("rank.cu", "search.cu", "resolve.cu", "sharded.cu")
-_HEADERS = ("rank.cuh",)
+_HEADERS = ("rank.cuh", "search.cuh", "walk.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P = ctypes.c_void_p

@@ -170,9 +170,49 @@ def backward_search_lut_plain(index, lut, p, kmers, lengths):
     return canonical_empty(l, u)
 
 
+def kstep_schedule(last_col: int, kstep: int) -> list[tuple[int, int]]:
+    """The k-step schedule over columns ``[0, last_col)``: ``(j, k)``, a
+    step over columns ``j .. j + k - 1``, in the order taken.  Triples
+    from the right (``kstep`` 3), then pairs, then one single step at
+    column 0 where one column is left: the leftover columns sit at the
+    left (the pattern's first characters) and run last.  K2 and the
+    sharded search take the same schedule (``csrc/search.cuh``)."""
+    ntriples = last_col // 3 if kstep >= 3 else 0
+    rem = last_col - 3 * ntriples
+    return ([(j, 3) for j in range(last_col - 3, rem - 1, -3)]
+            + [(j, 2) for j in range(rem - 2, rem % 2 - 1, -2)]
+            + ([(0, 1)] if rem % 2 else []))
+
+
+def step_code(kmers: torch.Tensor, j: int, k: int) -> torch.Tensor:
+    """The plane a step of ``k`` columns from column ``j`` ranks: for
+    k = 1 the code itself (1..4, a base plane), else the columns' codes
+    less 1 in base 4, the first column most significant."""
+    if k == 1:
+        return kmers[:, j]
+    code = kmers[:, j] - 1
+    for t in range(1, k):
+        code = code * 4 + (kmers[:, j + t] - 1)
+    return code
+
+
+def run_kstep(kmers, l, u, last_col: int, kstep: int, step,
+              early_exit: bool = False):
+    """The k-step schedule (:func:`kstep_schedule`) from the intervals
+    ``(l, u)``: each step is ``(l, u) = step(k, code, l, u, l < u)``, the
+    rank function of the caller's index (``step`` leaves inactive lanes
+    as they are).  ``early_exit`` stops once every interval is empty,
+    which changes no answer."""
+    for j, k in kstep_schedule(last_col, kstep):
+        if early_exit and not bool((l < u).any()):
+            break
+        l, u = step(k, step_code(kmers, j, k), l, u, l < u)
+    return l, u
+
+
 def backward_search_pair_plain(index, kmers, lut=None, p: int = 0):
-    """Plain torch form of :func:`backward_search_pair`: greedy triples,
-    then pairs, then one single step at the left edge."""
+    """Plain torch form of :func:`backward_search_pair`: the k-step
+    schedule over the triple (where the index has it) and pair tables."""
     K = kmers.shape[1]
     if index.rank2_rows is None:
         raise ValueError("index was built without the pair-rank tier")
@@ -182,24 +222,14 @@ def backward_search_pair_plain(index, kmers, lut=None, p: int = 0):
     else:
         l, u = _c_start(index, kmers)
         r = K - 1
-    ntriples = r // 3 if index.rank3_rows is not None else 0
-    rem = r - 3 * ntriples
-    # leftover columns sit at the LEFT (the pattern's first characters)
-    # and run last
-    for j in range(r - 3, rem - 1, -3):
-        code = (
-            (kmers[:, j] - 1) * 16 + (kmers[:, j + 1] - 1) * 4
-            + (kmers[:, j + 2] - 1)
-        )
-        l, u = _step_plain(index, index.rank3_rows, index.C3, code, l, u, l < u)
-    for j in range(rem - 2, rem % 2 - 1, -2):
-        code = (kmers[:, j] - 1) * 4 + (kmers[:, j + 1] - 1)
-        l, u = _step_plain(index, index.rank2_rows, index.C2, code, l, u, l < u)
-    if rem % 2:
-        l, u = _step_plain(
-            index, index.rank_rows, index.C, kmers[:, 0], l, u, l < u
-        )
-    return canonical_empty(l, u)
+    tables = {3: (index.rank3_rows, index.C3), 2: (index.rank2_rows, index.C2),
+              1: (index.rank_rows, index.C)}
+
+    def step(k, code, l, u, active):
+        return _step_plain(index, *tables[k], code, l, u, active)
+
+    kstep = 3 if index.rank3_rows is not None else 2
+    return canonical_empty(*run_kstep(kmers, l, u, r, kstep, step))
 
 
 # ------------------------------------------------------------- input guard

@@ -12,10 +12,13 @@ Each function has two forms:
 * kernels ``csrc/sharded.cu`` (K9 ``rs_shard_occ``, the search
   ``rs_sharded_search``, K11 ``rs_sharded_lut_level`` and K10
   ``rs_sharded_resolve``), where each position has one owner: a lane
-  finds the shard holding its position by a binary search over the
-  shards' starts and reads one row there, ``rank(c, i) = prefix[s][c] +
-  occ_s(c, i - start_s)``, or the owning shard's chunk for a lookup, 0
-  where no shard owns the key.  The same integers as the clamped sums.
+  finds the shard holding its position among the shards' starts and
+  reads one row there, ``rank(c, i) = prefix[s][c] + occ_s(c, i -
+  start_s)``, or the owning shard's chunk for a lookup, 0 where no shard
+  owns the key.  The same integers as the clamped sums.  The search is
+  K2's body (``csrc/search.cuh``) and K10's walks and sweep are the
+  single-device persistent sweep (``csrc/walk.cuh``), each over this
+  owner accessor.
 
 The public functions take the plain form for CPU tensors and launch the
 kernel for CUDA tensors, with no fallback between them.  The walks are the
@@ -27,6 +30,7 @@ slow walk that carries the $-rank and looks the read up once.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -42,8 +46,10 @@ from readserver_tpu_torch.ops.resolve import WALK_KINDS, _rounds_cap
 from readserver_tpu_torch.ops.search import (
     SEARCH_MAX_K,
     _refused,
+    canonical_empty,
     prefix_ids,
     raise_if_refused,
+    run_kstep,
 )
 
 MAX_SHARDS = 64  # owner keys the kernels stage in shared memory
@@ -234,12 +240,26 @@ def lut_level_plain(sidx, l, u):
             torch.where(alive, base + occ2[4 * X :], u4))
 
 
+def step_plain(sidx, k: int, code, l, u, active):
+    """One search step of ``k`` columns over the sharded tables (the
+    triple, pair or base planes), plain: ``l' = starts[code] +
+    rank(code, l)`` and so for ``u`` where ``active``, both ranks in one
+    [2B] call (``ops/search.run_kstep``'s step)."""
+    table, starts = {3: ("rank3", sidx.C3), 2: ("rank2", sidx.C2),
+                     1: ("rank", sidx.C)}[k]
+    B = l.shape[0]
+    occ2 = occ_plain(sidx, table, torch.cat([code, code]), torch.cat([l, u]))
+    base = starts.index_select(0, code.to(torch.int64))
+    return (torch.where(active, base + occ2[:B], l),
+            torch.where(active, base + occ2[B:], u))
+
+
 def search_plain(sidx, kmers, lengths, lut, p: int, kstep: int,
                  early_exit: bool = False):
     """Plain form of :func:`search` (the JAX ``_query_body``'s search):
     int64 (l, u) [B], empties (0, 0).  Refused queries raise
     ``ValueError`` (the kernel's guard)."""
-    B, K = kmers.shape
+    K = kmers.shape[1]
     if lut is None:
         p = 0
     raise_if_refused(
@@ -253,39 +273,14 @@ def search_plain(sidx, kmers, lengths, lut, p: int, kstep: int,
         c_last = kmers[:, K - 1].to(torch.int64)
         l, u = C.index_select(0, c_last), C.index_select(0, c_last + 1)
         last_col = K - 1
-
-    def apply(table, starts, code, l, u, active):
-        occ2 = occ_plain(sidx, table, torch.cat([code, code]),
-                         torch.cat([l, u]))
-        base = starts.index_select(0, code.to(torch.int64))
-        return (torch.where(active, base + occ2[:B], l),
-                torch.where(active, base + occ2[B:], u))
-
+    step = functools.partial(step_plain, sidx)
     if kstep >= 2:
-        r = last_col
-        ntriples = r // 3 if kstep >= 3 else 0
-        rem = r - 3 * ntriples
-        sched = [("rank3", sidx.C3, j, 3) for j in range(r - 3, rem - 1, -3)]
-        sched += [("rank2", sidx.C2, j, 2)
-                  for j in range(rem - 2, rem % 2 - 1, -2)]
-        sched += [("rank", C, 0, 1)] if rem % 2 else []
-        for table, starts, j, k in sched:
-            if early_exit and not bool((l < u).any()):
-                break
-            code = torch.zeros_like(kmers[:, 0])
-            for t in range(k):
-                code = code * 4 + (kmers[:, j + t] - 1)
-            if k == 1:
-                code = kmers[:, 0]
-            l, u = apply(table, starts, code, l, u, l < u)
+        l, u = run_kstep(kmers, l, u, last_col, kstep, step, early_exit)
     else:
         first = K - lengths
         for j in range(last_col - 1, -1, -1):
-            active = (j >= first) & (l < u)
-            l, u = apply("rank", C, kmers[:, j], l, u, active)
-    empty = l >= u
-    zero = torch.zeros_like(l)
-    return torch.where(empty, zero, l), torch.where(empty, zero, u)
+            l, u = step(1, kmers[:, j], l, u, (j >= first) & (l < u))
+    return canonical_empty(l, u)
 
 
 # ----------------------------------------------------------------- kernels
@@ -458,10 +453,10 @@ def search(sidx, kmers, lengths, lut, p: int, kstep: int, *,
     the pair (and triple) schedule, every query of length K.  From the
     int64 LUT of order ``p`` when ``lut`` is given.
 
-    The search kernel for a CUDA index: one thread per query through all
-    of its steps, each rank at the owner shard.  With ``bad`` (int32 [1]
-    on the card) refused queries are counted there and the call does not
-    wait; without it the wrapper reads the count and raises
+    The search kernel for a CUDA index: K2's body, one thread per query
+    through all of its steps, each rank at the owner shard.  With ``bad``
+    (int32 [1] on the card) refused queries are counted there and the call
+    does not wait; without it the wrapper reads the count and raises
     ``ValueError``.  The plain form for a CPU index."""
     if lut is None:
         p = 0
@@ -504,7 +499,11 @@ def search(sidx, kmers, lengths, lut, p: int, kstep: int, *,
 
 
 def _walk_code(sidx) -> int:
-    return WALK_KINDS[walk_kind(sidx)]
+    kind = walk_kind(sidx)
+    if kind == "slow" and sidx.max_read_len < 1:
+        raise ValueError("the slow walk needs max_read_len >= 1, got "
+                         f"{sidx.max_read_len}")
+    return WALK_KINDS[kind]
 
 
 def resolve(sidx, rows, valid, *, walk_early_exit: bool = False):

@@ -527,10 +527,19 @@ class QueryEngine:
         """One batch through the sharded program → its answers on the host
         (``l, u, count`` int64, ``read_id, offset`` int32, ``valid``,
         ``sample_hist``, ``hist_complete``), the first ``len(kmers)``
-        rows.  Routes as the JAX engine does: the k-step functions for a
-        uniform full-width batch, the LUT ones when every query reaches
-        the LUT's order."""
+        rows, routed as the JAX engine does (:meth:`_sharded_program`)."""
         codes, lengths, nq = self._pad_encode(kmers)
+        bad = self._new_bad() if self.device.type == "cuda" else None
+        out = self._sharded_program(codes, lengths, nq, bad)
+        host = {k: v[:nq].cpu().numpy() for k, v in out.items()}
+        if bad is not None:
+            raise_if_refused(int(bad.item()), self.K)
+        return host
+
+    def _sharded_program(self, codes, lengths, nq: int, bad):
+        """The sharded program on one padded batch → its outputs on the
+        device: the k-step functions for a uniform full-width batch, the
+        LUT ones when every query reaches the LUT's order."""
         use_lut = bool(
             self.lut is not None and nq
             and int(lengths[:nq].min()) >= self.lut_p
@@ -540,13 +549,8 @@ class QueryEngine:
             fn = self._query_fn_lut if uniform else self._query_fn_lut_1
         else:
             fn = self._query_fn if uniform else self._query_fn_1
-        bad = self._new_bad() if self.device.type == "cuda" else None
-        out = fn(self.sidx, self.lut if use_lut else None,
-                 *self._to_device(codes, lengths), bad=bad)
-        host = {k: v[:nq].cpu().numpy() for k, v in out.items()}
-        if bad is not None:
-            raise_if_refused(int(bad.item()), self.K)
-        return host
+        return fn(self.sidx, self.lut if use_lut else None,
+                  *self._to_device(codes, lengths), bad=bad)
 
     def _sharded_results(self, kmers, out) -> list[QueryResult]:
         """The JAX engine's assembly of a sharded batch's full answers:

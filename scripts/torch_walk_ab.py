@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
-"""The walk kernels of several checkouts of the port, timed in turn on one
-card.
+"""The search, walk and sharded kernels of several checkouts of the port,
+timed in turn on one card.
 
     python3 scripts/torch_walk_ab.py OTHER_CHECKOUT [MORE ...]
 
-Times the walk kernels of this checkout and of each named one (a
-directory holding another commit's ``readserver_tpu_torch``, e.g. unpacked
-by ``git archive``) at the shapes ``chip_smoke.py`` uses: K6 on the fused
-E. coli engine's compacted rows at width 8192 and at a full budget, and K7
-through the dsa and the fused walk at the cohort's width 8192 and at the
-cap-filling batch; where the checkout has the rank walks' kernel
-(``resolve_walk``), the marks, lf and slow walks on the same compacted
-rows, the marks walk at a full budget, and K7 through the marks walk at
-width 8192 and at the cap-filling batch.  Each checkout runs in its own process (both packages
-are named ``readserver_tpu_torch``), in the order A B ... then back again,
-so that two versions are compared on one card and in turns.  Every time is
-the profiler's device time of the kernel, the mean over 10 launches.  The
+Times the kernels of this checkout and of each named one (a directory
+holding another commit's ``readserver_tpu_torch``, e.g. unpacked by ``git
+archive``) at the shapes ``chip_smoke.py`` uses: K2 (the k-step search
+from the p=12 LUT) at width 8192 and at 262,144, K5 on the served
+batch's intervals, K6 on the fused E. coli engine's compacted rows at
+width 8192 and at a full budget, and K7 through the dsa and the fused
+walk at the cohort's width 8192 and at the cap-filling batch; where the
+checkout has the rank walks' kernel (``resolve_walk``), the marks, lf and
+slow walks on the same compacted rows, the marks walk at a full budget,
+and K7 through the marks walk at width 8192 and at the cap-filling batch;
+where it has the interval-sharded kernels (``ops/sharded.py``), E. coli
+in 4 shards: K11's p=12 LUT, the sharded search at width 8192, K10's
+resolve of that batch's hit lanes (H = 64) on the dsa, lf and slow
+routes, and K10's exact sweep of the cohort's width-8192 batch (4 shards,
+window 32,768) through each route.  Each checkout runs in its own process
+(both packages are named ``readserver_tpu_torch``), in the order A B ...
+then back again, so that two versions are compared on one card and in
+turns.  Every time is the profiler's device time of the kernel, the mean
+over 10 calls, taken only where the profiler saw every launch.  The
 artifacts come from ``chip_smoke.py``'s cache under ``data/`` (built here
-when missing).  Prints one JSON line per run and a table of medians.
+when missing).  Prints one JSON line per run, each checkout's ptxas
+spills, and a table of medians.
 """
 
 from __future__ import annotations
@@ -139,11 +147,87 @@ def measure(scale: float, seed: int) -> dict:
                 "exact_histogram_kernel",
                 lambda hl=hl, hu=hu: resolve.exact_sample_histogram(
                     cidx, hl, hu, win, cap))
+    # K2 and K5 on the default E. coli engine's served batch, K2 also at
+    # the timing width
+    from readserver_tpu_torch.ops import search as search_ops
+    eng = QueryEngine(packed, cfg, device=dev)
+    served = eng._expand_rc(decode_all(q4096))[0]
+    codes = eng._to_device(*eng._pad_encode(served)[:2])[0]
+    wide = torch.from_numpy(simulate.sample_query_kmers_fast(
+        corpus, 262_144, KMER, seed=seed + 6, miss_frac=0.15).astype(
+            np.int32)).to(dev)
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    for shape, q in (("width 8192", codes), ("262,144", wide)):
+        cases[f"K2 {shape}"] = (
+            "backward_search_kernel",
+            lambda q=q: search_ops.backward_search_cuda(
+                eng.index, q, None, eng.lut, eng.lut_p, True, bad=bad))
+    sl, su = search_ops.backward_search_cuda(eng.index, codes, None, eng.lut,
+                                             eng.lut_p, True)
+    cases["K5 width 8192"] = (
+        "resolve_dsa_kernel",
+        lambda: resolve.resolve_dsa_hits(eng.index, sl, su, H))
+    try:
+        from readserver_tpu_torch import parallel as par
+        from readserver_tpu_torch.ops import sharded as sops
+    except ImportError:  # a checkout before the interval-sharded kernels
+        sops = None
+    if sops is not None:
+        mesh = par.make_mesh(num_shards=4, device=dev)
+        s = par.place_sharded(par.build_sharded(packed, 4), mesh)
+        cs = par.place_sharded(par.build_sharded(cpacked, 4), mesh)
+        p = eng.lut_p
+        slut = par.build_prefix_lut_sharded(s, None, p)
+        cases["K11 p=12 LUT"] = ("sharded_lut_level_kernel",
+                                 lambda: par.build_prefix_lut_sharded(
+                                     s, None, p))
+        cases["sharded search width 8192"] = (
+            "sharded_search_kernel",
+            lambda: sops.search(s, codes, None, slut, p, 3, bad=bad))
+        l, u = sops.search(s, codes, None, slut, p, 3)
+        span = torch.arange(H, device=dev)
+        rows = (l[:, None] + span).reshape(-1)
+        valid = (span[None, :] < (u - l)[:, None]).reshape(-1)
+        rows = torch.where(valid, rows, torch.zeros_like(rows))
+        no_dsa = dict(dsa_chunk=None, dsa_bits=0)
+        drops = {"dsa": {}, "lf": no_dsa,
+                 "slow": dict(no_dsa, lf_chunk=None, sample_rate=0)}
+        csl, csu = sops.search(
+            cs, ceng._to_device(*ceng._pad_encode(
+                ceng._expand_rc(decode_all(c4096))[0])[:2])[0],
+            None, par.build_prefix_lut_sharded(cs, None, ceng.lut_p),
+            ceng.lut_p, 3)
+        for route, drop in drops.items():
+            sr = dataclasses.replace(s, **drop)
+            csr = dataclasses.replace(cs, **drop)
+            assert sops.walk_kind(sr) == route == sops.walk_kind(csr)
+            cases[f"K10 {route} width 8192"] = (
+                "sharded_resolve_kernel",
+                lambda sr=sr: sops.resolve(sr, rows, valid))
+            cases[f"K10 sweep {route} cohort width 8192"] = (
+                "sharded_sweep_kernel",
+                lambda csr=csr: sops.sweep(csr, csl, csu, 32_768, cap))
+    from readserver_tpu_torch.kernels import KERNELS, LIBRARY
+
     out = {}
     for name, (kernel, fn) in cases.items():
+        before = sum(k.launches for k in KERNELS.values())
         fn()
         torch.cuda.synchronize()
-        out[name] = kernel_device_ms(fn, 10, kernel)
+        per_call = sum(k.launches for k in KERNELS.values()) - before
+        # None where the profiler saw fewer launches than were made
+        out[name] = kernel_device_ms(fn, 10, kernel, launches=10 * per_call)
+    spills, regs, entry = [], {}, None
+    for line in LIBRARY.build_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill" in line and " 0 bytes spill stores" not in line:
+            spills.append(f"{entry}: {line.strip()}")
+        elif "Used" in line and "registers" in line and "sharded" in entry:
+            regs[entry[entry.index("sharded"):][:60]] = int(
+                line.split("Used")[1].split()[0])
+    out["ptxas spills"] = spills
+    out["ptxas sharded registers"] = regs
     return out
 
 
@@ -176,6 +260,11 @@ def main() -> int:
         got = json.loads(res.stdout.strip().splitlines()[-1])
         runs[c].append(got)
         print(json.dumps({"checkout": c, "device_ms": got}), flush=True)
+    for c in checkouts:
+        for key in ("ptxas spills", "ptxas sharded registers"):
+            print(f"# {key}, {Path(c).name}: {runs[c][0].pop(key, None)}")
+            for r in runs[c][1:]:
+                r.pop(key, None)
     names = list(dict.fromkeys(n for c in checkouts for r in runs[c]
                                for n in r))
     print(f"# device ms, median of {2} runs each ({card})")

@@ -974,3 +974,107 @@ def test_sharded_engine_on_card_runs_no_plain_form(shard_packs, cuda_device,
     torch.cuda.synchronize()
     assert SHARDED_SEARCH.launches > before[0]
     assert SHARDED_RESOLVE.launches > before[1]
+
+
+# ------------------- the redesigned sharded kernels: schedule and edges
+
+SCHEDULE_K = [2, 3, 4, 7, 31, 32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", SCHEDULE_K)
+def test_search_kernels_schedule_match_plain(shard_packs, cuda_device, K):  # noqa: F811
+    """K2 and the sharded search (search.cuh's body and k-step schedule)
+    at K columns, from C and from LUTs of order 1 and min(K - 1, 8),
+    through the masked scan, pairs and triples, equal their plain forms;
+    the sharded one at S = 1, 3, 8 and 64 shards (empty ones included)."""
+    corpus, packs = shard_packs
+    orders = sorted({0, 1, min(K - 1, 8)})
+    for kstep, min_len in ((1, 1), (2, None), (3, None)):
+        codes, lengths = _queries(corpus, 2048, K, seed=K + kstep,
+                                  min_len=min_len)
+        c, ln = t32(codes, cuda_device), t32(lengths, cuda_device)
+        tiers = {"rank2", "rank3"} if kstep == 3 else {"rank2"}
+        d = DeviceIndex.from_packed(packs["small"], cuda_device, tiers=tiers)
+        for p in orders:
+            lut = build_prefix_lut(d, p) if p else None
+            keep = lengths >= max(p, 1)
+            ck, lk = c[t32(keep, cuda_device).bool()].contiguous(), \
+                ln[t32(keep, cuda_device).bool()].contiguous()
+            got = search_ops.backward_search_cuda(
+                d, ck, None if kstep > 1 else lk, lut, p, kstep > 1)
+            if kstep > 1:
+                want = search_ops.backward_search_pair_plain(d, ck, lut, p)
+            elif p:
+                want = search_ops.backward_search_lut_plain(d, lut, p, ck, lk)
+            else:
+                want = search_ops.backward_search_plain(d, ck, lk)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                ("K2", kstep, p)
+        for case, S in (("small", 1), ("small", 3), ("six reads", 8),
+                        ("small", 64)):
+            s = _placed(packs[case], S, cuda_device)
+            for p in orders:
+                lut = shard_par.build_prefix_lut_sharded(s, None, p) \
+                    if p else None
+                keep = t32(lengths >= max(p, 1), cuda_device).bool()
+                ck, lk = c[keep].contiguous(), ln[keep].contiguous()
+                got = sops.search(s, ck, lk, lut, p, kstep)
+                want = sops.search_plain(s, ck, lk, lut, p, kstep)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                    (case, S, kstep, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, S", SHARD_CASES + [("small", 64)])
+@pytest.mark.parametrize("route", ["dsa", "lf", "slow"])
+def test_sharded_resolve_kernel_edges_match_plain(shard_packs, cuda_device,
+                                                  case, S, route):  # noqa: F811
+    """K10 against its plain forms on: rows at every shard's first and
+    last position and at 0 and n - 1; warps whose lanes mix 0-step walks
+    ($ rows), walks of max_read_len steps (the $ suffixes' rows, which end
+    unterminated) and invalid lanes; a batch with every lane invalid; rows
+    outside the index on the slow walk; and the exact sweep with a cap
+    that cuts a query, at S up to 64."""
+    corpus, packs = shard_packs
+    s = {"dsa": lambda x: x, "lf": _no_dsa, "slow": _slow}[route](
+        _placed(packs[case], S, cuda_device))
+    assert sops.walk_kind(s) == route
+    n, m = s.n, s.num_reads
+    dev = cuda_device
+    cpu = s.starts.cpu()
+    ln = s.lens.cpu()
+    edge = torch.cat([cpu[ln > 0], (cpu + ln - 1)[ln > 0],
+                      torch.tensor([0, n - 1])])
+    every = torch.arange(n, device=dev)
+    dollar_rows = every[sops.sym_plain(s, every) == 0][:64]
+    suffix_rows = torch.arange(min(m, 64), device=dev)
+    k = min(dollar_rows.numel(), suffix_rows.numel())
+    mixed = torch.stack([dollar_rows[:k], suffix_rows[:k],
+                         torch.zeros(k, dtype=torch.int64, device=dev)],
+                        dim=1).reshape(-1)
+    mvalid = torch.tensor([True, True, False], device=dev).repeat(k)
+    rows = torch.cat([edge.to(dev), mixed])
+    valid = torch.cat([torch.ones(edge.numel(), dtype=torch.bool, device=dev),
+                       mvalid])
+    before = SHARDED_RESOLVE.launches
+    for v in (valid, torch.zeros_like(valid)):
+        got = sops.resolve(s, rows, v)
+        want = sops.resolve_plain(s, rows, v)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert SHARDED_RESOLVE.launches == before + 2
+    if route == "slow":
+        out = torch.tensor([-3, n, n + 7], device=dev)
+        ov = torch.ones(3, dtype=torch.bool, device=dev)
+        got, want = sops.resolve(s, out, ov), sops.resolve_plain(s, out, ov)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    codes, lengths = _queries(corpus, 1024, 12, seed=6, min_len=6)
+    l, u = sops.search(s, t32(codes, dev), t32(lengths, dev), None, 0, 1)
+    cum = torch.cumsum(u - l, 0).cpu()
+    q = int(torch.nonzero((u - l).cpu() >= 2)[0])
+    for window, cap in ((1, int(cum[q]) - 1), (64, 100), (4096, None)):
+        got = sops.sweep(s, l, u, window, cap)
+        want = sops.sweep_plain(s, l, u, window, cap)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if window == 1:
+            assert not bool(got[1][q])  # the cap cut query q

@@ -240,3 +240,72 @@ def test_search_accepts_padding_outside_searched_columns(setup):
     kmers[3, 12 - P :] = kmers[0, 12 - P :]
     lengths[3] = P
     backward_search_lut(tdevs["rank2"], tlut, P, t32(kmers), lengths)
+
+
+SCHEDULE_K = [2, 3, 4, 7, 31, 32]
+
+
+@pytest.mark.parametrize("kstep", [1, 2, 3])
+@pytest.mark.parametrize("K", SCHEDULE_K)
+def test_kstep_schedule_covers_each_column_once(K, kstep):
+    """The schedule over columns [0, r) for r = K - p, p in {0, 1, K - 1}
+    (with no LUT the start takes one column, as p = 1 does): every column
+    once, right to left, steps of at most max(kstep, 2) columns, triples
+    only for kstep 3, and a single step only at column 0."""
+    for r in sorted({K - max(p, 1) for p in (0, 1, K - 1)}):
+        sched = search_ops.kstep_schedule(r, kstep)
+        cols = [j + t for j, k in sched for t in range(k)]
+        assert sorted(cols) == list(range(r))
+        assert [j for j, _ in sched] == sorted((j for j, _ in sched),
+                                               reverse=True)
+        assert all(k <= max(kstep, 2) and (k < 3 or kstep >= 3)
+                   for _, k in sched)
+        assert all(j == 0 for j, k in sched if k == 1)
+
+
+@pytest.mark.parametrize("kstep", [1, 2, 3])
+@pytest.mark.parametrize("p", ["0", "1", "K-1"])
+@pytest.mark.parametrize("K", SCHEDULE_K)
+def test_kstep_schedule_matches_jax(setup, K, p, kstep):
+    """The search from a start of p columns (0: from C, 1: the LUT of
+    order 1, K - 1: the (K-1)-suffix's interval as the JAX search gives
+    it), then the masked 1-step scan (kstep 1) or the schedule of pairs
+    (2) or triples and pairs (3), equals the JAX package's search of the
+    whole query, misses included."""
+    corpus, _, jdevs, tdevs, _, _ = setup
+    pp = {"0": 0, "1": 1, "K-1": K - 1}[p]
+    codes, _ = _batch(corpus, 64, K, seed=100 + K)
+    full = np.full(len(codes), K, np.int32)
+    jd = jdevs["rank2+rank3"]
+    want = jax.jit(jax_backward_search)(jd, codes, full)
+    tiers = "rank2+rank3" if kstep == 3 else "rank2"
+    d = tdevs[tiers]
+    c = t32(codes)
+    if pp <= 1:
+        # the public functions, from C or from the LUT of order 1
+        lut = lut_from_numpy(np.asarray(jax_build_prefix_lut(jd, 1)), "cpu")
+        lt = lut if pp else None
+        if kstep == 1:
+            got = (backward_search_lut(d, lut, 1, c, t32(full)) if pp
+                   else backward_search(d, c, t32(full)))
+        else:
+            got = backward_search_pair(d, c, lt, pp)
+    else:
+        # from the suffix's interval, through the schedule helper
+        suffix = np.ascontiguousarray(codes[:, K - pp:])
+        sl, su = jax.jit(jax_backward_search)(
+            jd, suffix, np.full(len(codes), pp, np.int32))
+        l, u = t32(sl), t32(su)
+        tables = {3: (d.rank3_rows, d.C3), 2: (d.rank2_rows, d.C2),
+                  1: (d.rank_rows, d.C)}
+
+        def step(k, code, l, u, active):
+            return search_ops._step_plain(d, *tables[k], code, l, u, active)
+
+        if kstep == 1:
+            for j in range(K - pp - 1, -1, -1):
+                l, u = step(1, c[:, j], l, u, l < u)
+        else:
+            l, u = search_ops.run_kstep(c, l, u, K - pp, kstep, step)
+        got = search_ops.canonical_empty(l, u)
+    _check(got, want)

@@ -26,6 +26,8 @@ from readserver_tpu.corpus import simulate as jax_simulate
 from readserver_tpu.corpus.simulate import sample_query_kmers
 from readserver_tpu.index.builder import build_index
 from readserver_tpu.ops import DeviceIndex, backward_search, encode_query_batch
+from readserver_tpu.ops import build_prefix_lut
+from readserver_tpu.ops import resolve as jax_resolve
 from readserver_tpu.oracle import OracleFMIndex
 from readserver_tpu import parallel as jp
 from readserver_tpu.parallel.sharded import _ShardLocal, sharding_specs
@@ -34,6 +36,7 @@ from readserver_tpu_torch import cli
 from readserver_tpu_torch import parallel as tp
 from readserver_tpu_torch.config import ServeConfig
 from readserver_tpu_torch.ops import sharded as sops
+from readserver_tpu_torch.ops.search import canonical_empty, run_kstep
 from readserver_tpu_torch.parallel.stats import query_psum_estimate
 from readserver_tpu_torch.serve import QueryEngine
 
@@ -459,6 +462,109 @@ def test_six_reads_every_route_matches_jax(six_reads, tiny_corpus):
             assert_same(got, jax_run(six_reads, 1, 8, c, le, lut=lut,
                                      sidx=fn, **kw))
             assert int(got["valid"].sum()) > 0, route
+
+
+# -------------------------------------- the k-step schedule, shard edges
+
+
+SCHEDULE_K = [2, 3, 4, 7, 31, 32]
+SCHEDULE_S = (1, 3, 8)
+
+
+@pytest.fixture(scope="module")
+def schedule_cases(packed, six_reads):
+    """Per index (tiny; 6 reads, whose S = 8 leaves 3 shards empty): the
+    JAX DeviceIndex with every tier, and the port's index placed in S
+    shards for each S of SCHEDULE_S."""
+    out = {}
+    for name, pk in (("tiny", packed), ("six reads", six_reads)):
+        jd = DeviceIndex.from_packed(pk)
+        out[name] = (pk, jd, {S: port_sidx(pk, S)[1] for S in SCHEDULE_S})
+    assert (out["six reads"][2][8].lens == 0).sum() == 3
+    return out
+
+
+@pytest.mark.parametrize("kstep", [1, 2, 3])
+@pytest.mark.parametrize("p", ["0", "1", "K-1"])
+@pytest.mark.parametrize("K", SCHEDULE_K)
+def test_sharded_kstep_schedule_matches_jax(schedule_cases, tiny_corpus, K,
+                                            p, kstep):
+    """The sharded search from a start of p columns (0: from C, 1: the
+    JAX LUT of order 1, K - 1: the (K-1)-suffix's interval as the JAX
+    search gives it), then the masked scan (kstep 1) or the schedule of
+    pairs (2) or triples and pairs (3), at S = 1, 3 and 8 shards (empty
+    ones included), equals the JAX package's search of the whole query."""
+    pp = {"0": 0, "1": 1, "K-1": K - 1}[p]
+    kms = sample_query_kmers(tiny_corpus, 48, K, seed=200 + K,
+                             miss_frac=0.3)
+    codes, lengths = encode_query_batch(kms, K)
+    c, ln = torch.from_numpy(codes), torch.from_numpy(lengths)
+    for name, (pk, jd, placed) in schedule_cases.items():
+        wl, wu = (np.asarray(x) for x in jax.jit(backward_search)(
+            jd, codes, lengths))
+        start = None
+        if pp > 1:
+            sl, su = jax.jit(backward_search)(
+                jd, np.ascontiguousarray(codes[:, K - pp:]),
+                np.full(len(codes), pp, np.int32))
+            start = (torch.from_numpy(np.array(sl)).long(),
+                     torch.from_numpy(np.array(su)).long())
+        for S, s in placed.items():
+            if pp <= 1:
+                lut = None if not pp else torch.from_numpy(
+                    np.array(build_prefix_lut(jd, 1))).long()
+                l, u = sops.search_plain(s, c, ln, lut, pp, kstep)
+            else:
+                l, u = start
+                step = lambda k, *a, s=s: sops.step_plain(s, k, *a)  # noqa: E731
+                if kstep == 1:
+                    for j in range(K - pp - 1, -1, -1):
+                        l, u = step(1, c[:, j], l, u, l < u)
+                else:
+                    l, u = run_kstep(c, l, u, K - pp, kstep, step)
+                l, u = canonical_empty(l, u)
+            assert l.dtype == torch.int64, (name, S)
+            assert np.array_equal(l.numpy(), wl), (name, S)
+            assert np.array_equal(u.numpy(), wu), (name, S)
+
+
+@pytest.mark.parametrize("route", ["dsa", "lf", "slow"])
+@pytest.mark.parametrize("case,shards", [("tiny", 3), ("tiny", 8),
+                                         ("six reads", 8)])
+def test_sharded_resolve_at_shard_edges_matches_jax(packed, six_reads, case,
+                                                    shards, route):
+    """K10's plain walks on rows at every nonempty shard's first and last
+    position, one past each start, and at 0 and n - 1 (with invalid lanes
+    beside them) give the JAX package's walk of the same rows on the
+    monolithic index, and each hit's sample."""
+    pk = packed if case == "tiny" else six_reads
+    _, s = port_sidx(pk, shards)
+    tiers = {"dsa": {"dsa"}, "lf": {"marks", "lf"}, "slow": set()}[route]
+    if route != "dsa":
+        s = dataclasses.replace(s, dsa_chunk=None, dsa_bits=0)
+    if route == "slow":
+        s = dataclasses.replace(s, lf_chunk=None, sample_rate=0)
+    assert sops.walk_kind(s) == route
+    n = s.n
+    st, ln = s.starts.numpy(), s.lens.numpy()
+    rows = np.unique(np.concatenate([st[ln > 0], (st + ln - 1)[ln > 0],
+                                     np.minimum(st[ln > 0] + 1, n - 1),
+                                     [0, n - 1]])).astype(np.int64)
+    rows = np.repeat(rows, 2)
+    valid = np.tile([True, False], rows.size // 2)
+    rid, off, smp = sops.resolve_plain(s, torch.from_numpy(rows),
+                                       torch.from_numpy(valid))
+    jd = DeviceIndex.from_packed(pk, tiers=tiers)
+    fn = {"dsa": jax_resolve.resolve_rows_dsa,
+          "lf": jax_resolve.resolve_rows_fast,
+          "slow": jax_resolve.resolve_rows}[route]
+    wr, wo = (np.asarray(x) for x in jax.jit(fn)(
+        jd, rows.astype(np.int32), valid))
+    assert np.array_equal(rid.numpy(), wr) and np.array_equal(off.numpy(), wo)
+    rts = np.asarray(pk.read_to_sample)
+    want_smp = rts[np.clip(wr, 0, pk.num_reads - 1)]
+    assert np.array_equal(smp.numpy(), want_smp)
+    assert (wr[valid] >= 0).any()
 
 
 # ------------------------------------------------------ mesh, engine, CLI
