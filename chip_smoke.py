@@ -5,7 +5,7 @@
     python3 chip_smoke.py --scale 0.05 # 5% of each, for a quick check
 
 Phases, each printed with its seconds on a ``#`` line, run in the order
-1-5, 8, 9, 9b, 10, 11, 6, 7, 11b (every main path is driven before the
+1-5, 8, 9, 9b, 10, 11, 12, 6, 7, 11b (every main path is driven before the
 kernel-vs-plain and timing phases, so each path's launch counts are its
 own):
 
@@ -64,7 +64,19 @@ own):
    exact ``/samples`` equal to phase 9's monolithic engine, ``/info`` and
    the query endpoints over REST; the sharded search, K11 and K10 must
    have launched, and neither K9's generic entry, nor any single-device
-   kernel, nor a plain form of ``ops/sharded.py`` on a CUDA tensor;
+   kernel, nor a plain form of ``ops`` on a CUDA tensor;
+12. ingest and maintenance (``serve_ingest``): the port's CLI, each
+   command in a process of its own as a user runs it on the card's host,
+   at full size: the cohort simulated to FASTA, written as FASTQ and BAM,
+   built from each into 4 doc shards (byte-equal), served (``query`` on
+   the card and a ``MultiEngine``) as phase 9b's front serves it;
+   ``append`` of a 129th sample and ``compact`` to 2 shards, each served
+   as a from-scratch build; ``upgrade --kstep 3`` of phase 3's E. coli
+   artifact with seven tiers stripped (byte-equal to phase 3's, phases
+   4, 5 and 8's answers); ``merge`` and ``import-bwt`` served as their
+   sources; each step's host seconds; counts at 0 first, K1's level
+   entry, K2, K5 and K7 must launch, K1's and K9's generic entries not,
+   and no plain form of ``ops`` on a CUDA tensor;
 6. kernel vs plain: each kernel against its plain torch form on the card,
    bit for bit, at the main paths' shapes (K1 at the mark walk's step, the
    engine's prefix LUT and a chunked build against the plain build, K2 in
@@ -112,7 +124,8 @@ own):
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the one before it is the kernels' JSON summary (``launches`` summed over
 the main-path phases 4, 8, 9, 9b, 10 and 11, where every kernel but K1's
-and K9's generic entries must have launched, ``cohort_launches`` those of phase 9b;
+and K9's generic entries must have launched, ``cohort_launches`` those of
+phase 9b, ``ingest_launches`` those of phase 12;
 ``max_abs_err`` the largest over every check, ``cohort_max_abs_err`` that
 over phase 9b's partition checks;
 ``bound_ms`` the bytes bound, ``chain_ms`` the chain bound where there is
@@ -791,27 +804,30 @@ def time_cohort(meng, cohort, c4096, seed: int, card: str) -> None:
 
 
 
-# ops/sharded.py's plain forms: none may run on a CUDA tensor on the path
-SHARD_PLAIN = ("occ_plain", "_lookup_plain", "sym_plain", "sample_plain",
-               "walk_plain", "resolve_plain", "sweep_plain",
-               "lut_level_plain", "search_plain")
+# the modules of readserver_tpu_torch.ops whose plain forms may not run on
+# the card on a path
+PLAIN_MODULES = ("rank", "lut", "search", "resolve", "sharded")
 
 
 @contextlib.contextmanager
 def plain_calls_on_card():
-    """Count the calls of ops/sharded.py's plain forms that are handed a
-    CUDA tensor or an index on the card → {"n": count}."""
+    """Count the calls of the plain forms (every ``*_plain`` function of
+    ``PLAIN_MODULES``, and the walks' plain forms) that are handed a CUDA
+    tensor or an index on the card → {"n": count}."""
+    import importlib
+
     import torch
-    from readserver_tpu_torch.ops import sharded as sops
+    from readserver_tpu_torch.ops import resolve
 
     calls = {"n": 0}
-    saved = {name: getattr(sops, name) for name in SHARD_PLAIN}
 
     def on_card(a) -> bool:
         if isinstance(a, torch.Tensor):
             return a.is_cuda
-        starts = getattr(a, "starts", None)
-        return isinstance(starts, torch.Tensor) and starts.is_cuda
+        t = getattr(a, "starts", None)          # a ShardedIndex
+        if t is None:
+            t = getattr(a, "rank_rows", None)   # a DeviceIndex
+        return isinstance(t, torch.Tensor) and t.is_cuda
 
     def counted(fn):
         def inner(*args, **kw):
@@ -820,13 +836,22 @@ def plain_calls_on_card():
             return fn(*args, **kw)
         return inner
 
-    for name, fn in saved.items():
-        setattr(sops, name, counted(fn))
+    saved = []
+    for mod in (importlib.import_module(f"readserver_tpu_torch.ops.{m}")
+                for m in PLAIN_MODULES):
+        for name, fn in list(vars(mod).items()):
+            if name.endswith("_plain") and callable(fn):
+                saved.append((mod, name, fn))
+                setattr(mod, name, counted(fn))
+    walks = dict(resolve._WALKS)
+    for kind, (fn, plain) in walks.items():
+        resolve._WALKS[kind] = (fn, counted(plain))
     try:
         yield calls
     finally:
-        for name, fn in saved.items():
-            setattr(sops, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        resolve._WALKS.update(walks)
 
 
 # the packed index as each route's deployment ships it: the lf route's
@@ -849,7 +874,7 @@ def serve_interval(packed, engine, cpacked, ceng, cfg, dev, qs, served,
     engine's answers (phases 4 and 8, which the oracle checked), the
     128-sample cohort's exact ``/samples`` against phase 9's monolithic
     engine, and ``/info`` and the query endpoints over REST; no plain form
-    of ops/sharded.py on a CUDA tensor, and no single-device kernel → (the
+    of ops on a CUDA tensor, and no single-device kernel → (the
     E. coli sharded engines by route, the cohort's sharded engine)."""
     import torch
     from readserver_tpu_torch.ops import sharded as sops
@@ -978,11 +1003,421 @@ def serve_interval(packed, engine, cpacked, ceng, cfg, dev, qs, served,
     single = {n: c for n, c in launches.items() if not n.startswith("shard")}
     check(not any(single.values()), f"single-device kernels launched on the "
           f"interval path: {single}")
-    check(plain["n"] == 0, f"{plain['n']} plain forms of ops/sharded.py ran "
-          "on the card on the interval path")
-    log("no plain form of ops/sharded.py ran on a CUDA tensor on the "
-        "interval path")
+    check(plain["n"] == 0, f"{plain['n']} plain forms of ops ran on the card "
+          "on the interval path")
+    log("no plain form of ops ran on a CUDA tensor on the interval path")
     return engines, ceng_s
+
+
+INGEST_DROP = ("rank3_blocks", "C3", "dsa", "lf", "mark_rank",
+               "sample_pairs", "fused_rows")   # tests/test_upgrade.py:24-35
+
+
+def cli_start(steps) -> list:
+    """Start each ``(what, argv)`` of ``steps`` as ``python -m
+    readserver_tpu_torch.cli argv`` from the checkout, each in its own
+    process (a user's command on the card's host), all at once → their
+    futures of (what, finished process, host seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(what, argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "readserver_tpu_torch.cli", *map(str, argv)],
+            cwd=REPO, capture_output=True, text=True, timeout=900)
+        return what, proc, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(len(steps))
+    futures = [pool.submit(one, what, argv) for what, argv in steps]
+    pool.shutdown(wait=False)
+    return futures
+
+
+def cli_wait(futures, card: str, beside: str = "") -> list[str]:
+    """Wait for ``cli_start``'s commands; each must exit 0 → their
+    standard outputs.  Logs each one's host seconds and its last line
+    (``beside``: what ran at the same time)."""
+    outs = []
+    for fut in futures:
+        what, proc, dt = fut.result()
+        check(proc.returncode == 0, f"{what}: exit {proc.returncode}: "
+              f"{proc.stderr[-3000:]}")
+        said = proc.stderr.strip().splitlines()
+        log(f"{what}: {dt:.3f} s on the host"
+            + (f" (beside {beside})" if beside else "")
+            + (f" [{said[-1]}]" if said else "") + f" | {card}")
+        outs.append(proc.stdout)
+    return outs
+
+
+def cli_steps(steps, card: str, beside: str = "") -> list[str]:
+    return cli_wait(cli_start(steps), card, beside)
+
+
+def tree_diff(a: Path, b: Path) -> list[str]:
+    """The files of two artifact directories whose bytes differ (every
+    file, both sides), or a note that their file sets differ."""
+    import filecmp
+
+    fa = sorted(str(f.relative_to(a)) for f in a.rglob("*") if f.is_file())
+    fb = sorted(str(f.relative_to(b)) for f in b.rglob("*") if f.is_file())
+    if fa != fb:
+        return [f"file sets differ: {sorted(set(fa) ^ set(fb))[:8]}"]
+    return [f for f in fa if not filecmp.cmp(a / f, b / f, shallow=False)]
+
+
+def strip_tiers(path: Path, names) -> None:
+    """Emulate an artifact from before ``names`` existed
+    (tests/test_upgrade.py's ``_strip``): their files unlinked, the
+    manifest (a real file, not a link) rewritten in place."""
+    from readserver_tpu_torch.index import artifact
+
+    manifest = json.loads((path / artifact.MANIFEST_NAME).read_text())
+    for name in names:
+        (path / f"{name}.npy").unlink()
+    manifest["arrays"] = [a for a in manifest["arrays"] if a not in names]
+    if "dsa" in names:
+        manifest["dsa_bits"] = 0
+    if "mark_rank" in names:
+        manifest["sample_rate"] = 0
+    (path / artifact.MANIFEST_NAME).write_text(json.dumps(manifest))
+
+
+def hit_key(h) -> tuple:
+    return (h["read_id"], h["offset"], h["strand"])
+
+
+def same_answers(a, b, what: str, samples: bool) -> int:
+    """Two fronts' answers to one request: counts, ``hits_truncated`` and,
+    where neither is cut, hit sets by (read, offset, strand) and sample;
+    with ``samples`` the histograms and their ``complete`` flags → hit
+    sets compared."""
+    n = 0
+    for x, y in zip(a, b, strict=True):
+        check(x.count == y.count, f"{what}: {x.kmer} counts {x.count} and "
+              f"{y.count}")
+        if samples:
+            check((x.sample_hist, x.sample_hist_complete)
+                  == (y.sample_hist, y.sample_hist_complete),
+                  f"{what}: {x.kmer} histograms differ")
+        if not (x.hits_truncated or y.hits_truncated):
+            key = (lambda h: (*hit_key(h), h["sample_id"])) if samples \
+                else hit_key
+            check(sorted(map(key, x.hits)) == sorted(map(key, y.hits)),
+                  f"{what}: {x.kmer} hit sets differ")
+            n += 1
+    return n
+
+
+def serve_ingest(args, cohort, ecoli_cache, meng, cfg, dev, c256, qs, served,
+                 reads_served, zero_launches, read_launches, card) -> dict:
+    """Phase 12: ingest and index maintenance through the port's CLI on
+    the card's host, each command in its own process, then the artifacts
+    they write served on the card (nothing cut: the 128-sample cohort,
+    n = 27,872,768 at scale 1, and E. coli 30x):
+
+    * ingest: ``simulate --config cohort`` writes the reads as FASTA; a
+      FASTQ of them (constant qualities) and a BAM (``corpus.bam``) are
+      written beside it; ``build --doc-shards 4`` from each (at once, one
+      process each; the FASTQ with ``--qual-trim 20``, which trims
+      nothing) writes the same bytes; ``query`` in a process of its own on
+      the card and a ``MultiEngine`` here answer ``/count`` and ``/reads``
+      on both strands as phase 9b's front ``meng`` does (a FASTA carries
+      no sample ids: hit sets by global read id, offset and strand), and
+      exactly as the read windows on 64 queries;
+    * ``append`` of a 129th sample's reads (FASTA), then ``compact
+      --target-shards 2``: ``/count``, ``/reads`` and ``/samples`` (the new
+      sample's column included) equal to a ``build_cohort`` of all the
+      reads from scratch, each time;
+    * ``upgrade --kstep 3 --sample-rate R`` of a copy of phase 3's E. coli
+      artifact (the ``.npy`` files hard links, the manifest a real copy)
+      with ``INGEST_DROP`` stripped: each restored array byte-equal to
+      phase 3's, the manifest equal in rate, dsa bits and array set, and a
+      ``QueryEngine`` on it gives phases 4-5's counts and phase 8's
+      ``/reads``;
+    * ``merge`` of two of the cohort's shard artifacts and ``import-bwt``
+      of an RLE file (``index.rle``) of one shard's BWT: counts equal to
+      the sources' engines', the import's ``/reads`` equal to its source's.
+
+    Launch counts from 0 over the card's part here (this process); K1's
+    level entry, K2, K5 and K7 must launch, K1's and K9's generic entries
+    not, and no plain form of ``ops`` may run on a CUDA tensor → the
+    launch counts."""
+    import filecmp
+    import os
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from readserver_tpu_torch import alphabet
+    from readserver_tpu_torch.corpus import bam, io as cio, simulate
+    from readserver_tpu_torch.index import artifact
+    from readserver_tpu_torch.index.cohort import build_cohort, load_cohort
+    from readserver_tpu_torch.index.packing import unpack_sym4
+    from readserver_tpu_torch.index.rle import write_rle_bwt
+    from readserver_tpu_torch.serve import MultiEngine, QueryEngine
+
+    work = REPO / "data" / "chip_smoke" / f"ingest_s{args.scale:g}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ckms = decode_all(c256)
+    mcfg = meng.engines[0].cfg
+    # phase 9b's front answers the requests first, outside the count
+    want_count = meng.count_batch(ckms, both_strands=True)
+    want_reads = meng.query_batch(ckms, both_strands=True)
+    zero_launches()
+
+    def front(path) -> MultiEngine:
+        parts, _ = load_cohort(path, mmap=False)
+        return MultiEngine(parts, mcfg, device=dev)
+
+    def timed(fn, *a, **kw):
+        t0 = time.perf_counter()
+        return fn(*a, **kw), time.perf_counter() - t0
+
+    with plain_calls_on_card() as plain:
+        # the E. coli upgrade and the append's from-scratch oracle run
+        # beside the cohort's ingest: each is independent of it
+        upg = work / "ecoli_upgrade"
+        upg.mkdir()
+        t0 = time.perf_counter()
+        for f in ecoli_cache.iterdir():
+            if f.name == artifact.MANIFEST_NAME:
+                shutil.copyfile(f, upg / f.name)
+            else:
+                os.link(f, upg / f.name)
+        strip_tiers(upg, INGEST_DROP)
+        src_manifest = json.loads(
+            (ecoli_cache / artifact.MANIFEST_NAME).read_text())
+        rate = int(src_manifest["sample_rate"])
+        log(f"E. coli copy (hard links, the manifest copied) with "
+            f"{len(INGEST_DROP)} tiers stripped in "
+            f"{time.perf_counter() - t0:.3f} s; recorded sample rate {rate} "
+            f"| {card}")
+        upgrading = cli_start([("upgrade --kstep 3 (E. coli 30x)", [
+            "upgrade", upg, "--kstep", 3, "--sample-rate", rate])])
+        spec = cohort.spec
+        extra = simulate.simulate_reads(
+            cohort.genome, spec.coverage / spec.num_samples, spec.read_len,
+            seed=spec.seed * 1000 + spec.num_samples,
+            error_rate=spec.error_rate)
+        base = len(cohort.reads)
+        pool = ThreadPoolExecutor(1)
+        scratching = pool.submit(
+            timed, build_cohort, [*cohort.reads, *extra],
+            np.repeat(np.int32([0, 1]), [base, len(extra)]), SHARDS,
+            work / "scratch", sample_names=["sample_0", "donor_new"])
+        pool.shutdown(wait=False)
+        beside = "the E. coli upgrade and the from-scratch cohort build"
+
+        # ------------------------------------------------ ingest by format
+        fa = work / "reads.fa"
+        cli_steps([("simulate --config cohort (FASTA)",
+                    ["simulate", "--config", "cohort", "--scale",
+                     args.scale, "--out", fa])], card, beside)
+        t0 = time.perf_counter()
+        recs = list(cio.read_fasta(fa))
+        check(len(recs) == base and all(s == r for (_, s), r in zip(
+            recs, decode_all(np.stack(cohort.reads)))),
+            "the FASTA's reads are not the cohort's, in order")
+        with open(work / "reads.fq", "w") as fh:
+            for name, seq in recs:
+                fh.write(f"@{name}\n{seq}\n+\n{'I' * len(seq)}\n")
+        bam.write_bam(work / "reads.bam", ((n, sq, None) for n, sq in recs))
+        log(f"read the FASTA back ({len(recs)} reads, the cohort's in "
+            f"order) and wrote it as FASTQ (qualities all 40) and BAM in "
+            f"{time.perf_counter() - t0:.3f} s | {card}")
+        pops = {f: work / f"pop_{f}" for f in ("fasta", "fastq", "bam")}
+        cli_steps([
+            ("build --fasta --doc-shards 4",
+             ["build", "--fasta", fa, "--doc-shards", SHARDS,
+              "--out", pops["fasta"]]),
+            ("build --fastq --qual-trim 20 --doc-shards 4",
+             ["build", "--fastq", work / "reads.fq", "--qual-trim", 20,
+              "--doc-shards", SHARDS, "--out", pops["fastq"]]),
+            ("build --bam --doc-shards 4",
+             ["build", "--bam", work / "reads.bam", "--doc-shards", SHARDS,
+              "--out", pops["bam"]])], card,
+            "each other, " + beside)
+        for f in ("fastq", "bam"):
+            diff = tree_diff(pops["fasta"], pops[f])
+            check(not diff, f"the {f} build differs from the FASTA build: "
+                  f"{diff[:8]}")
+        nfiles = sum(1 for x in pops["fasta"].rglob("*") if x.is_file())
+        log(f"the FASTA, FASTQ and BAM cohorts are byte-equal: {nfiles} "
+            f"files (every .npy and manifest)")
+        (stdout,) = cli_steps([("query --both-strands --hits (card)", [
+            "query", "--index", pops["fasta"], "--hits", "--both-strands",
+            "--device", "cuda", "--kmer", *ckms])], card, beside)
+        lines = [json.loads(x) for x in stdout.splitlines()]
+        check(len(lines) == len(ckms), "query printed a line a k-mer")
+        for line, w in zip(lines, want_reads):
+            check(line["kmer"] == w.kmer and line["count"] == w.count
+                  and line["hits_truncated"] == w.hits_truncated
+                  and sorted(map(hit_key, line["hits"]))
+                  == sorted(map(hit_key, w.hits)),
+                  f"query on the FASTA cohort: {w.kmer} differs from phase "
+                  f"9b's front")
+        log(f"CLI query on the card: {len(lines)} /reads answers on both "
+            f"strands equal to phase 9b's front's")
+        t0 = time.perf_counter()
+        m = front(pops["fasta"])
+        got_count = m.count_batch(ckms, both_strands=True)
+        got_reads = m.query_batch(ckms, both_strands=True)
+        check([r.count for r in got_count] == [r.count for r in want_count],
+              "/count on the FASTA cohort differs from phase 9b's front")
+        n = same_answers(got_reads, want_reads, "/reads on the FASTA cohort",
+                         samples=False)
+        check(n == sum(not r.hits_truncated for r in want_reads),
+              "/reads on the FASTA cohort: truncation differs")
+        rcm = np.array([4, 3, 2, 1], dtype=np.uint8)
+        cmat = np.stack(cohort.reads)
+        want_w = hit_oracle(cmat, np.concatenate(
+            [c256[:64], rcm[c256[:64] - 1][:, ::-1]]))
+        del cmat
+        zeros = np.zeros(base, dtype=np.int32)
+        for i, r in enumerate(got_reads[:64]):
+            wf, wr = want_w[i], want_w[64 + i]
+            check(r.count == len(wf) + len(wr), f"{r.kmer}: FASTA cohort "
+                  "count differs from the windows")
+            check_cohort_hits(r, wf, mcfg.max_hits, zeros, "+")
+            check_cohort_hits(r, wr, mcfg.max_hits, zeros, "-")
+        log(f"MultiEngine on the FASTA cohort ({len(m.engines)} partitions "
+            f"on the card) up and answering in "
+            f"{time.perf_counter() - t0:.3f} s: /count and /reads of 256 "
+            f"queries on both strands equal to phase 9b's front ({n} hit "
+            f"sets untruncated), 64 exact against "
+            f"{sum(len(w) for w in want_w)} windows | {card}")
+        del m
+
+        # --------------------------------------------- append and compact
+        cio.write_fasta(work / "extra.fa", (
+            (f"read_{base + i}_s{spec.num_samples}", alphabet.decode(r))
+            for i, r in enumerate(extra)))
+        pop = pops["fasta"]
+        cli_steps([("append --fasta (a 129th sample)", [
+            "append", pop, "--fasta", work / "extra.fa",
+            "--sample", "donor_new"])], card, "the E. coli upgrade")
+        scratch, dt = scratching.result()
+        log(f"build_cohort of all {base + len(extra)} reads from scratch "
+            f"(the oracle, in this process): {dt:.3f} s on the host (beside "
+            f"the ingest's commands) | {card}")
+        akms = ckms + decode_all(np.stack(extra[:64])[:, :KMER])
+        ref = front(scratch)
+        want_a = (ref.count_batch(akms, both_strands=True),
+                  ref.query_batch(akms, both_strands=True),
+                  ref.query_batch(akms, both_strands=True,
+                                  include_hits=False))
+        del ref
+        for stage in ("appended", "compacted"):
+            if stage == "compacted":
+                cli_steps([("compact --target-shards 2",
+                            ["compact", pop, "--target-shards", 2])], card,
+                          "the E. coli upgrade")
+            t0 = time.perf_counter()
+            m = front(pop)
+            got = (m.count_batch(akms, both_strands=True),
+                   m.query_batch(akms, both_strands=True),
+                   m.query_batch(akms, both_strands=True,
+                                 include_hits=False))
+            check([r.count for r in got[0]] == [r.count for r in want_a[0]],
+                  f"/count on the {stage} cohort differs")
+            n = same_answers(got[1], want_a[1], f"/reads ({stage})", True)
+            same_answers(got[2], want_a[2], f"/samples ({stage})", True)
+            new_col = sum(r.sample_hist.get("donor_new", 0)
+                          for r in got[2][256:])
+            check(new_col > 0, f"the {stage} cohort's /samples have no "
+                  "column of the new sample")
+            log(f"{stage} cohort ({len(m.engines)} partitions) against the "
+                f"from-scratch build on {len(akms)} queries on both strands "
+                f"(64 from the new sample): /count, /reads ({n} hit sets "
+                f"untruncated) and /samples equal, donor_new {new_col} hits; "
+                f"{time.perf_counter() - t0:.3f} s | {card}")
+            del m
+
+        # ------------------------------------------- upgrade at E. coli 30x
+        cli_wait(upgrading, card, "the cohort's ingest, append and compact")
+        t0 = time.perf_counter()
+        diff = [x for x in INGEST_DROP if not filecmp.cmp(
+            ecoli_cache / f"{x}.npy", upg / f"{x}.npy", shallow=False)]
+        check(not diff, f"upgraded arrays differ from phase 3's: {diff}")
+        up_manifest = json.loads((upg / artifact.MANIFEST_NAME).read_text())
+        for key in ("sample_rate", "dsa_bits"):
+            check(up_manifest[key] == src_manifest[key],
+                  f"the upgraded manifest's {key} differs")
+        check(sorted(up_manifest["arrays"]) == sorted(src_manifest["arrays"])
+              and "files" not in up_manifest,
+              "the upgraded manifest's arrays differ")
+        log(f"the {len(INGEST_DROP)} restored arrays byte-equal to phase "
+            f"3's, the manifest's rate, dsa bits and arrays equal, in "
+            f"{time.perf_counter() - t0:.3f} s | {card}")
+        t0 = time.perf_counter()
+        e = QueryEngine(artifact.load_artifact(upg, mmap=False), cfg,
+                        device=dev)
+        check(e.index.rank3_rows is not None and e.index.dsa is not None,
+              "the upgraded engine ships no triple tier or no dsa")
+        for name, q, both in qs:
+            kms = decode_all(q)
+            check(np.array_equal([r.count for r in e.count_batch(
+                kms, both_strands=both)], served[name]),
+                f"counts of {name} on the upgraded artifact differ")
+            check(e.query_batch(kms, both_strands=both) == reads_served[name],
+                  f"/reads of {name} on the upgraded artifact differ")
+        log(f"QueryEngine on the upgraded artifact (tiers "
+            f"{sorted(e.tier_plan.keep)}): the counts of phases 4-5 and the "
+            f"/reads of phase 8 equal, in {time.perf_counter() - t0:.3f} s "
+            f"| {card}")
+        del e
+
+        # -------------------------------------------- merge and import-bwt
+        shards = sorted(d for d in pops["bam"].iterdir() if d.is_dir())
+        t0 = time.perf_counter()
+        src = artifact.load_artifact(shards[0], mmap=False)
+        write_rle_bwt(work / "shard0.rlebwt", unpack_sym4(src.sym4, src.n),
+                      src.num_reads)
+        log(f"RLE-BWT of shard 0 (n = {src.n}) written in "
+            f"{time.perf_counter() - t0:.3f} s | {card}")
+        cli_steps([
+            ("merge (interleave) of shards 0 and 1",
+             ["merge", shards[0], shards[1], "--out", work / "merged"]),
+            ("import-bwt of shard 0's RLE-BWT",
+             ["import-bwt", "--bwt", work / "shard0.rlebwt",
+              "--out", work / "imported"])], card, "each other")
+        t0 = time.perf_counter()
+        engs = {name: QueryEngine(artifact.load_artifact(path, mmap=False),
+                                  cfg, device=dev)
+                for name, path in (("merged", work / "merged"),
+                                   ("imported", work / "imported"),
+                                   ("s0", shards[0]), ("s1", shards[1]))}
+        counts = {name: [r.count for r in e.count_batch(
+            ckms, both_strands=True)] for name, e in engs.items()}
+        check(counts["merged"] == [a + b for a, b in zip(counts["s0"],
+                                                          counts["s1"])],
+              "the merged artifact's counts are not its sources' sums")
+        check(counts["imported"] == counts["s0"],
+              "the imported artifact's counts differ from its source's")
+        imp = engs["imported"].query_batch(ckms, both_strands=True)
+        n = same_answers(imp, engs["s0"].query_batch(ckms, both_strands=True),
+                         "/reads of the imported artifact", samples=False)
+        log(f"merged (n = {engs['merged'].index.n}) counts = shard 0 + shard "
+            f"1 on 256 queries on both strands; imported counts and /reads "
+            f"({n} hit sets) equal to shard 0's, in "
+            f"{time.perf_counter() - t0:.3f} s | {card}")
+        del engs, src
+        torch.cuda.empty_cache()
+    launches = read_launches("ingest")
+    for name in ("lut_level", "backward_search", "resolve_dsa",
+                 "exact_histogram"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the ingest path")
+    for name in ("rank_occ", "shard_occ"):
+        check(launches[name] == 0,
+              f"kernel {name} (a generic entry) launched on the ingest path")
+    check(plain["n"] == 0, f"{plain['n']} plain forms of ops ran on the card "
+          "on the ingest path")
+    log("no plain form of ops ran on a CUDA tensor on the ingest path")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
 
 
 def owner_rows(s, planes: int, rps: int, c, i):
@@ -1946,6 +2381,13 @@ def run(args) -> dict:
             (("1", q1, False), ("256", q256, False), ("4096x2", q4096, True)),
             served, reads_served, c256, c4096, zero_launches, read_launches)
 
+    # ------------------------------------------- 12. ingest and maintenance
+    with phase("12 ingest"):
+        ingest_launches = serve_ingest(
+            args, cohort, cache, meng, cfg, dev, c256,
+            (("1", q1, False), ("256", q256, False), ("4096x2", q4096, True)),
+            served, reads_served, zero_launches, read_launches, card)
+
     # -------------------------------------------------- 6. kernel vs plain
     idx = engine.index
     lut, p = engine.lut, engine.lut_p
@@ -2788,7 +3230,8 @@ def run(args) -> dict:
     # entries are on no main path: the walks that ranked through K1 run in
     # the walk kernel, and K9's rank runs inside the other sharded kernels;
     # both stay held against their plain forms and timed (phases 6, 7, 11b)
-    total = {name: sum(c[name] for c in path_launches.values())
+    total = {name: sum(c[name] for path, c in path_launches.items()
+                       if path != "ingest")
              for name in KERNELS}
     check(all(n for name, n in total.items()
               if name not in ("rank_occ", "shard_occ")),
@@ -2830,6 +3273,7 @@ def run(args) -> dict:
             source=f"readserver_tpu_torch/csrc/{src}", replaces=rep_at,
             launches=total[name],
             cohort_launches=path_launches["cohort"][name],
+            ingest_launches=ingest_launches[name],
             max_abs_err=summary[err], cohort_max_abs_err=cohort_err.get(err),
             ms=ms,
             device_ms=device_ms, plain_ms=plain_ms, bound_ms=bnd,

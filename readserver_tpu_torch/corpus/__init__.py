@@ -1,7 +1,9 @@
-"""Host-side corpus tooling: the deterministic read simulators.
+"""Host-side corpus tooling (the analog of the reference's L0 layer).
 
-The port carries only ``simulate`` so far; FASTA/FASTQ/BAM ingest stays in
-the JAX package until the port's CLI needs it.
+The reference's ``scripts/`` Perl pipeline extracts, cleans and RLO-sorts
+reads from CRAM per sample (SURVEY.md §1 L0, §2.1).  Here: deterministic
+read simulators for the five benchmark configs (BASELINE.json configs 1–5),
+FASTA/FASTQ ingest, and a normalizer that enforces the ACGT alphabet.
 """
 
 from readserver_tpu_torch.corpus.simulate import (
@@ -11,6 +13,13 @@ from readserver_tpu_torch.corpus.simulate import (
     simulate_config,
     simulate_reads,
 )
+from readserver_tpu_torch.corpus.io import (
+    normalize_read,
+    rlo_sort,
+    read_fasta,
+    read_fastq,
+    write_fasta,
+)
 
 __all__ = [
     "CONFIGS",
@@ -18,4 +27,9 @@ __all__ = [
     "random_genome",
     "simulate_reads",
     "simulate_config",
+    "read_fasta",
+    "read_fastq",
+    "write_fasta",
+    "normalize_read",
+    "rlo_sort",
 ]

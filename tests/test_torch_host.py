@@ -34,7 +34,12 @@ COPIED = [
     "index/cohort.py",
     "index/merge.py",
     "index/from_bwt.py",
+    "index/rle.py",
+    "index/upgrade.py",
     "parallel/stats.py",
+    "corpus/__init__.py",
+    "corpus/io.py",
+    "corpus/bam.py",
     "corpus/simulate.py",
     "oracle/__init__.py",
     "oracle/fm.py",
@@ -72,6 +77,20 @@ def test_host_copy_equals_original(rel):
     )
 
 
+# build scripts the port carries as copies, each re-invoking itself
+SCRIPTS = ["build_wg.py", "build_cohort_big.py"]
+
+
+@pytest.mark.parametrize("name", SCRIPTS)
+def test_script_copy_equals_original(name):
+    orig = (REPO / "scripts" / name).read_text()
+    port = (REPO / "scripts" / f"torch_{name}").read_text()
+    assert port == _ported(orig), (
+        f"scripts/torch_{name} drifted from scripts/{name}: change both, "
+        "or neither"
+    )
+
+
 def test_budget_copy_equals_original_but_device_budget():
     orig, port = _sources("index/budget.py")
     head = port[: port.index(BUDGET_TAIL["port"])]
@@ -81,7 +100,9 @@ def test_budget_copy_equals_original_but_device_budget():
 
 def test_no_jax_import_lines():
     files = sorted((REPO / "readserver_tpu_torch").rglob("*.py"))
+    files += sorted((REPO / "scripts").glob("torch_*.py"))
     files.append(REPO / "chip_smoke.py")
+    assert len([f for f in files if f.parent.name == "scripts"]) >= 2
     bad = [
         f"{f.relative_to(REPO)}:{n}"
         for f in files
@@ -114,6 +135,31 @@ from readserver_tpu_torch.oracle import naive_find_reads
 for r in engine.query_batch(kms):
     hits = sorted((h["read_id"], h["offset"]) for h in r.hits)
     assert hits == naive_find_reads(corpus.reads[:200], r.kmer), r.kmer
+# the CLI's host commands: build from a FASTA, then upgrade a stripped copy
+import json, shutil, tempfile
+from pathlib import Path
+from readserver_tpu_torch import alphabet, cli
+from readserver_tpu_torch.corpus import io as cio
+from readserver_tpu_torch.index import artifact
+tmp = Path(tempfile.mkdtemp())
+cio.write_fasta(tmp / "r.fa", ((f"r{i}", alphabet.decode(r))
+                               for i, r in enumerate(corpus.reads[:200])))
+assert cli.main(["build", "--fasta", str(tmp / "r.fa"),
+                 "--out", str(tmp / "idx")]) == 0
+full = artifact.load_artifact(tmp / "idx", mmap=False)
+manifest = json.loads((tmp / "idx" / "manifest.json").read_text())
+for name in ("dsa", "fused_rows"):
+    (tmp / "idx" / f"{name}.npy").unlink()
+manifest["arrays"] = [a for a in manifest["arrays"]
+                      if a not in ("dsa", "fused_rows")]
+manifest["dsa_bits"] = 0
+(tmp / "idx" / "manifest.json").write_text(json.dumps(manifest))
+assert cli.main(["upgrade", str(tmp / "idx"), "--kstep", "3"]) == 0
+up = artifact.load_artifact(tmp / "idx", mmap=False)
+assert (up.dsa == full.dsa).all() and (up.fused_rows == full.fused_rows).all()
+shutil.rmtree(tmp)
+assert not [m for m, mod in sys.modules.items() if mod is not None
+            and m.split(".")[0] in ("jax", "readserver_tpu")]
 print("imported", len(names), "modules; counts", got)
 """
     env = {**os.environ, "PYTHONPATH": str(REPO)}

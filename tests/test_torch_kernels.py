@@ -1078,3 +1078,49 @@ def test_sharded_resolve_kernel_edges_match_plain(shard_packs, cuda_device,
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         if window == 1:
             assert not bool(got[1][q])  # the cap cut query q
+
+
+@pytest.mark.cuda
+def test_cli_ingest_and_upgrade_served_on_card(tmp_path, cuda_device):  # noqa: F811
+    """A FASTA through the CLI's ``build``, its triple tier and dsa
+    stripped, then ``upgrade --kstep 3``: a ``QueryEngine`` on the card
+    over the upgraded artifact counts as the CPU engine does, with K1's
+    level entry building its LUT and K2 searching through the triple
+    steps."""
+    import json
+
+    from readserver_tpu_torch import alphabet, cli
+    from readserver_tpu_torch.corpus import io as cio
+    from readserver_tpu_torch.index import artifact
+    from readserver_tpu_torch.index.upgrade import plan_upgrade
+
+    corpus = simulate.simulate_config("small")
+    cio.write_fasta(tmp_path / "r.fa", ((f"r{i}", alphabet.decode(r))
+                                        for i, r in enumerate(corpus.reads)))
+    idx = tmp_path / "idx"
+    assert cli.main(["build", "--fasta", str(tmp_path / "r.fa"),
+                     "--out", str(idx)]) == 0
+    for name in ("rank3_blocks", "C3", "dsa", "fused_rows"):
+        (idx / f"{name}.npy").unlink()
+    manifest = json.loads((idx / artifact.MANIFEST_NAME).read_text())
+    manifest["arrays"] = [a for a in manifest["arrays"] if a not in (
+        "rank3_blocks", "C3", "dsa", "fused_rows")]
+    manifest["dsa_bits"] = 0
+    (idx / artifact.MANIFEST_NAME).write_text(json.dumps(manifest))
+    assert cli.main(["upgrade", str(idx), "--kstep", "3"]) == 0
+    assert plan_upgrade(idx, kstep=3) == []
+    packed = artifact.load_artifact(idx, mmap=False)
+    assert packed.rank3_blocks is not None and packed.dsa is not None
+    kms = ["".join("ACGT"[c - 1] for c in row) for row in _queries(
+        corpus, 256, 15, seed=12)[0]]
+    cfg = ServeConfig(batch_size=512)
+    before = BACKWARD_SEARCH.launches, LUT_LEVEL.launches, RANK_OCC.launches
+    card = QueryEngine(packed, cfg, device=cuda_device)
+    got = card.count_batch(kms, both_strands=True)
+    assert card.index.rank3_rows is not None
+    assert BACKWARD_SEARCH.launches > before[0]
+    assert LUT_LEVEL.launches > before[1]
+    assert RANK_OCC.launches == before[2]
+    cpu = QueryEngine(packed, cfg, device="cpu")
+    assert got == cpu.count_batch(kms, both_strands=True)
+    assert card.query_batch(kms[:64]) == cpu.query_batch(kms[:64])
