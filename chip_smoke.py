@@ -97,11 +97,12 @@ own):
    build, the LUT start-up stage split;
    K1's generic entry at random positions, at the LUT's last level and at
    the mark walk's step; K5-K7 at width 8192, K6 at a full budget and K7
-   at the cap-filling batch, the rank walks at width 8192 (the mark walk
-   also at a full budget) and K7 through them (CUDA events and the
+   at the cap-filling batch, the rank walks at width 8192 and at a full
+   budget and K7 through them (CUDA events and the
    profiler's kernel time; each walk's plain form: torch and K1 a step),
    each kernel's bytes needed and bytes bound, and for K2 and the walks
-   the chain bound (the longest chain's dependent reads x t_row); K8's
+   the chain bound (the longest chain's dependent reads x t_row, warm and
+   at the E. coli table's cold t_row); K8's
    (the torch sparse pack's) bytes and time on the ``/reads`` 4096 x 2
    request; where a served count, ``/reads`` (dsa and mark-walk engines)
    and ``/samples`` request's time goes (host stages, device busy share,
@@ -129,7 +130,9 @@ phase 9b, ``ingest_launches`` those of phase 12;
 ``max_abs_err`` the largest over every check, ``cohort_max_abs_err`` that
 over phase 9b's partition checks;
 ``bound_ms`` the bytes bound, ``chain_ms`` the chain bound where there is
-one, ``held_by`` the larger).
+one and ``chain_cold_ms`` it at the cold t_row, ``held_by`` the larger of
+the first two; ``resolve_walk`` also carries each walk's reading at width
+8192 and at a full budget under ``walks``).
 The last line is ``{"ok": true, "device": {...}}``, printed only when
 every phase passed.
 Imports torch and the port, never jax.
@@ -2769,6 +2772,7 @@ def run(args) -> dict:
         # t_row is the smaller warm reading: every kernel below is timed on
         # repeated inputs, whose rows stay in the 50 MB L2
         warm = []
+        t_row_cold = None  # E. coli's: the walks' tables lie past the L2
         for tname, fr in (("E. coli", idx_f.fused_rows),
                           ("cohort", ceng_f.index.fused_rows)):
             for cold in (True, False):
@@ -2785,6 +2789,8 @@ def run(args) -> dict:
                     f"32: {got[1] * 1e3:.4f} us) | {card}")
                 if not cold:
                     warm.append(got[0])
+                elif tname == "E. coli":
+                    t_row_cold = got[0]
         t_row = min(warm) if warm else None  # None: no chain bounds
         # distinct batches in turn, as a bulk screen sends them: a batch
         # touches more rank and LUT sectors than the 50 MB L2 holds, and a
@@ -3040,8 +3046,9 @@ def run(args) -> dict:
         walk_needs = {
             kind: rank_walk_needs(widx, kind, crow, cval)
             for kind, widx in walk_idx.items()}
-        walk_needs["full"] = rank_walk_needs(engine_m.index, "marks", frows,
-                                             fvalid)
+        for kind, widx in walk_idx.items():
+            walk_needs[f"{kind} full"] = rank_walk_needs(widx, kind, frows,
+                                                         fvalid)
         needs = {  # name → (bytes, chain of dependent reads or None)
             "resolve_dsa": (8192 * 8 + distinct(rows[valid]) * 4
                             + distinct(rid[rid >= 0]) * 4 + 3 * 8192 * H * 4,
@@ -3059,9 +3066,9 @@ def run(args) -> dict:
             "resolve_walk (slow)": (crow.numel() * 13
                                     + walk_needs["slow"][0],
                                     walk_needs["slow"][1]),
-            "resolve_walk (full budget)": (frows.numel() * 13
-                                           + walk_needs["full"][0],
-                                           walk_needs["full"][1]),
+            **{f"resolve_walk ({kind}, full budget)": (
+                frows.numel() * 13 + walk_needs[f"{kind} full"][0],
+                walk_needs[f"{kind} full"][1]) for kind in walk_idx},
             "exact_histogram (marks walk)": hn["marks"],
             "exact_histogram (lf walk)": hn["lf"],
             "exact_histogram (slow walk)": hn["slow"],
@@ -3112,13 +3119,15 @@ def run(args) -> dict:
                           lambda p=plain, x=widx: p(x, crow, cval),
                           f"{kind} walk, width 8192, {crow.shape[0]} "
                           f"compacted rows, {int(cval.sum())} valid"))
+        # the three at a full budget
+        for kind, widx in walk_idx.items():
+            walk, plain = WALK_FORMS[kind]
+            cases.append((f"resolve_walk ({kind}, full budget)",
+                          "resolve_walk_kernel",
+                          lambda w=walk, x=widx: w(x, frows, fvalid),
+                          lambda p=plain, x=widx: p(x, frows, fvalid),
+                          f"{kind} walk, {frows.shape[0]} rows, all walking"))
         cases += [
-            ("resolve_walk (full budget)", "resolve_walk_kernel",
-             lambda: resolve.resolve_rows_marked(engine_m.index, frows,
-                                                 fvalid),
-             lambda: resolve.resolve_rows_marked_plain(engine_m.index, frows,
-                                                       fvalid),
-             f"marks walk, {frows.shape[0]} rows, all walking"),
             *(k7_case(f"exact_histogram ({kind} walk)", hist_idx[kind], cl,
                       cu, f"cohort width 8192, {kind} walk")
               for kind in ("marks", "lf", "slow")),
@@ -3139,6 +3148,8 @@ def run(args) -> dict:
             nbytes, chain = needs[name]
             bnd = bound_ms(nbytes)
             chain_ms = None if chain is None or t_row is None else chain * t_row
+            cold_ms = (None if chain is None or t_row_cold is None
+                       else chain * t_row_cold)
             log(f"{name} ({what}): wrapper {tk:.4f} ms, kernel device time "
                 f"{fmt_ms(dev_ms)} ms (profiler) | plain torch {tp:.4f} ms "
                 f"(median of 3 x 20 and 3 x 3 calls, CUDA events), outputs "
@@ -3147,7 +3158,8 @@ def run(args) -> dict:
                 + ("" if chain is None else
                    f" | chain of {chain} dependent reads x t_row: chain bound "
                    f"{fmt_ms(chain_ms)} ms, device time at "
-                   f"{ratio(chain_ms, dev_ms)} of it") + f" | {card}")
+                   f"{ratio(chain_ms, dev_ms)} of it; at the cold t_row "
+                   f"{fmt_ms(cold_ms)} ms") + f" | {card}")
             summary.setdefault(name, (tk, tp, dev_ms, bnd, what, chain_ms))
         # K8, the sparse pack (torch): its bytes on the /reads 4096x2
         # request of the dsa engine, each input read once and each output
@@ -3262,6 +3274,13 @@ def run(args) -> dict:
                             "readserver_tpu/parallel/sharded.py:834",
                             "sharded_resolve_err"),
     }
+
+    def cold(chain_ms):
+        """The chain bound at the cold t_row (the E. coli tables lie past
+        the L2), or None."""
+        return (None if None in (chain_ms, t_row, t_row_cold)
+                else chain_ms * t_row_cold / t_row)
+
     kernels = []
     for name, (src, rep_at, err) in where.items():
         ms, plain_ms, device_ms, bnd, shape, chain_ms = summary[name]
@@ -3278,9 +3297,20 @@ def run(args) -> dict:
             ms=ms,
             device_ms=device_ms, plain_ms=plain_ms, bound_ms=bnd,
             bound_by="bytes", library_ms=None, shape=shape,
-            chain_ms=chain_ms,
+            chain_ms=chain_ms, chain_cold_ms=cold(chain_ms),
             held_by="chain" if chain_ms is not None and chain_ms > bnd
             else "bytes"))
+    # the rank walks' reading on each walk and shape
+    walks = {}
+    for name in summary:
+        if name.startswith("resolve_walk"):
+            ms, plain_ms, device_ms, bnd, shape, chain_ms = summary[name]
+            walks[name] = dict(
+                ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bnd,
+                chain_ms=chain_ms, chain_cold_ms=cold(chain_ms),
+                share=(max(bnd, chain_ms or 0.0) / device_ms
+                       if device_ms else None), shape=shape)
+    next(k for k in kernels if k["name"] == "resolve_walk")["walks"] = walks
     # K10's reading on each route: the resolve (dsa, lf, slow) and the
     # exact sweep through each
     next(k for k in kernels if k["name"] == "sharded_resolve")["routes"] = \

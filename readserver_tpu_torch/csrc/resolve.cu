@@ -23,11 +23,14 @@
 // What bounds them on the H100.  K5 is one random 4-byte read per hit lane:
 // bytes.  The walks, and K7 through them, are chains of dependent row reads
 // and one terminal read; walk.cuh holds their persistent sweep (tiles of
-// 32, lane refill, terminal reads as lane states, the one-round rank step,
-// K7's tile mapping of slots to queries) and says what it does about
-// that.  This file is its table accessor over one index (Walk), the
-// kernels and the entry points.  64 registers a thread (kMinBlocks), so
-// nothing spills.
+// 32, lane refill, terminal reads as lane states, K7's tile mapping of
+// slots to queries) and, for the marks, lf and slow walks, rank_tiles: a
+// hot loop of the step alone, the one-round step counting one plane in
+// 32-bit row offsets, and the one/two-round switch at the crossover
+// measured on the card (g_one_max).  This file is its table accessor over
+// one index (Walk), the kernels and the entry points.  64 registers a
+// thread (kMinBlocks); ptxas spills a few bytes only in the fused walk at
+// 8 words a block.
 //
 // rs_chase is a yardstick, not a kernel of any path: chains of dependent
 // 64-byte reads through the fused table, each next row a hash of the words
@@ -54,6 +57,11 @@ using rs::kSlow;
 
 constexpr int kThreads = rs::kSweepThreads;  // persistent blocks of 4 warps
 constexpr int kMinBlocks = 8;  // per SM: 64 registers a thread, no spill
+
+// The walks a warp up to which the marks and slow walks step in one round
+// (walk.cuh's sweep); rs_walk_one_round_max sets it, for the A/B script's
+// sweep of the crossover.
+int g_one_max = rs::kOneRoundMax;
 
 // Everything a walk reads, and walk.cuh's table accessor over one index;
 // each kind reads its own tables:
@@ -86,12 +94,14 @@ struct Walk {
   int max_steps;  // the walk's bound: sample_rate, or the slow walk's steps
   const int32_t* read_to_sample;  // K7
   long long num_reads;
+  long long plane_words;  // rank: words between two planes (rank_tiles)
 
   using Pos = int32_t;
   struct Loc {
     int32_t row;
   };
   static constexpr bool kSample = false;
+  static constexpr bool kRankTiles = true;  // the rank walks: rank_tiles
 
   __device__ __forceinline__ int32_t from_input(int32_t row) const {
     return row;
@@ -295,8 +305,10 @@ bool walk_ok(int kind, bool hist, const Walk& g) {
     case kMarks:
     case kLf:
     case kSlow:
+      // rank_tiles forms the rank and mark tables' word offsets in 32 bits
       return y.words_per_block >= 1 && y.row_words >= y.words_per_block + 1 &&
-             (y.words_per_block << 5) == (1 << y.log2_block);
+             (y.words_per_block << 5) == (1 << y.log2_block) &&
+             g.plane_words * 5 < (1LL << 31);
     default:
       return false;
   }
@@ -344,7 +356,8 @@ void launch(int kind, const Walk& g, const rs::Sweep<int32_t>& s, long long max_
         rs::Layout{rows_per_symbol, log2_block, words_per_block, row_words}, \
         static_cast<const int32_t*>(C),                                      \
         static_cast<const int32_t*>(dollar_map), n_dollar,                   \
-        static_cast<const int32_t*>(pairs), n_pairs, max_steps               \
+        static_cast<const int32_t*>(pairs), n_pairs, max_steps, nullptr, 0,  \
+        rows_per_symbol * row_words                                          \
   }
 
 extern "C" int rs_resolve_dsa(const void* l, const void* u, long long B,
@@ -381,6 +394,7 @@ static int resolve_rows(int kind, const void* rows, const void* valid,
   s.R = R;
   s.rid_out = static_cast<int32_t*>(rid);
   s.off_out = static_cast<int32_t*>(off);
+  s.one_max = g_one_max;
   launch<false>(kind, g, s, R, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
@@ -421,8 +435,17 @@ extern "C" int rs_exact_histogram(const void* l, const void* cum, long long B,
   s.cap = cap;
   s.S = S;
   s.hist = static_cast<int32_t*>(hist);
+  s.one_max = g_one_max;
   launch<true>(kind, g, s, cap, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
+}
+
+// Sets the walks a warp up to which the marks and slow walks step in one
+// round (a negative value leaves it); returns the value it had.
+extern "C" int rs_walk_one_round_max(int walks) {
+  const int was = g_one_max;
+  if (walks >= 0) g_one_max = walks;
+  return was;
 }
 
 extern "C" int rs_chase(const void* fused, int fused_words, long long n_blocks,

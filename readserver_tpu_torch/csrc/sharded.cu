@@ -479,6 +479,7 @@ struct OwnerTables {
     int32_t loc;
   };
   static constexpr bool kSample = true;
+  static constexpr bool kRankTiles = false;  // walk.cuh's walk_tiles
   const ShardView& v;
   const Keys& k;
   Even even;

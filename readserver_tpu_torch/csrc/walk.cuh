@@ -1,17 +1,18 @@
 // The walks and the exact sweep, one persistent sweep of lanes over slots,
-// shared by the single-index kernels (resolve.cu: K6, the rank walks, K7)
-// and the interval-sharded K10 (sharded.cu).  The two differ only in their
-// table accessor (below): where a row's tables lie and what a local count
-// adds up to.
+// shared by the single-index kernels (resolve.cu: K6, K7, and through
+// rank_tiles below the marks, lf and slow walks and K7 through them) and
+// the interval-sharded K10 (sharded.cu).  walk_tiles serves K6 and K10,
+// which differ only in their table accessor (below): where a row's tables
+// lie and what a local count adds up to.
 //
 // What bounds them on the H100: chains of up to sample_rate (slow walk:
 // max_steps) dependent row reads and one terminal read, over tens to
 // hundreds of thousands of walks that share rows: the chain (one read's
 // latency, ~0.25 us from L2, times the reads a walk makes) and the
 // instructions each step issues, until the walks outnumber the lanes the
-// card holds at once.  The sweep through dsa is a short chain per slot (its
-// query, its dsa word, its sample) and, at a full worklist, the rate of
-// those reads.
+// card holds at once and the rate of sector reads holds them.  The sweep
+// through dsa is a short chain per slot (its query, its dsa word, its
+// sample) and, at a full worklist, the rate of those reads.
 //
 // What the design does about it:
 // - A persistent grid (occupancy x SMs).  Warp w takes tiles w,
@@ -20,11 +21,12 @@
 //   atomicAdd measured slower, its queue standing in the walks' way.
 // - The walks: tiles of 32, and lane refill: a lane whose walk ended takes
 //   its warp's next slot, so lanes stay busy when the walks outnumber
-//   resident threads.  Each iteration a lane issues the reads of its state
-//   before any lane uses one: a walk's terminal read (its sampled pair or
-//   $-map entry) and the read_to_sample read are lane states of their own,
-//   issued beside the other lanes' row reads rather than after them.  C in
-//   registers.
+//   resident threads.  walk_tiles: each iteration a lane issues the reads
+//   of its state before any lane uses one: a walk's terminal read (its
+//   sampled pair or $-map entry) and the read_to_sample read are lane
+//   states of their own, issued beside the other lanes' row reads rather
+//   than after them.  rank_tiles adds a hot loop of the step alone (see
+//   there).  C in registers.
 // - The fused walk: one 64-byte row a step, W <= 2's bit planes as 64-bit
 //   words, so a row's decode is a few shifts, masks and popcounts.
 // - The marks and slow walks: while a warp's walks fit its lanes, one
@@ -36,7 +38,8 @@
 //   the rank read of its plane would be two.  Once walks queue for lanes
 //   the sweep is held by the rate of sector reads, and a step takes those
 //   two rounds, the sym4 word (and mark row), then the symbol's rank row:
-//   3 sectors where one round reads 5.  Ranks count with rank.cuh's code.
+//   3 sectors where one round reads 5.  The switch is at Sweep::one_max
+//   walks a warp.  Ranks count with rank.cuh's code.
 // - The lf walk: one 4-byte LF word a step; a sampled row's slot is its
 //   mark row's rank, read as a state of its own.
 // - The sweep maps a tile's slots to (query, row) once: a 128-way search
@@ -79,6 +82,10 @@ namespace rs {
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kSweepThreads = 128;  // persistent blocks of 4 warps
+// The marks and slow walks step in one round while a warp holds at most
+// this many walks, else in two: the crossover measured on the H100 at the
+// served shape (PERF.md §6).
+constexpr int kOneRoundMax = 32;
 
 // The walk kinds, numbered as the entry points take them.
 enum WalkKind { kDsa = 0, kFused = 1, kMarks = 2, kLf = 3, kSlow = 4 };
@@ -221,6 +228,7 @@ struct Sweep {
   long long cap;
   int S;
   int32_t* hist;
+  int one_max = kOneRoundMax;  // marks, slow: see one_round
 };
 
 // A lane's state: the read it issues next.  kRow: the walk's step from its
@@ -380,7 +388,7 @@ __device__ __forceinline__ void walk_tiles(const G& g, const Sweep<In>& s,
                                            long long nwarps, int lane) {
   using Pos = typename G::Pos;
   using Loc = typename G::Loc;
-  constexpr bool kTwoRounds = (WALK == kMarks || WALK == kSlow) && !ONE;
+  constexpr bool kTwoRounds = WALK == kSlow && !ONE;
   constexpr bool kSmp = !HIST && G::kSample;
   const unsigned lower = (1u << lane) - 1u;
   using Row = FusedRow<WALK == kFused ? L : 1>;
@@ -472,8 +480,8 @@ __device__ __forceinline__ void walk_tiles(const G& g, const Sweep<In>& s,
       }
     }
     Row row;
-    RRow base[4];  // marks, slow: the base planes c = 1..4 at the block
-    RRow mrow;     // marks, and lf's kMark: the mark row at the block
+    RRow base[4];  // slow: the base planes c = 1..4 at the block
+    RRow mrow;     // lf's kMark: the mark row at the block
     int2 pr = make_int2(0, 0);
     uint32_t word = 0;
     if (st == kRow) {
@@ -490,7 +498,6 @@ __device__ __forceinline__ void walk_tiles(const G& g, const Sweep<In>& s,
         } else {
           word = g.sym4_word(at);
         }
-        if constexpr (WALK == kMarks) mrow.load(g.mark_row(at));
       }
     } else if (st == kPair) {
       pr = g.pair(tidx);
@@ -553,10 +560,7 @@ __device__ __forceinline__ void walk_tiles(const G& g, const Sweep<In>& s,
         }
       } else {
         const int within = g.local(at) & block_mask;
-        if (WALK == kMarks && mrow.bit(within)) {
-          st = kPair;
-          tidx = g.mark_slot(at, mrow.count(within, wpb));
-        } else if constexpr (kTwoRounds) {
+        if constexpr (kTwoRounds) {
           sym = (word >> ((g.local(at) & 7) * 4)) & 0xF;
           st = kRank;
         } else {
@@ -635,7 +639,308 @@ __device__ __forceinline__ void walk_tiles(const G& g, const Sweep<In>& s,
   }
 }
 
-// The sweep of walk WALK (see walk_tiles).  The marks and slow walks' step
+// ------------------------------------------ the single-index rank walks
+//
+// The marks, lf and slow walks over one index (resolve.cu's Walk), and K7
+// through them: rank_tiles, not walk_tiles, which K10 keeps.  G must give
+// the table pointers rank, marks, sym4, lf and pairs, dollar_map,
+// n_pairs, n_dollar, and plane_words, the words between two planes of the
+// rank table (its word offsets fit 32 bits: the entry point checks).
+// What the step does differently (PERF.md §6 has the measurements):
+// - A hot loop of the step alone: the stepping lanes step with no state
+//   dispatch, no refill and one ballot a step.  While the warp has slots
+//   left to take, it runs only while every lane steps; once the slots are
+//   taken, while any lane does, so the ended walks wait and their
+//   terminal reads (a sampled pair or a $-map entry; the lf walk's mark
+//   row first; K7's read_to_sample after) go out together.
+// - Around it, the general iteration: idle lanes take slots, and the
+//   waiting lanes' terminal reads are issued before the stepping lanes'
+//   row reads, so the two overlap.  Two ballots (the stepping and the
+//   waiting lanes) stand for the six-way state dispatch.
+// - The marks and slow walks' one-round step holds each plane's row as
+//   its checkpoint and one 64-bit word (16-byte rows: blocks of 32 or 64
+//   symbols), selects the symbol's checkpoint, word and C, and counts
+//   that plane only; the four planes are counted only at a $.  Row
+//   offsets are 32-bit words from each table's base.
+
+// One plane's row at a block, held for a step.  R4: a 16-byte row
+// [checkpoint, w0, w1, pad] as the checkpoint and w1:w0 (for blocks of
+// 32, w1 is padding that no position below 32 reads); else the row's
+// address, read word by word (RankRow<false>).
+template <bool R4>
+struct PlaneRow : RankRow<false> {};
+
+template <>
+struct PlaneRow<true> {
+  uint32_t ck;
+  uint64_t bits;
+  __device__ __forceinline__ void load(const uint32_t* r) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(r));
+    ck = v.x;
+    bits = (static_cast<uint64_t>(v.z) << 32) | v.y;
+  }
+  __device__ __forceinline__ uint32_t bit(int within) const {
+    return static_cast<uint32_t>(bits >> within) & 1u;
+  }
+  __device__ __forceinline__ int32_t count(int within, int) const {
+    return static_cast<int32_t>(ck + __popcll(bits & ((1ull << within) - 1ull)));
+  }
+};
+
+// The slots up to `limit` through walk WALK (kMarks, kLf, kSlow), warp w
+// taking tiles w, w + nwarps, ...; HIST: K7's sweep; L: 16-byte rows (1)
+// or any (0); ONE: the marks and slow walks' step in one round, else two
+// (the sym4 word and mark row, then the symbol's rank row).
+template <int WALK, bool HIST, int L, bool ONE, class G, class In>
+__device__ __forceinline__ void rank_tiles(const G& g, const Sweep<In>& s,
+                                           long long limit, long long warp,
+                                           long long nwarps, int lane) {
+  using Row = PlaneRow<L != 0>;
+  const unsigned lower = (1u << lane) - 1u;
+  const int32_t C1 = g.C_at(1), C2 = g.C_at(2), C3 = g.C_at(3), C4 = g.C_at(4);
+  const int32_t below = g.dollar_limit();  // lf: LF values that are $-ranks
+  const int lg = g.layout.log2_block;
+  const int32_t bmask = (1 << lg) - 1;
+  const int wpb = g.layout.words_per_block;
+  const uint32_t rw = L != 0 ? 4u : static_cast<uint32_t>(g.layout.row_words);
+  const uint32_t pw = static_cast<uint32_t>(g.plane_words);
+  int st = kIdle;
+  int32_t cur = 0;       // kRow, kMark: the SA row
+  int steps = 0;
+  int32_t key = 0;       // kPair, kDollar, kSample: the key looked up
+  long long slot = 0;    // walk kernels: the output slot; K7: the query
+  unsigned pending = 0;  // claimed slots not started, one per lane
+  long long p_slot = 0;
+  int32_t p_row = 0;
+  long long next = warp * 32;  // the warp's next 32 slots
+  bool more = true;
+
+  // a walk still going after max_steps steps gives -1 (K7: read 0's
+  // sample, as clip(-1) does)
+  auto unended = [&]() {
+    if constexpr (HIST) {
+      st = kSample;
+      key = -1;
+    } else {
+      s.rid_out[slot] = -1;
+      s.off_out[slot] = -1;
+      st = kIdle;
+    }
+  };
+  // one step of a kRow lane: its next row, or the walk's end (kPair,
+  // kDollar; the lf walk's kMark)
+  auto step = [&]() {
+    const int within = cur & bmask;
+    const uint32_t off = static_cast<uint32_t>(cur >> lg) * rw;
+    if constexpr (WALK == kLf) {
+      // sign bit: sampled; an LF value below `below` is a $ row's $-rank
+      const int32_t raw = __ldg(g.lf + cur);
+      if (raw < 0) {
+        st = kMark;
+      } else if (raw < below) {
+        st = kDollar;
+        key = raw;
+      } else {
+        cur = raw;
+        if (++steps == g.max_steps) unended();
+      }
+    } else if constexpr (ONE) {
+      Row r1, r2, r3, r4, m;
+      r1.load(g.rank + (pw + off));
+      r2.load(g.rank + (2u * pw + off));
+      r3.load(g.rank + (3u * pw + off));
+      r4.load(g.rank + (4u * pw + off));
+      if constexpr (WALK == kMarks) m.load(g.marks + off);
+      if (WALK == kMarks && m.bit(within)) {
+        st = kPair;
+        key = m.count(within, wpb);
+        return;
+      }
+      const uint32_t x1 = r1.bit(within), x2 = r2.bit(within),
+                     x3 = r3.bit(within);
+      if ((x1 | x2 | x3 | r4.bit(within)) == 0) {
+        // $: the five planes partition the BWT, so occ($, cur) is cur
+        // less the four base planes' counts
+        st = kDollar;
+        key = cur - r1.count(within, wpb) - r2.count(within, wpb) -
+              r3.count(within, wpb) - r4.count(within, wpb);
+        return;
+      }
+      const Row r = x1 ? r1 : (x2 ? r2 : (x3 ? r3 : r4));
+      cur = (x1 ? C1 : (x2 ? C2 : (x3 ? C3 : C4))) + r.count(within, wpb);
+      if (++steps == g.max_steps) unended();
+    } else {
+      const uint32_t w = __ldg(g.sym4 + (cur >> 3));
+      Row m;
+      if constexpr (WALK == kMarks) m.load(g.marks + off);
+      if (WALK == kMarks && m.bit(within)) {
+        st = kPair;
+        key = m.count(within, wpb);
+        return;
+      }
+      const int sym = (w >> ((cur & 7) * 4)) & 0xF;
+      Row r;
+      r.load(g.rank + (static_cast<uint32_t>(sym) * pw + off));
+      const int32_t o = r.count(within, wpb);
+      if (sym == 0) {
+        st = kDollar;
+        key = o;
+        return;
+      }
+      cur = (sym == 1 ? C1 : (sym == 2 ? C2 : (sym == 3 ? C3 : C4))) + o;
+      if (++steps == g.max_steps) unended();
+    }
+  };
+
+  // K7 through the lf walk takes no hot loop: its one-read steps end often
+  // while the worklist lasts, and the loop's shape cost it 5-6% on the
+  // card (PERF.md §6)
+  constexpr bool kHot = !(HIST && WALK == kLf);
+  // the lanes stepping and the lanes waiting on a terminal read, by two
+  // ballots (the rest are idle)
+  unsigned row = 0, wait = 0;
+  while (true) {
+    if constexpr (!kHot) {
+      row = __ballot_sync(kFull, st == kRow);
+      wait = __ballot_sync(kFull, st > kRow);
+    }
+    const bool fill = pending != 0 || more;
+    // ---- refill, only when some lane is idle and slots are left
+    if ((row | wait) != kFull && fill) {
+      unsigned idle = ~(row | wait);
+      const unsigned was = idle;
+      while (idle != 0 && (pending != 0 || more)) {
+        if (pending == 0) {
+          const long long base = next;
+          next += nwarps * 32;
+          if (base >= limit) {
+            more = false;
+            break;
+          }
+          const long long sl = base + lane;
+          const bool in = sl < limit;
+          if (!HIST) {
+            const uint8_t v = in ? s.valid[sl] : 0;
+            p_row = in ? __ldg(s.rows + sl) : 0;
+            p_slot = sl;
+            if (in && !v) {
+              s.rid_out[sl] = -1;
+              s.off_out[sl] = -1;
+            }
+            pending = __ballot_sync(kFull, v != 0);
+          } else {
+            long long q[1];
+            In first[1];
+            map_tile<1>(s, base, limit, lane, q, first);
+            p_slot = q[0];
+            p_row = static_cast<int32_t>(first[0]);
+            pending = __ballot_sync(kFull, in);
+          }
+          continue;
+        }
+        const int npend = __popc(pending);
+        const int r = __popc(idle & lower);
+        const int take = __popc(idle) < npend ? __popc(idle) : npend;
+        const int src = nth_set(pending, r < take ? r : 0);
+        const long long a_slot = __shfl_sync(kFull, p_slot, src);
+        const int32_t a_row = __shfl_sync(kFull, p_row, src);
+        const bool mine = ((idle >> lane) & 1u) && r < take;
+        if (mine) {
+          st = kRow;
+          cur = a_row;
+          steps = 0;
+          slot = a_slot;
+        }
+        pending = take == npend
+                      ? 0u
+                      : pending & ~((1u << nth_set(pending, take)) - 1u);
+        idle &= ~__ballot_sync(kFull, mine);
+      }
+      row |= was & ~idle;  // the lanes just started
+    }
+    if ((row | wait) == 0) break;
+
+    // ---- the general iteration: the waiting lanes' terminal reads, issued
+    // before the stepping lanes' row reads and used after them (without
+    // the hot loop, once the slots are taken, only when no lane steps)
+    const bool term = wait != 0 && (kHot || fill || row == 0);
+    const int st0 = st;
+    int32_t v0 = 0, v1 = 0;
+    Row mk;
+    if (term) {
+      if (st0 == kPair) {
+        const int2 pr = g.pair(key);
+        v0 = pr.x;
+        v1 = pr.y;
+      } else if (st0 == kDollar) {
+        v0 = g.dollar(key);
+      } else if (HIST && st0 == kSample) {
+        v0 = g.sample(key);
+      } else if (WALK == kLf && st0 == kMark) {
+        mk.load(g.marks + static_cast<uint32_t>(cur >> lg) * rw);
+      }
+    }
+    if (st0 == kRow) step();
+    if (term) {
+      if (st0 == kPair || st0 == kDollar) {
+        if constexpr (HIST) {
+          st = kSample;
+          key = v0;
+        } else {
+          s.rid_out[slot] = v0;
+          s.off_out[slot] = v1 + steps;
+          st = kIdle;
+        }
+      } else if (HIST && st0 == kSample) {
+        const long long seg = slot * s.S + v0;
+        if (seg >= 0 && seg < s.B * s.S) atomicAdd(s.hist + seg, 1);
+        st = kIdle;
+      } else if (WALK == kLf && st0 == kMark) {
+        st = kPair;
+        key = mk.count(cur & bmask, wpb);
+      }
+    }
+
+    // ---- the hot loop, the step alone: while slots are left, only while
+    // every lane steps; once they are all taken, while any lane does, the
+    // waiting lanes waiting, so their terminal reads go out together
+    if constexpr (kHot) {
+      const bool left = pending != 0 || more;
+      while (true) {
+        row = __ballot_sync(kFull, st == kRow);
+        if (row == 0 || (left && row != kFull)) break;
+        if (st == kRow) step();
+      }
+      wait = __ballot_sync(kFull, st > kRow);
+    }
+  }
+}
+
+// Whether the marks and slow walks' step takes one round: while a warp's
+// walks fit s.one_max.  The exact sweep counts its walks from the limit, a
+// walk kernel from the valid slots of the warp's first 4 tiles.
+template <bool HIST, class In>
+__device__ __forceinline__ bool one_round(const Sweep<In>& s, long long limit,
+                                          long long warp, long long nwarps,
+                                          int lane) {
+  if (HIST) return limit <= nwarps * s.one_max;
+  uint8_t v[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const long long sl = (warp + t * nwarps) * 32 + lane;
+    v[t] = sl < limit ? s.valid[sl] : 0;
+  }
+  int walks = 0;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    walks += __popc(__ballot_sync(kFull, v[t] != 0));
+  }
+  return walks <= s.one_max;
+}
+
+// The sweep of walk WALK (see walk_tiles; over one index, whose accessor's
+// kRankTiles is set, the marks, lf and slow walks run rank_tiles).  The
+// marks and slow walks' step
 // is one round of the four base planes' rank rows (one latency) while a
 // warp's walks fit its 32 lanes, and two rounds, the sym4 word and then the
 // symbol's rank row (3 sectors a step for marks where one round reads 5),
@@ -662,25 +967,16 @@ __device__ __forceinline__ void sweep(const G& g, const Sweep<In>& s) {
     } else {
       dsa_tiles<4>(g, s, limit, warp, nwarps, lane);
     }
-  } else if constexpr (WALK == kMarks || WALK == kSlow) {
-    bool one_round;
-    if (HIST) {
-      one_round = limit <= nwarps * 32;
+  } else if constexpr (G::kRankTiles && WALK == kLf) {
+    rank_tiles<WALK, HIST, L, true>(g, s, limit, warp, nwarps, lane);
+  } else if constexpr (G::kRankTiles && WALK != kFused) {  // marks, slow
+    if (one_round<HIST>(s, limit, warp, nwarps, lane)) {
+      rank_tiles<WALK, HIST, L, true>(g, s, limit, warp, nwarps, lane);
     } else {
-      uint8_t v[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const long long sl = (warp + t * nwarps) * 32 + lane;
-        v[t] = sl < limit ? s.valid[sl] : 0;
-      }
-      int walks = 0;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        walks += __popc(__ballot_sync(kFull, v[t] != 0));
-      }
-      one_round = walks <= 32;
+      rank_tiles<WALK, HIST, L, false>(g, s, limit, warp, nwarps, lane);
     }
-    if (one_round) {
+  } else if constexpr (WALK == kSlow) {
+    if (one_round<HIST>(s, limit, warp, nwarps, lane)) {
       walk_tiles<WALK, HIST, L, true>(g, s, limit, warp, nwarps, lane);
     } else {
       walk_tiles<WALK, HIST, L, false>(g, s, limit, warp, nwarps, lane);

@@ -48,6 +48,8 @@ SIGNATURES = {
     "rs_exact_histogram": [_P, _P, _L, _L, _I, *_WALK, _P, _L, _I, _P, _P],
     # a yardstick for chip_smoke.py, launched by no path of the port
     "rs_chase": [_P, _I, _L, _P, _L, _I, _P, _P],
+    # the rank walks' one-round limit, for scripts/torch_walk_ab.py's sweep
+    "rs_walk_one_round_max": [_I],
     # the interval-sharded index (csrc/sharded.cu); the first argument is
     # the address of an ops/sharded.ShardView
     "rs_shard_occ": [_P, _I, _P, _P, _P, _L, _P],

@@ -12,10 +12,11 @@ form for CPU tensors, with no fallback between them:
 * K6, the fused-row walk: ≤ ``sample_rate`` steps of one 64-byte fused
   row each, on a persistent grid whose lanes refill from the 32-slot
   tiles their warp takes (:func:`resolve_rows_fused`);
-* the rank walks, on K6's sweep: the marks and slow walks (a step is one
-  round of the four base planes' rank rows, and the mark row, while a
-  warp's walks fit its lanes; two rounds, the sym4 word and then the
-  symbol's rank row, once they queue) and the lf walk (one LF word a step)
+* the rank walks, on K6's persistent grid with a hot loop of the step
+  alone: the marks and slow walks (a step is one round of the four base
+  planes' rank rows, and the mark row, while a warp holds at most the
+  measured crossover's walks; two rounds, the sym4 word and then the
+  symbol's rank row, past it) and the lf walk (one LF word a step)
   (:func:`resolve_rows_marked`, :func:`resolve_rows`,
   :func:`resolve_rows_fast`);
 * K7, the exact per-sample histogram: tiles of the worklist mapped to

@@ -2,7 +2,7 @@
 """The search, walk and sharded kernels of several checkouts of the port,
 timed in turn on one card.
 
-    python3 scripts/torch_walk_ab.py OTHER_CHECKOUT [MORE ...]
+    python3 scripts/torch_walk_ab.py OTHER_CHECKOUT [MORE ...] [--crossover]
 
 Times the kernels of this checkout and of each named one (a directory
 holding another commit's ``readserver_tpu_torch``, e.g. unpacked by ``git
@@ -12,20 +12,26 @@ batch's intervals, K6 on the fused E. coli engine's compacted rows at
 width 8192 and at a full budget, and K7 through the dsa and the fused
 walk at the cohort's width 8192 and at the cap-filling batch; where the
 checkout has the rank walks' kernel (``resolve_walk``), the marks, lf and
-slow walks on the same compacted rows, the marks walk at a full budget,
-and K7 through the marks walk at width 8192 and at the cap-filling batch;
-where it has the interval-sharded kernels (``ops/sharded.py``), E. coli
-in 4 shards: K11's p=12 LUT, the sharded search at width 8192, K10's
-resolve of that batch's hit lanes (H = 64) on the dsa, lf and slow
-routes, and K10's exact sweep of the cohort's width-8192 batch (4 shards,
-window 32,768) through each route.  Each checkout runs in its own process
-(both packages are named ``readserver_tpu_torch``), in the order A B ...
-then back again, so that two versions are compared on one card and in
-turns.  Every time is the profiler's device time of the kernel, the mean
-over 10 calls, taken only where the profiler saw every launch.  The
-artifacts come from ``chip_smoke.py``'s cache under ``data/`` (built here
-when missing).  Prints one JSON line per run, each checkout's ptxas
-spills, and a table of medians.
+slow walks on the same compacted rows and at a full budget, and K7
+through each of them at width 8192 and at the cap-filling batch; where
+it has the interval-sharded kernels (``ops/sharded.py``), E. coli in 4
+shards: K11's p=12 LUT, the sharded search at width 8192, K10's resolve
+of that batch's hit lanes (H = 64) on the dsa, lf and slow routes, and
+K10's exact sweep of the cohort's width-8192 batch (4 shards, window
+32,768) through each route.  Each checkout runs in its own process (both
+packages are named ``readserver_tpu_torch``), in the order A B ... then
+back again, so that two versions are compared on one card and in turns.
+Every time is the profiler's device time of the kernel, the mean over 10
+calls, taken only where the profiler saw every launch; t_row (the
+``rs_chase`` yardstick, warm and cold) rides beside them.  The artifacts
+come from ``chip_smoke.py``'s cache under ``data/`` (built here when
+missing).  Prints one JSON line per run, each checkout's ptxas spills,
+its sweep kernels' registers and the loops of their SASS (``--sass-dir``
+keeps the dumps), and a table of medians.  ``--crossover`` then
+sweeps this checkout's one/two-round limit of the marks and slow walks
+(``rs_walk_one_round_max``): forced one or two rounds at 8-64 walks a
+warp, the served width 8192 at limits around it, and K7 at the
+cap-filling batch.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import argparse
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -44,7 +51,7 @@ REPO = Path(__file__).resolve().parents[1]
 KMER = 31
 
 
-def measure(scale: float, seed: int) -> dict:
+def measure(scale: float, seed: int, sass_dir: str | None = None) -> dict:
     """This process's package (first on sys.path): device ms per shape."""
     import dataclasses
 
@@ -66,6 +73,11 @@ def measure(scale: float, seed: int) -> dict:
     from readserver_tpu_torch.ops import DeviceIndex, resolve
     from readserver_tpu_torch.serve import QueryEngine
 
+    from readserver_tpu_torch.kernels import build as kbuild
+
+    # built in this process, so that its ptxas report is read below
+    (kbuild._BUILD / f"libreadserver_kernels_{kbuild._source_hash()}.so"
+     ).unlink(missing_ok=True)
     dev = torch.device("cuda:0")
     cache = REPO / "data" / "chip_smoke"
     corpus = simulate.simulate_config("ecoli", scale=scale)
@@ -133,20 +145,23 @@ def measure(scale: float, seed: int) -> dict:
                                            tiers=plan_tiers(packed, None,
                                                             drop).keep)
             assert resolve.walk_kind(widx) == kind
-            cases[f"{kind} walk width 8192"] = (
-                "resolve_walk_kernel",
-                lambda w=walk, x=widx: w(x, *main_rows))
-            if kind == "marks":
-                cases["marks walk full budget"] = (
+            for shape, rows in (("width 8192", main_rows),
+                                ("full budget", full_rows)):
+                cases[f"{kind} walk {shape}"] = (
                     "resolve_walk_kernel",
-                    lambda w=walk, x=widx: w(x, *full_rows))
-        cidx = DeviceIndex.from_packed(cpacked, dev, tiers={"marks"})
-        for shape, (hl, hu) in (("width 8192", (cl, cu)),
-                                ("cap-filling", (kl, ku))):
-            cases[f"K7 {shape}, marks walk"] = (
-                "exact_histogram_kernel",
-                lambda hl=hl, hu=hu: resolve.exact_sample_histogram(
-                    cidx, hl, hu, win, cap))
+                    lambda w=walk, x=widx, r=rows: w(x, *r))
+        # K7 through the marks, lf and slow walks (the tiers of
+        # tests/test_torch_kernels.HIST_TIERS)
+        for kind, tiers in (("marks", {"marks"}), ("lf", {"marks", "lf"}),
+                            ("slow", set())):
+            cidx = DeviceIndex.from_packed(cpacked, dev, tiers=tiers)
+            assert resolve.walk_kind(cidx) == kind
+            for shape, (hl, hu) in (("width 8192", (cl, cu)),
+                                    ("cap-filling", (kl, ku))):
+                cases[f"K7 {shape}, {kind} walk"] = (
+                    "exact_histogram_kernel",
+                    lambda x=cidx, hl=hl, hu=hu:
+                        resolve.exact_sample_histogram(x, hl, hu, win, cap))
     # K2 and K5 on the default E. coli engine's served batch, K2 also at
     # the timing width
     from readserver_tpu_torch.ops import search as search_ops
@@ -210,6 +225,12 @@ def measure(scale: float, seed: int) -> dict:
     from readserver_tpu_torch.kernels import KERNELS, LIBRARY
 
     out = {}
+    # t_row, one dependent 64-byte read's unloaded time (rs_chase): from
+    # L2 (warm) and from the card's memory (cold), in microseconds
+    rng = np.random.default_rng(seed)
+    for temp in ("warm", "cold"):
+        t = smoke.chase_t_row(fused.fused_rows, rng, dev, temp == "cold")
+        out[f"t_row {temp} us"] = None if t is None else t[0] * 1e3
     for name, (kernel, fn) in cases.items():
         before = sum(k.launches for k in KERNELS.values())
         fn()
@@ -222,12 +243,188 @@ def measure(scale: float, seed: int) -> dict:
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "spill" in line and " 0 bytes spill stores" not in line:
-            spills.append(f"{entry}: {line.strip()}")
-        elif "Used" in line and "registers" in line and "sharded" in entry:
-            regs[entry[entry.index("sharded"):][:60]] = int(
-                line.split("Used")[1].split()[0])
+            spills.append(f"{kernel_label(entry)}: {line.strip()}")
+        elif "Used" in line and "registers" in line and any(
+                k in entry for k in SWEEP_KERNELS):
+            regs[kernel_label(entry)] = int(line.split("Used")[1].split()[0])
     out["ptxas spills"] = spills
-    out["ptxas sharded registers"] = regs
+    out["ptxas sweep registers"] = regs
+    out["sass"] = sass_loops(
+        LIBRARY.path, None if sass_dir is None else
+        Path(sass_dir) / f"{Path(os.environ['PYTHONPATH']).name}.sass")
+    return out
+
+
+# the kernels of walk.cuh's sweep, whose registers and SASS loops are shown
+SWEEP_KERNELS = ("resolve_walk_kernel", "exact_histogram_kernel",
+                 "resolve_fused_kernel", "sharded_resolve_kernel",
+                 "sharded_sweep_kernel")
+
+
+def kernel_label(mangled: str | None) -> str:
+    """``name<template args>`` of a mangled kernel name (ints as given,
+    ``i``/``x`` for int32/int64 rows)."""
+    m = re.search(r"\d+([a-z_]+_kernel)(I(?:Li-?\d+E|[a-z])+E)?",
+                  mangled or "")
+    if m is None:
+        return str(mangled)
+    args = re.findall(r"Li(-?\d+)E|([a-z])", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(a or b for a, b in args)}>"
+                         if args else "")
+
+
+def sass_loops(so: Path, dump: Path | None) -> dict:
+    """The SASS of the sweep kernels in the built library ``so``
+    (``cuobjdump -sass``), written to the file ``dump`` when given;
+    → label → [instructions, [[start, instructions, global loads, depth]
+    for each loop]].  A loop runs from a backward branch's target to the
+    branch; depth counts the loops around it.  A step of a design with
+    one loop and a state dispatch is that loop; of rank_tiles, its hot
+    loop (the innermost one that holds the step's global loads)."""
+    from readserver_tpu_torch.kernels import build as kbuild
+
+    tool = Path(kbuild._nvcc()).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                         text=True)
+    if res.returncode != 0:
+        return {"error": res.stderr.strip()[-300:]}
+    kept, out = [], {}
+    for body in res.stdout.split("Function : ")[1:]:
+        name = body.split()[0]
+        if not any(k in name for k in SWEEP_KERNELS):
+            continue
+        kept.append("Function : " + body)
+        ins = [(int(a, 16), op.strip()) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+        # the divergent-vote blocks (BRA.DIV targets) sit after the body
+        # and branch back into it: no loop ends there
+        cut = min([int(t, 16) for t in re.findall(
+            r"BRA\.DIV\s+\S+\s+0x([0-9a-f]+)", body)] or [1 << 40])
+        loops = []
+        for a, op in ins:
+            t = re.search(r"\bBRA(?:\.\S+)?\s+(?:`\()?0x([0-9a-f]+)", op)
+            if t and int(t.group(1), 16) <= a < cut and "BRA.DIV" not in op:
+                loops.append((int(t.group(1), 16), a))
+        rows = []
+        for lo, hi in sorted(set(loops)):
+            body_ops = [op for x, op in ins if lo <= x <= hi]
+            depth = sum(1 for l2, h2 in set(loops)
+                        if (l2, h2) != (lo, hi) and l2 <= lo and hi <= h2)
+            rows.append([hex(lo), len(body_ops),
+                         sum("LDG" in op for op in body_ops), depth])
+        out[kernel_label(name)] = [len(ins), rows]
+    if dump is not None:
+        dump.parent.mkdir(parents=True, exist_ok=True)
+        dump.write_text("".join(kept))
+    return out
+
+
+def crossover(scale: float, seed: int) -> dict:
+    """The marks and slow walks' step in one round and in two, forced by
+    ``rs_walk_one_round_max``, at 8 to 64 walks a warp of the persistent
+    grid (132 SMs x 8 blocks x 4 warps on the H100): the E. coli full
+    budget's walks (4096 10-mers on both strands), each warp's tiles
+    holding N of them; and K7 through both walks at the cap-filling batch
+    → device ms."""
+    import dataclasses
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_helpers",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    from readserver_tpu_torch.config import ServeConfig
+    from readserver_tpu_torch.corpus import simulate
+    from readserver_tpu_torch.index import artifact, build_index
+    from readserver_tpu_torch.index.budget import plan_tiers
+    from readserver_tpu_torch.kernels import LIBRARY
+    from readserver_tpu_torch.native import native_available
+    from readserver_tpu_torch.ops import DeviceIndex, resolve
+    from readserver_tpu_torch.serve import QueryEngine
+
+    dev = torch.device("cuda:0")
+    corpus = simulate.simulate_config("ecoli", scale=scale)
+    packed = smoke.load_or_build(
+        corpus, REPO / "data" / "chip_smoke" / f"ecoli_s{scale:g}",
+        build_index, artifact, native_available)
+    cfg = ServeConfig(batch_size=8192, warmup_query_lengths=(KMER,),
+                      drop_tiers=("dsa",))
+    eng = QueryEngine(packed, cfg, device=dev)
+    H = cfg.max_hits
+    ten = simulate.sample_query_kmers_fast(
+        corpus, 4096, smoke.fill_k(eng.index.n, 2 * H), seed=seed + 4,
+        miss_frac=0.0)
+    ce, le, nq = eng._pad_encode(eng._expand_rc(smoke.decode_all(ten))[0])
+    l, u = eng._search(*eng._to_device(ce, le), *eng._routes(ce, le, nq),
+                       eng._new_bad())
+    rows, valid, _ = resolve.expand_intervals(l, u, H)
+    src = rows[valid]
+    warps = torch.cuda.get_device_properties(dev).multi_processor_count * 32
+    knob = LIBRARY.get().rs_walk_one_round_max
+    default = knob(-1)
+    forms = {"marks": (("dsa", "fused", "lf"), resolve.resolve_rows_marked),
+             "slow": (("dsa", "fused", "marks", "lf"), resolve.resolve_rows)}
+    out = {}
+    for n in (8, 16, 24, 28, 32, 48, 64):
+        tiles = -(-n // 32)
+        R = warps * 32 * tiles
+        v = torch.arange(R, device=dev) % 32 < n // tiles
+        pick = (torch.cumsum(v, 0) - 1) % src.numel()
+        r = torch.where(v, src[pick], torch.zeros_like(src[pick]))
+        for kind, (drop, walk) in forms.items():
+            idx = DeviceIndex.from_packed(
+                packed, dev, tiers=plan_tiers(packed, None, drop).keep)
+            for rounds, limit in (("one", 1 << 30), ("two", 0)):
+                knob(limit)
+                out[f"{kind} {n} walks a warp, {rounds} round"] = (
+                    smoke.kernel_device_ms(lambda: walk(idx, r, v), 10,
+                                           "resolve_walk_kernel",
+                                           launches=10))
+    # the served shape: width 8192's compacted rows (4096 31-mers on both
+    # strands), whose walks of one query sit side by side and share rows,
+    # at one-round limits around the crossover
+    q4096 = simulate.sample_query_kmers_fast(
+        corpus, 4096 + 256 + 1, KMER, seed=seed, miss_frac=0.15)[257:]
+    ce, le, nq = eng._pad_encode(eng._expand_rc(smoke.decode_all(q4096))[0])
+    rows, valid, _ = resolve.expand_intervals(
+        *eng._search(*eng._to_device(ce, le), *eng._routes(ce, le, nq),
+                     eng._new_bad()), H)
+    main = resolve.compact_rows(rows, valid, eng.row_budget)[:2]
+    for kind, (drop, walk) in forms.items():
+        idx = DeviceIndex.from_packed(
+            packed, dev, tiers=plan_tiers(packed, None, drop).keep)
+        for limit in (16, 24, 32, 48):
+            knob(limit)
+            out[f"{kind} width 8192, limit {limit}"] = smoke.kernel_device_ms(
+                lambda: walk(idx, *main), 10, "resolve_walk_kernel",
+                launches=10)
+    # K7 through the marks and slow walks at the cap-filling batch (8192
+    # cohort 8-mers, 1,048,576 of 3,237,474 rows): the cohort's tables
+    # nearly fit the L2, so sectors cost less than on E. coli
+    cohort = simulate.simulate_config("cohort", scale=scale)
+    cpacked = smoke.load_or_build(
+        cohort, REPO / "data" / "chip_smoke" / f"cohort_s{scale:g}",
+        build_index, artifact, native_available)
+    ceng = QueryEngine(cpacked, dataclasses.replace(cfg, drop_tiers=()),
+                       device=dev)
+    eight = simulate.sample_query_kmers_fast(
+        cohort, 8192, smoke.fill_k(ceng.index.n, 256), seed=seed + 5,
+        miss_frac=0.0)
+    ce, le, nq = ceng._pad_encode(smoke.decode_all(eight))
+    kl, ku = ceng._search(*ceng._to_device(ce, le), *ceng._routes(ce, le, nq),
+                          ceng._new_bad())
+    for kind, tiers in (("marks", {"marks"}), ("slow", set())):
+        cidx = DeviceIndex.from_packed(cpacked, dev, tiers=tiers)
+        for rounds, limit in (("one", 1 << 30), ("two", 0)):
+            knob(limit)
+            out[f"K7 cap-filling {kind}, {rounds} round"] = (
+                smoke.kernel_device_ms(
+                    lambda x=cidx: resolve.exact_sample_histogram(
+                        x, kl, ku, 8 * 8192, cfg.max_sweep_rows),
+                    10, "exact_histogram_kernel", launches=10))
+    knob(default)
+    out["default one-round limit"] = default
     return out
 
 
@@ -236,11 +433,19 @@ def main() -> int:
     ap.add_argument("others", nargs="*", help="other checkouts to time")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--crossover", action="store_true",
+                    help="also sweep this checkout's one/two-round "
+                         "crossover of the marks and slow walks")
+    ap.add_argument("--sass-dir", help="write each checkout's SASS of the "
+                    "sweep kernels to DIR/<checkout name>.sass")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
+    ap.add_argument("--sweep", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.measure:
-        sys.path.insert(0, args.measure)
-        print(json.dumps(measure(args.scale, args.seed)))
+    if args.measure or args.sweep:
+        sys.path.insert(0, args.measure or args.sweep)
+        got = (measure(args.scale, args.seed, args.sass_dir) if args.measure
+               else crossover(args.scale, args.seed))
+        print(json.dumps(got))
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -252,17 +457,21 @@ def main() -> int:
         env = dict(os.environ, PYTHONPATH=c)
         res = subprocess.run(
             [sys.executable, __file__, "--measure", c, "--scale",
-             str(args.scale), "--seed", str(args.seed)],
+             str(args.scale), "--seed", str(args.seed),
+             *(["--sass-dir", str(Path(args.sass_dir).resolve())]
+               if args.sass_dir else [])],
             capture_output=True, text=True, env=env, cwd=c)
         if res.returncode != 0:
             print(res.stdout + res.stderr, file=sys.stderr)
             return 1
         got = json.loads(res.stdout.strip().splitlines()[-1])
         runs[c].append(got)
-        print(json.dumps({"checkout": c, "device_ms": got}), flush=True)
+        print(json.dumps({"checkout": c, "device_ms": {
+            k: v for k, v in got.items() if k != "sass"}}), flush=True)
     for c in checkouts:
-        for key in ("ptxas spills", "ptxas sharded registers"):
-            print(f"# {key}, {Path(c).name}: {runs[c][0].pop(key, None)}")
+        for key in ("ptxas spills", "ptxas sweep registers", "sass"):
+            print(f"# {key}, {Path(c).name}: "
+                  f"{json.dumps(runs[c][0].pop(key, None))}")
             for r in runs[c][1:]:
                 r.pop(key, None)
     names = list(dict.fromkeys(n for c in checkouts for r in runs[c]
@@ -275,6 +484,17 @@ def main() -> int:
             vals = [r[n] for r in runs[c] if r.get(n) is not None]
             cells.append(f"{np.median(vals):.4f}" if vals else "not measured")
         print(f"# {n} | " + " | ".join(cells))
+    if args.crossover:
+        env = dict(os.environ, PYTHONPATH=str(REPO))
+        res = subprocess.run(
+            [sys.executable, __file__, "--sweep", str(REPO), "--scale",
+             str(args.scale), "--seed", str(args.seed)],
+            capture_output=True, text=True, env=env, cwd=str(REPO))
+        if res.returncode != 0:
+            print(res.stdout + res.stderr, file=sys.stderr)
+            return 1
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        print(f"# crossover, device ms ({card}): {json.dumps(got)}")
     return 0
 
 

@@ -597,6 +597,158 @@ def test_slow_walk_kernel_short_max_steps(cohort, cuda_device):  # noqa: F811
                              rank_fn=lambda c, i: rank_ops.occ(d, c, i))
 
 
+def _warps(dev) -> int:
+    """The warps of the walks' persistent grid: 8 blocks of 4 warps an SM
+    (csrc/resolve.cu's kMinBlocks)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count * 32
+
+
+def _assert_walk(walk, plain, d, rows, valid, **kw):
+    before = RESOLVE_WALK.launches
+    got = walk(d, rows, valid, **kw)
+    want = plain(d, rows, valid, **kw)
+    torch.cuda.synchronize()
+    assert RESOLVE_WALK.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(RANK_WALKS))
+@pytest.mark.parametrize("step", [-1, 0, 1])
+def test_rank_walk_kernel_at_the_crossover(cohort, cuda_device, kind,
+                                           step):  # noqa: F811
+    """Every warp of the persistent grid holding one walk fewer than the
+    one-round limit, the limit, and one more (the marks and slow walks'
+    step in one round, then in two)."""
+    _, packed = cohort
+    tiers, walk, plain = RANK_WALKS[kind]
+    d = DeviceIndex.from_packed(packed, cuda_device, tiers=tiers)
+    limit = kbuild.LIBRARY.get().rs_walk_one_round_max(-1)
+    n = limit + step
+    tiles = -(-n // 32)
+    per = [n // tiles + (t < n % tiles) for t in range(tiles)]
+    R = _warps(d.device) * 32 * tiles
+    g = torch.Generator(device=d.device).manual_seed(21)
+    rows = torch.randint(0, d.n, (R,), generator=g, device=d.device,
+                         dtype=torch.int32)
+    tile = torch.arange(R, device=d.device) // (_warps(d.device) * 32)
+    lane = torch.arange(R, device=d.device) % 32
+    valid = lane < torch.tensor(per, device=d.device)[tile]
+    _assert_walk(walk, plain, d, rows, valid)
+
+
+def _first_row_ends(d, kind):
+    """Rows whose walk ends at its first row: → {"marked": rows,
+    "$": rows} (no marked rows for the slow walk)."""
+    rows = torch.arange(d.n, dtype=torch.int32, device=d.device)
+    if kind == "lf":
+        marked = d.lf < 0
+        dollar = ~marked & ((d.lf & 0x7FFFFFFF) < d.C[1])
+    else:
+        dollar = rank_ops.read_symbol(d, rows) == 0
+        marked = torch.zeros_like(dollar)
+        if kind == "marks":
+            _, marked = rank_ops.bit_rank_and_test(
+                d.mark_rank, rows, log2_block=d.log2_block,
+                words_per_block=d.words_per_block)
+            dollar = dollar & ~marked
+    out = {"$": rows[dollar]}
+    if kind != "slow":
+        out["marked"] = rows[marked]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(RANK_WALKS))
+def test_rank_walk_kernel_first_row_ends(cohort, cuda_device,
+                                         kind):  # noqa: F811
+    """Every walk ending at its first row: a marked start (offset: its
+    pair's) and a $ start (offset 0)."""
+    _, packed = cohort
+    tiers, walk, plain = RANK_WALKS[kind]
+    d = DeviceIndex.from_packed(packed, cuda_device, tiers=tiers)
+    for name, rows in _first_row_ends(d, kind).items():
+        assert rows.numel() > 0, name
+        valid = torch.ones_like(rows, dtype=torch.bool)
+        got = _assert_walk(walk, plain, d, rows, valid)
+        assert (got[0] >= 0).all(), name
+        if name == "$":
+            assert (got[1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(RANK_WALKS))
+def test_rank_walk_kernel_all_to_max_steps(cohort, cuda_device,
+                                           kind):  # noqa: F811
+    """Every walk running to its bound: the rows whose walk does not end
+    within sample_rate steps once the marks are cleared (the slow walk:
+    within 3 steps), walked alone, all -1."""
+    _, packed = cohort
+    tiers, walk, plain = RANK_WALKS[kind]
+    d = DeviceIndex.from_packed(packed, cuda_device, tiers=tiers)
+    kw = {"max_steps": 3} if kind == "slow" else {}
+    v = _rank_walk_variants(d).get("no marks", d)
+    rows = torch.arange(d.n, dtype=torch.int32, device=d.device)
+    valid = torch.ones_like(rows, dtype=torch.bool)
+    rid, _ = plain(v, rows, valid, **kw)
+    rows = rows[rid == -1]
+    assert rows.numel() > 0
+    got = _assert_walk(walk, plain, v, rows, torch.ones_like(
+        rows, dtype=torch.bool), **kw)
+    assert (got[0] == -1).all() and (got[1] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(RANK_WALKS))
+@pytest.mark.parametrize("case", ["tail only", "past the grid"])
+def test_rank_walk_kernel_slot_layouts(cohort, cuda_device, kind,
+                                       case):  # noqa: F811
+    """Valid slots only at the tail of R (every warp but the last tile's
+    finds nothing to walk), and R past the persistent grid's lanes, every
+    slot valid (lanes refill, the step in two rounds)."""
+    _, packed = cohort
+    tiers, walk, plain = RANK_WALKS[kind]
+    d = DeviceIndex.from_packed(packed, cuda_device, tiers=tiers)
+    lanes = _warps(d.device) * 32
+    R = 4 * lanes + 999
+    g = torch.Generator(device=d.device).manual_seed(22)
+    rows = torch.randint(0, d.n, (R,), generator=g, device=d.device,
+                         dtype=torch.int32)
+    valid = torch.ones(R, dtype=torch.bool, device=d.device)
+    if case == "tail only":
+        valid[:-45] = False
+    got = _assert_walk(walk, plain, d, rows, valid)
+    if case == "tail only":
+        assert (got[0][:-45] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiers", HIST_TIERS[2:])
+def test_exact_histogram_kernel_cap_cuts_a_query(cohort, cuda_device,
+                                                 tiers):  # noqa: F811
+    """K7 through the lf, marks and slow walks at a cap that falls inside
+    a query's interval: that query counts only the rows before it."""
+    corpus, packed = cohort
+    d = DeviceIndex.from_packed(packed, cuda_device, tiers=tiers)
+    l, u = _short_intervals(d, corpus, 512, 6, seed=13)
+    counts = (u - l).long()
+    cum = torch.cumsum(counts, 0)
+    # the cap is whole windows of 64: the first multiple of 64 that falls
+    # strictly inside an interval
+    xs = torch.arange(64, int(cum[-1]), 64, device=d.device)
+    q = torch.searchsorted(cum, xs, right=True)
+    inside = (cum - counts)[q] < xs
+    cap = int(xs[inside][0])
+    q = int(q[inside][0])
+    got = resolve.exact_sample_histogram(d, l, u, 64, cap)
+    want = resolve.exact_sample_histogram_plain(d, l, u, 64, cap)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[0][q].sum()) == cap - int(cum[q] - counts[q])
+    assert 0 < cap - int(cum[q] - counts[q]) < int(counts[q])
+    assert not bool(got[1][q]) and int(got[0][q + 1:].sum()) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tiers", HIST_TIERS)
 def test_exact_histogram_kernel_cap_filling(cohort, cuda_device,
