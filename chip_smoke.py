@@ -5,15 +5,16 @@
     python3 chip_smoke.py --scale 0.05 # 5% of each, for a quick check
 
 Phases, each printed with its seconds on a ``#`` line, run in the order
-1-5, 8, 9, 9b, 10, 11, 12, 6, 7, 11b (every main path is driven before the
-kernel-vs-plain and timing phases, so each path's launch counts are its
-own):
+1-5, 8, 9, 9b, 10, 11, 12, 13, 6, 7, 11b, 13b (every main path is driven
+before the kernel-vs-plain and timing phases, so each path's launch counts
+are its own):
 
 1. device: a CUDA card is required (no CPU path); its name and power limit;
 2. kernels: build K1 (rank and its LUT level entry), K2 (backward search),
    K5 (dsa resolve), K6 (fused-row walk), the rank walks (marks, lf, slow),
-   K7 (exact histogram) and the interval-sharded kernels (K9 rank, the
-   sharded search, K11 LUT level, K10 lookups, walks and sweep) from
+   K7 (exact histogram), the interval-sharded kernels (K9 rank, the
+   sharded search, K11 LUT level, K10 lookups, walks and sweep) and one
+   rank's partials (K9's partial, K13, K11's partial) from
    ``readserver_tpu_torch/csrc`` for sm_90a, one nvcc per source started
    together;
 3. artifact: simulate and build the E. coli artifact with the port's
@@ -77,6 +78,18 @@ own):
    sources; each step's host seconds; counts at 0 first, K1's level
    entry, K2, K5 and K7 must launch, K1's and K9's generic entries not,
    and no plain form of ``ops`` on a CUDA tensor;
+13. interval shards across ranks (``serve_ranks``): two ``cli serve
+   --coordinator`` ranks start on the card (gloo, 2 shards each); counts at
+   0, this process joins an NCCL group of one and serves E. coli in 4
+   shards through the cross-rank program forced per step, one engine per
+   route: K11's partial LUT equal to phase 11's, the counts of phases 4-5
+   and the ``/reads`` of phase 8 on each route, the cohort's exact
+   ``/samples`` equal to phase 11's, a batch's all-reduces equal to
+   ``query_psum_estimate`` on each route; only K9's partial, K13 and K11's
+   partial may launch, and no plain form of ``ops`` on a CUDA tensor; then
+   the two ranks' REST front answers ``/count``, ``/reads`` and
+   ``/samples`` as phases 4, 8 and (a) did, and SIGINT on rank 0 stops both
+   with exit 0;
 6. kernel vs plain: each kernel against its plain torch form on the card,
    bit for bit, at the main paths' shapes (K1 at the mark walk's step, the
    engine's prefix LUT and a chunked build against the plain build, K2 in
@@ -122,9 +135,19 @@ own):
    and plain times, bytes bound (of the sets' mean bytes) and, for the
    search and the walks, chain bound.
 
+13b. cross-rank kernels (``check_rank_kernels``): K9's partial, K13 and
+   K11's partial against their plain forms at phase 13's shapes on one
+   rank's run of all shards and on 2 ranks' runs, max |err| 0 (edges of
+   the runs, empty intervals, $ rows); each one's times and bytes bound on
+   2 ranks' first run; the all-reduce of a search step's and a walk
+   step's lanes, NCCL's in a group of one and gloo's between two ranks
+   sharing the card (``scripts/torch_allreduce_probe.py``, which also
+   records NCCL's refusal of two ranks on one card), against the step's
+   kernel, and each route's all-reduces a batch.
+
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the one before it is the kernels' JSON summary (``launches`` summed over
-the main-path phases 4, 8, 9, 9b, 10 and 11, where every kernel but K1's
+the main-path phases 4, 8, 9, 9b, 10, 11 and 13, where every kernel but K1's
 and K9's generic entries must have launched, ``cohort_launches`` those of
 phase 9b, ``ingest_launches`` those of phase 12;
 ``max_abs_err`` the largest over every check, ``cohort_max_abs_err`` that
@@ -1010,6 +1033,521 @@ def serve_interval(packed, engine, cpacked, ceng, cfg, dev, qs, served,
           "on the interval path")
     log("no plain form of ops ran on a CUDA tensor on the interval path")
     return engines, ceng_s
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def post_batch(port: int, kms: list[str], mode: str, both: bool) -> list:
+    """One ``/batch`` request to a local REST front → its results."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/batch", method="POST",
+        data=json.dumps({"kmers": kms, "mode": mode,
+                         "both_strands": both}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())["results"]
+
+
+def start_rank_group(cache: Path, port: int, logs: Path) -> list:
+    """Phase 13 (b)'s group: two ``cli serve --coordinator`` ranks sharing
+    the card over gloo (NCCL refuses two ranks on one device), SHARDS
+    shards over them, rank 0 fronting REST on ``port`` → the processes,
+    their output in ``logs``."""
+    coord = free_port()
+    argv = [sys.executable, "-m", "readserver_tpu_torch.cli", "serve",
+            "--index", str(cache), "--port", str(port), "--batch", "8192",
+            "--warmup-k", str(KMER), "--shards", str(SHARDS),
+            "--device", "cuda:0", "--backend", "gloo",
+            "--coordinator", f"127.0.0.1:{coord}", "--num-processes", "2"]
+    logs.mkdir(parents=True, exist_ok=True)
+    return [subprocess.Popen(argv + ["--process-id", str(i)], cwd=REPO,
+                             stdout=open(logs / f"rank{i}.log", "w"),
+                             stderr=subprocess.STDOUT)
+            for i in (0, 1)]
+
+
+def stop_rank_group(procs, logs: Path, sig_first: bool) -> list[int]:
+    """SIGINT rank 0 (it stops its follower) and wait for both; kill what
+    is left after 180 s → their exit codes."""
+    import signal
+
+    if sig_first and procs[0].poll() is None:
+        procs[0].send_signal(signal.SIGINT)
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=180))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            codes.append(p.wait())
+    for i in range(len(procs)):
+        tail = (logs / f"rank{i}.log").read_text().strip().splitlines()[-3:]
+        log(f"rank {i} exit {codes[i]}: {' | '.join(tail)[-600:]}")
+    return codes
+
+
+def serve_ranks(packed, cache, cpacked, cfg, dev, qs, served, reads_served,
+                engines11, ceng_s, c256, c4096, zero_launches, read_launches,
+                card):
+    """Phase 13: interval shards across the ranks of a process group.
+    (b)'s two ranks start first, in their own processes (loading and
+    building beside (a)).  (a), counted from 0: this process joins an NCCL
+    group of one and serves E. coli in SHARDS shards through the
+    cross-rank program, forced per step (``make_global_mesh(...,
+    per_step=True)``), one engine per route: K11's partial LUT equal to
+    phase 11's, the counts of phases 4-5 and the ``/reads`` of phase 8 on
+    each route, the cohort's exact ``/samples`` equal to phase 11's cohort
+    engine, and a batch's all-reduces equal to ``query_psum_estimate`` on
+    each route; only K9's partial, K13 and K11's partial may launch, and no
+    plain form of ops on a CUDA tensor.  (b): the same answers over REST
+    from the two ranks' rank 0, then a clean stop of the follower → (the
+    (a) engines by route, the all-reduce counts)."""
+    import torch
+    from readserver_tpu_torch.ops import sharded as sops
+    from readserver_tpu_torch.parallel import make_sharded_query_fn
+    from readserver_tpu_torch.parallel import multihost as mh
+    from readserver_tpu_torch.parallel.stats import query_psum_estimate
+    from readserver_tpu_torch.serve import Dispatcher, QueryEngine
+    from readserver_tpu_torch.serve.http import RestServer
+
+    rest = free_port()
+    logs = REPO / "data" / "chip_smoke" / "rank_logs"
+    t_group = time.perf_counter()
+    procs = start_rank_group(cache, rest, logs)
+    try:
+        # the references first, outside the counted window
+        ckms = {"256": (decode_all(c256), False),
+                "4096x2": (decode_all(c4096), True)}
+        key = lambda r: (r.count, r.sample_hist, r.sample_hist_complete)  # noqa: E731
+        cwant = {name: [key(r) for r in ceng_s.query_batch(
+            kms, both_strands=both, include_hits=False)]
+            for name, (kms, both) in ckms.items()}
+        t0 = time.perf_counter()
+        mh.init_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+        mesh = mh.make_global_mesh(SHARDS, device=dev, per_step=True)
+        log(f"NCCL group of 1 up in {time.perf_counter() - t0:.3f}s; mesh "
+            f"{mesh.shape}, ranks {mesh.ranks}, per step")
+        zero_launches()
+        scfg = dataclasses.replace(cfg, num_shards=SHARDS)
+        engines = {}
+        reduces = {}
+        with plain_calls_on_card() as plain:
+            for route, drop in ROUTE_DROPS.items():
+                t0 = time.perf_counter()
+                e = QueryEngine(dataclasses.replace(packed, **drop), scfg,
+                                mesh, device=dev)
+                st = e.startup_seconds
+                log(f"cross-rank engine, {route} route, up in "
+                    f"{time.perf_counter() - t0:.3f}s: build_sharded (host) "
+                    f"{st['build_sharded']:.3f}s, placement {st['ship']:.3f}s"
+                    f", prefix LUT p={e.lut_p} through K11's partial "
+                    f"{st['lut']:.3f}s")
+                check(torch.equal(e.lut, engines11[route].lut),
+                      f"K11's partial LUT ({route}) differs from phase 11's")
+                t0 = time.perf_counter()
+                e.warmup()
+                log(f"warmup in {time.perf_counter() - t0:.3f}s")
+                engines[route] = e
+                for name, q, both in qs:
+                    kms = decode_all(q)
+                    if route == "dsa":
+                        t0 = time.perf_counter()
+                        res = e.count_batch(kms, both_strands=both)
+                        dt = time.perf_counter() - t0
+                        check(np.array_equal([r.count for r in res],
+                                             served[name]),
+                              f"cross-rank counts of {name} differ")
+                        log(f"count request of {name}: {dt * 1e3:.3f} ms, "
+                            f"equal to phases 4-5's")
+                    t0 = time.perf_counter()
+                    got = e.query_batch(kms, both_strands=both)
+                    dt = time.perf_counter() - t0
+                    check(got == reads_served[name], f"cross-rank /reads of "
+                          f"{name} on the {route} route differ")
+                    log(f"/reads request of {name}, {route} route: "
+                        f"{dt * 1e3:.3f} ms, equal to phase 8's")
+                # a batch's all-reduces, early exits and sweep off, against
+                # the JAX program's psums
+                s = e.sidx
+                ce, le, nq = e._pad_encode(decode_all(q256_of(qs)))
+                codes, lengths = e._to_device(ce, le)
+                fn = make_sharded_query_fn(s, mesh, max_hits=e.H,
+                                           lut_p=e.lut_p, kstep=3)
+                mh.COLLECTIVES["all_reduce"] = 0
+                fn(s, e.lut, codes, lengths)
+                n_red = mh.COLLECTIVES["all_reduce"]
+                est = query_psum_estimate(
+                    codes.shape[1], lut_p=e.lut_p, kstep=3,
+                    sample_rate=s.sample_rate,
+                    fast_resolve=s.has_fast_resolve,
+                    max_read_len=s.max_read_len,
+                    direct_resolve=s.dsa_chunk is not None)
+                reduces[route] = dict(counted=n_red, estimate=est)
+                check(n_red == est["total"], f"{route}: {n_red} all-reduces "
+                      f"a batch, the estimate {est}")
+                log(f"{route} route: {n_red} all-reduces a batch of "
+                    f"{codes.shape[0]} ({codes.shape[1]}-mers, LUT p="
+                    f"{e.lut_p}, k-step 3) = query_psum_estimate {est}")
+            t0 = time.perf_counter()
+            ce_r = QueryEngine(cpacked, scfg, mesh, device=dev)
+            log(f"cross-rank cohort engine up in "
+                f"{time.perf_counter() - t0:.3f}s")
+            for name, (kms, both) in ckms.items():
+                t0 = time.perf_counter()
+                got = ce_r.query_batch(kms, both_strands=both,
+                                       include_hits=False)
+                dt = time.perf_counter() - t0
+                check([key(r) for r in got] == cwant[name],
+                      f"cross-rank /samples of {name} differ")
+                log(f"/samples request of {name} cohort queries: "
+                    f"{dt * 1e3:.3f} ms, exact histograms equal to phase "
+                    f"11's")
+        launches = read_launches("ranks")
+        for name in ("shard_occ_partial", "shard_lookup_partial",
+                     "sharded_lut_level_partial"):
+            check(launches[name] > 0,
+                  f"kernel {name} was not launched on the cross-rank path")
+        other = {n: c for n, c in launches.items()
+                 if n not in ("shard_occ_partial", "shard_lookup_partial",
+                              "sharded_lut_level_partial")}
+        check(not any(other.values()), f"other kernels launched on the "
+              f"cross-rank path: {other}")
+        check(plain["n"] == 0, f"{plain['n']} plain forms of ops ran on "
+              "the card on the cross-rank path")
+        log("no single-device kernel, no fused sharded kernel and no plain "
+            "form of ops ran on the cross-rank path")
+        pay = RestServer(Dispatcher(engines["dsa"]), "127.0.0.1", 0)
+        pay = pay._result_payload
+        samples_want = [pay(r, "samples", False) for r in engines[
+            "dsa"].query_batch(decode_all(qs[1][1]), include_hits=False)]
+        del ce_r
+        # (b): the two ranks' REST front
+        import urllib.request
+
+        deadline = time.perf_counter() + 600
+        up = False
+        while not up and time.perf_counter() < deadline:
+            check(all(p.poll() is None for p in procs),
+                  "a rank of the group exited before serving: "
+                  + (logs / "rank0.log").read_text()[-2000:]
+                  + (logs / "rank1.log").read_text()[-2000:])
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{rest}/health", timeout=5) as r:
+                    up = r.status == 200
+            except OSError:
+                time.sleep(1.0)
+        check(up, "the group's REST front never came up")
+        log(f"2-rank group (gloo, {SHARDS // 2} shards a rank, sharing the "
+            f"card) serving after {time.perf_counter() - t_group:.3f}s")
+        with urllib.request.urlopen(f"http://127.0.0.1:{rest}/info",
+                                    timeout=60) as r:
+            info = json.loads(r.read())
+        check(info["sharding"] == "interval"
+              and info["num_shards"] == SHARDS, f"/info: {info}")
+        for name, q, both in qs:
+            t0 = time.perf_counter()
+            got = post_batch(rest, decode_all(q), "count", both)
+            dt = time.perf_counter() - t0
+            check([r["count"] for r in got] == served[name].tolist(),
+                  f"the group's /count of {name} differs")
+            log(f"group /batch count of {name}: {dt * 1e3:.3f} ms")
+        for name, q, both in qs[:2]:
+            t0 = time.perf_counter()
+            got = post_batch(rest, decode_all(q), "reads", both)
+            dt = time.perf_counter() - t0
+            check(got == [json.loads(json.dumps(pay(r, "reads", False)))
+                          for r in reads_served[name]],
+                  f"the group's /reads of {name} differ")
+            log(f"group /batch reads of {name}: {dt * 1e3:.3f} ms, equal "
+                f"to phase 8's | {card}")
+        t0 = time.perf_counter()
+        got = post_batch(rest, decode_all(qs[1][1]), "samples", False)
+        dt = time.perf_counter() - t0
+        check(got == json.loads(json.dumps(samples_want)),
+              "the group's /samples differ")
+        log(f"group /batch samples of 256: {dt * 1e3:.3f} ms")
+        t0 = time.perf_counter()
+        got = post_batch(rest, decode_all(qs[2][1]), "reads", True)
+        log(f"group /batch reads of 4096x2 (one tick of 8192): "
+            f"{(time.perf_counter() - t0) * 1e3:.3f} ms | {card}")
+    finally:
+        rcs = stop_rank_group(procs, logs, sig_first=True)
+    check(rcs == [0, 0], f"the group did not stop cleanly: exit {rcs}")
+    log("SIGINT on rank 0 stopped its follower; both ranks exited 0")
+    return engines, reduces
+
+
+def time_reads_torch(engine, engine_f, intervals, batch, fb, H: int,
+                     card: str) -> None:
+    """Phase 7: the row-budget compaction (``ops/resolve.compact_rows``
+    and the two scatters back of ``resolve_intervals``) and the capped
+    ``sample_histogram``, torch functions of ``/reads`` with no kernel, at
+    width 8192 and at the full budget: wrapper ms (CUDA events), device ms
+    over all their ops (profiler), bytes bound (each input read once, each
+    output written once, each ``read_to_sample`` entry once)."""
+    import torch
+    from readserver_tpu_torch.ops import resolve
+
+    for what, eng, kms in (("width 8192", engine_f, batch),
+                           ("full budget", engine_f, fb)):
+        rows, valid, _ = resolve.expand_intervals(*intervals(eng, kms), H)
+        R = eng.row_budget
+        F = rows.numel()
+
+        def compact():
+            comp, cval, orig, keep = resolve.compact_rows(rows, valid, R)
+            rid = comp.to(torch.int32)  # a walk's output, in its place
+            full = torch.full((F + 1,), -1, dtype=torch.int32,
+                              device=rows.device)
+            return (full.scatter(0, orig, rid)[:F],
+                    full.scatter(0, orig, rid)[:F], valid & keep)
+
+        rid, _, vkeep = compact()
+        nbytes = F * 9 + R * 17 + F + R * 8 + 2 * R * 4 + 2 * F * 4
+        B = F // H
+        ridm = torch.where(vkeep, rid, torch.full_like(rid, -1)).reshape(B, H)
+        vm = vkeep.reshape(B, H)
+        idx = eng.index
+        hbytes = (F * 5 + distinct(ridm[vm]) * 4
+                  + B * max(idx.num_samples, 1) * 4)
+        for name, fn, nb in (
+                ("row-budget compaction", compact, nbytes),
+                ("sample_histogram", lambda: resolve.sample_histogram(
+                    idx, ridm, vm), hbytes)):
+            fn()
+            torch.cuda.synchronize()
+            ms = float(np.median([time_cuda(fn, 20) for _ in range(3)]))
+            dev_ms = kernel_device_ms(fn, 10, "")
+            log(f"{name} (torch), {what}: {F} lanes, budget {R}, "
+                f"{int(vm.sum())} kept: {ms:.4f} ms a call (CUDA events), "
+                f"device {fmt_ms(dev_ms)} ms over its ops (profiler) | needs "
+                f"{nb} B: bound {bound_ms(nb):.4f} ms, share "
+                f"{ratio(bound_ms(nb), dev_ms)} | {card}")
+
+
+def run_views(s, R: int, dev):
+    """R ranks' runs of a placed one-rank index, each placed from a host
+    copy of it as a rank of an R-rank dp row places its own."""
+    from readserver_tpu_torch.parallel import Mesh, place_sharded
+    from readserver_tpu_torch.parallel.sharded import REPLICATED, STACKED
+
+    host = dataclasses.replace(s, **{
+        f: None if getattr(s, f) is None else getattr(s, f).cpu().numpy()
+        for f in (*STACKED, *REPLICATED)})
+    S = s.num_shards
+    return [place_sharded(host, Mesh(
+        shape={"dp": 1, "shard": S}, device=dev,
+        ranks={"dp": 1, "shard": R}, coords={"dp": 0, "shard": r}))
+        for r in range(R)]
+
+
+def run_range(v):
+    """(first, end) of a run's positions."""
+    return int(v.starts[0]), int(v.starts[-1] + v.lens[-1])
+
+
+def check_rank_kernels(engines, batch, reduces, card):
+    """Phase 13b: K9's partial (a search step, a rank), K13 (every lookup)
+    and K11's partial (every level) against their plain forms, max |err|
+    0, at phase 13 (a)'s shapes on the whole index as one rank's run and
+    on each of 2 ranks' runs (the sums over the runs equal the one run's),
+    with positions at each run's first and last rows and past them, empty
+    intervals and $ rows among the keys; then each kernel's wrapper, device
+    and plain time and bytes bound on 2 ranks' first run, and the
+    all-reduce against a step's kernel: NCCL's of a group of one on the
+    card, and gloo's between two ranks sharing the card
+    (``scripts/torch_allreduce_probe.py``) → ({name: summary entry},
+    {err key: max |err|}, the design readings)."""
+    import torch
+    import torch.distributed as dist
+    from readserver_tpu_torch.ops import sharded as sops
+    from readserver_tpu_torch.ops.search import (canonical_empty,
+                                                 kstep_schedule, prefix_ids)
+
+    e = engines["dsa"]
+    s = e.sidx
+    dev = s.starts.device
+    p, H = e.lut_p, e.H
+    rng = np.random.default_rng(13)
+    runs = run_views(s, 2, dev)
+    views = [(s, True)] + [(v, i == 0) for i, v in enumerate(runs)]
+    ce, le, nq = e._pad_encode(batch)
+    codes, lengths = e._to_device(ce, le)
+    B, K = codes.shape
+    # K9's partial along the served batch's k-step schedule from the LUT
+    rows0 = e.lut.index_select(0, prefix_ids(codes, p).long())
+    lu = torch.cat([rows0[:, 0], rows0[:, 1]]).contiguous()
+    k9_err, step0 = 0, None
+    for j, k in kstep_schedule(K - p, 3):
+        outs = []
+        for v, lead in views:
+            got = sops.step_partial(v, k, codes, None, j, lu, lead)
+            want = sops.step_partial_plain(v, k, codes, None, j, lu, lead)
+            k9_err = max(k9_err, max_err([(got, want)]))
+            outs.append(got)
+        k9_err = max(k9_err, max_err([(outs[1] + outs[2], outs[0])]))
+        step0 = step0 or (j, k, lu)
+        lu = outs[0]
+    l, u = canonical_empty(lu[:B], lu[B:])
+    mlen = torch.from_numpy(rng.integers(1, K + 1, size=B).astype(
+        np.int32)).to(dev)
+    for v, lead in views:  # the masked 1-step scan's step, lengths mixed
+        k9_err = max(k9_err, max_err([(
+            sops.step_partial(v, 1, codes, mlen, K - p - 1, lu, lead),
+            sops.step_partial_plain(v, 1, codes, mlen, K - p - 1, lu, lead))]))
+    # the walks' lanes: the served batch's hits, then the runs' edges
+    span = torch.arange(H, device=dev)
+    rows = (l[:, None] + span).reshape(-1)
+    valid = (span[None, :] < (u - l)[:, None]).reshape(-1)
+    rows = torch.where(valid, rows, torch.zeros_like(rows))
+    edges = [0, 1, s.n - 1, s.n, s.n + 3]
+    for v in runs:
+        a, b = run_range(v)
+        edges += [a - 1, a, a + 1, b - 1, b, b + 1]
+    keys = torch.cat([rows, torch.tensor(edges, device=dev)]).contiguous()
+    sym = sops.sym_plain(s, keys)
+    for table, c in (("rank", sym), ("marks", torch.zeros_like(sym))):
+        for v, _ in views:
+            k9_err = max(k9_err, max_err([(sops.occ_partial(v, table, c, keys),
+                                           sops.occ_plain(v, table, c,
+                                                          keys))]))
+    n_dollar_rows = int((sym == 0).sum())
+    # K13: every lookup, on the lanes, the $-ranks, read ids and slots
+    m = s.num_reads
+    marks = int(s.slens.sum())
+    dr = torch.cat([torch.arange(-2, m + 2, device=dev),
+                    torch.from_numpy(rng.integers(0, m, size=keys.numel()))
+                    .to(dev)])[: keys.numel()].contiguous()
+    slot = torch.from_numpy(rng.integers(-2, marks + 2, size=keys.numel())
+                            ).to(dev).contiguous()
+    k13_err = 0
+    for what in ("sym", "dsa", "lf", "lf_mark", "dollar", "sample",
+                 "dollar_pair"):
+        x = dr if what in ("dollar", "sample", "dollar_pair") else keys
+        y = slot if what == "dollar_pair" else None
+        outs = []
+        for v, _ in views:
+            got = sops.lookup_partial(v, what, x, y)
+            k13_err = max(k13_err, max_err([(
+                got, sops.lookup_partial_plain(v, what, x, y))]))
+            outs.append(got)
+        k13_err = max(k13_err, max_err([(outs[1] + outs[2], outs[0])]))
+    # K11's partial at every level of the engine's build
+    a_, b_ = s.C[1:5].contiguous(), s.C[2:6].contiguous()
+    k11_err = 0
+    for _ in range(p - 1):
+        outs = []
+        for v, lead in views:
+            got = sops.lut_level_partial(v, a_, b_, lead)
+            k11_err = max(k11_err, max_err([(
+                got, sops.lut_level_partial_plain(v, a_, b_, lead))]))
+            outs.append(got)
+        k11_err = max(k11_err, max_err([(outs[1] + outs[2], outs[0])]))
+        last = (a_, b_)
+        X = a_.numel()
+        a_, b_ = outs[0][: 4 * X], outs[0][4 * X :]
+    log(f"K9's partial ({len(kstep_schedule(K - p, 3))} steps of the served "
+        f"width-{B} batch, a masked 1-step, ranks on the rank and mark "
+        f"tables at {keys.numel()} positions, {n_dollar_rows} of them $ rows"
+        f"), K13 (7 lookups) and K11's partial ({p - 1} levels), on 1 and 2 "
+        f"ranks' runs: max |err| {k9_err}, {k13_err}, {k11_err}")
+    check(k9_err == 0 and k13_err == 0 and k11_err == 0,
+          "a partial kernel disagrees with its plain form")
+    # timing on 2 ranks' first run (the (b) group's rank 0)
+    v = runs[0]
+    lo, hi = run_range(v)
+    j, k, lu0 = step0
+    plane = {3: 64, 2: 16, 1: 5}[k]
+    code = sops.step_code(codes, j, k)
+    act = lu0[:B] < lu0[B:]
+    ins = [x[act & (x > lo) & (x < hi)] for x in (lu0[:B], lu0[B:])]
+    cs = [code[act & (x > lo) & (x < hi)] for x in (lu0[:B], lu0[B:])]
+    step_bytes = B * (k * 4 + 32) + row_bytes(v, *[
+        owner_rows(v, plane, v.rows_per_symbol, c, i) for c, i in zip(cs, ins)])
+    inr = keys[(keys >= lo) & (keys < hi)]
+    look_bytes = keys.numel() * 16 + distinct(inr) * 4
+    la, lb = last
+    alive = la < lb
+    lut_rows = [owner_rows(v, 5, v.rows_per_symbol,
+                           torch.full_like(x, cc, dtype=torch.int32), x)
+                for cc in range(1, 5)
+                for x in (la[alive & (la > lo) & (la < hi)],
+                          lb[alive & (lb > lo) & (lb < hi)])]
+    lut_bytes = la.numel() * 80 + row_bytes(v, *lut_rows)
+    cases = [
+        ("shard_occ_partial", "occ_partial_kernel",
+         lambda: sops.step_partial(v, k, codes, None, j, lu0, True),
+         lambda: sops.step_partial_plain(v, k, codes, None, j, lu0, True),
+         step_bytes, f"a {k}-column search step over {B} queries, "
+         f"{v.starts.numel()} of {s.num_shards} shards"),
+        ("shard_lookup_partial", "lookup_partial_kernel",
+         lambda: sops.lookup_partial(v, "dsa", keys),
+         lambda: sops.lookup_partial_plain(v, "dsa", keys),
+         look_bytes, f"the dsa lookup of {keys.numel()} lanes ({B} x {H} "
+         f"and the edges), {v.starts.numel()} of {s.num_shards} shards"),
+        ("sharded_lut_level_partial", "lut_level_partial_kernel",
+         lambda: sops.lut_level_partial(v, la, lb, True),
+         lambda: sops.lut_level_partial_plain(v, la, lb, True),
+         lut_bytes, f"the last level of the p={p} build ({la.numel()} "
+         f"intervals), {v.starts.numel()} of {s.num_shards} shards"),
+    ]
+    summary = {}
+    for name, kern, fn, plain, nb, shape in cases:
+        fn()
+        torch.cuda.synchronize()
+        ms = time_cuda(fn, 20)
+        device_ms = kernel_device_ms(fn, 20, kern, 20)
+        plain_ms = time_cuda(plain, 3)
+        bnd = bound_ms(nb)
+        summary[name] = (ms, plain_ms, device_ms, bnd, shape, None)
+        log(f"{name}: {shape}: {fmt_ms(ms)} ms a call, device "
+            f"{fmt_ms(device_ms)} ms, plain {fmt_ms(plain_ms)} ms, {nb} B "
+            f"needed, bytes bound {bnd:.4f} ms, share "
+            f"{ratio(bnd, device_ms)} | {card}")
+    # the all-reduce against a step's kernel
+    design = {"card": card, "all_reduces_a_batch": reduces}
+    for what, width in (("search step", 2 * B), ("walk step", B * H)):
+        t = torch.ones(width, dtype=torch.int64, device=dev)
+        dist.all_reduce(t)
+        design[f"nccl_group_of_1_{what}_ms"] = time_cuda(
+            lambda t=t: dist.all_reduce(t), 50)
+        log(f"NCCL all-reduce, group of 1, {what} ({width} int64): "
+            f"{design[f'nccl_group_of_1_{what}_ms']:.4f} ms | {card}")
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "scripts" / "torch_allreduce_probe.py"),
+         "--iters", "30"], cwd=REPO, capture_output=True, text=True,
+        timeout=400)
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            design.update(json.loads(line))
+    log(f"two ranks sharing the card (exit {proc.returncode}): "
+        f"{json.dumps({k: v for k, v in design.items() if k.startswith(('gloo', 'nccl_two'))})}")
+    check(proc.returncode == 0 and "gloo_all_reduce" in design,
+          f"the all-reduce probe failed: {proc.stderr[-2000:]}")
+    for route, r in reduces.items():
+        log(f"{route} route: {r['counted']} all-reduces a batch "
+            f"(estimate {r['estimate']['total']}): at gloo's search-step "
+            f"median {design['gloo_all_reduce']['search step, 2 x 8192']['median_ms']:.3f}"
+            f" ms each, about "
+            f"{r['counted'] * design['gloo_all_reduce']['search step, 2 x 8192']['median_ms']:.1f}"
+            f" ms of collectives against the step kernel's "
+            f"{fmt_ms(summary['shard_occ_partial'][2])} ms")
+    errs = {"shard_occ_partial_err": k9_err, "shard_lookup_partial_err":
+            k13_err, "sharded_lut_level_partial_err": k11_err}
+    return summary, errs, design
+
+
+def q256_of(qs):
+    return next(q for name, q, _ in qs if name == "256")
 
 
 INGEST_DROP = ("rank3_blocks", "C3", "dsa", "lf", "mark_rank",
@@ -2391,6 +2929,14 @@ def run(args) -> dict:
             (("1", q1, False), ("256", q256, False), ("4096x2", q4096, True)),
             served, reads_served, zero_launches, read_launches, card)
 
+    # ------------------------------ 13. interval shards across ranks
+    with phase("13 interval shards across ranks"):
+        rank_engines, rank_reduces = serve_ranks(
+            packed, cache, cpacked, cfg, dev,
+            (("1", q1, False), ("256", q256, False), ("4096x2", q4096, True)),
+            served, reads_served, shard_engines, ceng_s, c256, c4096,
+            zero_launches, read_launches, card)
+
     # -------------------------------------------------- 6. kernel vs plain
     idx = engine.index
     lut, p = engine.lut, engine.lut_p
@@ -3041,7 +3587,7 @@ def run(args) -> dict:
         fbb, fbc = fused_walk_needs(idx_f, frows, fvalid)
         hn = hist_needs(wrows, ("fused", "marks", "lf", "slow"))
         (h_b, h_c), (hf_b, hf_c) = hn["dsa"], hn["fused"]
-        cn = hist_needs(caprows, ("fused", "marks"))
+        cn = hist_needs(caprows, ("fused", "marks", "lf", "slow"))
         (c_b, c_c), (cf_b, cf_c) = cn["dsa"], cn["fused"]
         walk_needs = {
             kind: rank_walk_needs(widx, kind, crow, cval)
@@ -3073,6 +3619,8 @@ def run(args) -> dict:
             "exact_histogram (lf walk)": hn["lf"],
             "exact_histogram (slow walk)": hn["slow"],
             "exact_histogram (cap-filling, marks walk)": cn["marks"],
+            "exact_histogram (cap-filling, lf walk)": cn["lf"],
+            "exact_histogram (cap-filling, slow walk)": cn["slow"],
         }
 
         def k7_case(name, cidx, hl, hu, what):
@@ -3134,6 +3682,10 @@ def run(args) -> dict:
             k7_case("exact_histogram (cap-filling, marks walk)",
                     hist_idx["marks"], cap_l, cap_u,
                     f"8192 {kc}-mers, marks walk"),
+            *(k7_case(f"exact_histogram (cap-filling, {kind} walk)",
+                      hist_idx[kind], cap_l, cap_u,
+                      f"8192 {kc}-mers, {kind} walk")
+              for kind in ("lf", "slow")),
         ]
         for name, kname, kern, plain, what in cases:
             check(max_err(zip(kern(), plain())) == 0,
@@ -3190,6 +3742,12 @@ def run(args) -> dict:
             f"{dense8.nbytes} dense hits): bound {bound_ms(k8_bytes):.4f} "
             f"ms, device time at {ratio(bound_ms(k8_bytes), pack_dev)} of "
             f"it | {card}")
+        # two torch functions of /reads without a kernel: the row-budget
+        # compaction (with its scatter back) before and after a walk, and
+        # the capped sample histogram, at width 8192 (the E. coli 4096 x 2
+        # batch) and at the full budget (4096 10-mers x 2)
+        time_reads_torch(engine, engine_f, intervals, batches[8192], fb, H,
+                         card)
         for e, qs, tier in ((engine, q4096, "count"),
                             (engine, q4096, "reads"),
                             (engine_m, q4096, "reads"),
@@ -3237,8 +3795,19 @@ def run(args) -> dict:
         summary.update(shard_summary)
         summary.update({f"{k}_err": v for k, v in shard_err.items()})
 
+    # --------------------------------- 13b. cross-rank kernels vs plain
+    with phase("13b cross-rank kernels"):
+        import torch.distributed as dist
+
+        rank_summary, rank_err, rank_design = check_rank_kernels(
+            rank_engines, batches[8192], rank_reduces, card)
+        summary.update(rank_summary)
+        summary.update(rank_err)
+        del rank_engines
+        dist.destroy_process_group()
+
     # launches: summed over the main-path phases (count, reads, samples,
-    # cohort, REST, interval), each counted from 0.  K1's and K9's generic
+    # cohort, REST, interval, ranks), each counted from 0.  K1's and K9's generic
     # entries are on no main path: the walks that ranked through K1 run in
     # the walk kernel, and K9's rank runs inside the other sharded kernels;
     # both stay held against their plain forms and timed (phases 6, 7, 11b)
@@ -3273,6 +3842,15 @@ def run(args) -> dict:
         "sharded_resolve": ("sharded.cu",
                             "readserver_tpu/parallel/sharded.py:834",
                             "sharded_resolve_err"),
+        "shard_occ_partial": ("sharded_partial.cu",
+                              "readserver_tpu/parallel/sharded.py:395",
+                              "shard_occ_partial_err"),
+        "shard_lookup_partial": ("sharded_partial.cu",
+                                 "readserver_tpu/parallel/sharded.py:489",
+                                 "shard_lookup_partial_err"),
+        "sharded_lut_level_partial": ("sharded_partial.cu",
+                                      "readserver_tpu/parallel/sharded.py:1075",
+                                      "sharded_lut_level_partial_err"),
     }
 
     def cold(chain_ms):
@@ -3315,6 +3893,10 @@ def run(args) -> dict:
     # exact sweep through each
     next(k for k in kernels if k["name"] == "sharded_resolve")["routes"] = \
         shard_routes
+    # the cross-rank design readings: all-reduces a batch by route, and the
+    # all-reduce's time against a step's kernel
+    next(k for k in kernels if k["name"] == "shard_occ_partial")["design"] = \
+        rank_design
     return dict(kernels=kernels, card=card)
 
 

@@ -291,9 +291,10 @@ DOC_SHARDS_REFUSED = (
     "across devices) is not ported yet (ROADMAP P9); build one cohort with "
     "`build --doc-shards N` and serve its directory"
 )
-COORDINATOR_REFUSED = (
-    "serve --coordinator (multi-host serving) is not ported yet "
-    "(ROADMAP P11)"
+COHORT_GROUP_REFUSED = (
+    "serve --coordinator takes one artifact: a cohort directory's doc "
+    "shards are served by one process (document sharding across devices "
+    "is ROADMAP P9)"
 )
 
 
@@ -353,15 +354,65 @@ def _warmup_k(args) -> tuple:
     return tuple(int(x) for x in args.warmup_k.split(",") if x.strip())
 
 
+def _serve_group(args) -> int:
+    """``serve --coordinator``: every rank of the group runs this command
+    with its process id; each loads the artifact and builds the engine on
+    its device, rank 0 fronts REST and broadcasts each batch tick, the
+    others follow until it stops them."""
+    import asyncio
+
+    import torch
+
+    from readserver_tpu_torch.config import ServeConfig
+    from readserver_tpu_torch.index import artifact
+    from readserver_tpu_torch.index.cohort import is_cohort
+    from readserver_tpu_torch.parallel.multihost import (
+        init_multihost,
+        make_global_mesh,
+        rank_device,
+    )
+    from readserver_tpu_torch.serve import QueryEngine
+    from readserver_tpu_torch.serve.http import serve_forever
+
+    if is_cohort(args.index):
+        return _refuse(COHORT_GROUP_REFUSED)
+    device = rank_device(args.device, args.process_id)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    init_multihost(args.coordinator, args.num_processes, args.process_id,
+                   backend=args.backend)
+    mesh = make_global_mesh(args.shards if args.shards > 1 else None,
+                            device=device)
+    packed = artifact.load_artifact(args.index, mmap=False)
+    cfg = ServeConfig(
+        batch_size=args.batch,
+        num_shards=int(mesh.shape["shard"]),
+        data_parallel=int(mesh.shape["dp"]),
+        warmup_query_lengths=_warmup_k(args),
+    )
+    engine = QueryEngine(packed, cfg, mesh, device=device)
+    if args.process_id != 0:
+        engine.follow()
+        return 0
+    engine.warmup()
+    try:
+        asyncio.run(serve_forever(engine, args.host, args.port))
+    except KeyboardInterrupt:
+        pass
+    finally:
+        engine.stop_followers()
+    return 0
+
+
 def cmd_serve(args) -> int:
     import asyncio
 
     from readserver_tpu_torch.serve.http import serve_forever
 
-    if args.coordinator:
-        return _refuse(COORDINATOR_REFUSED)
     if "," in args.index:
         return _refuse(DOC_SHARDS_REFUSED)
+    if args.coordinator:
+        return _serve_group(args)
     engine = _load_engine(args.index, args.batch, args.device,
                           warmup_k=_warmup_k(args), num_shards=args.shards)
     engine.warmup()
@@ -475,12 +526,22 @@ def main(argv=None) -> int:
                    help="comma-separated uniform query lengths to run at "
                         "startup (e.g. 31)")
     s.add_argument("--shards", type=int, default=1,
-                   help="BWT-interval shards, all on the one device")
+                   help="BWT-interval shards: all on the one device, or "
+                        "with --coordinator spread over as many ranks as "
+                        "divide both them and the group")
     s.add_argument("--device", default="cuda",
-                   help="torch device to serve from (cuda, cuda:1, cpu)")
+                   help="torch device to serve from (cuda, cuda:1, cpu; "
+                        "in a group, cuda is the card process-id modulo "
+                        "the host's cards)")
     s.add_argument("--coordinator", default="",
-                   help="multi-host serving: refused, not ported yet "
-                        "(ROADMAP P11)")
+                   help="host:port of rank 0: serve as one rank of a "
+                        "process group (rank 0 fronts REST)")
+    s.add_argument("--num-processes", type=int, default=1)
+    s.add_argument("--process-id", type=int, default=0)
+    s.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
+                   help="the group's backend: nccl (a GPU a rank) or gloo "
+                        "(the CPU, or ranks sharing a card)")
+
     s.set_defaults(fn=cmd_serve)
 
     m = sub.add_parser("simulate", help="write a simulated corpus as FASTA")

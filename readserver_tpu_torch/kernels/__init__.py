@@ -17,6 +17,12 @@
   ``SHARDED_RESOLVE`` (K10), ``csrc/sharded.cu``: the interval-sharded
   index's rank, search, LUT level, and lookups, walks and exact sweep,
   every shard on one device; launched by ``ops/sharded.py``.
+* ``SHARD_OCC_PARTIAL`` (K9's partial), ``SHARD_LOOKUP_PARTIAL`` (K13) and
+  ``SHARDED_LUT_LEVEL_PARTIAL`` (K11's partial), ``csrc/sharded_partial.cu``:
+  one rank's contribution over its run of the shards (a rank, a search
+  step, the masked lookups of the walks and the sweep, a LUT level), which
+  the ranks of a process group sum by one all-reduce; launched by
+  ``ops/sharded.py``.
 
 Each is a :class:`~readserver_tpu_torch.kernels.build.Kernel` carrying its
 launch count in ``launches``.
@@ -35,6 +41,9 @@ SHARD_OCC = Kernel("rs_shard_occ")
 SHARDED_SEARCH = Kernel("rs_sharded_search")
 SHARDED_LUT_LEVEL = Kernel("rs_sharded_lut_level")
 SHARDED_RESOLVE = Kernel("rs_sharded_resolve")
+SHARD_OCC_PARTIAL = Kernel("rs_shard_occ_partial")
+SHARD_LOOKUP_PARTIAL = Kernel("rs_shard_lookup_partial")
+SHARDED_LUT_LEVEL_PARTIAL = Kernel("rs_sharded_lut_level_partial")
 KERNELS = {
     "rank_occ": RANK_OCC,
     "lut_level": LUT_LEVEL,
@@ -47,10 +56,15 @@ KERNELS = {
     "sharded_search": SHARDED_SEARCH,
     "sharded_lut_level": SHARDED_LUT_LEVEL,
     "sharded_resolve": SHARDED_RESOLVE,
+    "shard_occ_partial": SHARD_OCC_PARTIAL,
+    "shard_lookup_partial": SHARD_LOOKUP_PARTIAL,
+    "sharded_lut_level_partial": SHARDED_LUT_LEVEL_PARTIAL,
 }
 
 __all__ = [
     "BACKWARD_SEARCH", "EXACT_HISTOGRAM", "KERNELS", "LIBRARY", "LUT_LEVEL",
     "Kernel", "RANK_OCC", "RESOLVE_DSA", "RESOLVE_FUSED", "RESOLVE_WALK",
-    "SHARD_OCC", "SHARDED_LUT_LEVEL", "SHARDED_RESOLVE", "SHARDED_SEARCH",
+    "SHARD_LOOKUP_PARTIAL", "SHARD_OCC", "SHARD_OCC_PARTIAL",
+    "SHARDED_LUT_LEVEL", "SHARDED_LUT_LEVEL_PARTIAL", "SHARDED_RESOLVE",
+    "SHARDED_SEARCH",
 ]

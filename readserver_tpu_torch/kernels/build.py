@@ -22,8 +22,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "kernels"
-_SOURCES = ("rank.cu", "search.cu", "resolve.cu", "sharded.cu")
-_HEADERS = ("rank.cuh", "search.cuh", "walk.cuh")
+_SOURCES = ("rank.cu", "search.cu", "resolve.cu", "sharded.cu",
+            "sharded_partial.cu")
+_HEADERS = ("rank.cuh", "search.cuh", "walk.cuh", "shard_view.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P = ctypes.c_void_p
@@ -58,6 +59,11 @@ SIGNATURES = {
     "rs_sharded_resolve": [
         _P, _I, _P, _P, _L, _P, _P, _P, _P, _P, _L, _L, _I, _P, _P,
     ],
+    # one rank's partials over its run of the shards
+    # (csrc/sharded_partial.cu)
+    "rs_shard_occ_partial": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _L, _P, _P],
+    "rs_shard_lookup_partial": [_P, _I, _P, _P, _L, _P, _P],
+    "rs_sharded_lut_level_partial": [_P, _P, _P, _L, _I, _P, _L, _P],
 }
 
 

@@ -20,6 +20,15 @@ Each function has two forms:
   single-device persistent sweep (``csrc/walk.cuh``), each over this
   owner accessor.
 
+The partials (K9's partial ``occ_partial`` and ``step_partial``, K13
+``lookup_partial``, K11's partial ``lut_level_partial``,
+``csrc/sharded_partial.cu``) serve an index whose shards are spread over
+the ranks of a process group: each takes the view of one rank's run of
+shards and gives the JAX masked contribution summed over that run only,
+which the ranks sum by one all-reduce (``parallel/sharded.py``).  Their
+plain forms are built on the plain forms above applied to the run
+(``occ_plain`` is K9's partial's).
+
 The public functions take the plain form for CPU tensors and launch the
 kernel for CUDA tensors, with no fallback between them.  The walks are the
 JAX package's ``do_walk`` routes: the dsa gather when ``dsa_chunk`` ships,
@@ -35,8 +44,11 @@ import functools
 import torch
 
 from readserver_tpu_torch.kernels import (
+    SHARD_LOOKUP_PARTIAL,
     SHARD_OCC,
+    SHARD_OCC_PARTIAL,
     SHARDED_LUT_LEVEL,
+    SHARDED_LUT_LEVEL_PARTIAL,
     SHARDED_RESOLVE,
     SHARDED_SEARCH,
 )
@@ -50,11 +62,19 @@ from readserver_tpu_torch.ops.search import (
     prefix_ids,
     raise_if_refused,
     run_kstep,
+    step_code,
 )
 
 MAX_SHARDS = 64  # owner keys the kernels stage in shared memory
 # K9's tables, numbered as csrc/sharded.cu takes them
 TABLES = {"rank": 0, "rank2": 1, "rank3": 2, "marks": 3}
+# K13's lookups, numbered as csrc/sharded_partial.cu takes them; the
+# width of each one's output in lanes
+LOOKUPS = {"sym": 0, "dollar": 1, "sample": 2, "dsa": 3, "lf": 4,
+           "lf_mark": 5, "dollar_pair": 6}
+LOOKUP_WIDTH = {"lf_mark": 2, "dollar_pair": 3}
+# a search step's table by its width in columns
+STEP_TABLES = {1: "rank", 2: "rank2", 3: "rank3"}
 
 
 def _table(sidx, table: str):
@@ -283,6 +303,94 @@ def search_plain(sidx, kmers, lengths, lut, p: int, kstep: int,
     return canonical_empty(l, u)
 
 
+# ------------------------------------------ one rank's partials, plain forms
+
+
+def step_partial_plain(sidx, k: int, kmers, lengths, col: int, lu,
+                       lead: bool):
+    """K9's search step in plain form: the run's partial of one step of
+    ``k`` columns from column ``col`` over the B queries ``kmers`` [B, K]
+    from the reduced ``lu`` = (l, u) int64 [2B] → int64 [2B].  A lane is
+    active where l < u, its codes are bases (any base-table plane for
+    k = 1) and, with ``lengths``, ``col >= K - lengths``; there the
+    partial ranks of the step's plane, plus ``C_k[plane]`` on the ``lead``
+    rank; elsewhere (l, u) on the lead rank and 0 on the others, so the
+    sum over the ranks is the next interval."""
+    B, K = kmers.shape
+    l, u = lu[:B], lu[B:]
+    table = STEP_TABLES[k]
+    starts = {1: sidx.C, 2: sidx.C2, 3: sidx.C3}[k]
+    cols = kmers[:, col : col + k]
+    if k == 1:
+        ok = (cols[:, 0] >= 0) & (cols[:, 0] < 5)
+    else:
+        ok = ((cols >= 1) & (cols <= 4)).all(dim=1)
+    code = torch.where(ok, step_code(kmers, col, k), torch.zeros_like(cols[:, 0]))
+    active = ok & (l < u)
+    if lengths is not None:
+        active &= col >= K - lengths
+    occ2 = occ_plain(sidx, table, torch.cat([code, code]), lu)
+    zero = torch.zeros_like(l)
+    base = starts.index_select(0, code.to(torch.int64)) if lead else zero
+    return torch.cat([
+        torch.where(active, base + occ2[:B], l if lead else zero),
+        torch.where(active, base + occ2[B:], u if lead else zero),
+    ])
+
+
+def lookup_partial_plain(sidx, what: str, x, y=None):
+    """K13 in plain form: lookup ``what`` of the keys ``x`` (int64 [X]) over
+    the run's shards, 0 where none owns the key → int64 [X]: ``sym``,
+    ``dollar`` ($-rank → read id), ``sample`` (read id, clipped to
+    [0, m), → sample id), ``dsa`` (the uint32 word), ``lf`` (the raw value,
+    sign kept); ``lf_mark`` [2X] (lf, then the run's partial mark rank) and
+    ``dollar_pair`` [3X] (the read id of $-rank x, then the (read id,
+    offset) pairs of mark-rank slots ``y``), the JAX program's fused
+    pairs."""
+    i64 = torch.int64
+    if what == "sym":
+        return sym_plain(sidx, x).to(i64)
+    if what in ("dollar", "dollar_pair"):
+        out = _lookup_plain(sidx.dollar_chunk, sidx.dstarts, sidx.dlens,
+                            x).to(i64)
+        if what == "dollar":
+            return out
+        pair = _lookup_plain(sidx.spairs_chunk, sidx.sstarts, sidx.slens, y)
+        return torch.cat([out, pair.to(i64).reshape(-1)])
+    if what == "sample":
+        return sample_plain(sidx, x).to(i64)
+    if what == "dsa":
+        return _lookup_plain(sidx.dsa_chunk, sidx.starts, sidx.lens,
+                             x).to(i64) & _WORD
+    if what in ("lf", "lf_mark"):
+        out = _lookup_plain(sidx.lf_chunk, sidx.starts, sidx.lens, x).to(i64)
+        if what == "lf":
+            return out
+        return torch.cat([out, occ_plain(sidx, "marks", torch.zeros(
+            x.shape, dtype=torch.int32, device=x.device), x)])
+    raise ValueError(f"no sharded lookup {what!r}")
+
+
+def lut_level_partial_plain(sidx, l, u, lead: bool):
+    """K11's partial in plain form: level-ℓ intervals [X] → the run's
+    partial of level ℓ+1 as int64 [8X], the lower bounds c-major, then the
+    upper ones; an alive interval's partial ranks plus ``C[c]`` on the
+    ``lead`` rank, a frozen one's bounds on the lead rank and 0 on the
+    others."""
+    X = l.shape[0]
+    cc = torch.arange(1, 5, dtype=torch.int32, device=l.device)
+    cc = cc.repeat_interleave(X)
+    l4, u4 = l.repeat(4), u.repeat(4)
+    occ2 = occ_plain(sidx, "rank", torch.cat([cc, cc]), torch.cat([l4, u4]))
+    zero = torch.zeros_like(l4)
+    base = sidx.C.index_select(0, cc.to(torch.int64)) if lead else zero
+    alive = l4 < u4
+    return torch.cat([
+        torch.where(alive, base + occ2[: 4 * X], l4 if lead else zero),
+        torch.where(alive, base + occ2[4 * X :], u4 if lead else zero),
+    ])
+
+
 # ----------------------------------------------------------------- kernels
 
 
@@ -337,7 +445,7 @@ def _check_stack(name: str, t, dev, S: int, row_words: int | None = None):
 
 def _view(sidx) -> ShardView:
     """The checked owner view of a placed index on the card."""
-    S = sidx.num_shards
+    S = sidx.starts.shape[0]  # this run's shards
     if not 1 <= S <= MAX_SHARDS:
         raise ValueError(
             f"the sharded kernels take 1..{MAX_SHARDS} shards, got {S}")
@@ -567,3 +675,109 @@ def sweep(sidx, l, u, window: int, max_rows: int | None = None, *,
             ptr(hist), device=dev,
         )
     return hist.reshape(B, S), cum <= tw * window
+
+
+# ------------------------------------------------- one rank's partials
+
+
+def occ_partial(sidx, table: str, c, i):
+    """K9's partial: the rank over ``sidx``'s run of shards only, a rank's
+    share of a global rank, Σ_{s in run} occ_s(c, clip(i - start_s, 0,
+    len_s)): c int32 [X] (a plane of ``table``), i int64 [X] → int64 [X].
+    The kernel for a CUDA index; for a CPU index :func:`occ_plain` on the
+    run, its plain form."""
+    if not on_cuda(sidx.starts):
+        return occ_plain(sidx, table, c, i)
+    t, _, _ = _table(sidx, table)
+    if t is None:
+        raise ValueError(f"the index carries no {table} table")
+    v = _view(sidx)
+    dev = sidx.starts.device
+    X = i.shape[0]
+    check_int32("c", c, dev, (X,))
+    _check64("i", i, dev, (X,))
+    out = torch.empty(X, dtype=torch.int64, device=dev)
+    if X:
+        SHARD_OCC_PARTIAL(ctypes.addressof(v), TABLES[table], ptr(c), None, 0,
+                          0, 0, 0, ptr(i), X, ptr(out), device=dev)
+    return out
+
+
+def step_partial(sidx, k: int, kmers, lengths, col: int, lu, lead: bool):
+    """K9's partial of one search step (see :func:`step_partial_plain`):
+    kmers int32 [B, K], lengths int32 [B] or None (no length mask), the
+    reduced lu int64 [2B] → int64 [2B].  One launch for a CUDA index, the
+    plain form for a CPU index."""
+    if not on_cuda(sidx.starts):
+        return step_partial_plain(sidx, k, kmers, lengths, col, lu, lead)
+    table = STEP_TABLES.get(k)
+    if table is None or _table(sidx, table)[0] is None:
+        raise ValueError(f"the index has no table for a step of {k} columns")
+    v = _view(sidx)
+    dev = sidx.starts.device
+    check_int32("kmers", kmers, dev)
+    if kmers.dim() != 2 or not 1 <= kmers.shape[1] <= SEARCH_MAX_K:
+        raise ValueError(f"kmers must be [B, K] with K <= {SEARCH_MAX_K}, "
+                         f"got {tuple(kmers.shape)}")
+    B, K = kmers.shape
+    if not 0 <= col <= K - k:
+        raise ValueError(f"a step of {k} columns from column {col} leaves "
+                         f"the {K} columns")
+    if lengths is not None:
+        check_int32("lengths", lengths, dev, (B,))
+    _check64("lu", lu, dev, (2 * B,))
+    out = torch.empty(2 * B, dtype=torch.int64, device=dev)
+    if B:
+        SHARD_OCC_PARTIAL(ctypes.addressof(v), TABLES[table], ptr(kmers),
+                          ptr(lengths), K, col, k, int(lead), ptr(lu), B,
+                          ptr(out), device=dev)
+    return out
+
+
+def lookup_partial(sidx, what: str, x, y=None):
+    """K13: lookup ``what`` over ``sidx``'s run of shards, 0 where none
+    owns the key (see :func:`lookup_partial_plain`): x (and y, the slots
+    of ``dollar_pair``) int64 [X] → int64 [X] ([2X] ``lf_mark``, [3X]
+    ``dollar_pair``).  One launch for a CUDA index, the plain form for a
+    CPU index."""
+    if what not in LOOKUPS:
+        raise ValueError(f"no sharded lookup {what!r}")
+    if not on_cuda(sidx.starts):
+        return lookup_partial_plain(sidx, what, x, y)
+    v = _view(sidx)
+    dev = sidx.starts.device
+    X = x.shape[0]
+    _check64("x", x, dev, (X,))
+    if what == "dollar_pair":
+        if y is None:
+            raise ValueError("dollar_pair needs the mark-rank slots y")
+        _check64("y", y, dev, (X,))
+    out = torch.empty(LOOKUP_WIDTH.get(what, 1) * X, dtype=torch.int64,
+                      device=dev)
+    if X:
+        SHARD_LOOKUP_PARTIAL(ctypes.addressof(v), LOOKUPS[what], ptr(x),
+                             ptr(y) if what == "dollar_pair" else None, X,
+                             ptr(out), device=dev)
+    return out
+
+
+def lut_level_partial(sidx, l, u, lead: bool, *, max_chunk: int = 1 << 22):
+    """K11's partial: level-ℓ intervals (int64 [X]) → the run's partial of
+    level ℓ+1, int64 [8X] (see :func:`lut_level_partial_plain`).  One
+    launch per ``max_chunk`` intervals for a CUDA index; the plain form for
+    a CPU index."""
+    if not on_cuda(sidx.starts):
+        return lut_level_partial_plain(sidx, l, u, lead)
+    v = _view(sidx)
+    dev = sidx.starts.device
+    X = l.shape[0]
+    _check64("l", l, dev, (X,))
+    _check64("u", u, dev, (X,))
+    out = torch.empty(8 * X, dtype=torch.int64, device=dev)
+    for a in range(0, X, max_chunk):
+        SHARDED_LUT_LEVEL_PARTIAL(
+            ctypes.addressof(v), ptr(l) + 8 * a, ptr(u) + 8 * a,
+            min(max_chunk, X - a), int(lead), ptr(out) + 8 * a, X,
+            device=dev,
+        )
+    return out

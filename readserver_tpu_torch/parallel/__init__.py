@@ -1,10 +1,12 @@
-"""Distribution layer of the port: BWT-interval sharding with every shard
-on one device (``mesh``, ``sharded``; the JAX package's ``make_mesh``,
-``ShardedIndex``, ``build_sharded``, ``place_sharded``,
-``make_sharded_query_fn`` and ``build_prefix_lut_sharded``) and the
-analytic collective counts (``stats``, a copy of the JAX package's
-module).  Shards across devices and hosts (ROADMAP P11) and document
-sharding across devices (P9) are still to port."""
+"""Distribution layer of the port: BWT-interval sharding (``mesh``,
+``sharded``; the JAX package's ``make_mesh``, ``ShardedIndex``,
+``build_sharded``, ``place_sharded``, ``make_sharded_query_fn`` and
+``build_prefix_lut_sharded``) with every shard on one device or a run of
+them on each rank of a process group (``multihost``: ``init_multihost``,
+``make_global_mesh``, ``host_local_queries``, ``gather_results``,
+``local_slice``), and the analytic collective counts (``stats``, a copy of
+the JAX package's module).  Document sharding across devices (ROADMAP P9)
+is still to port."""
 
 from readserver_tpu_torch.parallel.mesh import Mesh, make_mesh
 from readserver_tpu_torch.parallel.sharded import (

@@ -12,13 +12,23 @@ The payload tables ($-rank → read id, read id → sample, the sampled pairs)
 shard the same way over their own key ranges.  Global positions and
 intervals are int64; local ranks stay int32.
 
-Here all S shards are resident on one device (``parallel/mesh.py``).  The
-host part (:func:`build_sharded`) is the JAX package's, array for array;
-:func:`place_sharded` moves it to the device and adds the exclusive
-prefixes over shards that the owner form of the kernels reads.  The query
-program (:func:`make_sharded_query_fn`) runs the plain torch forms of
-``ops/sharded.py`` for CPU tensors and kernels K9-K11
-(``csrc/sharded.cu``) for CUDA tensors.
+A rank of a process group holds a contiguous run of the S shards on its
+device (``parallel/mesh.py``; all S on a mesh of one rank).  The host part
+(:func:`build_sharded`) is the JAX package's, array for array;
+:func:`place_sharded` moves the rank's run to its device and adds the
+exclusive prefixes over the run's shards that the owner form of the
+kernels reads.  The query program (:func:`make_sharded_query_fn`) has two
+forms:
+
+* every shard on one rank: the whole program in a few launches of kernels
+  K9-K11 (``csrc/sharded.cu``), each position read at its owner shard;
+* the shards spread over the ranks of a dp row (or ``per_step``): the JAX
+  ``_query_body`` step for step, each step one rank's partial over its run
+  (K9's partial, K13 or K11's partial, ``csrc/sharded_partial.cu``), one
+  all-reduce over the row's ranks, then the update.
+
+Each runs the plain torch forms of ``ops/sharded.py`` for CPU tensors and
+the kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -34,6 +44,14 @@ from readserver_tpu_torch import alphabet
 from readserver_tpu_torch.index import packing
 from readserver_tpu_torch.ops import sharded as sops
 from readserver_tpu_torch.ops.resolve import compact_rows
+from readserver_tpu_torch.ops.search import (
+    _refused,
+    canonical_empty,
+    kstep_schedule,
+    prefix_ids,
+    raise_if_refused,
+)
+from readserver_tpu_torch.parallel.multihost import all_reduce
 
 Array = Any  # numpy before place_sharded, torch after
 
@@ -77,7 +95,8 @@ class ShardedIndex:
     prefix2: Array | None = None       # int64 [S+1, 16]
     prefix3: Array | None = None       # int64 [S+1, 64]
     mark_prefix: Array | None = None   # int64 [S+1]
-    # static
+    # static; num_shards counts the whole index's shards (a rank's run
+    # stacks starts.shape[0] of them)
     num_shards: int = 1
     n: int = 0
     num_reads: int = 0
@@ -310,8 +329,11 @@ def _slice_plane_tiers(
     return out
 
 
-def _exclusive_prefix(totals: np.ndarray) -> np.ndarray:
-    """int64 [S, P] per-shard totals → [S+1, P]: row s sums shards < s."""
+def _exclusive_prefix(totals: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """int64 [S, P] per-shard totals → [S+1, P]: row s sums shards < s, an
+    empty shard counting 0 (its plane totals may hold a partial block's)."""
+    totals = np.where((np.asarray(lens) > 0).reshape(-1, *[1] * (totals.ndim - 1)),
+                      totals, 0)
     out = np.zeros((totals.shape[0] + 1, *totals.shape[1:]), dtype=np.int64)
     np.cumsum(totals, axis=0, out=out[1:])
     return out
@@ -330,30 +352,36 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 
 def place_sharded(sidx: ShardedIndex, mesh) -> ShardedIndex:
-    """Every array of a :func:`build_sharded` index → a tensor on the
-    mesh's one device (uint32 tables as int32 bits), plus the owner form's
-    exclusive prefixes over shards of ``sym_totals``, ``totals2``,
-    ``totals3`` and the shards' mark counts (``slens``)."""
+    """This rank's run of a :func:`build_sharded` index (all S shards on a
+    mesh of one rank) → tensors on the mesh's device (uint32 tables as
+    int32 bits), the run's shards keeping their global starts, plus the
+    exclusive prefixes over the run's shards of ``sym_totals``,
+    ``totals2``, ``totals3`` and the shards' mark counts (``slens``)."""
     if int(mesh.shape["shard"]) != sidx.num_shards:
         raise ValueError(
             f"mesh has {mesh.shape['shard']} shards, the index "
             f"{sidx.num_shards}"
         )
+    a, k = mesh.first_shard, mesh.shards_per_rank
+    run = {f: None if getattr(sidx, f) is None
+           else np.asarray(getattr(sidx, f))[a : a + k] for f in STACKED}
     dev = mesh.device
-    placed = {
-        f: None if getattr(sidx, f) is None else _to_tensor(getattr(sidx, f), dev)
-        for f in (*STACKED, *REPLICATED)
-    }
+    placed = {f: None if v is None else _to_tensor(v, dev)
+              for f, v in run.items()}
+    for f in REPLICATED:
+        v = getattr(sidx, f)
+        placed[f] = None if v is None else _to_tensor(v, dev)
     pre = {
-        "sym_prefix": sidx.sym_totals,
-        "prefix2": sidx.totals2,
-        "prefix3": sidx.totals3,
-        "mark_prefix": sidx.slens,
+        "sym_prefix": run["sym_totals"],
+        "prefix2": run["totals2"],
+        "prefix3": run["totals3"],
+        "mark_prefix": run["slens"],
     }
     for f, totals in pre.items():
         placed[f] = (
             None if totals is None
-            else _to_tensor(_exclusive_prefix(np.asarray(totals, np.int64)), dev)
+            else _to_tensor(_exclusive_prefix(np.asarray(totals, np.int64),
+                                              run["lens"]), dev)
         )
     return dataclasses.replace(sidx, **placed)
 
@@ -437,6 +465,233 @@ def _query(
     )
 
 
+# ------------------------------------------------ the cross-rank program
+
+
+class _Run:
+    """One rank's run of the shards and its dp row's shard subgroup: each
+    collective of the JAX program is this rank's partial over its run
+    (K9's partial, K13, K11's partial) and one all-reduce over the row's
+    ranks.  Every rank of the row holds the row's queries and sees the same
+    reduced values, so each takes the same branches and trip counts; the dp
+    rows never meet inside the program, so a row's loops stop on their own
+    where the JAX program makes the trip count dp-uniform with a pmax (the
+    answers are the same: a row's extra trips carry no live lane)."""
+
+    def __init__(self, sidx, mesh):
+        self.s = sidx
+        self.group = mesh.shard_group
+        self.lead = mesh.lead
+
+    def reduce(self, t):
+        return all_reduce(t, self.group)
+
+    def occ(self, table: str, c, i):
+        return self.reduce(sops.occ_partial(self.s, table, c, i))
+
+    def lookup(self, what: str, x, y=None):
+        return self.reduce(sops.lookup_partial(self.s, what, x, y))
+
+
+def _search_ranks(run, kmers, lengths, lut, p: int, kstep: int,
+                  early_exit: bool):
+    """The JAX ``_query_body``'s search: from the LUT or C, each step one
+    launch of K9's step partial and one all-reduce, whose output is the
+    next (l, u) → int64 (l, u) [B], empties (0, 0).  ``early_exit`` (the
+    k-step schedule only, as in the JAX program) stops once every interval
+    of the row is empty."""
+    s = run.s
+    B, K = kmers.shape
+    if lut is not None:
+        rows0 = lut.index_select(0, prefix_ids(kmers, p).to(torch.int64))
+        l, u = rows0[:, 0], rows0[:, 1]
+        last_col = K - p
+    else:
+        c_last = kmers[:, K - 1].to(torch.int64)
+        l, u = s.C.index_select(0, c_last), s.C.index_select(0, c_last + 1)
+        last_col = K - 1
+    lu = torch.cat([l, u]).contiguous()
+    if kstep >= 2:
+        sched, lens = kstep_schedule(last_col, kstep), None
+    else:
+        sched, lens = [(j, 1) for j in range(last_col - 1, -1, -1)], lengths
+    for j, k in sched:
+        if kstep >= 2 and early_exit and not bool((lu[:B] < lu[B:]).any()):
+            break
+        lu = run.reduce(sops.step_partial(s, k, kmers, lens, j, lu, run.lead))
+    return canonical_empty(lu[:B], lu[B:])
+
+
+def _walk_ranks(run, rows, valid, walk_early_exit: bool):
+    """The JAX ``do_walk`` over global rows int64 [R] → (read_id, offset)
+    int32 [R], -1 where invalid or unterminated: the dsa gather (one
+    all-reduce), the sampled-LF walk (one a step, then the two fused
+    terminal pairs) or the slow walk (sym and rank a step, then the $-rank's
+    read).  ``walk_early_exit`` stops once every lane is done."""
+    s = run.s
+    m = s.num_reads
+    neg = torch.full(rows.shape, -1, dtype=torch.int32, device=rows.device)
+    kind = sops.walk_kind(s)
+    if kind == "dsa":
+        p = run.lookup("dsa", rows)
+        bits = s.dsa_bits
+        rid = (p >> bits).to(torch.int32)
+        off = (p & ((1 << bits) - 1)).to(torch.int32)
+        return torch.where(valid, rid, neg), torch.where(valid, off, neg)
+    if kind == "lf":
+        cur, done = rows, ~valid
+        steps = torch.zeros(rows.shape, dtype=torch.int32, device=rows.device)
+        for _ in range(max(s.sample_rate, 1)):
+            if walk_early_exit and bool(done.all()):
+                break
+            raw = run.lookup("lf", cur.contiguous()).to(torch.int32)
+            val = (raw & 0x7FFFFFFF).to(torch.int64)
+            is_term = (raw < 0) | (val < m)
+            step_now = ~done & ~is_term
+            cur = torch.where(step_now, val, cur)
+            steps = steps + step_now.to(torch.int32)
+            done = done | is_term
+        R = rows.shape[0]
+        both = run.lookup("lf_mark", cur.contiguous())
+        raw, slot = both[:R].to(torch.int32), both[R:]
+        is_marked = raw < 0
+        val = (raw & 0x7FFFFFFF).to(torch.int64)
+        cat = run.lookup("dollar_pair", val, slot)
+        rid_d = cat[:R].to(torch.int32)
+        pair = cat[R:].reshape(R, 2).to(torch.int32)
+        read_id = torch.where(is_marked, pair[:, 0], rid_d)
+        offset = torch.where(is_marked, pair[:, 1] + steps, steps)
+        ok = valid & done
+        return torch.where(ok, read_id, neg), torch.where(ok, offset, neg)
+    # the slow walk: carry the terminal $-rank, look the read up once
+    cur, done = rows, ~valid
+    drank = torch.full(rows.shape, -1, dtype=torch.int64, device=rows.device)
+    offset = neg.clone()
+    for t in range(s.max_read_len):
+        if walk_early_exit and bool(done.all()):
+            break
+        cur = cur.contiguous()
+        c = run.lookup("sym", cur).to(torch.int32)
+        o = run.occ("rank", c, cur)
+        hit = (c == 0) & ~done
+        drank = torch.where(hit, o, drank)
+        offset = torch.where(hit, torch.full_like(offset, t), offset)
+        done = done | (c == 0)
+        cur = torch.where(done, cur, s.C.index_select(0, c.to(torch.int64)) + o)
+    rid = run.lookup("dollar", drank.clamp(min=0)).to(torch.int32)
+    ok = valid & done
+    return torch.where(ok, rid, neg), torch.where(ok, offset, neg)
+
+
+def _sample_ranks(run, read_id):
+    """Read id (int32, -1 where none) → sample of clip(read id, 0, m - 1)."""
+    return run.lookup("sample", read_id.to(torch.int64)).to(torch.int32)
+
+
+def _sweep_ranks(run, l, u, window: int, max_rows: int | None,
+                 walk_early_exit: bool):
+    """The JAX exact sweep (947-988): windows of ``window`` slots of the
+    concatenated intervals, each walked and its samples looked up through
+    the all-reduces, then one ``index_add_`` of the window's reduced sample
+    ids (outside every step loop).  The row's total decides the trip count
+    on every rank of the row alike."""
+    s = run.s
+    B = l.shape[0]
+    S = s.num_samples
+    dev = l.device
+    cum = torch.cumsum(u - l, 0)
+    total = int(cum[B - 1])
+    span = torch.arange(window, dtype=torch.int64, device=dev)
+    hist = torch.zeros(B * S, dtype=torch.int32, device=dev)
+    t = 0
+    while t * window < total and (max_rows is None or t * window < max_rows):
+        g = t * window + span
+        gvalid = g < total
+        qc = torch.searchsorted(cum, g, right=True).clamp(max=B - 1)
+        prev = torch.where(qc > 0, cum.index_select(0, (qc - 1).clamp(min=0)),
+                           torch.zeros_like(qc))
+        wrows = l.index_select(0, qc) + (g - prev)
+        rid, _ = _walk_ranks(run, torch.where(gvalid, wrows, 0), gvalid,
+                             walk_early_exit)
+        seg = qc * S + _sample_ranks(run, rid).to(torch.int64)
+        hist.index_add_(0, seg, gvalid.to(torch.int32))
+        t += 1
+    return hist.reshape(B, S), cum <= t * window
+
+
+def _query_ranks(
+    sidx, lut, kmers, lengths, *, mesh,
+    max_hits: int, lut_p: int, kstep: int = 1, early_exit: bool = False,
+    exact_hist: bool = False, exact_max_rows: int | None = None,
+    resolve_budget: int | None = None, walk_early_exit: bool = False,
+):
+    """Search + resolve + attribution of one dp row across the ranks of its
+    shard subgroup, the JAX ``_query_body`` step for step (see
+    :class:`_Run`).  The collectives a batch, each one all-reduce: a search
+    step each, then dsa 2, lf ``sample_rate`` + 3 or slow ``2 *
+    max_read_len`` + 2 (``parallel/stats.query_psum_estimate``), and the
+    sweep's walks and sample lookups a window."""
+    run = _Run(sidx, mesh)
+    B, K = kmers.shape
+    dev = kmers.device
+    if kstep >= 2 and sidx.rank2_rows is not None:
+        kstep = 3 if kstep >= 3 and sidx.rank3_rows is not None else 2
+    else:
+        kstep = 1
+    p = lut_p if lut is not None else 0
+    raise_if_refused(
+        int(_refused(kmers, lengths if kstep == 1 else None, p).sum()), K)
+    l, u = _search_ranks(run, kmers, lengths, lut if p else None, p, kstep,
+                         early_exit)
+
+    H = max_hits
+    span = torch.arange(H, dtype=torch.int64, device=dev)
+    rows = (l[:, None] + span[None, :]).reshape(-1)
+    valid = (span[None, :] < (u - l)[:, None]).reshape(-1)
+    rows = torch.where(valid, rows, torch.zeros_like(rows))
+    F = B * H
+    if resolve_budget is not None and resolve_budget < F:
+        # row-budget compaction: the first resolve_budget valid lanes walk
+        # (every rank of the row compacts alike: rows are reduced values)
+        comp_rows, comp_valid, orig, keep = compact_rows(
+            rows, valid, resolve_budget)
+        rid_c, off_c = _walk_ranks(run, comp_rows, comp_valid,
+                                   walk_early_exit)
+        smp_c = _sample_ranks(run, rid_c)
+        full = torch.full((F + 1,), -1, dtype=torch.int32, device=dev)
+        read_id = full.scatter(0, orig, rid_c)[:F]
+        offset = full.scatter(0, orig, off_c)[:F]
+        sample = torch.zeros(F + 1, dtype=torch.int32, device=dev).scatter(
+            0, orig, smp_c)[:F]
+        valid_w = valid & keep
+    else:
+        read_id, offset = _walk_ranks(run, rows, valid, walk_early_exit)
+        sample = _sample_ranks(run, read_id)
+        valid_w = valid
+    S = sidx.num_samples
+    seg = torch.arange(B, dtype=torch.int64, device=dev).repeat_interleave(
+        H) * S + sample.to(torch.int64)
+    hist = torch.zeros(B * S, dtype=torch.int32, device=dev)
+    hist.index_add_(0, seg, valid_w.to(torch.int32))
+    hist = hist.reshape(B, S)
+    hist_complete = ((u - l) <= H) & (
+        valid_w.reshape(B, H).sum(dim=1) == valid.reshape(B, H).sum(dim=1)
+    )
+    if exact_hist:
+        hist, hist_complete = _sweep_ranks(run, l, u, B * H, exact_max_rows,
+                                           walk_early_exit)
+    return dict(
+        l=l,
+        u=u,
+        count=u - l,
+        read_id=read_id.reshape(B, H),
+        offset=offset.reshape(B, H),
+        valid=valid_w.reshape(B, H),
+        sample_hist=hist,
+        hist_complete=hist_complete,
+    )
+
+
 def make_sharded_query_fn(
     sidx: ShardedIndex,
     mesh,
@@ -457,16 +712,22 @@ def make_sharded_query_fn(
     ``sample_hist`` (int32 [B, num_samples]) and ``hist_complete`` (bool
     [B]), the JAX ``make_sharded_query_fn``'s answers bit for bit.
 
+    ``kmers`` are this rank's dp rows (the whole batch on a mesh of one
+    rank), each row of ``B / mesh.rows_per_rank`` queries run in turn:
+    every shard on this rank runs the one-device kernels, shards spread
+    over the ranks of a row (or ``mesh.per_step``) the cross-rank program
+    (:func:`_query_ranks`), which every rank of the row calls together.
+
     ``kstep=None`` picks the deepest k-gram tier the index carries; a fn
     with ``kstep >= 2`` needs every query length == K.  With ``lut_p > 0``
     it needs an int64 [4^p, 2] LUT (:func:`build_prefix_lut_sharded`) and
     every length >= lut_p.  ``early_exit``, ``walk_early_exit``,
-    ``owner_route`` and ``route_capacity`` change no answer: the JAX
-    program's collective schedule has no counterpart here, where every
-    search and walk stops per lane and each rank reads its owner shard
-    only.  ``bad`` (int32 [1] on the card) counts refused queries without
-    waiting, as the single-device engine's search does; without it a
-    refused query raises ``ValueError``."""
+    ``owner_route`` and ``route_capacity`` change no answer; the one-device
+    kernels stop each search and walk per lane and read the owner shard
+    only, and the owner-routed rank has no cross-rank form here.  ``bad``
+    (int32 [1] on the card) counts refused queries without waiting in the
+    one-device form, as the single-device engine's search does; without
+    it, and always across ranks, a refused query raises ``ValueError``."""
     if kstep is None:
         kstep = (
             3 if sidx.rank3_rows is not None
@@ -475,15 +736,29 @@ def make_sharded_query_fn(
         )
     if route_capacity is not None and int(route_capacity) < 1:
         raise ValueError(f"route_capacity must be >= 1, got {route_capacity}")
-    del mesh, owner_route  # one device; every rank reads its owner shard
+    del owner_route
+    kw = dict(max_hits=max_hits, lut_p=lut_p, kstep=kstep,
+              early_exit=early_exit, exact_hist=exact_hist,
+              exact_max_rows=exact_max_rows, resolve_budget=resolve_budget,
+              walk_early_exit=walk_early_exit)
+    rows = mesh.rows_per_rank
+
+    def one(sidx, lut, kmers, lengths, bad):
+        if mesh.cross_rank:
+            return _query_ranks(sidx, lut, kmers, lengths, mesh=mesh, **kw)
+        return _query(sidx, lut, kmers, lengths, bad=bad, **kw)
 
     def fn(sidx, lut, kmers, lengths, bad=None):
-        return _query(
-            sidx, lut, kmers, lengths, max_hits=max_hits, lut_p=lut_p,
-            kstep=kstep, early_exit=early_exit, exact_hist=exact_hist,
-            exact_max_rows=exact_max_rows, resolve_budget=resolve_budget,
-            walk_early_exit=walk_early_exit, bad=bad,
-        )
+        B = kmers.shape[0]
+        if rows == 1:
+            return one(sidx, lut, kmers, lengths, bad)
+        if B % rows:
+            raise ValueError(f"a batch of {B} does not split into {rows} "
+                             f"dp rows")
+        b = B // rows
+        outs = [one(sidx, lut, kmers[r * b : (r + 1) * b],
+                    lengths[r * b : (r + 1) * b], bad) for r in range(rows)]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
     return fn
 
@@ -494,17 +769,26 @@ def build_prefix_lut_sharded(
     """Prefix LUT (int64 [4^p, 2]) built with the sharded global rank: the
     level BFS of ``ops/lut.py`` (four children per interval, c-major,
     empties frozen, absent p-mers as (0, 0)), bit-exact with the sharded
-    search it starts.  K11 a level on the card, each launch taking at most
-    ``max_chunk`` intervals; the plain form for a CPU index."""
-    del mesh
+    search it starts.  Every shard on this rank: K11 a level, each launch
+    taking at most ``max_chunk`` intervals.  Shards spread over the ranks
+    of a row (or ``mesh.per_step``): the JAX ``level_body``, K11's partial
+    and one all-reduce a level, which every rank of the row calls together.
+    The plain forms for a CPU index."""
     if not (1 <= p <= 15):
         raise ValueError("prefix LUT order must be in [1, 15]")
     if max_chunk < 1:
         raise ValueError("max_chunk must be >= 1")
+    cross = mesh is not None and mesh.cross_rank
     l = sidx.C[1:5].contiguous()
     u = sidx.C[2:6].contiguous()
     for _ in range(p - 1):
-        l, u = sops.lut_level(sidx, l, u, max_chunk=max_chunk)
+        if cross:
+            X = l.shape[0]
+            out = all_reduce(sops.lut_level_partial(
+                sidx, l, u, mesh.lead, max_chunk=max_chunk), mesh.shard_group)
+            l, u = out[: 4 * X], out[4 * X :]
+        else:
+            l, u = sops.lut_level(sidx, l, u, max_chunk=max_chunk)
     empty = l >= u
     zero = torch.zeros_like(l)
     return torch.stack(

@@ -367,8 +367,10 @@ class QueryEngine:
       make_mesh(num_shards=S, device="cuda"), device="cuda")``, the
       JAX package's shape, with all S BWT-range shards resident on the one
       device (``parallel/sharded.py``; ``_sharded`` True, the index in
-      ``sidx``).  A ``dp`` axis above 1, or shards across devices, is
-      ROADMAP P11 and raises ``NotImplementedError``.
+      ``sidx``), or over the ranks of a process group with a mesh from
+      ``parallel.multihost.make_global_mesh``: every rank builds the
+      engine, rank 0 answers and broadcasts each batch tick, the others
+      run :meth:`follow` (``_mh`` True).
 
     A list of partitions (document sharding across devices) is not ported
     yet; :class:`MultiEngine` serves partitions on one device.  The
@@ -461,11 +463,8 @@ class QueryEngine:
             make_sharded_query_fn,
             place_sharded,
         )
-        from readserver_tpu_torch.parallel.mesh import _P11
 
         dp = max(self.cfg.data_parallel, 1)
-        if dp > 1 or int(mesh.shape["dp"]) > 1:
-            raise NotImplementedError(_P11)
         if int(mesh.shape["shard"]) != self.cfg.num_shards:
             raise ValueError(
                 f"mesh has {mesh.shape['shard']} shards, the config "
@@ -476,6 +475,11 @@ class QueryEngine:
                 f"mesh is on {mesh.device}, the engine on {self.device}"
             )
         self.mesh = dataclasses.replace(mesh, device=self.device)
+        # a process group: rank 0 broadcasts each batch tick and every rank
+        # runs the program together (the others in .follow())
+        self._mh = int(mesh.ranks["dp"]) * int(mesh.ranks["shard"]) > 1
+        # tiered widths must divide into the dp rows
+        self._width_quantum = int(mesh.shape["dp"])
         self.tier_plan = None  # every tier the artifact carries ships
         t0 = time.perf_counter()
         host = build_sharded(packed, self.cfg.num_shards)
@@ -527,8 +531,20 @@ class QueryEngine:
         """One batch through the sharded program → its answers on the host
         (``l, u, count`` int64, ``read_id, offset`` int32, ``valid``,
         ``sample_hist``, ``hist_complete``), the first ``len(kmers)``
-        rows, routed as the JAX engine does (:meth:`_sharded_program`)."""
+        rows, routed as the JAX engine does (:meth:`_sharded_program`).  In
+        a process group, a tick: a fixed-shape header (width, nq, stop)
+        broadcast from rank 0, then the width-shaped payload, then the
+        program on every rank (:meth:`_mh_execute`)."""
         codes, lengths, nq = self._pad_encode(kmers)
+        if self._mh:
+            from readserver_tpu_torch.parallel.multihost import broadcast
+
+            broadcast(np.array([codes.shape[0], nq, 0], dtype=np.int64),
+                      self.device)
+            codes = broadcast(codes, self.device)
+            lengths = broadcast(lengths, self.device)
+            out = self._mh_execute(codes, lengths, nq)
+            return {k: v[:nq] for k, v in out.items()}
         bad = self._new_bad() if self.device.type == "cuda" else None
         out = self._sharded_program(codes, lengths, nq, bad)
         host = {k: v[:nq].cpu().numpy() for k, v in out.items()}
@@ -536,15 +552,71 @@ class QueryEngine:
             raise_if_refused(int(bad.item()), self.K)
         return host
 
-    def _sharded_program(self, codes, lengths, nq: int, bad):
-        """The sharded program on one padded batch → its outputs on the
-        device: the k-step functions for a uniform full-width batch, the
-        LUT ones when every query reaches the LUT's order."""
+    def _mh_execute(self, codes: np.ndarray, lengths: np.ndarray,
+                    nq: int) -> dict[str, np.ndarray]:
+        """One tick on every rank, with the same (broadcast) batch: this
+        rank's dp rows (a slice of the batch every rank holds, where the
+        JAX engine gathers each host's share), the program, and the
+        all-gather of every row's outputs.  Every branch derives from the
+        broadcast batch, so every rank takes the same ones."""
+        from readserver_tpu_torch.parallel.multihost import gather_results
+
+        K = codes.shape[1]
+        lmax = int(lengths.max()) if len(lengths) else K
+        if int(lengths.min()) == lmax and lmax < K:
+            codes = np.ascontiguousarray(codes[:, K - lmax:])
+        B = codes.shape[0]
+        rows = int(self.mesh.shape["dp"])
+        if B % rows:
+            raise ValueError(f"a batch of {B} does not split into {rows} "
+                             f"dp rows")
+        routes = self._sharded_routes(codes, lengths, nq)
+        take = B // int(self.mesh.ranks["dp"])
+        a = int(self.mesh.coords["dp"]) * take
+        out = self._sharded_program(
+            np.ascontiguousarray(codes[a : a + take]),
+            np.ascontiguousarray(lengths[a : a + take]), nq, None, routes)
+        return gather_results(out, self.mesh)
+
+    def follow(self) -> None:
+        """Follower loop for ranks other than 0: run broadcast ticks until
+        rank 0 sends the stop flag (a collective that fails, a peer lost,
+        raises out of it)."""
+        from readserver_tpu_torch.parallel.multihost import broadcast
+
+        while True:
+            width, nq, stop = (int(x) for x in broadcast(
+                np.zeros(3, dtype=np.int64), self.device))
+            if stop:
+                return
+            codes = broadcast(np.zeros((width, self.K), dtype=np.int32),
+                              self.device)
+            lengths = broadcast(np.ones(width, dtype=np.int32), self.device)
+            self._mh_execute(codes, lengths, nq)
+
+    def stop_followers(self) -> None:
+        """Release the other ranks' :meth:`follow` loops."""
+        if not getattr(self, "_mh", False):
+            return
+        from readserver_tpu_torch.parallel.multihost import broadcast
+
+        broadcast(np.array([0, 0, 1], dtype=np.int64), self.device)
+
+    def _sharded_routes(self, codes, lengths, nq: int) -> tuple[bool, bool]:
+        """(use_lut, uniform) of a padded batch: the LUT when every query
+        reaches its order, the k-step functions for a uniform full-width
+        batch."""
         use_lut = bool(
             self.lut is not None and nq
             and int(lengths[:nq].min()) >= self.lut_p
         )
-        uniform = bool(nq and int(lengths.min()) == codes.shape[1])
+        return use_lut, bool(nq and int(lengths.min()) == codes.shape[1])
+
+    def _sharded_program(self, codes, lengths, nq: int, bad, routes=None):
+        """The sharded program on one padded batch → its outputs on the
+        device, routed by :meth:`_sharded_routes` (``routes``: the whole
+        batch's, where ``codes`` are this rank's dp rows of it)."""
+        use_lut, uniform = routes or self._sharded_routes(codes, lengths, nq)
         if use_lut:
             fn = self._query_fn_lut if uniform else self._query_fn_lut_1
         else:
@@ -630,9 +702,11 @@ class QueryEngine:
         if nq > self.B:
             raise ValueError(f"batch of {nq} exceeds configured {self.B}")
         # tiered widths: pad to the smallest configured width that fits
+        # and splits into the dp rows
         width = self.B
+        quantum = getattr(self, "_width_quantum", 1)
         for w in sorted(self.cfg.small_batch_sizes):
-            if nq <= w <= self.B:
+            if nq <= w <= self.B and w % quantum == 0:
                 width = w
                 break
         self.last_width = width
@@ -643,8 +717,10 @@ class QueryEngine:
         padded = list(kmers) + ["A" * lmax] * (width - nq)
         codes, lengths = encode_query_batch(padded, self.K)
         # uniform-length batches slice to exactly L columns: the k-step
-        # paths require every column to be a real character
-        if nq and int(lengths.min()) == lmax and lmax < self.K:
+        # paths require every column to be a real character (a group's
+        # tick broadcasts all K columns; each rank slices after it)
+        if (not getattr(self, "_mh", False) and nq
+                and int(lengths.min()) == lmax and lmax < self.K):
             codes = np.ascontiguousarray(codes[:, self.K - lmax:])
         return codes, lengths, nq
 

@@ -91,19 +91,20 @@ def test_engine_plan_and_warmup(engines):
 
 
 def test_unported_surfaces_raise(engines, small_corpus):
-    """Document sharding across devices (a list of partitions), and
-    interval shards across devices or on a dp axis above 1 (a mesh that
-    is not one device's), are the surfaces still to port."""
+    """Document sharding across devices (a list of partitions) is the
+    surface still to port; interval shards on a dp axis above 1 serve."""
     from readserver_tpu_torch.parallel import Mesh
 
     _, _, engine = engines
     assert not engine._doc and not engine._sharded
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         QueryEngine([engine.packed, engine.packed], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QueryEngine(engine.packed, ServeConfig(num_shards=2, data_parallel=2),
-                    mesh=Mesh(shape={"dp": 2, "shard": 2}, device="cpu"),
-                    device="cpu")
+    dp2 = QueryEngine(engine.packed, ServeConfig(num_shards=2, data_parallel=2),
+                      mesh=Mesh(shape={"dp": 2, "shard": 2}, device="cpu"),
+                      device="cpu")
+    kms = ["ACGTA", "TTGCA", "GATTACA"]
+    assert ([r.count for r in dp2.count_batch(kms)]
+            == [r.count for r in engine.count_batch(kms)])
 
 
 def test_cli_build_and_query_match_jax_cli(tmp_path, capsys):

@@ -803,15 +803,16 @@ def test_append_after_compaction_no_name_collision_as_jax(tiny_corpus,
 @pytest.mark.parametrize("argv", [
     ["query", "--index", "a,b", "--kmer", "ACGT", "--device", "cpu"],
     ["serve", "--index", "a,b", "--device", "cpu"],
-    ["serve", "--index", "a", "--coordinator", "localhost:1234",
+    ["serve", "--index", "a,b", "--coordinator", "localhost:1234",
      "--device", "cpu"],
 ])
 def test_cli_refuses_unported_decompositions(argv, capsys):
-    """Document sharding across devices and multi-host serving are
-    refused, naming their ROADMAP items, before any artifact is read."""
+    """Document sharding across devices is refused, naming its ROADMAP
+    item, before any artifact is read or any group is joined (a group of
+    ranks serves one artifact)."""
     assert cli.main(argv) == 2
     err = capsys.readouterr().err
-    assert ("ROADMAP P11" if "--coordinator" in argv else "ROADMAP P9") in err
+    assert "ROADMAP P9" in err
 
 
 @pytest.mark.parametrize("config,scale", [("tiny", "1.0"), ("cohort", "0.001")])

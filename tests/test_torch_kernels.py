@@ -31,8 +31,11 @@ from readserver_tpu_torch.kernels import (
     RESOLVE_DSA,
     RESOLVE_FUSED,
     RESOLVE_WALK,
+    SHARD_LOOKUP_PARTIAL,
     SHARD_OCC,
+    SHARD_OCC_PARTIAL,
     SHARDED_LUT_LEVEL,
+    SHARDED_LUT_LEVEL_PARTIAL,
     SHARDED_RESOLVE,
     SHARDED_SEARCH,
 )
@@ -1276,3 +1279,169 @@ def test_cli_ingest_and_upgrade_served_on_card(tmp_path, cuda_device):  # noqa: 
     cpu = QueryEngine(packed, cfg, device="cpu")
     assert got == cpu.count_batch(kms, both_strands=True)
     assert card.query_batch(kms[:64]) == cpu.query_batch(kms[:64])
+
+
+# ------------------------ one rank's partials (K9's partial, K13, K11's)
+
+# (case, S, runs): S shards in `runs` runs, one a rank
+PARTIAL_CASES = [("small", 4, 2), ("small", 4, 4), ("small", 8, 2),
+                 ("small", 4, 1), ("six reads", 8, 4)]
+
+
+def _runs(pk, S, R, device):
+    """The R ranks' placed runs of an S-shard index, and the whole index."""
+    host = shard_par.build_sharded(pk, S)
+    runs = [shard_par.place_sharded(host, shard_par.Mesh(
+        shape={"dp": 1, "shard": S}, device=torch.device(device),
+        ranks={"dp": 1, "shard": R}, coords={"dp": 0, "shard": r}))
+        for r in range(R)]
+    return runs, _placed(pk, S, device)
+
+
+def _keys(s, whole, rng, n_random=4096):
+    """Positions at every run's first and last rows, past them, n, past n,
+    below 0 and at random."""
+    n = whole.n
+    ends = (whole.starts + whole.lens).cpu().numpy()
+    starts = whole.starts.cpu().numpy()
+    edge = np.concatenate([[0, 1, n - 1, n, n + 5, -2], starts, starts + 1,
+                           ends - 1, ends])
+    return np.concatenate([edge, rng.integers(0, n + 1, size=n_random)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, S, R", PARTIAL_CASES)
+def test_partial_kernels_match_plain(shard_packs, cuda_device, case, S, R):  # noqa: F811
+    """K9's partial (a rank on every table, a search step of 1, 2 and 3
+    columns, lead or not), K13 (every lookup, $ rows and absent keys
+    included) and K11's partial on every rank's run equal their plain
+    forms bit for bit; summed over the runs, the ranks equal the whole
+    index's and the lead's step the plain step."""
+    pk = shard_packs[1][case]
+    runs, whole = _runs(pk, S, R, cuda_device)
+    rng = np.random.default_rng(S * 10 + R)
+    i = torch.from_numpy(_keys(runs[0], whole, rng).astype(np.int64)).to(
+        cuda_device)
+    X = i.numel()
+    launches = (SHARD_OCC_PARTIAL.launches, SHARD_LOOKUP_PARTIAL.launches,
+                SHARDED_LUT_LEVEL_PARTIAL.launches)
+    for table, P in (("rank", 5), ("rank2", 16), ("rank3", 64), ("marks", 1)):
+        c = torch.from_numpy(rng.integers(0, P, size=X).astype(np.int32)).to(
+            cuda_device)
+        total = torch.zeros(X, dtype=torch.int64, device=cuda_device)
+        for run in runs:
+            got = sops.occ_partial(run, table, c, i)
+            assert torch.equal(got, sops.occ_plain(run, table, c, i))
+            total += got
+        assert torch.equal(total, sops.occ_plain(whole, table, c, i)), table
+    # a search step over queries whose intervals are random ranges
+    B, K = 1024, 12
+    kmers = torch.from_numpy(rng.integers(1, 5, size=(B, K)).astype(
+        np.int32)).to(cuda_device)
+    lengths = torch.from_numpy(rng.integers(1, K + 1, size=B).astype(
+        np.int32)).to(cuda_device)
+    a = rng.integers(0, pk.n + 1, size=(2, B))
+    lu = torch.from_numpy(np.concatenate([a.min(0), a.max(0)]).astype(
+        np.int64)).to(cuda_device)
+    for k, col in ((1, 0), (1, K - 2), (2, 3), (3, K - 3)):
+        for lens in (None, lengths):
+            total = 0
+            for r, run in enumerate(runs):
+                got = sops.step_partial(run, k, kmers, lens, col, lu, r == 0)
+                want = sops.step_partial_plain(run, k, kmers, lens, col, lu,
+                                               r == 0)
+                assert torch.equal(got, want), (k, col, r)
+                total = total + got
+            assert torch.equal(total, sops.step_partial_plain(
+                whole, k, kmers, lens, col, lu, True)), (k, col)
+    # K13: positions (the $ rows among them), $-ranks, read ids, slots
+    sym = sops.sym_plain(whole, i.clamp(0, max(pk.n - 1, 0)))
+    dollar_rows = torch.nonzero(sym == 0).reshape(-1)
+    keys = {
+        "sym": i, "dsa": i, "lf": i, "lf_mark": i,
+        "dollar": torch.arange(-2, pk.num_reads + 2, device=cuda_device),
+        "sample": torch.arange(-3, pk.num_reads + 3, device=cuda_device),
+    }
+    assert dollar_rows.numel() > 0
+    slots = torch.arange(-2, int(whole.slens.sum()) + 2, device=cuda_device)
+    for what, x in keys.items():
+        x = x.to(torch.int64).contiguous()
+        for run in runs:
+            got = sops.lookup_partial(run, what, x)
+            assert torch.equal(got, sops.lookup_partial_plain(run, what, x)), \
+                what
+    dr = torch.arange(-2, pk.num_reads + 2, device=cuda_device)
+    n_pair = max(dr.numel(), slots.numel())
+    dr = torch.cat([dr, dr[:1].expand(n_pair - dr.numel())]).contiguous()
+    sl = torch.cat([slots, slots[:1].expand(n_pair - slots.numel())])
+    sl = sl.contiguous()
+    total = 0
+    for run in runs:
+        got = sops.lookup_partial(run, "dollar_pair", dr, sl)
+        assert torch.equal(got, sops.lookup_partial_plain(
+            run, "dollar_pair", dr, sl))
+        total = total + got
+    assert torch.equal(total, sops.lookup_partial_plain(
+        whole, "dollar_pair", dr, sl))
+    # K11's partial at every level of a p = 6 build, in one launch and in
+    # chunks
+    l, u = whole.C[1:5].contiguous(), whole.C[2:6].contiguous()
+    for _ in range(5):
+        total = 0
+        for r, run in enumerate(runs):
+            for chunk in (1 << 22, 7):
+                got = sops.lut_level_partial(run, l, u, r == 0,
+                                             max_chunk=chunk)
+                assert torch.equal(got, sops.lut_level_partial_plain(
+                    run, l, u, r == 0))
+            total = total + got
+        nl, nu = sops.lut_level_plain(whole, l, u)
+        assert torch.equal(total, torch.cat([nl, nu]))
+        l, u = nl, nu
+    torch.cuda.synchronize()
+    assert SHARD_OCC_PARTIAL.launches > launches[0]
+    assert SHARD_LOOKUP_PARTIAL.launches > launches[1]
+    assert SHARDED_LUT_LEVEL_PARTIAL.launches > launches[2]
+
+
+@pytest.mark.cuda
+def test_per_step_engine_on_card_runs_no_plain_form(shard_packs, cuda_device,
+                                                    monkeypatch):  # noqa: F811
+    """A 4-shard engine on the card through the cross-rank program (one
+    rank, ``per_step``) answers as the one-device engine on the CPU, on
+    the dsa, lf and slow routes and with the exact sweep, with every plain
+    form of ops/sharded.py (and K1's rank) made to raise: the partial
+    kernels carry the whole program."""
+    corpus, packs = shard_packs
+    cfg = ServeConfig(batch_size=256, max_hits=8, num_shards=4,
+                      resolve_budget_frac=0.05)
+    card = QueryEngine(packs["small"], cfg, shard_par.make_mesh(
+        num_shards=4, device=cuda_device, per_step=True), device=cuda_device)
+    cpu = QueryEngine(packs["small"], cfg,
+                      shard_par.make_mesh(num_shards=4, device="cpu"),
+                      device="cpu")
+    kms = ["".join("ACGT"[c - 1] for c in row) for row in _queries(
+        corpus, 100, 31, seed=19)[0]] + ["ACGTAC", "GGATC"]
+    want = {}
+    for route, fn in (("dsa", None), ("lf", _no_dsa), ("slow", _slow)):
+        if fn is not None:
+            cpu.sidx = fn(cpu.sidx)
+        want[route] = [cpu.query_batch(kms, both_strands=b) for b in (0, 1)]
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain form ran on the card")
+
+    for name in [n for n in vars(sops) if n.endswith("_plain")]:
+        monkeypatch.setattr(sops, name, refuse)
+    monkeypatch.setattr(rank_ops, "occ_rows_plain", refuse)
+    before = (SHARD_OCC_PARTIAL.launches, SHARD_LOOKUP_PARTIAL.launches,
+              SHARDED_SEARCH.launches, SHARDED_RESOLVE.launches)
+    for route, fn in (("dsa", None), ("lf", _no_dsa), ("slow", _slow)):
+        if fn is not None:
+            card.sidx = fn(card.sidx)
+        got = [card.query_batch(kms, both_strands=b) for b in (0, 1)]
+        assert got == want[route], route
+    torch.cuda.synchronize()
+    assert SHARD_OCC_PARTIAL.launches > before[0]
+    assert SHARD_LOOKUP_PARTIAL.launches > before[1]
+    assert (SHARDED_SEARCH.launches, SHARDED_RESOLVE.launches) == before[2:]

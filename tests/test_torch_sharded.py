@@ -571,13 +571,17 @@ def test_sharded_resolve_at_shard_edges_matches_jax(packed, six_reads, case,
 
 
 def test_make_mesh_one_device_only():
+    """A mesh of one rank: every shard on its one device, the dp rows run
+    in turn; several devices are a process group's
+    (``parallel.multihost.make_global_mesh``)."""
     m = tp.make_mesh(num_shards=4, device="cpu")
     assert m.shape == {"dp": 1, "shard": 4} and m.device.type == "cpu"
     assert tp.make_mesh().device.type == "cuda"  # the card by default
-    for kw in (dict(data_parallel=2, num_shards=4),
-               dict(num_shards=2, devices=["cpu", "cpu"])):
-        with pytest.raises(NotImplementedError, match="P11"):
-            tp.make_mesh(**kw)
+    m = tp.make_mesh(data_parallel=2, num_shards=4, device="cpu")
+    assert m.shape == {"dp": 2, "shard": 4} and m.rows_per_rank == 2
+    assert m.shards_per_rank == 4 and not m.cross_rank
+    with pytest.raises(ValueError, match="one device"):
+        tp.make_mesh(num_shards=2, devices=["cpu", "cpu"])
 
 
 def fields(results) -> list[dict]:
@@ -628,7 +632,7 @@ def test_engine_matches_jax_sharded_engine(sharded_engines, tiny_corpus, case,
     assert hits > 0 or n == 1  # one query may miss
 
 
-def test_engine_warmup_budget_and_refusal(sharded_engines):
+def test_engine_warmup_budget_and_refusal(sharded_engines, tiny_corpus):
     jeng, eng = sharded_engines
     eng.warmup()
     assert eng.tier_plan is None and "lut" in eng.startup_seconds
@@ -638,9 +642,17 @@ def test_engine_warmup_budget_and_refusal(sharded_engines):
     with pytest.raises(ValueError, match="code outside"):
         eng._query_fn_1(eng.sidx, None, torch.from_numpy(codes),
                         torch.full((2,), 4, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="P11"):
-        QueryEngine(eng.packed, ServeConfig(num_shards=4, data_parallel=2),
-                    tp.make_mesh(num_shards=4, device="cpu"), device="cpu")
+    # a dp axis of 2 on one rank: each half of the batch a row, budget
+    # and all, as the JAX engine's (2, 4) mesh serves it
+    cfg2 = dict(batch_size=32, small_batch_sizes=(16,), num_shards=4,
+                data_parallel=2)
+    jeng2 = JaxQueryEngine(eng.packed, JaxServeConfig(**cfg2),
+                           mesh=jax_mesh(2, 4))
+    eng2 = QueryEngine(eng.packed, ServeConfig(**cfg2),
+                       tp.make_mesh(data_parallel=2, num_shards=4,
+                                    device="cpu"), device="cpu")
+    kms2 = _kmers(tiny_corpus, 20, 11, seed=5)
+    assert fields(eng2.query_batch(kms2)) == fields(jeng2.query_batch(kms2))
     one = QueryEngine(eng.packed, ServeConfig(batch_size=128),
                       tp.make_mesh(device="cpu"), device="cpu")
     assert not one._sharded  # one shard, dp 1: the single-device path
