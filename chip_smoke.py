@@ -5,7 +5,7 @@
     python3 chip_smoke.py --scale 0.05 # 5% of each, for a quick check
 
 Phases, each printed with its seconds on a ``#`` line, run in the order
-1-5, 8, 9, 9b, 10, 11, 12, 13, 6, 7, 11b, 13b (every main path is driven
+1-5, 8, 9, 9b, 10, 11, 12, 13, 14, 6, 7, 11b, 13b (every main path is driven
 before the kernel-vs-plain and timing phases, so each path's launch counts
 are its own):
 
@@ -13,8 +13,9 @@ are its own):
 2. kernels: build K1 (rank and its LUT level entry), K2 (backward search),
    K5 (dsa resolve), K6 (fused-row walk), the rank walks (marks, lf, slow),
    K7 (exact histogram), the interval-sharded kernels (K9 rank, the
-   sharded search, K11 LUT level, K10 lookups, walks and sweep) and one
-   rank's partials (K9's partial, K13, K11's partial) from
+   sharded search, K11 LUT level, K10 lookups, walks and sweep), one
+   rank's partials (K9's partial, K13, K11's partial), K14 (the row-budget
+   compaction and its gather back) and K15 (the capped histogram) from
    ``readserver_tpu_torch/csrc`` for sm_90a, one nvcc per source started
    together;
 3. artifact: simulate and build the E. coli artifact with the port's
@@ -90,6 +91,22 @@ are its own):
    the two ranks' REST front answers ``/count``, ``/reads`` and
    ``/samples`` as phases 4, 8 and (a) did, and SIGINT on rank 0 stops both
    with exit 0;
+14. doc shards (``serve_doc``): two ``cli serve --coordinator`` ranks
+   start on the card on phase 9b's cohort directory (gloo, 2 doc shards
+   each); phase 9b's front and phase 9's monolithic engine answer first;
+   counts at 0, the doc-sharded ``QueryEngine`` over the 4 partitions in
+   a world of one (phase 13's NCCL group of one), one engine per route:
+   dsa with exact attribution (K5, K7), fused (dsa and lf dropped: K14,
+   K6, K7), lf (dsa and fused dropped: K14, the lf walk, K7) and fused
+   with capped attribution (K14, K6, K15); ``/reads`` and ``/count`` of
+   256 and 4096 x 2 queries, each batch one all-reduce, equal across the
+   routes, to the front and the monolithic engine, 96 queries against the
+   windows; K14 and K15 must launch, K1's and the sharded kernels not, and
+   no plain form of ops on a CUDA tensor; the merge's all-reduce timed;
+   then the group's ``/batch`` equal to the dsa engine's, SIGINT stops
+   both; and the doc program over two gloo worker ranks on the card
+   (``bench/multihost_bench.py --doc-shards``) equal to the world of one,
+   one all-reduce and one gather a batch on each rank, both timed;
 6. kernel vs plain: each kernel against its plain torch form on the card,
    bit for bit, at the main paths' shapes (K1 at the mark walk's step, the
    engine's prefix LUT and a chunked build against the plain build, K2 in
@@ -100,7 +117,10 @@ are its own):
    marks cleared, with $ rows marked, at 0 valid rows and 1 slot, the slow
    walk below the longest read, and K7 through all five walks at width
    8192 and through dsa, fused and marks at a cap-filling batch (8192
-   cohort 8-mers, whose worklist the 1,048,576-row cap cuts);
+   cohort 8-mers, whose worklist the 1,048,576-row cap cuts); K14 and K15
+   on E. coli's 524,288 lanes under the 314,572-row budget (width 8192
+   and the full budget) and on each of phase 14's cohort doc shards, K14
+   also against the torch ops it replaced;
 7. timing: the chase yardstick (``rs_chase``, no kernel of a path): one
    warp's time per dependent 64-byte read (t_row) through both fused
    tables, cold and warm, and the rate at K6's 76,521 walks and at a full
@@ -117,7 +137,8 @@ are its own):
    the chain bound (the longest chain's dependent reads x t_row, warm and
    at the E. coli table's cold t_row); K8's
    (the torch sparse pack's) bytes and time on the ``/reads`` 4096 x 2
-   request; where a served count, ``/reads`` (dsa and mark-walk engines)
+   request; K14 and K15 at width 8192 and at the full budget, with the
+   plain forms and the torch ops they replaced; where a served count, ``/reads`` (dsa and mark-walk engines)
    and ``/samples`` request's time goes (host stages, device busy share,
    top device ops); the mark-walk engine's ``/reads`` requests through
    the walk kernel and through the plain walk, in turns; and the cohort
@@ -147,7 +168,7 @@ are its own):
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the one before it is the kernels' JSON summary (``launches`` summed over
-the main-path phases 4, 8, 9, 9b, 10, 11 and 13, where every kernel but K1's
+the main-path phases 4, 8, 9, 9b, 10, 11, 13 and 14, where every kernel but K1's
 and K9's generic entries must have launched, ``cohort_launches`` those of
 phase 9b, ``ingest_launches`` those of phase 12;
 ``max_abs_err`` the largest over every check, ``cohort_max_abs_err`` that
@@ -155,7 +176,9 @@ over phase 9b's partition checks;
 ``bound_ms`` the bytes bound, ``chain_ms`` the chain bound where there is
 one and ``chain_cold_ms`` it at the cold t_row, ``held_by`` the larger of
 the first two; ``resolve_walk`` also carries each walk's reading at width
-8192 and at a full budget under ``walks``).
+8192 and at a full budget under ``walks``; K14's and K15's entries their
+reading at the full budget under ``full_budget``, and ``row_compact`` the
+doc merge's collectives under ``doc_collectives``).
 The last line is ``{"ok": true, "device": {...}}``, printed only when
 every phase passed.
 Imports torch and the port, never jax.
@@ -691,8 +714,13 @@ def serve_cohort(args, cohort, cpacked, ceng, cfg, dev, c256, c4096,
     # the JAX MultiEngine has no _sample_of: /read answers "sample": None
     n_req = rest_check(meng, ckms, RestServer, Dispatcher, lambda rid: None)
     launches = read_launches("cohort")
+    # K14 compacts only where the row budget binds (past 314,572 lanes; the
+    # fronts' widths here are 4096 and below) and K15 serves only capped
+    # attribution (the fronts attribute exactly): phase 14 launches both
     for name in KERNELS:
-        if name != "rank_occ" and not name.startswith("shard"):
+        if (name not in ("rank_occ", "row_compact", "row_gather",
+                         "capped_histogram")
+                and not name.startswith("shard")):
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the cohort path")
     check(launches["rank_occ"] == 0, "K1's generic entry launched on "
@@ -1056,15 +1084,18 @@ def post_batch(port: int, kms: list[str], mode: str, both: bool) -> list:
         return json.loads(r.read())["results"]
 
 
-def start_rank_group(cache: Path, port: int, logs: Path) -> list:
+def start_rank_group(cache: Path, port: int, logs: Path,
+                     doc: bool = False) -> list:
     """Phase 13 (b)'s group: two ``cli serve --coordinator`` ranks sharing
     the card over gloo (NCCL refuses two ranks on one device), SHARDS
-    shards over them, rank 0 fronting REST on ``port`` → the processes,
-    their output in ``logs``."""
+    interval shards over them, rank 0 fronting REST on ``port`` → the
+    processes, their output in ``logs``.  ``doc``: phase 14 (b)'s, the
+    cohort directory ``cache`` as doc shards, SHARDS // 2 a rank."""
     coord = free_port()
     argv = [sys.executable, "-m", "readserver_tpu_torch.cli", "serve",
             "--index", str(cache), "--port", str(port), "--batch", "8192",
-            "--warmup-k", str(KMER), "--shards", str(SHARDS),
+            "--warmup-k", str(KMER),
+            *([] if doc else ["--shards", str(SHARDS)]),
             "--device", "cuda:0", "--backend", "gloo",
             "--coordinator", f"127.0.0.1:{coord}", "--num-processes", "2"]
     logs.mkdir(parents=True, exist_ok=True)
@@ -1286,52 +1317,373 @@ def serve_ranks(packed, cache, cpacked, cfg, dev, qs, served, reads_served,
     return engines, reduces
 
 
-def time_reads_torch(engine, engine_f, intervals, batch, fb, H: int,
-                     card: str) -> None:
-    """Phase 7: the row-budget compaction (``ops/resolve.compact_rows``
-    and the two scatters back of ``resolve_intervals``) and the capped
-    ``sample_histogram``, torch functions of ``/reads`` with no kernel, at
-    width 8192 and at the full budget: wrapper ms (CUDA events), device ms
-    over all their ops (profiler), bytes bound (each input read once, each
-    output written once, each ``read_to_sample`` entry once)."""
+# phase 14's routes: the tiers stripped from the partitions (a route of
+# bench/multihost_bench.DOC_STRIP, the JAX rules choosing the walk: lf
+# outranks fused, and the mark table ships only with lf), whether the
+# engine attributes exactly, and the walk the shards must take
+DOC_ROUTES = {
+    "dsa": ("dsa", True, "dsa"),
+    "fused": ("fused", True, "fused"),
+    "lf": ("lf", True, "lf"),
+    "fused, capped": ("fused", False, "fused"),
+}
+
+
+def wait_rest(procs, rest: int, logs: Path) -> None:
+    """Wait (at most 600 s) until a group's rank 0 answers ``/health``."""
+    import urllib.request
+
+    deadline = time.perf_counter() + 600
+    while time.perf_counter() < deadline:
+        check(all(p.poll() is None for p in procs),
+              "a rank of the group exited before serving: "
+              + (logs / "rank0.log").read_text()[-2000:]
+              + (logs / "rank1.log").read_text()[-2000:])
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{rest}/health", timeout=5) as r:
+                if r.status == 200:
+                    return
+        except OSError:
+            time.sleep(1.0)
+    check(False, "the group's REST front never came up")
+
+
+def doc_collectives(args, scache: Path, e, card: str) -> dict:
+    """Phase 14 (b): the doc program over two gloo ranks sharing the card
+    (``bench/multihost_bench.py --doc-shards``, a process each, the
+    cohort directory's shards, 2 a rank) on a batch of 8192 → its answers
+    equal to the world of one's (``e``'s program on the same batch), one
+    all-reduce and one gather a batch on each rank, and each collective's
+    time and bytes at the served shapes."""
+    import torch
+    from readserver_tpu_torch.parallel import make_doc_query_fn
+
+    out = REPO / "data" / "chip_smoke" / "doc_ranks"
+    out.mkdir(parents=True, exist_ok=True)
+    spec = "route=dsa,kstep=3,lut=0"
+    coord = free_port()
+    argv = [sys.executable, "-m", "readserver_tpu_torch.bench.multihost_bench",
+            "--coordinator", f"127.0.0.1:{coord}", "--num-processes", "2",
+            "--backend", "gloo", "--device", "cuda:0", "--config", "cohort",
+            "--scale", f"{args.scale:g}", "--index", str(scache),
+            "--doc-shards", str(SHARDS), "--batch", "8192", "--max-hits",
+            str(e.H), "--heartbeat-timeout", "300", "--dump", str(out),
+            "--case", spec]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv + ["--process-id", str(i)], cwd=REPO,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in (0, 1)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=600)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            outs.append(p.communicate()[0])
+    check([p.returncode for p in procs] == [0, 0],
+          f"the doc worker ranks failed: {[o[-2000:] for o in outs]}")
+    name = "routedsa_kstep3_lut0_budget0_exact0"
+    glob = dict(np.load(out / f"{name}_global.npz"))
+    want = make_doc_query_fn(e.didx_plain, e.mesh, max_hits=e.H)(
+        e.didx_plain, glob["codes"], glob["lengths"], kstep=e.has_pair)
+    for k, v in want.items():
+        check(np.array_equal(v.cpu().numpy(), glob[k]),
+              f"2 gloo ranks' doc program differs from the world of one "
+              f"on {k}")
+    ranks = [dict(np.load(out / f"{name}_rank{i}.npz")) for i in (0, 1)]
+    for i, r in enumerate(ranks):
+        check(int(r["all_reduce"]) == 1 and int(r["gather"]) == 1
+              and int(r["shards"]) == SHARDS // 2,
+              f"rank {i}: {int(r['all_reduce'])} all-reduces and "
+              f"{int(r['gather'])} gathers a batch, {int(r['shards'])} "
+              f"shards")
+    got = {k: float(np.median([float(r[k]) for r in ranks]))
+           for k in ("gather_ms", "allreduce_ms")}
+    got.update(gather_bytes=int(ranks[0]["gather_bytes"]),
+               allreduce_bytes=int(ranks[0]["allreduce_bytes"]))
+    log(f"2 gloo ranks on the card, {SHARDS // 2} doc shards each, a batch "
+        f"of {glob['codes'].shape[0]} ({time.perf_counter() - t0:.3f}s "
+        f"with start-up): answers equal to the world of one; one "
+        f"all-reduce and one gather a batch on each rank; the hit-set "
+        f"gather {got['gather_bytes']} B in {got['gather_ms']:.3f} ms, "
+        f"the all-reduce of the partials {got['allreduce_bytes']} B in "
+        f"{got['allreduce_ms']:.3f} ms (median of 10, host clock) | {card}")
+    del torch
+    return got
+
+
+def serve_doc(args, cohort, meng, ceng, cfg, dev, c256, c4096, want_c,
+              zero_launches, read_launches, card):
+    """Phase 14: the cohort in SHARDS doc shards (phase 9b's partitions)
+    through the doc-sharded ``QueryEngine``.  (b)'s group starts first, in
+    its own processes.  References, before the counts are zeroed: phase
+    9b's ``MultiEngine`` front and phase 9's monolithic engine.  (a), a
+    world of one over the NCCL group of one of phase 13: one engine per
+    route of ``DOC_ROUTES`` serves ``/reads`` and ``/count`` of 256 and
+    4096 x 2 queries (width 8192, H = 64), each batch one all-reduce;
+    answers equal across the routes, to the front (counts, hit lists,
+    truncation; histograms and their completeness where exact) and to the
+    monolithic engine (counts; histograms where exact), and 96 queries to
+    the windows; K14 and K15 must launch with the other one-device
+    kernels, and no plain form of ops. (b): two ``cli serve
+    --coordinator`` ranks on the cohort directory answer ``/batch`` as
+    (a)'s dsa engine, then stop on SIGINT; the doc program over two gloo
+    worker ranks (``doc_collectives``). → (the engines by route, the
+    collectives' readings)."""
+    import torch
+    from readserver_tpu_torch.bench.multihost_bench import strip_route
+    from readserver_tpu_torch.ops import resolve
+    from readserver_tpu_torch.parallel import multihost as mh
+    from readserver_tpu_torch.serve import Dispatcher, QueryEngine
+    from readserver_tpu_torch.serve.http import RestServer
+
+    H = cfg.max_hits
+    parts = meng.partitions
+    scache = REPO / "data" / "chip_smoke" / f"cohort{SHARDS}_s{args.scale:g}"
+    rest = free_port()
+    logs = REPO / "data" / "chip_smoke" / "doc_logs"
+    t_group = time.perf_counter()
+    procs = start_rank_group(scache, rest, logs, doc=True)
+    try:
+        reqs = {"256": (decode_all(c256), False),
+                "4096x2": (decode_all(c4096), True)}
+        front = {n: meng.query_batch(k, both_strands=b)
+                 for n, (k, b) in reqs.items()}
+        mono = {n: ceng.query_batch(k, both_strands=b, include_hits=False)
+                for n, (k, b) in reqs.items()}
+        fwd96 = decode_all(c256[:96])
+        mesh = mh.make_global_mesh(SHARDS, device=dev)
+        check(mesh.ranks["shard"] == 1 and mesh.shard_group is not None,
+              f"not a world of one over NCCL: {mesh}")
+        zero_launches()
+        engines, answers = {}, {}
+        hkey = lambda r: (r.count, r.hits, r.hits_truncated)  # noqa: E731
+        skey = lambda r: (r.sample_hist, r.sample_hist_complete)  # noqa: E731
+        with plain_calls_on_card() as plain:
+            for route, (strip, exact, kind) in DOC_ROUTES.items():
+                t0 = time.perf_counter()
+                e = QueryEngine(
+                    strip_route(parts, strip),
+                    dataclasses.replace(cfg, exact_attribution=exact), mesh,
+                    device=dev)
+                up = time.perf_counter() - t0
+                e.warmup()
+                check({resolve.walk_kind(x) for x in e.didx.shards}
+                      == {kind}, f"the {route} route's shards do not walk "
+                      f"{kind}")
+                log(f"doc engine, {route} route: up in {up:.3f}s (shards "
+                    f"and LUTs p={e.lut_p} through K1's level entry "
+                    f"{e.startup_seconds['ship']:.3f}s), warm in "
+                    f"{time.perf_counter() - t0 - up:.3f}s; walk {kind}, "
+                    f"tiers {sorted(e.didx.tiers)}, row budget per shard "
+                    f"{int(cfg.resolve_budget_frac * e.B * H)}")
+                engines[route] = e
+                for name, (kms, both) in reqs.items():
+                    n0 = mh.COLLECTIVES["all_reduce"]
+                    t0 = time.perf_counter()
+                    got = e.query_batch(kms, both_strands=both)
+                    dt = time.perf_counter() - t0
+                    check(mh.COLLECTIVES["all_reduce"] == n0 + 1,
+                          f"{route}: {mh.COLLECTIVES['all_reduce'] - n0} "
+                          f"all-reduces for a batch")
+                    counts = e.count_batch(kms, both_strands=both)
+                    check([r.count for r in counts]
+                          == [r.count for r in got], f"{route}: /count and "
+                          f"/reads counts of {name} differ")
+                    check([hkey(r) for r in got]
+                          == [hkey(r) for r in front[name]],
+                          f"{route}: the hits of {name} differ from the "
+                          f"cohort front's")
+                    check([r.count for r in got]
+                          == [r.count for r in mono[name]],
+                          f"{route}: the counts of {name} differ from the "
+                          f"monolithic engine's")
+                    if exact:
+                        check([skey(r) for r in got]
+                              == [skey(r) for r in front[name]]
+                              and [r.sample_hist for r in got]
+                              == [r.sample_hist for r in mono[name]],
+                              f"{route}: the histograms of {name} differ")
+                    elif not both:  # the strand fold drops the flag
+                        check(all(r.sample_hist_complete == (r.count <= H)
+                                  for r in got),
+                              f"{route}: capped completeness of {name}")
+                    answers[route, name] = got
+                    log(f"/reads of {name} ({route}): {dt * 1e3:.3f} ms, one "
+                        f"all-reduce, equal to the cohort front and the "
+                        f"monolithic engine | {card}")
+                res = e.query_batch(fwd96)
+                for r, w in zip(res, want_c):
+                    check(r.count == len(w), f"{r.kmer}: count against the "
+                          f"windows")
+                    if not r.hits_truncated:
+                        check(sorted((h["read_id"], h["offset"])
+                                     for h in r.hits) == sorted(w),
+                              f"{r.kmer}: hit set against the windows")
+                    if exact:
+                        rids = np.fromiter((x for x, _ in w), np.int64)
+                        per = np.bincount(cohort.sample_ids[rids],
+                                          minlength=128)
+                        check(r.sample_hist == {
+                            e.sample_names[j]: int(c)
+                            for j, c in enumerate(per) if c},
+                            f"{r.kmer}: histogram against the windows")
+            for route in DOC_ROUTES:
+                for name in reqs:
+                    check([hkey(r) for r in answers[route, name]]
+                          == [hkey(r) for r in answers["dsa", name]],
+                          f"the dsa and {route} routes disagree on {name}")
+        launches = read_launches("doc")
+        for name in ("lut_level", "backward_search", "resolve_dsa",
+                     "resolve_fused", "resolve_walk", "exact_histogram",
+                     "row_compact", "row_gather", "capped_histogram"):
+            check(launches[name] > 0,
+                  f"kernel {name} was not launched on the doc path")
+        other = {n: c for n, c in launches.items()
+                 if n == "rank_occ" or n.startswith("shard")}
+        check(not any(other.values()),
+              f"kernels of no doc route launched: {other}")
+        check(plain["n"] == 0, f"{plain['n']} plain forms of ops ran on "
+              "the card on the doc path")
+        log("96 queries against the windows on every route; K14, K15 and "
+            "the one-device kernels launched, no plain form of ops ran on "
+            "a CUDA tensor on the doc path")
+        # the merge's all-reduce over NCCL in the group of one, at the
+        # served shape: count | histogram | complete as int64
+        e = engines["dsa"]
+        part = torch.zeros(8192 * (e._ns + 2), dtype=torch.int64, device=dev)
+        ar = lambda: mh.all_reduce(part, mesh.shard_group)  # noqa: E731
+        ar()
+        nccl_ms = float(np.median([time_cuda(ar, 20) for _ in range(3)]))
+        log(f"the doc merge's all-reduce, NCCL group of one, {part.nbytes} B:"
+            f" {nccl_ms:.4f} ms (CUDA events) | {card}")
+        # (b) the two ranks' REST front over the cohort directory
+        wait_rest(procs, rest, logs)
+        log(f"2-rank doc group (gloo, {SHARDS // 2} doc shards a rank, "
+            f"sharing the card) serving after "
+            f"{time.perf_counter() - t_group:.3f}s")
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{rest}/info",
+                                    timeout=60) as r:
+            info = json.loads(r.read())
+        check(info["sharding"] == "document"
+              and info["num_reads"] == len(cohort.reads), f"/info: {info}")
+        pay = RestServer(Dispatcher(e), "127.0.0.1", 0)._result_payload
+        for name, (kms, both) in reqs.items():
+            for mode in ("count", "reads", "samples"):
+                t0 = time.perf_counter()
+                got = post_batch(rest, kms, mode, both)
+                dt = time.perf_counter() - t0
+                want = answers["dsa", name]
+                if mode == "count":
+                    want = e.count_batch(kms, both_strands=both)
+                check(got == [json.loads(json.dumps(pay(r, mode, False)))
+                              for r in want],
+                      f"the doc group's /{mode} of {name} differs from (a)")
+                log(f"doc group /batch {mode} of {name}: {dt * 1e3:.3f} ms,"
+                    f" equal to (a) | {card}")
+    finally:
+        rcs = stop_rank_group(procs, logs, sig_first=True)
+    check(rcs == [0, 0], f"the doc group did not stop cleanly: exit {rcs}")
+    log("SIGINT on rank 0 stopped its follower; both ranks exited 0")
+    coll = doc_collectives(args, scache, engines["dsa"], card)
+    coll["nccl_allreduce_ms"] = nccl_ms
+    coll["nccl_allreduce_bytes"] = int(part.nbytes)
+    return engines, coll
+
+
+def time_compaction(engine_f, intervals, batch, fb, H: int,
+                    card: str) -> dict:
+    """Phase 7: K14 (its compaction and its gather back, around K6's walk
+    of the fused engine) and K15 (the capped histogram of the lanes it
+    gives back) at width 8192 and at the full budget: wrapper ms (CUDA
+    events), device ms (profiler), the plain forms' ms, bytes bound (each
+    input read once, each output written once, each ``read_to_sample``
+    entry once); and, beside them, the torch ops they replaced
+    (``compact_rows`` and the scatters back; the gather and
+    ``index_add_``) → summary entries by name (width 8192) and by name
+    and " (full budget)"."""
     import torch
     from readserver_tpu_torch.ops import resolve
 
-    for what, eng, kms in (("width 8192", engine_f, batch),
-                           ("full budget", engine_f, fb)):
-        rows, valid, _ = resolve.expand_intervals(*intervals(eng, kms), H)
-        R = eng.row_budget
-        F = rows.numel()
+    out = {}
+    idx = engine_f.index
+    S = max(idx.num_samples, 1)
+    for what, kms in (("width 8192", batch), ("full budget", fb)):
+        l, u = intervals(engine_f, kms)
+        R = engine_f.row_budget
+        B = l.shape[0]
+        F = B * H
+        rows_c, valid_c, prefix = resolve.compact_lanes(l, u, H, R)
+        rid_c, off_c = resolve.resolve_rows_fused(idx, rows_c, valid_c)
+        rid, off, kept = resolve.gather_lanes(l, u, H, R, prefix, rid_c,
+                                              off_c)
+        slots = min(int(prefix[-1]), R)
+        rows, valid, _ = resolve.expand_intervals(l, u, H)
 
-        def compact():
+        def replaced():
             comp, cval, orig, keep = resolve.compact_rows(rows, valid, R)
-            rid = comp.to(torch.int32)  # a walk's output, in its place
             full = torch.full((F + 1,), -1, dtype=torch.int32,
                               device=rows.device)
-            return (full.scatter(0, orig, rid)[:F],
-                    full.scatter(0, orig, rid)[:F], valid & keep)
+            return (full.scatter(0, orig, rid_c)[:F],
+                    full.scatter(0, orig, off_c)[:F], valid & keep)
 
-        rid, _, vkeep = compact()
-        nbytes = F * 9 + R * 17 + F + R * 8 + 2 * R * 4 + 2 * F * 4
-        B = F // H
-        ridm = torch.where(vkeep, rid, torch.full_like(rid, -1)).reshape(B, H)
-        vm = vkeep.reshape(B, H)
-        idx = eng.index
-        hbytes = (F * 5 + distinct(ridm[vm]) * 4
-                  + B * max(idx.num_samples, 1) * 4)
-        for name, fn, nb in (
-                ("row-budget compaction", compact, nbytes),
-                ("sample_histogram", lambda: resolve.sample_histogram(
-                    idx, ridm, vm), hbytes)):
+        cases = (
+            ("row_compact", "compact_s",
+             lambda: resolve.compact_lanes(l, u, H, R),
+             lambda: resolve.compact_lanes_plain(l, u, H, R),
+             8 * B + 4 * (B + 1) + 5 * R),
+            ("row_gather", "compact_gather",
+             lambda: resolve.gather_lanes(l, u, H, R, prefix, rid_c, off_c),
+             lambda: resolve.gather_lanes_plain(l, u, H, R, prefix, rid_c,
+                                                off_c),
+             8 * B + 4 * (B + 1) + 8 * slots + 9 * F),
+            ("capped_histogram", "capped_hist",
+             lambda: (resolve.sample_histogram(idx, rid, kept),),
+             lambda: (resolve.sample_histogram_plain(idx, rid, kept),),
+             5 * F + distinct(rid[kept]) * 4 + 4 * B * S),
+        )
+        dev_of = {}
+        for name, kname, kern, plain, nbytes in cases:
+            check(max_err(zip(kern(), plain())) == 0,
+                  f"{name} disagrees with its plain form ({what})")
+            torch.cuda.synchronize()
+            t_kern, t_plain = [], []
+            for _ in range(3):  # interleaved: kernel, plain
+                t_kern.append(time_cuda(kern, 20))
+                t_plain.append(time_cuda(plain, 20))
+            dev_ms = kernel_device_ms(kern, 10, kname)
+            dev_of[name] = dev_ms
+            tk, tp = float(np.median(t_kern)), float(np.median(t_plain))
+            bnd = bound_ms(nbytes)
+            shape = (f"{what}: {F} lanes, budget {R}, {slots} slots walked"
+                     + (f", S = {S}" if name == "capped_histogram" else ""))
+            log(f"{name} ({shape}): wrapper {tk:.4f} ms, kernel device "
+                f"time {fmt_ms(dev_ms)} ms (profiler) | plain torch "
+                f"{tp:.4f} ms (CUDA events), outputs equal | needs {nbytes} "
+                f"B: bytes bound {bnd:.4f} ms, device time at "
+                f"{ratio(bnd, dev_ms)} of it | {card}")
+            key = name if what == "width 8192" else f"{name} (full budget)"
+            out[key] = (tk, tp, dev_ms, bnd, shape, None)
+        # the torch ops K14 and K15 replaced, on the same inputs
+        for name, fn, kdev in (
+                ("compact_rows and the scatters back", replaced,
+                 (dev_of["row_compact"] or 0) + (dev_of["row_gather"] or 0)),
+                ("read_to_sample gather and index_add_", lambda:
+                 resolve.sample_histogram_plain(idx, rid, kept),
+                 dev_of["capped_histogram"])):
             fn()
             torch.cuda.synchronize()
             ms = float(np.median([time_cuda(fn, 20) for _ in range(3)]))
             dev_ms = kernel_device_ms(fn, 10, "")
-            log(f"{name} (torch), {what}: {F} lanes, budget {R}, "
-                f"{int(vm.sum())} kept: {ms:.4f} ms a call (CUDA events), "
-                f"device {fmt_ms(dev_ms)} ms over its ops (profiler) | needs "
-                f"{nb} B: bound {bound_ms(nb):.4f} ms, share "
-                f"{ratio(bound_ms(nb), dev_ms)} | {card}")
+            log(f"replaced torch ops, {name} ({what}): {ms:.4f} ms a call "
+                f"(CUDA events), device {fmt_ms(dev_ms)} ms over its ops "
+                f"(profiler), against the kernels' {fmt_ms(kdev)} ms | "
+                f"{card}")
+    return out
 
 
 def run_views(s, R: int, dev):
@@ -2105,6 +2457,14 @@ def sharded_stage(engine):
     """An interval-sharded ``QueryEngine``'s device program for one padded
     batch, the "copy in + device" stage of :func:`request_breakdown`."""
     return lambda codes, lengths, nq: engine._sharded_program(
+        codes, lengths, nq, engine._new_bad())
+
+
+def doc_stage(engine):
+    """A doc-sharded ``QueryEngine``'s device program for one padded batch
+    (its shards, the merge's all-reduce and the hit sets' gather), the
+    "copy in + device" stage of :func:`request_breakdown`."""
+    return lambda codes, lengths, nq: engine._doc_program(
         codes, lengths, nq, engine._new_bad())
 
 
@@ -2937,6 +3297,12 @@ def run(args) -> dict:
             served, reads_served, shard_engines, ceng_s, c256, c4096,
             zero_launches, read_launches, card)
 
+    # ------------------------------------------------- 14. doc shards
+    with phase("14 doc shards"):
+        doc_engines, doc_coll = serve_doc(
+            args, cohort, meng, ceng, cfg, dev, c256, c4096, want_c,
+            zero_launches, read_launches, card)
+
     # -------------------------------------------------- 6. kernel vs plain
     idx = engine.index
     lut, p = engine.lut, engine.lut_p
@@ -3303,6 +3669,54 @@ def run(args) -> dict:
               "K7 wraps worklist totals past 2^31")
         log(f"K7 totals of 3.6e9 rows (int64), cap 1024: max |err| {err}")
         summary.update(k5_err=k5_err, k6_err=k6_err, k7_err=k7_err)
+        # K14 and K15 at the resolve's shapes: E. coli's 524,288 lanes
+        # (width 8192, H = 64) under the fused engine's budget, at width
+        # 8192 and at the full budget, and every doc shard of phase 14's
+        # fused route on the cohort's batch of 8192; K14 also against the
+        # torch ops it replaced (compact_rows and the scatters back)
+        k14_err = k15_err = 0
+        de = doc_engines["fused"]
+        dce, dle, dnq = de._pad_encode(cbatches[8192])
+        dcodes, dlens = de._to_device(dce, dle)
+        kcases = [(f"E. coli {w}", idx_f, *intervals(engine_f, kms),
+                   engine_f.row_budget)
+                  for w, kms in (("width 8192", batches[8192]),
+                                 ("full budget", fb))]
+        for j, sh in enumerate(de.didx.shards):
+            dl, du = search_ops.search_batch(
+                sh, dcodes, dlens, de.didx.luts[j], de.lut_p,
+                de.has_pair and int(dle.min()) == dce.shape[1])
+            kcases.append((f"cohort doc shard {j}", sh, dl, du,
+                           int(cfg.resolve_budget_frac * de.B * H)))
+        for what, x, kl, ku, R in kcases:
+            rows_c, valid_c, prefix = resolve.compact_lanes(kl, ku, H, R)
+            err14 = max_err(zip((rows_c, valid_c, prefix),
+                                resolve.compact_lanes_plain(kl, ku, H, R)))
+            rid_c, off_c = resolve.select_walk(x)(rows_c, valid_c)
+            got = resolve.gather_lanes(kl, ku, H, R, prefix, rid_c, off_c)
+            err14 = max(err14, max_err(zip(got, resolve.gather_lanes_plain(
+                kl, ku, H, R, prefix, rid_c, off_c))))
+            rows, valid, _ = resolve.expand_intervals(kl, ku, H)
+            crow_r, cval_r, orig, keep = resolve.compact_rows(rows, valid, R)
+            F = rows.numel()
+            full = torch.full((F + 1,), -1, dtype=torch.int32, device=dev)
+            err14 = max(err14, max_err([
+                (rows_c, crow_r), (valid_c, cval_r),
+                (got[0].reshape(-1), full.scatter(0, orig, rid_c)[:F]),
+                (got[1].reshape(-1), full.scatter(0, orig, off_c)[:F]),
+                (got[2].reshape(-1), valid & keep)]))
+            err15 = max_err([(resolve.sample_histogram(x, got[0], got[2]),
+                              resolve.sample_histogram_plain(x, got[0],
+                                                             got[2]))])
+            k14_err, k15_err = max(k14_err, err14), max(k15_err, err15)
+            log(f"K14 and K15, {what}: {F} lanes, budget {R}, "
+                f"{int(valid.sum())} valid, {int(valid_c.sum())} walked, "
+                f"S = {max(x.num_samples, 1)}: max |err| {err14} (compaction"
+                f", gather back, and against compact_rows + the scatters "
+                f"back) and {err15} (histogram)")
+            check(err14 == 0 and err15 == 0,
+                  f"K14 or K15 disagrees with its plain form ({what})")
+        summary.update(k14_err=k14_err, k15_err=k15_err)
         for k, v in cohort_err.items():
             summary[k] = max(summary[k], v)
 
@@ -3742,17 +4156,25 @@ def run(args) -> dict:
             f"{dense8.nbytes} dense hits): bound {bound_ms(k8_bytes):.4f} "
             f"ms, device time at {ratio(bound_ms(k8_bytes), pack_dev)} of "
             f"it | {card}")
-        # two torch functions of /reads without a kernel: the row-budget
-        # compaction (with its scatter back) before and after a walk, and
-        # the capped sample histogram, at width 8192 (the E. coli 4096 x 2
-        # batch) and at the full budget (4096 10-mers x 2)
-        time_reads_torch(engine, engine_f, intervals, batches[8192], fb, H,
-                         card)
+        # K14 (the row-budget compaction and its gather back) and K15 (the
+        # capped sample histogram) beside the torch ops they replaced, at
+        # width 8192 (the E. coli 4096 x 2 batch) and at the full budget
+        # (4096 10-mers x 2)
+        summary.update(time_compaction(engine_f, intervals, batches[8192],
+                                       fb, H, card))
         for e, qs, tier in ((engine, q4096, "count"),
                             (engine, q4096, "reads"),
                             (engine_m, q4096, "reads"),
                             (ceng, c4096, "samples")):
             request_breakdown(e, decode_all(qs), tier, engine_stage(e, tier))
+        # the doc engine's requests (phase 14's world of one): /reads on
+        # the dsa and fused routes, /samples (exact) on the dsa route
+        for route, tier in (("dsa", "reads"), ("fused", "reads"),
+                            ("dsa", "samples")):
+            e = doc_engines[route]
+            log(f"doc engine, {route} route:")
+            request_breakdown(e, decode_all(c4096), tier, doc_stage(e),
+                              sharded_fetch)
         # the mark-walk engine's /reads requests through the walk kernel
         # and through the plain walk (torch and K1 a step), in turns whose
         # order rotates, beside the dsa engine's; the garbage collector runs
@@ -3801,6 +4223,14 @@ def run(args) -> dict:
 
         rank_summary, rank_err, rank_design = check_rank_kernels(
             rank_engines, batches[8192], rank_reduces, card)
+        # K9's partial and K13 read one row a lane, with nothing before it
+        # to wait on: their chain is one dependent read, t_row
+        for name in ("shard_occ_partial", "shard_lookup_partial"):
+            ms, plain_ms, dev_ms, bnd, shape, _ = rank_summary[name]
+            rank_summary[name] = (ms, plain_ms, dev_ms, bnd, shape, t_row)
+            log(f"{name}: chain of 1 dependent read a lane, chain bound "
+                f"{fmt_ms(t_row)} ms warm, {fmt_ms(t_row_cold)} ms cold; "
+                f"device time {fmt_ms(dev_ms)} ms | {card}")
         summary.update(rank_summary)
         summary.update(rank_err)
         del rank_engines
@@ -3851,6 +4281,12 @@ def run(args) -> dict:
         "sharded_lut_level_partial": ("sharded_partial.cu",
                                       "readserver_tpu/parallel/sharded.py:1075",
                                       "sharded_lut_level_partial_err"),
+        "row_compact": ("compact.cu", "readserver_tpu/ops/resolve.py:383",
+                        "k14_err"),
+        "row_gather": ("compact.cu", "readserver_tpu/ops/resolve.py:383",
+                       "k14_err"),
+        "capped_histogram": ("compact.cu",
+                             "readserver_tpu/ops/resolve.py:502", "k15_err"),
     }
 
     def cold(chain_ms):
@@ -3897,6 +4333,18 @@ def run(args) -> dict:
     # all-reduce's time against a step's kernel
     next(k for k in kernels if k["name"] == "shard_occ_partial")["design"] = \
         rank_design
+    # K14's and K15's readings at the full budget, and the doc merge's
+    # collectives (phase 14: NCCL in the group of one; gloo between two
+    # ranks on the card)
+    for k in kernels:
+        full = summary.get(f"{k['name']} (full budget)")
+        if full is not None:
+            ms, plain_ms, device_ms, bnd, shape, _ = full
+            k["full_budget"] = dict(ms=ms, device_ms=device_ms,
+                                    plain_ms=plain_ms, bound_ms=bnd,
+                                    shape=shape)
+    next(k for k in kernels if k["name"] == "row_compact")[
+        "doc_collectives"] = doc_coll
     return dict(kernels=kernels, card=card)
 
 

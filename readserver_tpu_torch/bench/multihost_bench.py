@@ -23,6 +23,17 @@ to ``.npz`` files for a parity test.  A case is comma-separated
 ``key=value``: ``route`` (dsa, lf, slow: the index's tiers kept),
 ``kstep`` (1 or 3; 1 with mixed query lengths), ``lut`` (the prefix LUT's
 order, 0 none), ``budget`` (the row budget, 0 none), ``exact`` (0 or 1).
+
+``--doc-shards S`` runs the document-sharded program instead
+(``parallel/doc_sharded.py``): the corpus split into S partitions (the
+last takes the remainder, partition s sample s), a run of them on each
+rank, and every rank the same whole batch; a case's ``route`` then strips
+tiers from the partitions (``DOC_STRIP``: dsa, fused, lf, slow, and
+mixed, where one shard lacks dsa).  With ``--index`` a cohort directory
+(``build --doc-shards S``) serves as the partitions, and each rank also
+times the program's two collectives at the served shapes: the gather of
+its hit sets and the all-reduce of its partials (median of 10, host clock,
+the device synchronised around each).
 """
 
 from __future__ import annotations
@@ -41,19 +52,50 @@ ROUTE_STRIP = {
     "slow": dict(dsa_chunk=None, dsa_bits=0, lf_chunk=None, mark_table=None,
                  spairs_chunk=None, sstarts=None, slens=None, sample_rate=0),
 }
+# the doc shards' routes: the PackedIndex fields each partition drops
+# (shard index → fields where one shard differs)
+_NO_DSA = dict(dsa=None, dsa_bits=0)
+DOC_STRIP = {
+    "dsa": {},
+    "fused": dict(_NO_DSA, lf=None),
+    "lf": dict(_NO_DSA, fused_rows=None),
+    "slow": dict(_NO_DSA, lf=None, fused_rows=None, mark_rank=None,
+                 sample_pairs=None, sample_rate=0),
+    "mixed": {1: _NO_DSA},
+}
 MAX_HITS = 16
 
 
-def parse_case(spec: str) -> dict:
+def parse_case(spec: str, routes=ROUTE_STRIP) -> dict:
     case = dict(route="dsa", kstep=3, lut=0, budget=0, exact=0)
     for item in filter(None, spec.split(",")):
         k, v = item.split("=")
         if k not in case:
             raise ValueError(f"unknown case key {k!r} in {spec!r}")
         case[k] = v if k == "route" else int(v)
-    if case["route"] not in ROUTE_STRIP:
+    if case["route"] not in routes:
         raise ValueError(f"unknown route in {spec!r}")
     return case
+
+
+def strip_route(parts: list, route: str) -> list:
+    """The partitions with ``route``'s tiers dropped (``DOC_STRIP``)."""
+    strip = DOC_STRIP[route]
+    return [dataclasses.replace(
+        p, **(strip.get(s, {}) if route == "mixed" else strip))
+        for s, p in enumerate(parts)]
+
+
+def doc_partitions(packed_of, reads, S: int, route: str) -> list:
+    """The corpus in S doc partitions built by ``packed_of(reads,
+    sample_ids)`` (partition s: sample s; the last takes the remainder),
+    with ``route``'s tiers stripped."""
+    per = len(reads) // S
+    parts = []
+    for s in range(S):
+        chunk = reads[s * per : (s + 1) * per if s < S - 1 else len(reads)]
+        parts.append(packed_of(chunk, np.full(len(chunk), s, dtype=np.int32)))
+    return strip_route(parts, route)
 
 
 def case_name(case: dict) -> str:
@@ -93,6 +135,10 @@ def main(argv=None) -> int:
     ap.add_argument("--heartbeat-timeout", type=int, default=10)
     ap.add_argument("--num-shards", type=int, default=0,
                     help="the mesh's shards (0: one)")
+    ap.add_argument("--doc-shards", type=int, default=0,
+                    help="dump the doc-sharded program's cases over this "
+                         "many doc shards (with --dump)")
+    ap.add_argument("--max-hits", type=int, default=MAX_HITS)
     ap.add_argument("--per-step", action="store_true",
                     help="the cross-rank program even with one rank a row")
     ap.add_argument("--serve-loop", action="store_true",
@@ -132,6 +178,8 @@ def main(argv=None) -> int:
     )
 
     corpus = simulate.simulate_config(args.config, scale=args.scale)
+    if args.doc_shards:
+        return _dump_doc(args, corpus, device, rank)
     packed = (artifact.load_artifact(args.index, mmap=False) if args.index
               else build_index(corpus.reads, sample_ids=corpus.sample_ids))
     mesh = mh.make_global_mesh(args.num_shards or None, device=device,
@@ -224,6 +272,86 @@ def main(argv=None) -> int:
     dist.barrier()
     dist.destroy_process_group()
     return 1 if rank == 0 and bad else 0
+
+
+def _dump_doc(args, corpus, device, rank: int) -> int:
+    """Each case of the doc-sharded program once over the group: every
+    rank's collective counts (and, from a cohort directory, the
+    collectives' times), and rank 0's answers with the batch."""
+    import torch
+    import torch.distributed as dist
+
+    from readserver_tpu_torch.index import build_index
+    from readserver_tpu_torch.index.cohort import load_cohort
+    from readserver_tpu_torch.parallel import (
+        build_doc_sharded,
+        make_doc_query_fn,
+        multihost as mh,
+        place_doc_sharded,
+    )
+
+    S = args.doc_shards
+    H = args.max_hits
+    mesh = mh.make_global_mesh(S, device=device)
+    k = corpus.spec.kmer_len
+    for spec in args.case:
+        case = parse_case(spec, DOC_STRIP)
+        if args.index:
+            parts = strip_route(load_cohort(args.index, mmap=False)[0],
+                                case["route"])
+        else:
+            parts = doc_partitions(
+                lambda r, ids: build_index(r, sample_ids=ids), corpus.reads,
+                S, case["route"])
+        didx = place_doc_sharded(
+            build_doc_sharded(parts, lut_p=case["lut"]), mesh)
+        fn = make_doc_query_fn(
+            didx, mesh, max_hits=H, row_budget=case["budget"] or None,
+            exact_hist=bool(case["exact"]))
+        # the whole batch on every rank: the doc program is replicated
+        _, (codes, lengths) = rank_queries(corpus, args.batch, k, 0, case)
+        for key in mh.COLLECTIVES:
+            mh.COLLECTIVES[key] = 0
+        # the k-step search where every shard has the pair table
+        kstep = case["kstep"] > 1 and all(p.rank2_blocks is not None
+                                          for p in parts)
+        out = fn(didx, codes, lengths, kstep=kstep)
+        counted = dict(mh.COLLECTIVES)
+        timed = {}
+        if args.index:
+            B, NS = codes.shape[0], didx.num_samples
+            lanes = torch.zeros((len(didx.shards), B, 3 * H + 1),
+                                dtype=torch.int32, device=device)
+            part = torch.zeros(B * (NS + 2), dtype=torch.int64,
+                               device=device)
+            for what, op, nbytes in (
+                    ("gather", lambda: mh.gather_shards(lanes, mesh),
+                     lanes.nbytes * mesh.ranks["shard"]),
+                    ("allreduce", lambda: mh.all_reduce(part,
+                                                        mesh.shard_group),
+                     part.nbytes)):
+                took = []
+                for _ in range(11):
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    t0 = time.perf_counter()
+                    op()
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    took.append((time.perf_counter() - t0) * 1e3)
+                timed[f"{what}_ms"] = float(np.median(took[1:]))
+                timed[f"{what}_bytes"] = int(nbytes)
+        name = case_name(case)
+        np.savez(f"{args.dump}/{name}_rank{rank}.npz",
+                 all_reduce=counted["all_reduce"], gather=counted["gather"],
+                 shards=len(didx.shards), first=didx.first_shard, **timed)
+        if rank == 0:
+            np.savez(f"{args.dump}/{name}_global.npz", codes=codes,
+                     lengths=lengths,
+                     **{key: v.cpu().numpy() for key, v in out.items()})
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
 
 
 if __name__ == "__main__":

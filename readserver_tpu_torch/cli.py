@@ -17,16 +17,23 @@ serve them on one device.
     python -m readserver_tpu_torch.cli serve --index data/idx --port 8080 \\
         --batch 8192 --warmup-k 31
     python -m readserver_tpu_torch.cli serve --index data/idx --shards 4
+    python -m readserver_tpu_torch.cli query --index data/a,data/b \
+        --kmer ACGTT --hits --samples
+    python -m readserver_tpu_torch.cli serve --index data/pop \
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0
 
 Artifacts are the JAX package's on-disk format: the host commands (build,
 append, compact, upgrade, merge, import-bwt, simulate) write the bytes the
 JAX package's CLI writes from the same input, and touch no device.
 ``query`` and ``serve`` run on ``--device``, the card unless asked
 otherwise.  A cohort directory (``--doc-shards N``) is served by
-``MultiEngine``, every shard on the one device; ``--shards S`` serves one
-artifact in S BWT-interval shards, all resident on the one device.
-Document sharding across devices (``--index a,b``, ROADMAP P9) and
-multi-host serving (``serve --coordinator``, ROADMAP P11) are refused.
+``MultiEngine``, every shard on the one device; comma-separated artifacts
+(``--index a,b``) by the doc-sharded ``QueryEngine``, every shard on the
+one device; ``--shards S`` serves one artifact in S BWT-interval shards,
+all resident on the one device.  ``serve --coordinator`` serves over the
+ranks of a process group, one device a rank: one artifact in ``--shards``
+interval shards, or a cohort directory or ``a,b`` as doc shards, a run of
+them on each rank.
 """
 
 from __future__ import annotations
@@ -280,56 +287,55 @@ def cmd_simulate(args) -> int:
     return 0
 
 
-def _refuse(msg: str) -> int:
-    print(f"error: {msg}", file=sys.stderr)
-    return 2
+def _doc_partitions(index_path: str) -> list | None:
+    """The doc shards ``index_path`` names: a cohort directory's, or the
+    artifacts of a comma-separated list (the JAX CLI's ``--index a,b``);
+    None for one artifact."""
+    from readserver_tpu_torch.index import artifact
+    from readserver_tpu_torch.index.cohort import is_cohort, load_cohort
 
-
-# the JAX CLI's comma-separated ``--index a,b``: one artifact per device
-DOC_SHARDS_REFUSED = (
-    "--index with several comma-separated artifacts (document sharding "
-    "across devices) is not ported yet (ROADMAP P9); build one cohort with "
-    "`build --doc-shards N` and serve its directory"
-)
-COHORT_GROUP_REFUSED = (
-    "serve --coordinator takes one artifact: a cohort directory's doc "
-    "shards are served by one process (document sharding across devices "
-    "is ROADMAP P9)"
-)
+    if is_cohort(index_path):
+        return load_cohort(index_path, mmap=False)[0]
+    paths = index_path.split(",")
+    if len(paths) == 1:
+        return None
+    return [artifact.load_artifact(p, mmap=False) for p in paths]
 
 
 def _load_engine(index_path: str, batch_size: int, device: str,
                  warmup_k: tuple = (), num_shards: int = 1):
     """One artifact → a ``QueryEngine``, in ``num_shards`` BWT-interval
-    shards when above 1; a cohort directory → a ``MultiEngine`` over its
-    shards (``num_shards`` unused, as in the JAX package's CLI); all on
-    ``device`` (there is no document sharding across devices yet; its
-    answers are the same)."""
+    shards when above 1; several comma-separated artifacts → the
+    doc-sharded ``QueryEngine``, every shard on ``device`` (a world of
+    one); a cohort directory → a ``MultiEngine`` over its shards, as the
+    JAX CLI serves a cohort on fewer devices than shards (this rank drives
+    one).  ``num_shards`` is unused for doc shards, as in the JAX CLI."""
     from readserver_tpu_torch.config import ServeConfig
     from readserver_tpu_torch.index import artifact
-    from readserver_tpu_torch.index.cohort import is_cohort, load_cohort
+    from readserver_tpu_torch.index.cohort import is_cohort
+    from readserver_tpu_torch.parallel import make_mesh
     from readserver_tpu_torch.serve import MultiEngine, QueryEngine
 
-    if is_cohort(index_path):
+    parts = _doc_partitions(index_path)
+    if parts is not None:
         cfg = ServeConfig(batch_size=batch_size,
                           warmup_query_lengths=warmup_k)
-        parts, _ = load_cohort(index_path, mmap=False)
-        return MultiEngine(parts, cfg, device=device)
+        if is_cohort(index_path):
+            return MultiEngine(parts, cfg, device=device)
+        return QueryEngine(parts, cfg,
+                           make_mesh(num_shards=len(parts), device=device),
+                           device=device)
     packed = artifact.load_artifact(index_path, mmap=False)
     cfg = ServeConfig(batch_size=batch_size, num_shards=num_shards,
                       warmup_query_lengths=warmup_k)
     mesh = None
     if num_shards > 1:
-        from readserver_tpu_torch.parallel import make_mesh
-
         mesh = make_mesh(data_parallel=1, num_shards=num_shards,
                          device=device)
     return QueryEngine(packed, cfg, mesh, device=device)
 
 
 def cmd_query(args) -> int:
-    if "," in args.index:
-        return _refuse(DOC_SHARDS_REFUSED)
     # sized to both strands: the reverse complements join the same batch
     width = max(len(args.kmer) * (2 if args.both_strands else 1), 16)
     engine = _load_engine(args.index, width, args.device,
@@ -358,14 +364,15 @@ def _serve_group(args) -> int:
     """``serve --coordinator``: every rank of the group runs this command
     with its process id; each loads the artifact and builds the engine on
     its device, rank 0 fronts REST and broadcasts each batch tick, the
-    others follow until it stops them."""
+    others follow until it stops them.  One artifact serves in ``--shards``
+    interval shards over the ranks; a cohort directory or a comma-separated
+    list of artifacts serves as doc shards, a run of them on each rank."""
     import asyncio
 
     import torch
 
     from readserver_tpu_torch.config import ServeConfig
     from readserver_tpu_torch.index import artifact
-    from readserver_tpu_torch.index.cohort import is_cohort
     from readserver_tpu_torch.parallel.multihost import (
         init_multihost,
         make_global_mesh,
@@ -374,23 +381,28 @@ def _serve_group(args) -> int:
     from readserver_tpu_torch.serve import QueryEngine
     from readserver_tpu_torch.serve.http import serve_forever
 
-    if is_cohort(args.index):
-        return _refuse(COHORT_GROUP_REFUSED)
     device = rank_device(args.device, args.process_id)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     init_multihost(args.coordinator, args.num_processes, args.process_id,
                    backend=args.backend)
-    mesh = make_global_mesh(args.shards if args.shards > 1 else None,
-                            device=device)
-    packed = artifact.load_artifact(args.index, mmap=False)
-    cfg = ServeConfig(
-        batch_size=args.batch,
-        num_shards=int(mesh.shape["shard"]),
-        data_parallel=int(mesh.shape["dp"]),
-        warmup_query_lengths=_warmup_k(args),
-    )
-    engine = QueryEngine(packed, cfg, mesh, device=device)
+    parts = _doc_partitions(args.index)
+    if parts is not None:
+        mesh = make_global_mesh(len(parts), device=device)
+        cfg = ServeConfig(batch_size=args.batch,
+                          warmup_query_lengths=_warmup_k(args))
+        engine = QueryEngine(parts, cfg, mesh, device=device)
+    else:
+        mesh = make_global_mesh(args.shards if args.shards > 1 else None,
+                                device=device)
+        cfg = ServeConfig(
+            batch_size=args.batch,
+            num_shards=int(mesh.shape["shard"]),
+            data_parallel=int(mesh.shape["dp"]),
+            warmup_query_lengths=_warmup_k(args),
+        )
+        engine = QueryEngine(artifact.load_artifact(args.index, mmap=False),
+                             cfg, mesh, device=device)
     if args.process_id != 0:
         engine.follow()
         return 0
@@ -409,8 +421,6 @@ def cmd_serve(args) -> int:
 
     from readserver_tpu_torch.serve.http import serve_forever
 
-    if "," in args.index:
-        return _refuse(DOC_SHARDS_REFUSED)
     if args.coordinator:
         return _serve_group(args)
     engine = _load_engine(args.index, args.batch, args.device,
@@ -488,7 +498,8 @@ def main(argv=None) -> int:
 
     q = sub.add_parser("query", help="query an index artifact")
     q.add_argument("--index", required=True,
-                   help="an artifact or a cohort directory")
+                   help="an artifact, a cohort directory, or artifacts "
+                        "separated by commas (doc shards)")
     q.add_argument("--kmer", nargs="+", required=True)
     q.add_argument("--hits", action="store_true")
     q.add_argument("--samples", action="store_true")
@@ -518,7 +529,8 @@ def main(argv=None) -> int:
 
     s = sub.add_parser("serve", help="REST server over an index artifact")
     s.add_argument("--index", required=True,
-                   help="an artifact or a cohort directory")
+                   help="an artifact, a cohort directory, or artifacts "
+                        "separated by commas (doc shards)")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8080)
     s.add_argument("--batch", type=int, default=256)

@@ -23,6 +23,11 @@
   step, the masked lookups of the walks and the sweep, a LUT level), which
   the ranks of a process group sum by one all-reduce; launched by
   ``ops/sharded.py``.
+* ``ROW_COMPACT`` and ``ROW_GATHER`` (K14) and ``CAPPED_HISTOGRAM`` (K15),
+  ``csrc/compact.cu``: the resolve's row-budget compaction (the prefix of
+  each query's hit lanes and the budget's rows, then the walk's answers
+  gathered back to the lanes) and the capped per-sample histogram;
+  launched by ``ops/resolve.py``.
 
 Each is a :class:`~readserver_tpu_torch.kernels.build.Kernel` carrying its
 launch count in ``launches``.
@@ -44,6 +49,9 @@ SHARDED_RESOLVE = Kernel("rs_sharded_resolve")
 SHARD_OCC_PARTIAL = Kernel("rs_shard_occ_partial")
 SHARD_LOOKUP_PARTIAL = Kernel("rs_shard_lookup_partial")
 SHARDED_LUT_LEVEL_PARTIAL = Kernel("rs_sharded_lut_level_partial")
+ROW_COMPACT = Kernel("rs_row_compact")
+ROW_GATHER = Kernel("rs_row_gather")
+CAPPED_HISTOGRAM = Kernel("rs_capped_histogram")
 KERNELS = {
     "rank_occ": RANK_OCC,
     "lut_level": LUT_LEVEL,
@@ -59,11 +67,15 @@ KERNELS = {
     "shard_occ_partial": SHARD_OCC_PARTIAL,
     "shard_lookup_partial": SHARD_LOOKUP_PARTIAL,
     "sharded_lut_level_partial": SHARDED_LUT_LEVEL_PARTIAL,
+    "row_compact": ROW_COMPACT,
+    "row_gather": ROW_GATHER,
+    "capped_histogram": CAPPED_HISTOGRAM,
 }
 
 __all__ = [
-    "BACKWARD_SEARCH", "EXACT_HISTOGRAM", "KERNELS", "LIBRARY", "LUT_LEVEL",
-    "Kernel", "RANK_OCC", "RESOLVE_DSA", "RESOLVE_FUSED", "RESOLVE_WALK",
+    "BACKWARD_SEARCH", "CAPPED_HISTOGRAM", "EXACT_HISTOGRAM", "KERNELS",
+    "LIBRARY", "LUT_LEVEL", "Kernel", "RANK_OCC", "RESOLVE_DSA",
+    "RESOLVE_FUSED", "RESOLVE_WALK", "ROW_COMPACT", "ROW_GATHER",
     "SHARD_LOOKUP_PARTIAL", "SHARD_OCC", "SHARD_OCC_PARTIAL",
     "SHARDED_LUT_LEVEL", "SHARDED_LUT_LEVEL_PARTIAL", "SHARDED_RESOLVE",
     "SHARDED_SEARCH",

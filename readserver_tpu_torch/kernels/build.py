@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "kernels"
 _SOURCES = ("rank.cu", "search.cu", "resolve.cu", "sharded.cu",
-            "sharded_partial.cu")
+            "sharded_partial.cu", "compact.cu")
 _HEADERS = ("rank.cuh", "search.cuh", "walk.cuh", "shard_view.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -64,6 +64,10 @@ SIGNATURES = {
     "rs_shard_occ_partial": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _L, _P, _P],
     "rs_shard_lookup_partial": [_P, _I, _P, _P, _L, _P, _P],
     "rs_sharded_lut_level_partial": [_P, _P, _P, _L, _I, _P, _L, _P],
+    # the row-budget compaction and the capped histogram (csrc/compact.cu)
+    "rs_row_compact": [_P, _P, _L, _I, _L, _P, _P, _P],
+    "rs_row_gather": [_P, _P, _L, _I, _L, _P, _P, _P, _P, _P, _P],
+    "rs_capped_histogram": [_P, _P, _L, _I, _P, _L, _I, _P],
 }
 
 

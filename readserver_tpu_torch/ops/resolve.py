@@ -22,7 +22,13 @@ form for CPU tensors, with no fallback between them:
 * K7, the exact per-sample histogram: tiles of the worklist mapped to
   their queries through the int64 prefix sums staged in shared memory,
   then the dsa decode or any of the four walks, and an atomic add
-  (:func:`exact_sample_histogram`).
+  (:func:`exact_sample_histogram`);
+* K14, the row-budget compaction before a walk (``csrc/compact.cu``): the
+  prefix of each query's hit lanes, the budget's slots filled from their
+  queries, and the walk's answers gathered back to the lanes
+  (:func:`compact_lanes`, :func:`gather_lanes`);
+* K15, the capped per-sample histogram of the resolved hit lanes
+  (:func:`sample_histogram`).
 
 In the JAX package the walks are XLA loops, not Pallas.  The slow walk's
 ``rank_fn``/``sym_fn`` hooks run only in the plain form; on CUDA tensors
@@ -35,10 +41,13 @@ from __future__ import annotations
 import torch
 
 from readserver_tpu_torch.kernels import (
+    CAPPED_HISTOGRAM,
     EXACT_HISTOGRAM,
     RESOLVE_DSA,
     RESOLVE_FUSED,
     RESOLVE_WALK,
+    ROW_COMPACT,
+    ROW_GATHER,
 )
 from readserver_tpu_torch.kernels.build import check_int32, on_cuda, ptr
 from readserver_tpu_torch.ops import rank as rank_ops
@@ -609,10 +618,11 @@ def select_walk(index: DeviceIndex, plain: bool = False, **slow_kw):
 
 
 def compact_rows(rows: torch.Tensor, valid: torch.Tensor, R_c: int):
-    """The row-budget compaction (a prefix-sum scatter, no kernel): the
-    first ``R_c`` valid lanes in flat order → ``(rows [R_c], valid [R_c],
-    orig [R_c], keep [F])``, where ``orig`` is each compact slot's flat
-    lane (F where the slot is empty) and ``keep`` marks the lanes kept."""
+    """The row-budget compaction as a prefix-sum scatter: the first ``R_c``
+    valid lanes in flat order → ``(rows [R_c], valid [R_c], orig [R_c],
+    keep [F])``, where ``orig`` is each compact slot's flat lane (F where
+    the slot is empty) and ``keep`` marks the lanes kept.  The plain form
+    K14 is held against, and the interval-sharded program's compaction."""
     F = rows.shape[0]
     dev = rows.device
     v32 = valid.to(torch.int32)
@@ -631,6 +641,107 @@ def compact_rows(rows: torch.Tensor, valid: torch.Tensor, R_c: int):
     return comp_rows.contiguous(), comp_valid.contiguous(), orig, keep
 
 
+# ------------------------------------------ K14: the row-budget compaction
+
+
+def _lane_prefix(l: torch.Tensor, u: torch.Tensor, max_hits: int):
+    """int32 [B + 1]: the exclusive prefix of each query's hit lanes,
+    ``min(max(u - l, 0), max_hits)``; the last entry is their total."""
+    c = (u - l).clamp(0, max_hits).to(torch.int32)
+    return torch.cat([torch.zeros(1, dtype=torch.int32, device=l.device),
+                      torch.cumsum(c, 0, dtype=torch.int32)])
+
+
+def compact_lanes_plain(l, u, max_hits: int, row_budget: int):
+    """Plain form of :func:`compact_lanes`: :func:`expand_intervals`, then
+    :func:`compact_rows`."""
+    rows, valid, _ = expand_intervals(l, u, max_hits)
+    comp_rows, comp_valid, _, _ = compact_rows(rows, valid, row_budget)
+    return comp_rows, comp_valid, _lane_prefix(l, u, max_hits)
+
+
+def _check_lanes(l, u, max_hits: int, row_budget: int) -> None:
+    B = l.shape[0]
+    check_int32("l", l, l.device, (B,))
+    check_int32("u", u, l.device, (B,))
+    if max_hits < 1 or row_budget < 0 or B * max_hits >= 1 << 31:
+        raise ValueError(
+            f"K14 takes max_hits >= 1, row_budget >= 0 and fewer than 2^31 "
+            f"lanes, got B={B}, max_hits={max_hits}, row_budget={row_budget}"
+        )
+
+
+def compact_lanes(
+    l: torch.Tensor, u: torch.Tensor, max_hits: int, row_budget: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The row-budget compaction before a walk.  Lane (b, h) of the
+    ``[B, max_hits]`` expansion holds SA row ``l[b] + h`` where ``h <
+    u[b] - l[b]``; the first ``row_budget`` valid lanes in flat order →
+    ``(rows int32 [row_budget], valid bool [row_budget], prefix int32
+    [B + 1])``, a slot past them row 0 and invalid, ``prefix`` the
+    exclusive prefix of each query's lanes (:func:`gather_lanes` reads it).
+    K14 for CUDA tensors: one block scans the queries' lanes, then each
+    slot finds its query by a binary search of the prefix.  The plain form
+    for CPU tensors."""
+    if not on_cuda(l):
+        return compact_lanes_plain(l, u, max_hits, row_budget)
+    l, u = l.contiguous(), u.contiguous()
+    _check_lanes(l, u, max_hits, row_budget)
+    B = l.shape[0]
+    dev = l.device
+    prefix = torch.empty(B + 1, dtype=torch.int32, device=dev)
+    rows = torch.empty(row_budget, dtype=torch.int32, device=dev)
+    valid = torch.empty(row_budget, dtype=torch.bool, device=dev)
+    ROW_COMPACT(ptr(l), ptr(u), B, max_hits, row_budget, ptr(prefix),
+                ptr(rows), ptr(valid), device=dev)
+    return rows, valid, prefix
+
+
+def gather_lanes_plain(l, u, max_hits: int, row_budget: int, prefix,
+                       rid_c, off_c):
+    """Plain form of :func:`gather_lanes`."""
+    span = torch.arange(max_hits, dtype=torch.int64, device=l.device)
+    pos = prefix[:-1, None].to(torch.int64) + span[None, :]
+    keep = (span[None, :] < (u - l)[:, None]) & (pos < row_budget)
+    slot = torch.where(keep, pos, torch.full_like(pos, row_budget))
+    none = torch.full((1,), -1, dtype=torch.int32, device=l.device)
+    return (_take(torch.cat([rid_c, none]), slot),
+            _take(torch.cat([off_c, none]), slot), keep)
+
+
+def gather_lanes(
+    l: torch.Tensor,
+    u: torch.Tensor,
+    max_hits: int,
+    row_budget: int,
+    prefix: torch.Tensor,
+    rid_c: torch.Tensor,
+    off_c: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """After the walk of :func:`compact_lanes`' slots: each lane's answer
+    back from its slot → ``(read_id, offset, valid)`` [B, max_hits], -1
+    and invalid where the lane held no hit or fell past the budget.  K14's
+    gather for CUDA tensors, the plain form for CPU tensors."""
+    if not on_cuda(l):
+        return gather_lanes_plain(l, u, max_hits, row_budget, prefix, rid_c,
+                                  off_c)
+    l, u = l.contiguous(), u.contiguous()
+    _check_lanes(l, u, max_hits, row_budget)
+    B = l.shape[0]
+    dev = l.device
+    check_int32("prefix", prefix, dev, (B + 1,))
+    check_int32("rid_c", rid_c, dev, (row_budget,))
+    check_int32("off_c", off_c, dev, (row_budget,))
+    rid = torch.empty((B, max_hits), dtype=torch.int32, device=dev)
+    off = torch.empty_like(rid)
+    valid = torch.empty((B, max_hits), dtype=torch.bool, device=dev)
+    if B:
+        ROW_GATHER(ptr(l), ptr(u), B, max_hits, row_budget, ptr(prefix),
+                   ptr(rid_c), ptr(off_c), ptr(rid), ptr(off), ptr(valid),
+                   device=dev)
+    return rid, off, valid
+
+
 def resolve_intervals(
     index: DeviceIndex,
     l: torch.Tensor,
@@ -642,13 +753,11 @@ def resolve_intervals(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """→ ``(read_id, offset, valid)``, each [B, max_hits].
 
-    With ``row_budget`` set (and a walk tier serving), valid rows are
-    compacted by a prefix-sum scatter into the budget before the walk and
-    scattered back after: the first ``row_budget`` valid lanes in flat
-    order walk, the rest drop and their queries report ``hits_truncated``.
-    The dsa tier ignores the budget (one gather per lane is cheaper than
-    the compaction round trip)."""
-    rows, valid, _ = expand_intervals(l, u, max_hits)
+    With ``row_budget`` set (and a walk tier serving), the first
+    ``row_budget`` valid lanes in flat order walk (:func:`compact_lanes`,
+    then :func:`gather_lanes`: K14 on the card), the rest drop and their
+    queries report ``hits_truncated``.  The dsa tier ignores the budget
+    (one gather per lane is cheaper than the compaction round trip)."""
     if use_fast is False:
         # explicit request for the slow walk (parity tests)
         walk = lambda r, v: resolve_rows(index, r, v, **kw)  # noqa: E731
@@ -659,20 +768,13 @@ def resolve_intervals(
         walk = select_walk(index, **kw)
 
     B = l.shape[0]
-    F = B * max_hits
-    if index.dsa is not None and index.dsa_bits > 0 and use_fast is None:
-        read_id, offset = walk(rows, valid)
-    elif row_budget is not None and row_budget < F:
-        comp_rows, comp_valid, orig, keep = compact_rows(
-            rows, valid, row_budget
-        )
-        rid_c, off_c = walk(comp_rows, comp_valid)
-        full = torch.full((F + 1,), -1, dtype=torch.int32, device=rows.device)
-        read_id = full.scatter(0, orig, rid_c)[:F]
-        offset = full.scatter(0, orig, off_c)[:F]
-        valid = valid & keep
-    else:
-        read_id, offset = walk(rows, valid)
+    dsa = index.dsa is not None and index.dsa_bits > 0 and use_fast is None
+    if not dsa and row_budget is not None and row_budget < B * max_hits:
+        rows_c, valid_c, prefix = compact_lanes(l, u, max_hits, row_budget)
+        rid_c, off_c = walk(rows_c, valid_c)
+        return gather_lanes(l, u, max_hits, row_budget, prefix, rid_c, off_c)
+    rows, valid, _ = expand_intervals(l, u, max_hits)
+    read_id, offset = walk(rows, valid)
     return (
         read_id.reshape(B, max_hits),
         offset.reshape(B, max_hits),
@@ -816,13 +918,13 @@ def exact_sample_histogram(
     return hist.reshape(B, S), cum <= tw * window
 
 
-def sample_histogram(
+def sample_histogram_plain(
     index: DeviceIndex,
     read_id: torch.Tensor,  # int32 [B, H]
     valid: torch.Tensor,    # bool  [B, H]
 ) -> torch.Tensor:
-    """Per-query per-sample hit counts [B, num_samples] over the resolved
-    (capped) hit lanes."""
+    """Plain form of :func:`sample_histogram`: a gather of each lane's
+    sample and an ``index_add_``."""
     B, H = read_id.shape
     S = max(index.num_samples, 1)
     sample = _clip_take(index.read_to_sample, read_id, index.num_reads)
@@ -833,3 +935,35 @@ def sample_histogram(
     flat = torch.zeros(B * S, dtype=torch.int32, device=read_id.device)
     flat.index_add_(0, seg.reshape(-1), valid.to(torch.int32).reshape(-1))
     return flat.reshape(B, S)
+
+
+def sample_histogram(
+    index: DeviceIndex,
+    read_id: torch.Tensor,  # int32 [B, H]
+    valid: torch.Tensor,    # bool  [B, H]
+) -> torch.Tensor:
+    """Per-query per-sample hit counts [B, num_samples] over the resolved
+    (capped) hit lanes; a valid lane's sample is ``read_to_sample[clip(rid,
+    0, num_reads - 1)]`` (a walk's -1 counts under sample 0's read, as the
+    JAX package clips it).  K15 for CUDA tensors: a block's run of queries
+    counted into a shared-memory histogram by integer atomics.  The plain
+    form for CPU tensors."""
+    if not on_cuda(read_id):
+        return sample_histogram_plain(index, read_id, valid)
+    B, H = read_id.shape
+    S = max(index.num_samples, 1)
+    dev = read_id.device
+    read_id, valid = read_id.contiguous(), valid.contiguous()
+    check_int32("read_id", read_id, dev)
+    check_int32("read_to_sample", index.read_to_sample, dev)
+    if valid.dtype != torch.bool or valid.shape != read_id.shape:
+        raise ValueError("valid must be a bool tensor shaped like read_id")
+    if not 1 <= index.num_reads <= index.read_to_sample.shape[0]:
+        raise ValueError(f"K15 takes 1 <= num_reads <= len(read_to_sample), "
+                         f"got {index.num_reads}")
+    if not B * H:
+        return torch.zeros((B, S), dtype=torch.int32, device=dev)
+    hist = torch.empty((B, S), dtype=torch.int32, device=dev)
+    CAPPED_HISTOGRAM(ptr(read_id), ptr(valid), B, H, ptr(index.read_to_sample),
+                     index.num_reads, S, ptr(hist), device=dev)
+    return hist

@@ -5,9 +5,11 @@ One process drives one device.  ``init_multihost`` joins the group,
 ``make_global_mesh`` lays the ``(dp, shard)`` mesh over its ranks (the
 shard axis over consecutive ranks, dp across them), and
 ``host_local_queries`` / ``gather_results`` / ``local_slice`` are the
-ingest and egress hops.  The collectives the query program and the engine
+ingest and egress hops, and ``gather_shards`` the doc-sharded program's
+gather of its hit sets.  The collectives the query programs and the engine
 run go through :func:`all_reduce`, :func:`broadcast` and :func:`_gather`;
-the all-reduces are counted in ``COLLECTIVES``.
+the all-reduces and the gathers over a group are counted in
+``COLLECTIVES``.
 
 The backend is the caller's: ``nccl`` when each rank has a GPU of its own,
 ``gloo`` when the caller asks for it (the CPU, or ranks sharing one card:
@@ -32,8 +34,9 @@ from readserver_tpu_torch.parallel.mesh import Mesh
 
 BACKENDS = ("nccl", "gloo")
 # all-reduces run since the count was last set to 0 (tests and
-# chip_smoke.py compare it with parallel/stats.query_psum_estimate)
-COLLECTIVES = {"all_reduce": 0}
+# chip_smoke.py compare it with parallel/stats.query_psum_estimate), and
+# all-gathers over a group of more than this rank
+COLLECTIVES = {"all_reduce": 0, "gather": 0}
 
 
 def init_multihost(
@@ -148,6 +151,7 @@ def _gather(t: torch.Tensor, group) -> torch.Tensor:
         return t
     import torch.distributed as dist
 
+    COLLECTIVES["gather"] += 1
     src = t.to(torch.uint8) if t.dtype == torch.bool else t
     src = src.cpu() if _on_host(group) else src.contiguous()
     parts = [torch.empty_like(src)
@@ -181,6 +185,16 @@ def gather_results(tree: dict, mesh: Mesh) -> dict:
         g = v if int(mesh.ranks["dp"]) == 1 else _gather(v, mesh.dp_group)
         out[k] = g.cpu().numpy()
     return out
+
+
+def gather_shards(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The concatenation along dim 0, in rank order, of every rank's ``t``
+    over this rank's shard group (``t`` itself on a mesh whose shard axis
+    has one rank): the doc-sharded program's per-shard hit sets, stacked
+    shard-major as the JAX program's output is."""
+    if int(mesh.ranks["shard"]) == 1:
+        return t
+    return _gather(t.contiguous(), mesh.shard_group)
 
 
 def local_slice(tree: dict, nq: int | None = None) -> dict:

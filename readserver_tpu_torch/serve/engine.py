@@ -40,9 +40,6 @@ from readserver_tpu_torch.ops import (
 from readserver_tpu_torch.ops.resolve import resolve_hits
 from readserver_tpu_torch.ops.search import raise_if_refused, search_batch
 
-_NOT_PORTED = "not ported yet; see ROADMAP.md, modules still to port"
-
-
 @dataclass
 class QueryResult:
     kmer: str
@@ -78,6 +75,21 @@ def _require_global_sample_space(partitions, names) -> None:
                     "the GLOBAL sample-id space (merges are by id) — "
                     "rebuild or append via the cohort API"
                 )
+
+
+def _global_sample_names(partitions) -> list[str]:
+    """A cohort's sample names, as both JAX fronts take them: ``sample_i``
+    for every id below the partitions' most samples, each named by the
+    last partition that names it; the partitions must share that space
+    (:func:`_require_global_sample_space`)."""
+    ns = max(p.num_samples for p in partitions)
+    names = [f"sample_{i}" for i in range(ns)]
+    for p in partitions:
+        for i, nm in enumerate(p.sample_names):
+            if i < ns:
+                names[i] = nm
+    _require_global_sample_space(partitions, names)
+    return names
 
 
 def expand_rc(kmers: list[str]) -> tuple[list[str], dict[int, int]]:
@@ -360,23 +372,28 @@ class QueryEngine:
     """Batched queries over a built index on one device: counts, hit sets
     and exact per-sample histograms.
 
-    Two deployment shapes:
+    Three deployment shapes, the JAX package's:
 
     * single device: ``QueryEngine(packed, device="cuda")``;
     * interval-sharded: ``QueryEngine(packed, ServeConfig(num_shards=S),
-      make_mesh(num_shards=S, device="cuda"), device="cuda")``, the
-      JAX package's shape, with all S BWT-range shards resident on the one
-      device (``parallel/sharded.py``; ``_sharded`` True, the index in
-      ``sidx``), or over the ranks of a process group with a mesh from
-      ``parallel.multihost.make_global_mesh``: every rank builds the
-      engine, rank 0 answers and broadcasts each batch tick, the others
-      run :meth:`follow` (``_mh`` True).
+      make_mesh(num_shards=S, device="cuda"), device="cuda")``, with all S
+      BWT-range shards resident on the one device (``parallel/sharded.py``;
+      ``_sharded`` True, the index in ``sidx``);
+    * document-sharded: ``QueryEngine([packed_1, ..., packed_S], cfg,
+      make_mesh(num_shards=S, device="cuda"), device="cuda")``, a list of
+      per-partition indexes (the reference's split-by-sample deployment:
+      counts sum, hit sets union, read ids map by offsets;
+      ``parallel/doc_sharded.py``; ``_doc`` True, the shards in ``didx``),
+      all S on the one device.
 
-    A list of partitions (document sharding across devices) is not ported
-    yet; :class:`MultiEngine` serves partitions on one device.  The
-    dispatcher and REST front read ``B``, ``H``, ``K``, ``cfg``,
-    ``sample_names``, ``pack_stats``, ``tier_plan``, ``packed``, ``_ns``,
-    ``_doc`` (False) and ``_sharded``.
+    The sharded shapes also run over the ranks of a process group, with a
+    mesh from ``parallel.multihost.make_global_mesh``: every rank builds
+    the engine, rank 0 answers and broadcasts each batch tick, the others
+    run :meth:`follow` (``_mh`` True).  :class:`MultiEngine` serves
+    partitions time-multiplexed on one device instead.  The dispatcher and
+    REST front read ``B``, ``H``, ``K``, ``cfg``, ``sample_names``,
+    ``pack_stats``, ``tier_plan``, ``packed``, ``_ns``, ``_doc``,
+    ``partitions`` (doc) and ``_sharded``.
     """
 
     COMPACT_PER_QUERY = COMPACT_PER_QUERY
@@ -391,8 +408,6 @@ class QueryEngine:
         *,
         device,
     ):
-        if isinstance(packed, (list, tuple)):
-            raise NotImplementedError(f"document sharding: {_NOT_PORTED}")
         self.cfg = serve_config or ServeConfig()
         # sparse-pack transfer accounting (see assemble_sparse)
         self.pack_stats = {
@@ -400,14 +415,17 @@ class QueryEngine:
             "hist_dense_fallbacks": 0, "hits_dense_fallbacks": 0,
         }
         self.device = torch.device(device)
+        # wall seconds of each start-up stage, each ended by a device sync
+        self.startup_seconds: dict[str, float] = {}
+        if isinstance(packed, (list, tuple)):
+            self._init_doc(list(packed), mesh)
+            return
         self.packed = packed
         self.K = packed.config.max_query_len
         self.B = self.cfg.batch_size
         self.H = self.cfg.max_hits
         self.sample_names = packed.sample_names or ["sample_0"]
         self._ns = max(packed.num_samples, 1)
-        # wall seconds of each start-up stage, each ended by a device sync
-        self.startup_seconds: dict[str, float] = {}
         # a mesh with one shard and dp 1 serves the single-device path, as
         # in the JAX package
         self._sharded = mesh is not None and (
@@ -451,6 +469,134 @@ class QueryEngine:
         )
         self._mark("lut", t0)
         self.has_pair = self.index.rank2_rows is not None
+
+    def _init_doc(self, partitions: list, mesh) -> None:
+        """The document-sharded start-up (the JAX engine's): the read bases
+        and the global sample names, the shards of this rank placed on its
+        device with their prefix LUTs (the order from the largest shard's
+        n), and the query function twice, with the LUTs and without (for
+        queries shorter than the order)."""
+        from readserver_tpu_torch.parallel import (
+            build_doc_sharded,
+            make_doc_query_fn,
+            place_doc_sharded,
+        )
+
+        if not partitions:
+            raise ValueError("no partitions")
+        if mesh is None:
+            raise ValueError("document sharding requires a mesh")
+        if torch.device(mesh.device).type != self.device.type:
+            raise ValueError(
+                f"mesh is on {mesh.device}, the engine on {self.device}"
+            )
+        self._doc = True
+        self.partitions = partitions
+        self.packed = partitions[0]
+        self._read_base = []
+        base = 0
+        for p in partitions:
+            self._read_base.append(base)
+            base += p.num_reads
+        self.K = self.packed.config.max_query_len
+        self.B = self.cfg.batch_size
+        self.H = self.cfg.max_hits
+        self.sample_names = _global_sample_names(partitions)
+        self._ns = max(len(self.sample_names), 1)
+        self.mesh = dataclasses.replace(mesh, device=self.device)
+        self._mh = int(mesh.ranks["dp"]) * int(mesh.ranks["shard"]) > 1
+        self.tier_plan = None  # every shard ships the tiers all shards have
+        self.lut_p = (
+            self.cfg.prefix_lut_order
+            if self.cfg.prefix_lut_order is not None
+            else default_lut_order(max(p.n for p in partitions))
+        )
+        self.lut = None  # each shard's LUT is in didx
+        t0 = time.perf_counter()
+        self.didx = place_doc_sharded(
+            build_doc_sharded(partitions, lut_p=self.lut_p), self.mesh
+        )
+        self._mark("ship", t0)
+        # the k-step search where every shard has the pair table
+        self.has_pair = all(p.rank2_blocks is not None for p in partitions)
+        frac = self.cfg.resolve_budget_frac
+        budget = int(frac * self.B * self.H) if frac else None
+        ex = dict(
+            max_hits=self.H,
+            row_budget=budget,
+            exact_hist=self.cfg.exact_attribution,
+            exact_max_rows=self.cfg.max_sweep_rows,
+        )
+        self._doc_fn = make_doc_query_fn(self.didx, self.mesh, **ex)
+        # the same shards with the LUTs off, for short queries
+        self.didx_plain = dataclasses.replace(self.didx, luts=None, lut_p=0)
+        self._doc_fn_plain = make_doc_query_fn(self.didx_plain, self.mesh,
+                                               **ex)
+
+    def _run_doc(self, kmers: list[str]) -> dict[str, np.ndarray]:
+        """One batch through the doc-sharded program → the JAX engine's
+        merged answers on the host: ``count`` int64, ``sample_hist``,
+        ``hist_complete`` and [B, S·H] ``read_id``, ``offset``, ``valid``
+        (shard-major), the first ``len(kmers)`` rows.  In a process group,
+        a tick as in :meth:`_run_sharded`."""
+        codes, lengths, nq = self._pad_encode(kmers)
+        if self._mh:
+            codes, lengths = self._send_tick(codes, lengths, nq)
+        return self._doc_execute(codes, lengths, nq)
+
+    def _doc_program(self, codes: np.ndarray, lengths: np.ndarray, nq: int,
+                     bad) -> dict:
+        """The doc program on the (broadcast) batch → its outputs on the
+        device: the LUT when every query reaches its order, the k-step
+        search for a uniform full-width batch; this rank's shards, one
+        all-reduce and one gather.  Every branch derives from the batch,
+        so every rank takes the same ones."""
+        K = codes.shape[1]
+        lmax = int(lengths.max()) if len(lengths) else K
+        if int(lengths.min()) == lmax and lmax < K:
+            codes = np.ascontiguousarray(codes[:, K - lmax:])
+        use_lut = bool(
+            self.lut_p and nq and int(lengths[:nq].min()) >= self.lut_p
+        )
+        kstep = bool(
+            self.has_pair and nq and int(lengths.min()) == codes.shape[1]
+        )
+        fn, didx = ((self._doc_fn, self.didx) if use_lut
+                    else (self._doc_fn_plain, self.didx_plain))
+        return fn(didx, *self._to_device(codes, lengths), kstep=kstep,
+                  bad=bad)
+
+    def _doc_execute(self, codes: np.ndarray, lengths: np.ndarray,
+                     nq: int) -> dict[str, np.ndarray]:
+        """:meth:`_doc_program` on every rank, its outputs on the host as
+        the JAX engine merges them."""
+        bad = (self._new_bad()
+               if self.device.type == "cuda" and not self._mh else None)
+        out = {k: v.cpu().numpy()
+               for k, v in self._doc_program(codes, lengths, nq, bad).items()}
+        if bad is not None:
+            raise_if_refused(int(bad.item()), self.K)
+        # stacked per-shard hit tensors: [S, B, H] → [B, S*H]
+        S = self.didx.num_shards
+        merged = {k: out[k][:nq]
+                  for k in ("count", "sample_hist", "hist_complete")}
+        for k in ("read_id", "offset", "valid"):
+            merged[k] = out[k].transpose(1, 0, 2).reshape(-1, S * self.H)[:nq]
+        return merged
+
+    def _doc_samples(self, rid_m: np.ndarray, val_m: np.ndarray):
+        """Each valid hit's sample, found through its partition."""
+        rid_safe = np.clip(rid_m, 0, None)
+        base = np.asarray(self._read_base, dtype=np.int64)
+        part = np.searchsorted(base, rid_safe, side="right") - 1
+        sample_m = np.zeros(rid_m.shape, dtype=np.int64)
+        for s, p in enumerate(self.partitions):
+            msk = val_m & (part == s)
+            if msk.any():
+                sample_m[msk] = np.asarray(p.read_to_sample)[
+                    rid_safe[msk] - base[s]
+                ]
+        return sample_m
 
     def _init_sharded(self, packed: PackedIndex, mesh) -> None:
         """The interval-sharded start-up (the JAX engine's): build the S
@@ -537,12 +683,7 @@ class QueryEngine:
         program on every rank (:meth:`_mh_execute`)."""
         codes, lengths, nq = self._pad_encode(kmers)
         if self._mh:
-            from readserver_tpu_torch.parallel.multihost import broadcast
-
-            broadcast(np.array([codes.shape[0], nq, 0], dtype=np.int64),
-                      self.device)
-            codes = broadcast(codes, self.device)
-            lengths = broadcast(lengths, self.device)
+            codes, lengths = self._send_tick(codes, lengths, nq)
             out = self._mh_execute(codes, lengths, nq)
             return {k: v[:nq] for k, v in out.items()}
         bad = self._new_bad() if self.device.type == "cuda" else None
@@ -551,6 +692,16 @@ class QueryEngine:
         if bad is not None:
             raise_if_refused(int(bad.item()), self.K)
         return host
+
+    def _send_tick(self, codes: np.ndarray, lengths: np.ndarray, nq: int):
+        """Rank 0's half of a tick: the fixed-shape header (width, nq,
+        stop), then the width-shaped payload → the broadcast batch."""
+        from readserver_tpu_torch.parallel.multihost import broadcast
+
+        broadcast(np.array([codes.shape[0], nq, 0], dtype=np.int64),
+                  self.device)
+        return (broadcast(codes, self.device),
+                broadcast(lengths, self.device))
 
     def _mh_execute(self, codes: np.ndarray, lengths: np.ndarray,
                     nq: int) -> dict[str, np.ndarray]:
@@ -592,7 +743,8 @@ class QueryEngine:
             codes = broadcast(np.zeros((width, self.K), dtype=np.int32),
                               self.device)
             lengths = broadcast(np.ones(width, dtype=np.int32), self.device)
-            self._mh_execute(codes, lengths, nq)
+            (self._doc_execute if self._doc else self._mh_execute)(
+                codes, lengths, nq)
 
     def stop_followers(self) -> None:
         """Release the other ranks' :meth:`follow` loops."""
@@ -626,12 +778,17 @@ class QueryEngine:
 
     def _sharded_results(self, kmers, out) -> list[QueryResult]:
         """The JAX engine's assembly of a sharded batch's full answers:
-        each hit's sample from the host's ``read_to_sample``, hits
-        truncated when the count exceeds the hits returned."""
+        each hit's sample from the host's ``read_to_sample`` (a doc
+        engine's through the hit's partition), hits truncated when the
+        count exceeds the hits returned; ``interval`` None where the
+        program has no global (l, u) (doc shards)."""
         rid_m, off_m, val_m = out["read_id"], out["offset"], out["valid"]
-        sample_m = np.asarray(self.packed.read_to_sample)[
-            np.clip(rid_m, 0, None)
-        ]
+        if self._doc:
+            sample_m = self._doc_samples(rid_m, val_m)
+        else:
+            sample_m = np.asarray(self.packed.read_to_sample)[
+                np.clip(rid_m, 0, None)
+            ]
         hist_m = out["sample_hist"]
         results = []
         for i, km in enumerate(kmers):
@@ -649,7 +806,8 @@ class QueryEngine:
             results.append(QueryResult(
                 kmer=km,
                 count=count,
-                interval=(int(out["l"][i]), int(out["u"][i])),
+                interval=((int(out["l"][i]), int(out["u"][i]))
+                          if "l" in out else None),
                 hits=hits,
                 sample_hist={
                     self.sample_names[int(s)]: int(hist_m[i][s]) for s in nz
@@ -889,14 +1047,22 @@ class QueryEngine:
         for q in [["A"]] + [
             ["A" * k] * w for w in widths for k in lengths
         ]:
-            self.count_batch(q)
+            self.count_batch(q)  # a doc engine's runs its whole program
             if self._sharded:
                 self._run_sharded(q)
-            else:
+            elif not self._doc:
                 self.query_batch(q)
                 self.query_batch(q, include_hits=False)
 
+    def _locate(self, rid: int) -> tuple[int, int]:
+        """Global read id → (partition, local id) of a doc engine."""
+        s = bisect.bisect_right(self._read_base, rid) - 1
+        return s, rid - self._read_base[s]
+
     def _sample_of(self, rid: int) -> int:
+        if self._doc:
+            s, local = self._locate(rid)
+            return int(self.partitions[s].read_to_sample[local])
         return int(self.packed.read_to_sample[rid])
 
     _expand_rc = staticmethod(expand_rc)
@@ -906,6 +1072,12 @@ class QueryEngine:
     ) -> list[QueryResult]:
         if both_strands:
             return both_strands_batch(self.count_batch, kmers)
+        if self._doc:
+            # the whole doc program, as the JAX engine runs it; each shard
+            # is its own BWT, so there is no global (l, u)
+            out = self._run_doc(kmers)
+            return [QueryResult(kmer=km, count=int(out["count"][i]))
+                    for i, km in enumerate(kmers)]
         out = self._run_sharded(kmers) if self._sharded else self._run(kmers)
         return [
             QueryResult(
@@ -928,10 +1100,11 @@ class QueryEngine:
         if both_strands:
             return both_strands_batch(self.query_batch, kmers,
                                       include_hits=include_hits)
-        if self._sharded:
+        if self._doc or self._sharded:
             # the whole sharded program runs for either tier, as in the
             # JAX engine
-            return self._sharded_results(kmers, self._run_sharded(kmers))
+            run = self._run_doc if self._doc else self._run_sharded
+            return self._sharded_results(kmers, run(kmers))
         codes, lengths, nq = self._pad_encode(kmers)
         use_lut, use_pair = self._routes(codes, lengths, nq)
         codes_t, lengths_t = self._to_device(codes, lengths)
@@ -947,17 +1120,28 @@ class QueryEngine:
         )
 
     def read_sequence(self, read_id: int) -> str:
-        """Read text from the host-side cold store."""
+        """Read text from the host-side cold store (a doc engine's from
+        the read's partition)."""
+        if self._doc:
+            s, local = self._locate(read_id)
+            return alphabet.decode(self.partitions[s].extract_read(local))
         return alphabet.decode(self.packed.extract_read(read_id))
 
     def read_name(self, read_id: int) -> str:
         """Stored ingest name (FASTA/FASTQ header); synthesized when the
         artifact was built without names."""
-        nm = self.packed.read_name(read_id)
+        if self._doc:
+            s, local = self._locate(read_id)
+            nm = self.partitions[s].read_name(local)
+        else:
+            nm = self.packed.read_name(read_id)
         return nm if nm is not None else f"read_{read_id}"
 
     def read_meta(self, read_id: int) -> bytes | None:
         """Opaque per-read metadata bytes (None when absent)."""
+        if self._doc:
+            s, local = self._locate(read_id)
+            return self.partitions[s].read_meta(local)
         return self.packed.read_meta(read_id)
 
 
@@ -1006,14 +1190,8 @@ class MultiEngine:
         self.K = self.engines[0].K
         self.B = self.cfg.batch_size
         self.H = self.cfg.max_hits
-        ns = max(p.num_samples for p in self.partitions)
-        self.sample_names = [f"sample_{i}" for i in range(ns)]
-        for p in self.partitions:
-            for i, nm in enumerate(p.sample_names):
-                if i < ns:
-                    self.sample_names[i] = nm
-        _require_global_sample_space(self.partitions, self.sample_names)
-        self._ns = ns
+        self.sample_names = _global_sample_names(self.partitions)
+        self._ns = len(self.sample_names)
 
     _new_bad = QueryEngine._new_bad
     _fetch = QueryEngine._fetch

@@ -91,14 +91,36 @@ def test_engine_plan_and_warmup(engines):
 
 
 def test_unported_surfaces_raise(engines, small_corpus):
-    """Document sharding across devices (a list of partitions) is the
-    surface still to port; interval shards on a dp axis above 1 serve."""
-    from readserver_tpu_torch.parallel import Mesh
+    """Document sharding (a list of partitions), once the surface still to
+    port, answers as the JAX doc engine: without a mesh both packages
+    refuse it, with one the answers are equal (the same partition twice:
+    every count doubles); interval shards on a dp axis above 1 serve."""
+    import jax
 
-    _, _, engine = engines
+    from readserver_tpu.parallel import make_mesh as jax_make_mesh
+    from readserver_tpu_torch.parallel import Mesh, make_mesh
+
+    corpus, _, engine = engines
     assert not engine._doc and not engine._sharded
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QueryEngine([engine.packed, engine.packed], device="cpu")
+    parts = [engine.packed, engine.packed]
+    with pytest.raises(ValueError, match="requires a mesh"):
+        QueryEngine(parts, device="cpu")
+    with pytest.raises(ValueError, match="requires a mesh"):
+        JaxQueryEngine(parts)
+    doc = QueryEngine(parts, ServeConfig(**CFG),
+                      make_mesh(num_shards=2, device="cpu"), device="cpu")
+    jdoc = JaxQueryEngine(parts, JaxServeConfig(**CFG),
+                          mesh=jax_make_mesh(data_parallel=1, num_shards=2,
+                                             devices=jax.devices()[:2]))
+    assert doc._doc and jdoc._doc
+    kms = _kmers(corpus, 20, 15, seed=9, min_len=3)
+    for both in (False, True):
+        got = doc.query_batch(kms, both)
+        assert ([dataclasses.asdict(r) for r in got]
+                == [dataclasses.asdict(r) for r in jdoc.query_batch(kms,
+                                                                  both)])
+        assert [r.count for r in doc.count_batch(kms, both)] == [
+            2 * r.count for r in engine.count_batch(kms, both)]
     dp2 = QueryEngine(engine.packed, ServeConfig(num_shards=2, data_parallel=2),
                       mesh=Mesh(shape={"dp": 2, "shard": 2}, device="cpu"),
                       device="cpu")

@@ -801,18 +801,102 @@ def test_append_after_compaction_no_name_collision_as_jax(tiny_corpus,
 
 
 @pytest.mark.parametrize("argv", [
-    ["query", "--index", "a,b", "--kmer", "ACGT", "--device", "cpu"],
-    ["serve", "--index", "a,b", "--device", "cpu"],
-    ["serve", "--index", "a,b", "--coordinator", "localhost:1234",
-     "--device", "cpu"],
+    ["query", "--hits", "--samples", "--both-strands"],
+    ["serve"],
+    ["serve", "--coordinator"],
 ])
-def test_cli_refuses_unported_decompositions(argv, capsys):
-    """Document sharding across devices is refused, naming its ROADMAP
-    item, before any artifact is read or any group is joined (a group of
-    ranks serves one artifact)."""
-    assert cli.main(argv) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP P9" in err
+def test_cli_refuses_unported_decompositions(argv, tmp_path, capsys,
+                                             tiny_corpus):
+    """Document sharding across devices (``--index a,b``), which the CLI
+    refused until ROADMAP P9 was ported, serves: ``query`` prints the JAX
+    CLI's lines; ``serve`` (one process, or two ranks of a gloo group
+    behind ``--coordinator``, a doc shard each) answers ``/info``,
+    ``/count``, ``/reads`` and ``/samples`` as the JAX doc engine's REST
+    front does, and SIGINT on rank 0 stops it with exit 0."""
+    import signal
+    import sys
+    import time
+    import urllib.request
+
+    import jax
+
+    from readserver_tpu.parallel import make_mesh as jax_make_mesh
+    from readserver_tpu.serve import Dispatcher as JaxDispatcher
+    from readserver_tpu.serve.http import RestServer as JaxRestServer
+    from test_torch_multihost import _answers, _free_port, _launch, _wait
+
+    reads = tiny_corpus.reads
+    half = len(reads) // 2
+    parts = [jax_build_index(reads[:half],
+                             sample_ids=np.zeros(half, dtype=np.int32)),
+             jax_build_index(reads[half:],
+                             sample_ids=np.ones(len(reads) - half,
+                                                dtype=np.int32))]
+    paths = []
+    for i, p in enumerate(parts):
+        artifact.save_artifact(p, tmp_path / f"part{i}")
+        paths.append(str(tmp_path / f"part{i}"))
+    index = ",".join(paths)
+    kms = [jax_alphabet.decode(km) for km in sample_query_kmers(
+        tiny_corpus, 6, tiny_corpus.spec.kmer_len, seed=57, miss_frac=0.3)]
+    if argv[0] == "query":
+        _, _, out = run_both(capsys, tmp_path, lambda r: [
+            "query", "--index", index, "--kmer", *kms, *argv[1:]])
+        lines = _query_lines(out)
+        assert [x["kmer"] for x in lines] == kms
+        assert sum(x["count"] for x in lines) > 0
+        return
+    rest = _free_port()
+    group = len(argv) > 1
+
+    def cmd(i, port):
+        flags = (["--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                  "2", "--process-id", str(i), "--backend", "gloo"]
+                 if group else [])
+        return [sys.executable, "-m", "readserver_tpu_torch.cli", "serve",
+                "--index", index, "--port", str(rest), "--batch", "16",
+                "--device", "cpu", *flags]
+
+    procs = _launch(cmd, 2 if group else 1)
+    try:
+        deadline = time.time() + 120
+        up = False
+        while time.time() < deadline and not up:
+            assert all(p.poll() is None for p in procs), _wait(procs, 5)
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{rest}/health", timeout=2) as r:
+                    up = r.status == 200
+            except OSError:
+                time.sleep(0.3)
+        assert up, "the REST front never came up"
+        served = {m: _answers(rest, kms, m)
+                  for m in ("count", "reads", "samples")}
+        with urllib.request.urlopen(f"http://127.0.0.1:{rest}/info",
+                                    timeout=10) as r:
+            info = json.loads(r.read())
+        procs[0].send_signal(signal.SIGINT)
+        outs = _wait(procs, timeout=60)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0] * len(procs), outs
+    jeng = JaxQueryEngine(
+        parts, JaxServeConfig(batch_size=16),
+        mesh=jax_make_mesh(data_parallel=1, num_shards=2,
+                           devices=jax.devices()[:2]))
+    assert info["sharding"] == "document"
+    assert info["num_reads"] == len(reads)
+    pay = JaxRestServer(JaxDispatcher(jeng), "127.0.0.1", 0)._result_payload
+    for mode, got in served.items():
+        for k, body in zip(kms, got):
+            r = (jeng.count_batch([k], both_strands=True)[0]
+                 if mode == "count"
+                 else jeng.query_batch([k], both_strands=True)[0])
+            assert body == json.loads(json.dumps(pay(r, mode, False))), (
+                mode, k)
+    assert sum(r["count"] for r in served["count"]) > 0
 
 
 @pytest.mark.parametrize("config,scale", [("tiny", "1.0"), ("cohort", "0.001")])

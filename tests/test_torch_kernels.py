@@ -25,12 +25,15 @@ from readserver_tpu_torch.index import build_index
 from readserver_tpu_torch.index.cohort import build_cohort, load_cohort
 from readserver_tpu_torch.kernels import (
     BACKWARD_SEARCH,
+    CAPPED_HISTOGRAM,
     EXACT_HISTOGRAM,
     LUT_LEVEL,
     RANK_OCC,
     RESOLVE_DSA,
     RESOLVE_FUSED,
     RESOLVE_WALK,
+    ROW_COMPACT,
+    ROW_GATHER,
     SHARD_LOOKUP_PARTIAL,
     SHARD_OCC,
     SHARD_OCC_PARTIAL,
@@ -1445,3 +1448,168 @@ def test_per_step_engine_on_card_runs_no_plain_form(shard_packs, cuda_device,
     assert SHARD_OCC_PARTIAL.launches > before[0]
     assert SHARD_LOOKUP_PARTIAL.launches > before[1]
     assert (SHARDED_SEARCH.launches, SHARDED_RESOLVE.launches) == before[2:]
+
+
+# ----------------------------- K14 and K15: compaction, capped histogram
+
+# (name, B, H, R_c, most lanes a query asks for, share of empty queries);
+# R_c None: exactly the batch's valid lanes
+COMPACT_CASES = [
+    ("total under budget", 512, 16, 4000, 12, 0.3),
+    ("total at budget", 512, 16, None, 20, 0.3),
+    ("total over budget", 8192, 64, 314_572, 80, 0.2),
+    ("all empty", 256, 16, 100, 0, 1.0),
+    ("one query", 1, 64, 40, 200, 0.0),
+    ("no compaction", 300, 8, 300 * 8, 30, 0.2),
+    ("past every lane", 300, 8, 5000, 30, 0.2),
+    ("zero budget", 64, 8, 0, 8, 0.0),
+]
+
+
+def _random_intervals(B, H, most, empty, seed):
+    """(l, u) int32 [B]: random starts, u - l up to ``most`` (past H
+    too), an ``empty`` share of them empty, a fifth of those (0, 0)."""
+    rng = np.random.default_rng(seed)
+    l = rng.integers(0, 1 << 20, B).astype(np.int32)
+    n = rng.integers(1, most + 1, B) if most else np.zeros(B, np.int64)
+    n[rng.random(B) < empty] = 0
+    u = (l + n).astype(np.int32)
+    z = (n == 0) & (rng.random(B) < 0.2)
+    l[z] = u[z] = 0
+    return torch.from_numpy(l), torch.from_numpy(u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, B, H, R_c, most, empty", COMPACT_CASES)
+def test_row_compaction_kernel_matches_plain(cuda_device, name, B, H, R_c,
+                                             most, empty):  # noqa: F811
+    """K14 against ``compact_rows`` over ``expand_intervals`` and the
+    scatter back, bit for bit: the budget's rows and flags, each query's
+    lane prefix, and every lane's answer gathered back (random walk
+    answers, -1 among them) with ``valid & keep``."""
+    l, u = _random_intervals(B, H, most, empty, seed=B + H)
+    rows, valid, _ = resolve.expand_intervals(l, u, H)
+    if R_c is None:
+        R_c = int(valid.sum())
+    want_rows, want_valid, orig, keep = resolve.compact_rows(rows, valid, R_c)
+    before = (ROW_COMPACT.launches, ROW_GATHER.launches)
+    got_rows, got_valid, prefix = resolve.compact_lanes(
+        l.to(cuda_device), u.to(cuda_device), H, R_c)
+    rng = np.random.default_rng(R_c)
+    rid_c = torch.from_numpy(rng.integers(-1, 1 << 16, R_c).astype(np.int32))
+    off_c = torch.from_numpy(rng.integers(-1, 100, R_c).astype(np.int32))
+    rid, off, kept = resolve.gather_lanes(
+        l.to(cuda_device), u.to(cuda_device), H, R_c, prefix,
+        rid_c.to(cuda_device), off_c.to(cuda_device))
+    torch.cuda.synchronize()
+    assert (ROW_COMPACT.launches, ROW_GATHER.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    assert torch.equal(got_rows.cpu(), want_rows)
+    assert torch.equal(got_valid.cpu(), want_valid)
+    assert torch.equal(prefix.cpu(), resolve._lane_prefix(l, u, H))
+    F = B * H
+    full = torch.full((F + 1,), -1, dtype=torch.int32)
+    assert torch.equal(rid.cpu(), full.scatter(0, orig, rid_c)[:F].reshape(B, H))
+    assert torch.equal(off.cpu(), full.scatter(0, orig, off_c)[:F].reshape(B, H))
+    assert torch.equal(kept.cpu(), (valid & keep).reshape(B, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["fused", "lf", "slow"])
+def test_compact_resolve_intervals_budget_on_card(packed, cuda_device, walk):  # noqa: F811
+    """``resolve_intervals`` with a row budget on the card (K14 around
+    the walk kernel) equals the CPU's plain compaction and walk."""
+    corpus, pk = packed
+    drops = {"fused": ("dsa", "lf"), "lf": ("dsa", "fused"),
+             "slow": ("dsa", "fused", "lf", "marks")}[walk]
+    tiers = {"marks", "fused", "lf", "dsa"} - set(drops)
+    card = DeviceIndex.from_packed(pk, cuda_device, tiers=tiers)
+    cpu = DeviceIndex.from_packed(pk, "cpu", tiers=tiers)
+    assert resolve.walk_kind(card) == walk
+    codes, lengths = _queries(corpus, 512, 12, seed=5)
+    l, u = backward_search(cpu, t32(codes), t32(lengths))
+    for R_c in (100, 2000):
+        want = resolve.resolve_intervals(cpu, l, u, 32, row_budget=R_c)
+        got = resolve.resolve_intervals(card, l.to(cuda_device),
+                                        u.to(cuda_device), 32, row_budget=R_c)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 5, 128, 20_000])
+def test_capped_histogram_kernel_matches_plain(cuda_device, S):  # noqa: F811
+    """K15 against the plain ``sample_histogram``: valid lanes whose walk
+    gave -1 (counted under read 0's sample), ids past the reads (clipped),
+    invalid lanes; S = 20,000 takes the global-atomics path."""
+    rng = np.random.default_rng(S)
+    B, H, nr = 1000, 64, 5000
+    rid = rng.integers(-1, nr + 3, (B, H)).astype(np.int32)
+    valid = rng.random((B, H)) < 0.5
+    r2s = rng.integers(0, S, nr).astype(np.int32)
+    idx = DeviceIndex(
+        rank_rows=torch.zeros((1, 4), dtype=torch.int32), sym4=None, C=None,
+        dollar_map=None, read_to_sample=torch.from_numpy(r2s),
+        read_lengths=None, num_reads=nr, num_samples=S)
+    want = resolve.sample_histogram_plain(idx, torch.from_numpy(rid),
+                                          torch.from_numpy(valid))
+    card = dataclasses.replace(
+        idx, rank_rows=idx.rank_rows.to(cuda_device),
+        read_to_sample=idx.read_to_sample.to(cuda_device))
+    before = CAPPED_HISTOGRAM.launches
+    got = resolve.sample_histogram(card, torch.from_numpy(rid).to(cuda_device),
+                                   torch.from_numpy(valid).to(cuda_device))
+    torch.cuda.synchronize()
+    assert CAPPED_HISTOGRAM.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert int(want.sum()) == int(valid.sum())
+
+
+@pytest.mark.cuda
+def test_compact_and_capped_doc_engine_on_card_runs_no_plain_form(packed, cuda_device,
+                                              monkeypatch):  # noqa: F811
+    """The doc-sharded engine (4 partitions of the small corpus on the
+    card) answers as on the CPU with every plain form of ops/ made to
+    raise, on the dsa, fused and lf routes, capped and exact: K14 and K15
+    carry the compaction and the capped histogram."""
+    from readserver_tpu_torch.bench.multihost_bench import doc_partitions
+
+    corpus, _ = packed
+    want, engines = {}, {}
+    for route in ("dsa", "fused", "lf"):
+        parts = doc_partitions(
+            lambda r, ids: build_index(r, sample_ids=ids), corpus.reads, 4,
+            route)
+        for exact in (True, False):
+            cfg = ServeConfig(batch_size=256, max_hits=8,
+                              resolve_budget_frac=0.05,
+                              exact_attribution=exact)
+            cpu = QueryEngine(parts, cfg, shard_par.make_mesh(
+                num_shards=4, device="cpu"), device="cpu")
+            engines[route, exact] = QueryEngine(
+                parts, cfg, shard_par.make_mesh(num_shards=4,
+                                                device=cuda_device),
+                device=cuda_device)
+            kms = ["".join("ACGT"[c - 1] for c in row) for row in _queries(
+                corpus, 100, 25, seed=23)[0]] + ["ACGTAC", "GGATC"]
+            want[route, exact] = (kms, [cpu.query_batch(kms, both_strands=b)
+                                        for b in (0, 1)])
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain form ran on the card")
+
+    for mod in (resolve, search_ops, lut_ops, rank_ops):
+        for name in [n for n in vars(mod) if n.endswith("_plain")]:
+            monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setattr(resolve, "_WALKS", {
+        k: (fn, refuse) for k, (fn, _) in resolve._WALKS.items()})
+    before = (ROW_COMPACT.launches, ROW_GATHER.launches,
+              CAPPED_HISTOGRAM.launches)
+    for key, eng in engines.items():
+        kms, w = want[key]
+        got = [eng.query_batch(kms, both_strands=b) for b in (0, 1)]
+        assert got == w, key
+    torch.cuda.synchronize()
+    assert ROW_COMPACT.launches > before[0]
+    assert ROW_GATHER.launches > before[1]
+    assert CAPPED_HISTOGRAM.launches > before[2]
