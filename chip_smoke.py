@@ -14,7 +14,8 @@ are its own):
    K5 (dsa resolve), K6 (fused-row walk), the rank walks (marks, lf, slow),
    K7 (exact histogram), the interval-sharded kernels (K9 rank, the
    sharded search, K11 LUT level, K10 lookups, walks and sweep), one
-   rank's partials (K9's partial, K13, K11's partial), K14 (the row-budget
+   rank's partials (K9's partial, K13, K11's partial, the LF and slow walk
+   steps), K14 (the row-budget
    compaction and its gather back) and K15 (the capped histogram) from
    ``readserver_tpu_torch/csrc`` for sm_90a, one nvcc per source started
    together;
@@ -86,11 +87,15 @@ are its own):
    route: K11's partial LUT equal to phase 11's, the counts of phases 4-5
    and the ``/reads`` of phase 8 on each route, the cohort's exact
    ``/samples`` equal to phase 11's, a batch's all-reduces equal to
-   ``query_psum_estimate`` on each route; only K9's partial, K13 and K11's
-   partial may launch, and no plain form of ``ops`` on a CUDA tensor; then
-   the two ranks' REST front answers ``/count``, ``/reads`` and
-   ``/samples`` as phases 4, 8 and (a) did, and SIGINT on rank 0 stops both
-   with exit 0;
+   ``query_psum_estimate`` on each route; only K9's partial, K13, K11's
+   partial and the walk steps may launch, and no plain form of ``ops`` on
+   a CUDA tensor; each route's ``/reads`` batch of 4096 x 2 profiled once
+   and split into the all-reduces, the step kernels' device time and the
+   host time between steps (``cross_rank_split``), where on the lf and
+   slow routes every two all-reduces must have one launch and no torch op
+   between them but where a walk begins; then the two ranks' REST front
+   answers ``/count``, ``/reads`` and ``/samples`` as phases 4, 8 and (a)
+   did, and SIGINT on rank 0 stops both with exit 0;
 14. doc shards (``serve_doc``): two ``cli serve --coordinator`` ranks
    start on the card on phase 9b's cohort directory (gloo, 2 doc shards
    each); phase 9b's front and phase 9's monolithic engine answer first;
@@ -156,15 +161,21 @@ are its own):
    and plain times, bytes bound (of the sets' mean bytes) and, for the
    search and the walks, chain bound.
 
-13b. cross-rank kernels (``check_rank_kernels``): K9's partial, K13 and
-   K11's partial against their plain forms at phase 13's shapes on one
-   rank's run of all shards and on 2 ranks' runs, max |err| 0 (edges of
-   the runs, empty intervals, $ rows); each one's times and bytes bound on
-   2 ranks' first run; the all-reduce of a search step's and a walk
-   step's lanes, NCCL's in a group of one and gloo's between two ranks
-   sharing the card (``scripts/torch_allreduce_probe.py``, which also
-   records NCCL's refusal of two ranks on one card), against the step's
-   kernel, and each route's all-reduces a batch.
+13b. cross-rank kernels (``check_rank_kernels``): K9's partial, K13, K11's
+   partial and every step of the LF and slow walks (``walk_pair_err``)
+   against their plain forms at phase 13's shapes on one rank's run of all
+   shards and on 2 ranks' runs, max |err| 0 (edges of the runs, empty
+   intervals, $ rows); on 2 ranks' first run, over distinct input sets in
+   turn until together they need twice the L2 (``partial_cases``,
+   ``walk_step_cases``, ``time_cases``): K9's partial on a search step of
+   8192 queries and on the rank of 8192 x 64 lanes, K13's dsa, LF and
+   symbol lookups of those lanes, every mode of the two walk steps on
+   them, each one's wrapper, device and plain times, bytes bound and chain
+   bound; the all-reduce of a search step's and a walk step's lanes,
+   NCCL's in a group of one and gloo's between two ranks sharing the card
+   (``scripts/torch_allreduce_probe.py``, which also records NCCL's
+   refusal of two ranks on one card), against the step's kernel, and each
+   route's all-reduces a batch.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the one before it is the kernels' JSON summary (``launches`` summed over
@@ -178,7 +189,9 @@ one and ``chain_cold_ms`` it at the cold t_row, ``held_by`` the larger of
 the first two; ``resolve_walk`` also carries each walk's reading at width
 8192 and at a full budget under ``walks``; K14's and K15's entries their
 reading at the full budget under ``full_budget``, and ``row_compact`` the
-doc merge's collectives under ``doc_collectives``).
+doc merge's collectives under ``doc_collectives``; the cross-rank kernels
+their other shapes and modes under ``readings``, and ``shard_occ_partial``
+the cross-rank design readings, phase 13's request splits among them).
 The last line is ``{"ok": true, "device": {...}}``, printed only when
 every phase passed.
 Imports torch and the port, never jax.
@@ -720,7 +733,7 @@ def serve_cohort(args, cohort, cpacked, ceng, cfg, dev, c256, c4096,
     for name in KERNELS:
         if (name not in ("rank_occ", "row_compact", "row_gather",
                          "capped_histogram")
-                and not name.startswith("shard")):
+                and not name.startswith(("shard", "walk"))):
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the cohort path")
     check(launches["rank_occ"] == 0, "K1's generic entry launched on "
@@ -1085,12 +1098,13 @@ def post_batch(port: int, kms: list[str], mode: str, both: bool) -> list:
 
 
 def start_rank_group(cache: Path, port: int, logs: Path,
-                     doc: bool = False) -> list:
+                     doc: bool = False, repo: Path = REPO) -> list:
     """Phase 13 (b)'s group: two ``cli serve --coordinator`` ranks sharing
     the card over gloo (NCCL refuses two ranks on one device), SHARDS
     interval shards over them, rank 0 fronting REST on ``port`` → the
     processes, their output in ``logs``.  ``doc``: phase 14 (b)'s, the
-    cohort directory ``cache`` as doc shards, SHARDS // 2 a rank."""
+    cohort directory ``cache`` as doc shards, SHARDS // 2 a rank.  ``repo``:
+    the checkout whose package the ranks run."""
     coord = free_port()
     argv = [sys.executable, "-m", "readserver_tpu_torch.cli", "serve",
             "--index", str(cache), "--port", str(port), "--batch", "8192",
@@ -1099,7 +1113,7 @@ def start_rank_group(cache: Path, port: int, logs: Path,
             "--device", "cuda:0", "--backend", "gloo",
             "--coordinator", f"127.0.0.1:{coord}", "--num-processes", "2"]
     logs.mkdir(parents=True, exist_ok=True)
-    return [subprocess.Popen(argv + ["--process-id", str(i)], cwd=REPO,
+    return [subprocess.Popen(argv + ["--process-id", str(i)], cwd=repo,
                              stdout=open(logs / f"rank{i}.log", "w"),
                              stderr=subprocess.STDOUT)
             for i in (0, 1)]
@@ -1170,6 +1184,7 @@ def serve_ranks(packed, cache, cpacked, cfg, dev, qs, served, reads_served,
         scfg = dataclasses.replace(cfg, num_shards=SHARDS)
         engines = {}
         reduces = {}
+        split = {}
         with plain_calls_on_card() as plain:
             for route, drop in ROUTE_DROPS.items():
                 t0 = time.perf_counter()
@@ -1241,14 +1256,22 @@ def serve_ranks(packed, cache, cpacked, cfg, dev, qs, served, reads_served,
                 log(f"/samples request of {name} cohort queries: "
                     f"{dt * 1e3:.3f} ms, exact histograms equal to phase "
                     f"11's")
+            # where a world-of-one /reads of 4096 x 2 spends its time, by
+            # route, and every step of the lf and slow routes in the trace
+            for route, e in engines.items():
+                exp, _ = e._expand_rc(decode_all(qs[2][1]))
+                ce, le, nq = e._pad_encode(exp)
+                split[route] = cross_rank_split(
+                    lambda e=e, ce=ce, le=le, nq=nq: e._sharded_program(
+                        ce, le, nq, None),
+                    f"/reads of 4096 x 2 ({nq} searched), {route} route, "
+                    f"world of one (NCCL)", card,
+                    check_steps=route != "dsa")
         launches = read_launches("ranks")
-        for name in ("shard_occ_partial", "shard_lookup_partial",
-                     "sharded_lut_level_partial"):
+        for name in RANK_KERNELS:
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the cross-rank path")
-        other = {n: c for n, c in launches.items()
-                 if n not in ("shard_occ_partial", "shard_lookup_partial",
-                              "sharded_lut_level_partial")}
+        other = {n: c for n, c in launches.items() if n not in RANK_KERNELS}
         check(not any(other.values()), f"other kernels launched on the "
               f"cross-rank path: {other}")
         check(plain["n"] == 0, f"{plain['n']} plain forms of ops ran on "
@@ -1314,7 +1337,135 @@ def serve_ranks(packed, cache, cpacked, cfg, dev, qs, served, reads_served,
         rcs = stop_rank_group(procs, logs, sig_first=True)
     check(rcs == [0, 0], f"the group did not stop cleanly: exit {rcs}")
     log("SIGINT on rank 0 stopped its follower; both ranks exited 0")
-    return engines, reduces
+    return engines, reduces, split
+
+
+# the kernels of the cross-rank path (phase 13)
+RANK_KERNELS = ("shard_occ_partial", "shard_lookup_partial",
+                "sharded_lut_level_partial", "walk_lf_step", "walk_slow_step")
+# their device functions' names, as the profiler shows them (this
+# checkout's and those of earlier checkouts of the partials alike)
+RANK_KERNEL_FUNCS = ("occ_partial_kernel", "lookup_partial_kernel",
+                     "lut_level_partial_kernel", "lf_step_kernel",
+                     "slow_step_kernel")
+
+
+def cross_rank_split(program, what: str, card: str, check_steps: bool = False,
+                     log_it: bool = True) -> dict:
+    """Where one cross-rank batch ``program()`` spends its time, from the
+    profiler's trace of one call after a warm one: the batch's wall time
+    (host clock), its all-reduces and the host time inside them, the
+    device time of the partial and walk-step kernels, of NCCL's and of
+    torch's own kernels, the host's waits for the stream, and the host time
+    between steps (wall less the all-reduces' host time), each also a step.
+    With ``check_steps``, the trace check: every two all-reduces have
+    exactly one kernel launch between them and no torch op, but where a
+    walk begins (its lanes are set up in torch, then its first step
+    launches) (read from the launch counters at each all-reduce and the
+    profiler's ``aten::`` events between the all-reduces' spans) → the
+    split."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from readserver_tpu_torch.kernels import KERNELS
+    from readserver_tpu_torch.ops import sharded as sops
+    from readserver_tpu_torch.parallel import sharded as psh
+
+    orig, orig_state = psh.all_reduce, getattr(sops, "walk_state", None)
+    counts, starts = [], set()
+
+    def traced(t, group):
+        counts.append({n: k.launches for n, k in KERNELS.items()})
+        with record_function("rs_all_reduce"):
+            return orig(t, group)
+
+    def walk_state(*a, **kw):
+        starts.add(len(counts) - 1)  # the window before the walk's first
+        return orig_state(*a, **kw)
+
+    program()
+    torch.cuda.synchronize()
+    psh.all_reduce = traced
+    if orig_state is not None:
+        sops.walk_state = walk_state
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("rs_batch"):
+                program()
+                torch.cuda.synchronize()
+    finally:
+        psh.all_reduce = orig
+        if orig_state is not None:
+            sops.walk_state = orig_state
+    ev = prof.events()
+    cpu = [e for e in ev if e.device_type == DeviceType.CPU]
+    batch = next(e.time_range for e in cpu if e.name == "rs_batch")
+    ars = sorted((e.time_range for e in cpu if e.name == "rs_all_reduce"),
+                 key=lambda r: r.start)
+    gpu = [e for e in ev if e.device_type == DeviceType.CUDA
+           and batch.start <= e.time_range.start <= batch.end
+           and e.name not in ("rs_batch", "rs_all_reduce")]  # annotations
+    mine = [e for e in gpu if any(f in e.name for f in RANK_KERNEL_FUNCS)]
+    nccl = [e for e in gpu if "nccl" in e.name.lower()]
+    waits = [e for e in cpu if "Synchronize" in e.name
+             and batch.start <= e.time_range.start <= batch.end]
+    us = lambda es: sum(e.self_device_time_total for e in es)  # noqa: E731
+    wall = (batch.end - batch.start) / 1e3
+    ar_host = sum(r.end - r.start for r in ars) / 1e3
+    n = max(len(ars), 1)
+    out = dict(
+        wall_ms=wall, all_reduces=len(ars), all_reduce_host_ms=ar_host,
+        kernel_device_ms=us(mine) / 1e3, kernel_launches=len(mine),
+        nccl_device_ms=us(nccl) / 1e3,
+        torch_device_ms=(us(gpu) - us(mine) - us(nccl)) / 1e3,
+        sync_wait_ms=sum(e.time_range.end - e.time_range.start
+                         for e in waits) / 1e3,
+        host_between_ms=wall - ar_host, walks=len(starts))
+    by_name = {}
+    for e in gpu:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.self_device_time_total / 1e3, c + 1)
+    out["top_device"] = [(k[:60], round(t, 4), c) for k, (t, c) in sorted(
+        by_name.items(), key=lambda kv: -kv[1][0])[:6]]
+    for k in ("wall_ms", "all_reduce_host_ms", "kernel_device_ms",
+              "host_between_ms", "sync_wait_ms"):
+        out[k.replace("_ms", "_ms_a_step")] = out[k] / n
+    if check_steps:
+        aten = sorted(e.time_range.start for e in cpu
+                      if e.name.startswith("aten::"))
+        steps, bad = 0, []
+        for i in range(len(ars) - 1):
+            if i in starts:
+                continue
+            d = {k: counts[i + 1][k] - counts[i][k] for k in counts[i]}
+            d = {k: v for k, v in d.items() if v}
+            ops = sum(ars[i].end <= a <= ars[i + 1].start for a in aten)
+            steps += 1
+            if sum(d.values()) != 1 or ops:
+                bad.append((i, d, ops))
+        out["steps_checked"] = steps
+        out["steps_bad"] = bad[:5]
+        check(not bad and steps and starts, f"{what}: a step ran other than "
+              f"one launch between two all-reduces: {bad[:5]}")
+    if log_it:
+        log(f"{what}: one batch in {wall:.3f} ms (host clock, profiled): "
+            f"{len(ars)} all-reduces, {ar_host:.3f} ms of host time in them"
+            f" ({out['all_reduce_host_ms_a_step']:.4f} a step); the partial"
+            f" and walk-step kernels {out['kernel_device_ms']:.3f} ms on the"
+            f" card ({len(mine)} launches seen, "
+            f"{out['kernel_device_ms_a_step']:.4f} a step), NCCL "
+            f"{out['nccl_device_ms']:.3f}, torch's kernels "
+            f"{out['torch_device_ms']:.3f}; waits for the stream "
+            f"{out['sync_wait_ms']:.3f} ms; host between the all-reduces "
+            f"{out['host_between_ms']:.3f} ms "
+            f"({out['host_between_ms_a_step']:.4f} a step)"
+            + ("" if not check_steps else
+               f"; {out['steps_checked']} steps (search and {len(starts)} "
+               f"walks) each one launch and no torch op between two "
+               f"all-reduces") + f"; top device time (ms, launches): "
+            f"{out['top_device']} | {card}")
+    return out
 
 
 # phase 14's routes: the tiers stripped from the partitions (a route of
@@ -1542,7 +1693,7 @@ def serve_doc(args, cohort, meng, ceng, cfg, dev, c256, c4096, want_c,
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the doc path")
         other = {n: c for n, c in launches.items()
-                 if n == "rank_occ" or n.startswith("shard")}
+                 if n == "rank_occ" or n.startswith(("shard", "walk"))}
         check(not any(other.values()),
               f"kernels of no doc route launched: {other}")
         check(plain["n"] == 0, f"{plain['n']} plain forms of ops ran on "
@@ -1707,15 +1858,439 @@ def run_range(v):
     return int(v.starts[0]), int(v.starts[-1] + v.lens[-1])
 
 
-def check_rank_kernels(engines, batch, reduces, card):
-    """Phase 13b: K9's partial (a search step, a rank), K13 (every lookup)
-    and K11's partial (every level) against their plain forms, max |err|
-    0, at phase 13 (a)'s shapes on the whole index as one rank's run and
-    on each of 2 ranks' runs (the sums over the runs equal the one run's),
-    with positions at each run's first and last rows and past them, empty
-    intervals and $ rows among the keys; then each kernel's wrapper, device
-    and plain time and bytes bound on 2 ranks' first run, and the
-    all-reduce against a step's kernel: NCCL's of a group of one on the
+def walk_lockstep(runs, rows, valid, kernel: bool):
+    """A whole cross-rank walk of ``rows``/``valid`` on every run of
+    ``runs`` (one rank's view each), the all-reduces summed here, each step
+    launched (``kernel``) or its plain form run on the card: a generator
+    that yields (mode, its arguments, the states) before each step and
+    (None, (), the states) at the walk's end.  A step's buffers that no
+    step has written yet hold the same values in every walk."""
+    from readserver_tpu_torch.ops import sharded as sops
+
+    kind = sops.walk_kind(runs[0])
+    sts = [sops.walk_state(run, rows, valid, r == 0)
+           for r, run in enumerate(runs)]
+    fn = {("lf", True): sops.lf_walk_step, ("slow", True): sops.slow_walk_step,
+          ("lf", False): sops.lf_walk_step_plain,
+          ("slow", False): sops.slow_walk_step_plain}[kind, kernel]
+    for st in sts:
+        for f in WALK_FIELDS:
+            if getattr(st, f) is not None:
+                getattr(st, f).fill_(1 if f == "done" else -7)
+
+    def reduce(f):
+        total = sum(getattr(st, f) for st in sts).to(getattr(sts[0], f).dtype)
+        for st in sts:
+            getattr(st, f).copy_(total)
+
+    if kind == "lf":
+        n = max(runs[0].sample_rate, 1)
+        plan = ([("first", ())] + [("step" if i < n - 1 else "last", ())
+                                   for i in range(n)]
+                + [("terminal", ()), ("finish", ())])
+        reduces = ["step32"] * n + ["term64", "term32", "step32"]
+    else:
+        n = runs[0].max_read_len
+        plan = [("first", ())] + [
+            step for t in range(n)
+            for step in (("rank", (t,)), ("step" if t < n - 1 else "last",
+                                          (t,)))] + [("finish", ())]
+        reduces = ["step32", "step64"] * n + ["term32", "step32"]
+    for (mode, t), f in zip(plan, reduces):
+        yield mode, t, sts
+        for run, st in zip(runs, sts):
+            fn(run, st, mode, *t)
+        reduce(f)
+    yield None, (), sts
+
+
+# a walk state's tensors, as walk_lockstep snapshots them
+WALK_FIELDS = ("cur", "done", "count", "step32", "step64", "term64",
+               "term32", "read_id", "offset")
+
+
+def walk_snapshot(st) -> list:
+    return [None if getattr(st, f) is None else getattr(st, f).clone()
+            for f in WALK_FIELDS]
+
+
+def walk_restore(st, snap) -> None:
+    for f, t in zip(WALK_FIELDS, snap):
+        if t is not None:
+            getattr(st, f).copy_(t)
+
+
+def hit_lanes(s, codes, lut, p: int, H: int):
+    """The served batch's hit lanes: (rows int64, valid bool) [B * H] of the
+    k-step search of ``codes`` from the LUT on the whole index ``s``."""
+    import torch
+    from readserver_tpu_torch.ops import sharded as sops
+
+    l, u = sops.search(s, codes, None, lut, p, 3)
+    span = torch.arange(H, device=l.device)
+    rows = (l[:, None] + span).reshape(-1)
+    valid = (span[None, :] < (u - l)[:, None]).reshape(-1)
+    return torch.where(valid, rows, torch.zeros_like(rows)).contiguous(), valid
+
+
+def in_turn(make, needs):
+    """Input sets make(0), make(1), ... until together they need twice the
+    L2 → (sets, their mean bytes, their longest chain or None)."""
+    sets = [make(0)]
+    got = [needs(*sets[0])]
+    for j in range(1, sets_past_l2(got[0][0])):
+        sets.append(make(j))
+        got.append(needs(*sets[-1]))
+    chains = [g[1] for g in got if g[1] is not None]
+    return (sets, int(np.mean([g[0] for g in got])),
+            max(chains) if chains else None)
+
+
+def partial_cases(s, v, codes_sets, lut, p: int, H: int):
+    """Phase 13b's timing cases of K9's partial and K13 on ``v``, a rank's
+    run of the whole index ``s``, at the cross-rank path's shapes, each over
+    distinct input sets from the width-8192 batches ``codes_sets`` in turn
+    (:func:`in_turn`): a 3-column search step (the first of the k-step
+    schedule from the LUT), and over the 8192 x 64 hit lanes the dsa lookup
+    (the dsa route's), the LF lookup (an LF walk step before the walk-step
+    kernels), and the symbol lookup and the rank (a slow walk's two
+    half-steps before them).  Only the partials' public functions, so a
+    checkout with the cross-rank program runs them too
+    (``scripts/torch_partial_ab.py``)
+    → [(name, the kernel's device function, fn, plain, sets, shape, bytes,
+    chain reads)]."""
+    import torch
+    from readserver_tpu_torch.ops import sharded as sops
+    from readserver_tpu_torch.ops.search import kstep_schedule, prefix_ids
+
+    lo, hi = run_range(v)
+    B, K = codes_sets[0].shape
+    j, k = kstep_schedule(K - p, 3)[0]
+    plane = {3: 64, 2: 16, 1: 5}[k]
+    steps, lanes = {}, {}
+
+    def step_set(i):
+        if i not in steps:
+            q = codes_sets[i % len(codes_sets)]
+            rows0 = lut.index_select(0, prefix_ids(q, p).long())
+            steps[i] = (q, torch.cat([rows0[:, 0], rows0[:, 1]]).contiguous())
+        return steps[i]
+
+    def step_needs(q, lu):
+        code = sops.step_code(q, j, k)
+        act = lu[:B] < lu[B:]
+        rows = [owner_rows(v, plane, v.rows_per_symbol, code[m], x[m])
+                for x in (lu[:B], lu[B:]) for m in [act & (x > lo) & (x < hi)]]
+        return B * (k * 4 + 32) + row_bytes(v, *rows), 2
+
+    def lane_set(i):
+        if i not in lanes:
+            rows, valid = hit_lanes(s, codes_sets[i % len(codes_sets)], lut,
+                                    p, H)
+            lanes[i] = (rows, sops.sym_plain(s, rows))
+        return lanes[i]
+
+    def owned(x):
+        return x[(x >= lo) & (x < hi)]
+
+    def look_needs(x, _c, words=1):
+        return x.numel() * 12 + distinct(owned(x) // words) * 4, 2
+
+    def rank_needs(x, c):
+        m = (x > lo) & (x < hi)
+        return (x.numel() * 20
+                + row_bytes(v, owner_rows(v, 5, v.rows_per_symbol, c[m],
+                                          x[m])), 2)
+
+    cases = []
+    sets, nb, ch = in_turn(step_set, step_needs)
+    cases.append(("shard_occ_partial", "occ_partial_kernel",
+                  lambda q, lu: sops.step_partial(v, k, q, None, j, lu, True),
+                  lambda q, lu: sops.step_partial_plain(v, k, q, None, j, lu,
+                                                        True),
+                  sets, f"a {k}-column search step over {B} queries, "
+                  f"{v.starts.numel()} of {s.num_shards} shards", nb, ch))
+    sets, nb, ch = in_turn(lane_set, rank_needs)
+    cases.append(("shard_occ_partial (rank)", "occ_partial_kernel",
+                  lambda x, c: sops.occ_partial(v, "rank", c, x),
+                  lambda x, c: sops.occ_plain(v, "rank", c, x),
+                  sets, f"the rank of {B} x {H} lanes (a slow half-step "
+                  f"before the walk steps)", nb, ch))
+    for what, words, shape in (
+            ("dsa", 1, "the dsa lookup"),
+            ("lf", 1, "the LF lookup (an LF walk step before the walk steps)"),
+            ("sym", 8, "the symbol lookup (a slow half-step before the walk "
+                       "steps)")):
+        if what == "dsa" and s.dsa_chunk is None:
+            continue
+        sets, nb, ch = in_turn(
+            lane_set, lambda x, c, words=words: look_needs(x, c, words))
+        cases.append((
+            "shard_lookup_partial" + ("" if what == "dsa" else f" ({what})"),
+            "lookup_partial_kernel",
+            lambda x, c, what=what: sops.lookup_partial(v, what, x),
+            lambda x, c, what=what: sops.lookup_partial_plain(v, what, x),
+            sets, f"{shape} of {B} x {H} lanes, {v.starts.numel()} of "
+            f"{s.num_shards} shards", nb, ch))
+    return cases
+
+
+def walk_step_bytes(v, st, snap, mode: str, t, plain) -> int:
+    """The bytes one walk step ``mode`` needs on the run ``v`` from the
+    state ``snap`` before it, counted from what ``lf_step_kernel`` or
+    ``slow_step_kernel`` touches in that mode: the flags every lane reads
+    and the partial it writes; the input and state a live lane reads and
+    the fields it writes (a lane that goes on its new cur, one that ends its
+    end fields); and the distinct table words, entries or rank rows the
+    run's own lookups read (from the plain step run on a copy of the
+    state)."""
+    import dataclasses as dc
+
+    import torch
+
+    cur0, done0, step0 = snap[0], snap[1], snap[3]
+    R = cur0.numel()
+    after = dc.replace(st, **{f: None if x is None else x.clone()
+                              for f, x in zip(WALK_FIELDS, snap)})
+    plain(v, after, mode, *t)
+    lo, hi = run_range(v)
+    live0, live1 = ~done0, ~after.done
+    L = int(live0.sum())
+    own = lambda x: (x >= lo) & (x < hi)  # noqa: E731
+    lf = st.kind == "lf"
+
+    def in_run(x, starts, lens):
+        return x[(x >= int(starts[0])) & (x < int(starts[-1] + lens[-1]))]
+
+    if mode == "first":
+        # rows, valid in; cur, done, count, the end fields, the partial out
+        words = after.cur[live1 & own(after.cur)]
+        return (R * (8 + 1 + 8 + 1 + 4 + 4 + (16 if lf else 4))
+                + distinct(words if lf else words >> 3) * 4)
+    if mode == "rank":
+        # done in, the rank partial out; a live lane's symbol and cur in
+        m = live0 & (cur0 > lo) & (cur0 < hi)
+        return R * (1 + 8) + L * 12 + row_bytes(v, owner_rows(
+            v, 5, v.rows_per_symbol, snap[3][m], cur0[m]))
+    # terminal and finish: valid in, done on a valid lane; an ended lane
+    # (ok) reads its count and end fields
+    ok = st.valid & after.done
+    flags = R + int(st.valid.sum())
+    n_ok = int(ok.sum())
+    if mode == "finish" and not lf:
+        # read id, offset, the sample partial out; an ended lane's step and
+        # $-rank read id in
+        rid = after.read_id.long().clamp(min=0)
+        return (flags + R * 12 + n_ok * 8
+                + distinct(in_run(rid, v.rstarts, v.rlens)) * 4)
+    if mode in ("terminal", "finish"):
+        raw = snap[5][:R].to(torch.int32)
+        marked = ok & (raw < 0)
+        n_m = int(marked.sum())
+        if mode == "terminal":
+            # the (read id, pair) triple out; an ended lane's raw value in,
+            # a sampled one's mark rank too; the $-rank's read id or the pair
+            d = (raw & 0x7FFFFFFF).long()[ok & (raw >= 0)]
+            return (flags + R * 12 + n_ok * 8 + n_m * 8
+                    + distinct(in_run(d, v.dstarts, v.dlens)) * 4
+                    + distinct(in_run(snap[5][R:][marked], v.sstarts,
+                                      v.slens)) * 8)
+        # finish: read id, offset, the sample partial out; an ended lane's
+        # count and raw value in, then its pair or its $-rank's read id
+        rid = after.read_id.long().clamp(min=0)
+        return (flags + R * 12 + n_ok * (4 + 8) + n_m * 8 + (n_ok - n_m) * 4
+                + distinct(in_run(rid, v.rstarts, v.rlens)) * 4)
+    # step and last: done in and (step) the next partial out on every lane;
+    # a live lane reads its input(s); the lookups of the new cur (step)
+    ended = live0 & after.done
+    going = live0 & ~after.done
+    E, G = int(ended.sum()), int(going.sum())
+    nb = R * (1 + (4 if mode == "step" else 0))
+    nxt = after.cur[live1 & own(after.cur)] if mode == "step" else cur0[:0]
+    if lf:
+        # a live lane reads cur and its raw LF; one that goes on writes cur
+        # and reads and writes its count; one that ends writes done and its
+        # raw value, a sampled end its mark rank (its row read) too
+        sampled = ended & (step0 < 0)
+        m = sampled & (cur0 > lo) & (cur0 < hi)
+        return (nb + L * (8 + 4) + G * (8 + 4 + 4) + E * (1 + 8)
+                + int(sampled.sum()) * 8 + distinct(nxt) * 4
+                + row_bytes(v, owner_rows(
+                    v, 1, v.mark_table.shape[1],
+                    torch.zeros_like(cur0[m], dtype=torch.int32), cur0[m])))
+    # slow: a live lane reads its symbol c and rank o; one that goes on
+    # reads C[c] and writes cur; one that ends writes done, its step and the
+    # read id of $-rank o (that entry read)
+    o = snap[4][ended]
+    return (nb + L * (4 + 8) + G * 8 + E * (1 + 4 + 4)
+            + distinct(step0[going]) * 8 + distinct(nxt >> 3) * 4
+            + distinct(in_run(o, v.dstarts, v.dlens)) * 4)
+
+
+def walk_step_cases(s_routes, codes_sets, lut, p: int, H: int, dev):
+    """Phase 13b's timing cases of the walk steps on 2 ranks' first run of
+    the lf and slow route's index, over the 8192 x 64 hit lanes of distinct
+    width-8192 batches: each mode of each walk, its state made ready by
+    the lockstep walk of both runs up to it (:func:`walk_lockstep`), each
+    call on a state restored to that point → [(name, kernel function,
+    fn(st, snap), plain(st, snap), sets [(state, snapshot)], shape, bytes,
+    chain reads)]."""
+    import torch
+    from readserver_tpu_torch.ops import sharded as sops
+
+    cases = []
+    for route, modes in (("lf", (("step", ()), ("first", ()),
+                                 ("terminal", ()), ("finish", ()))),
+                         ("slow", (("rank", (0,)), ("step", (0,)),
+                                   ("first", ()), ("finish", ())))):
+        s = s_routes[route]
+        runs = run_views(s, 2, dev)
+        v = runs[0]
+        lo, hi = run_range(v)
+        kname = "lf_step_kernel" if route == "lf" else "slow_step_kernel"
+        kern = sops.lf_walk_step if route == "lf" else sops.slow_walk_step
+        plain = (sops.lf_walk_step_plain if route == "lf"
+                 else sops.slow_walk_step_plain)
+        for mode, t in modes:
+            def make(i, mode=mode, t=t):
+                rows, valid = hit_lanes(s, codes_sets[i % len(codes_sets)],
+                                        lut, p, H)
+                for m, args, sts in walk_lockstep(runs, rows, valid, True):
+                    if (m, args) == (mode, t):
+                        return sts[0], walk_snapshot(sts[0])
+
+            def needs(st, snap, mode=mode, t=t):
+                return walk_step_bytes(v, st, snap, mode, t, plain), 2
+
+            sets, nb, ch = in_turn(make, needs)
+            cases.append((
+                f"walk_{route}_step ({mode})", kname,
+                lambda st, snap, mode=mode, t=t, f=kern, v=v: f(v, st, mode,
+                                                                *t),
+                lambda st, snap, mode=mode, t=t, f=plain, v=v: f(v, st, mode,
+                                                                 *t),
+                sets, f"{mode} over {codes_sets[0].shape[0]} x {H} lanes "
+                f"({int(sets[0][0].valid.sum())} hits in the first set), "
+                f"{route} route, 2 ranks' first run", nb, ch))
+    return cases
+def walk_pair_err(runs, rows, valid) -> int:
+    """Every step of a whole cross-rank walk on ``runs``, launched and in
+    plain form side by side (:func:`walk_lockstep`) → the largest |kernel -
+    plain| over every rank's state after every step (the live reports must
+    agree too), and over the one-run walk's answers against the one-device
+    plain walk."""
+    from readserver_tpu_torch.ops import sharded as sops
+
+    err = 0
+    last = None
+    for (mode, _, ka), (_, _, pa) in zip(
+            walk_lockstep(runs, rows, valid, True),
+            walk_lockstep(runs, rows, valid, False)):
+        for a, b in zip(ka, pa):
+            err = max(err, max_err(
+                (x, y) for x, y in zip(walk_snapshot(a), walk_snapshot(b))
+                if x is not None))
+            if last in ("first", "step"):
+                err = max(err, int(sops.walk_live(runs[0], a) != b.live))
+        last = mode
+    if len(runs) == 1:
+        rid, off = sops.walk_plain(runs[0], rows, valid)
+        err = max(err, max_err([(ka[0].read_id, rid), (ka[0].offset, off)]))
+    return err
+
+
+def time_cases(cases, t_row, card) -> dict:
+    """Each case's kernel against its plain form on every input set (max
+    |err| 0), then, the sets in turn: the wrapper's time (CUDA events,
+    median of 3 passes), the kernel's device time (profiler), the plain
+    form's time, the bytes bound of the sets' mean bytes and the chain
+    bound (chain reads x t_row).  A walk step's set is a state and its
+    snapshot: every call starts from the snapshot, restored outside the
+    wrapper's timed pass (inside the profiler's, whose reading counts the
+    kernel alone) → {name: (ms, plain ms, device ms, bound ms, shape,
+    chain ms)}."""
+    import torch
+    from readserver_tpu_torch.kernels import KERNELS
+
+    def outs(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    def launched():
+        return sum(k.launches for k in KERNELS.values())
+
+    out = {}
+    for name, kname, kern, plain, sets, what, nbytes, chain in cases:
+        walk = name.startswith("walk_")
+        err = 0
+        for x in sets:
+            if walk:
+                walk_restore(*x)
+                kern(*x)
+                got = walk_snapshot(x[0])
+                walk_restore(*x)
+                plain(*x)
+                err = max(err, max_err((a, b) for a, b in zip(
+                    got, walk_snapshot(x[0])) if a is not None))
+            else:
+                err = max(err, max_err(zip(outs(kern(*x)), outs(plain(*x)))))
+        check(err == 0, f"{name} disagrees with its plain form ({what})")
+        if walk:
+            walk_restore(*sets[0])
+        before = launched()
+        kern(*sets[0])
+        per_call = launched() - before
+        k_turn = itertools.cycle(sets)
+        iters = len(sets) if walk else max(len(sets), N_ROT)
+        t_kern, t_plain = [], []
+        for _ in range(3):  # interleaved: kernel, plain
+            if walk:
+                for x in sets:
+                    walk_restore(*x)
+            torch.cuda.synchronize()
+            t_kern.append(time_cuda(lambda: kern(*next(k_turn)), iters))
+            x = sets[0]
+            if walk:
+                walk_restore(*x)
+                torch.cuda.synchronize()
+            t_plain.append(time_cuda(lambda: plain(*x), 1))
+
+        def restored():
+            x = next(k_turn)
+            if walk:
+                walk_restore(*x)
+            return kern(*x)
+
+        dev_ms = kernel_device_ms(restored, iters, kname,
+                                  launches=iters * per_call)
+        tk, tp = float(np.median(t_kern)), float(np.median(t_plain))
+        bnd = bound_ms(nbytes)
+        chain_ms = None if chain is None or t_row is None else chain * t_row
+        log(f"{name} ({what}; {len(sets)} distinct input sets in turn): "
+            f"wrapper {tk:.4f} ms, kernel device time {fmt_ms(dev_ms)} ms "
+            f"(profiler) | plain torch {tp:.4f} ms (median of 3 x {iters} "
+            f"and 3 x 1 calls, CUDA events), outputs equal on every set | "
+            f"needs {nbytes} B a set (mean): bytes bound {bnd:.4f} ms, "
+            f"device time at {ratio(bnd, dev_ms)} of it"
+            + ("" if chain is None else
+               f" | chain of {chain} dependent reads x t_row: chain bound "
+               f"{fmt_ms(chain_ms)} ms, device time at "
+               f"{ratio(chain_ms, dev_ms)} of it") + f" | {card}")
+        out[name] = (tk, tp, dev_ms, bnd, what, chain_ms)
+    return out
+
+
+def check_rank_kernels(engines, batch, rot, reduces, split, t_row, card):
+    """Phase 13b: K9's partial (a search step, a rank), K13 (every lookup),
+    K11's partial (every level) and the walk steps (every step of the LF
+    and slow walks) against their plain forms, max |err| 0, at phase 13
+    (a)'s shapes on the whole index as one rank's run and on each of 2
+    ranks' runs (the sums over the runs equal the one run's), with
+    positions at each run's first and last rows and past them, empty
+    intervals and $ rows among the keys; then, over distinct input sets in
+    turn until together they need twice the L2 (:func:`in_turn`), each
+    one's wrapper, device and plain time, bytes bound and chain bound on 2
+    ranks' first run (:func:`partial_cases`, :func:`walk_step_cases`), and
+    the all-reduce against a step's kernel: NCCL's of a group of one on the
     card, and gloo's between two ranks sharing the card
     (``scripts/torch_allreduce_probe.py``) → ({name: summary entry},
     {err key: max |err|}, the design readings)."""
@@ -1735,19 +2310,21 @@ def check_rank_kernels(engines, batch, reduces, card):
     ce, le, nq = e._pad_encode(batch)
     codes, lengths = e._to_device(ce, le)
     B, K = codes.shape
-    # K9's partial along the served batch's k-step schedule from the LUT
+    # K9's partial along the served batch's k-step schedule from the LUT,
+    # each step also written over its input as the search writes it
     rows0 = e.lut.index_select(0, prefix_ids(codes, p).long())
     lu = torch.cat([rows0[:, 0], rows0[:, 1]]).contiguous()
-    k9_err, step0 = 0, None
+    k9_err = 0
     for j, k in kstep_schedule(K - p, 3):
         outs = []
         for v, lead in views:
             got = sops.step_partial(v, k, codes, None, j, lu, lead)
             want = sops.step_partial_plain(v, k, codes, None, j, lu, lead)
-            k9_err = max(k9_err, max_err([(got, want)]))
+            over = lu.clone()
+            sops.step_partial(v, k, codes, None, j, over, lead, out=over)
+            k9_err = max(k9_err, max_err([(got, want), (over, want)]))
             outs.append(got)
         k9_err = max(k9_err, max_err([(outs[1] + outs[2], outs[0])]))
-        step0 = step0 or (j, k, lu)
         lu = outs[0]
     l, u = canonical_empty(lu[:B], lu[B:])
     mlen = torch.from_numpy(rng.integers(1, K + 1, size=B).astype(
@@ -1789,8 +2366,9 @@ def check_rank_kernels(engines, batch, reduces, card):
         outs = []
         for v, _ in views:
             got = sops.lookup_partial(v, what, x, y)
-            k13_err = max(k13_err, max_err([(
-                got, sops.lookup_partial_plain(v, what, x, y))]))
+            want = sops.lookup_partial_plain(v, what, x, y)
+            k13_err = max(k13_err, max_err([(got, want)]),
+                          int(got.dtype != want.dtype))
             outs.append(got)
         k13_err = max(k13_err, max_err([(outs[1] + outs[2], outs[0])]))
     # K11's partial at every level of the engine's build
@@ -1804,29 +2382,39 @@ def check_rank_kernels(engines, batch, reduces, card):
                 got, sops.lut_level_partial_plain(v, a_, b_, lead))]))
             outs.append(got)
         k11_err = max(k11_err, max_err([(outs[1] + outs[2], outs[0])]))
-        last = (a_, b_)
         X = a_.numel()
+        last = (a_, b_)
         a_, b_ = outs[0][: 4 * X], outs[0][4 * X :]
+    # the walk steps: every step of each walk on the served batch's hit
+    # lanes, on the whole index as one run and on 2 runs
+    walk_err = {}
+    for route in ("lf", "slow"):
+        sr = engines[route].sidx
+        wrows, wvalid = hit_lanes(sr, codes, engines[route].lut, p, H)
+        walk_err[route] = max(walk_pair_err(r, wrows, wvalid)
+                              for r in ([sr], run_views(sr, 2, dev)))
     log(f"K9's partial ({len(kstep_schedule(K - p, 3))} steps of the served "
-        f"width-{B} batch, a masked 1-step, ranks on the rank and mark "
-        f"tables at {keys.numel()} positions, {n_dollar_rows} of them $ rows"
-        f"), K13 (7 lookups) and K11's partial ({p - 1} levels), on 1 and 2 "
-        f"ranks' runs: max |err| {k9_err}, {k13_err}, {k11_err}")
-    check(k9_err == 0 and k13_err == 0 and k11_err == 0,
+        f"width-{B} batch, each also over its input, a masked 1-step, ranks "
+        f"on the rank and mark tables at {keys.numel()} positions, "
+        f"{n_dollar_rows} of them $ rows), K13 (7 lookups, each at its "
+        f"psum's width), K11's partial ({p - 1} levels) and the LF and slow "
+        f"walks' every step on the served batch's {B} x {H} lanes, on 1 and "
+        f"2 ranks' runs: max |err| {k9_err}, {k13_err}, {k11_err}, "
+        f"{walk_err['lf']}, {walk_err['slow']}")
+    check(k9_err == 0 and k13_err == 0 and k11_err == 0
+          and not any(walk_err.values()),
           "a partial kernel disagrees with its plain form")
-    # timing on 2 ranks' first run (the (b) group's rank 0)
+    # timing on 2 ranks' first run (the (b) group's rank 0), over distinct
+    # width-8192 batches: the served one, then slices of phase 7's
+    codes_sets = [codes] + [b[i * B:(i + 1) * B] for b in rot
+                            for i in range(b.shape[0] // B)]
+    cases = partial_cases(s, runs[0], codes_sets, e.lut, p, H)
+    cases += walk_step_cases({r: engines[r].sidx for r in ("lf", "slow")},
+                             codes_sets, e.lut, p, H, dev)
+    # K11's partial at the build's last level (its intervals alone pass the
+    # L2 many times over: one set)
     v = runs[0]
     lo, hi = run_range(v)
-    j, k, lu0 = step0
-    plane = {3: 64, 2: 16, 1: 5}[k]
-    code = sops.step_code(codes, j, k)
-    act = lu0[:B] < lu0[B:]
-    ins = [x[act & (x > lo) & (x < hi)] for x in (lu0[:B], lu0[B:])]
-    cs = [code[act & (x > lo) & (x < hi)] for x in (lu0[:B], lu0[B:])]
-    step_bytes = B * (k * 4 + 32) + row_bytes(v, *[
-        owner_rows(v, plane, v.rows_per_symbol, c, i) for c, i in zip(cs, ins)])
-    inr = keys[(keys >= lo) & (keys < hi)]
-    look_bytes = keys.numel() * 16 + distinct(inr) * 4
     la, lb = last
     alive = la < lb
     lut_rows = [owner_rows(v, 5, v.rows_per_symbol,
@@ -1834,45 +2422,24 @@ def check_rank_kernels(engines, batch, reduces, card):
                 for cc in range(1, 5)
                 for x in (la[alive & (la > lo) & (la < hi)],
                           lb[alive & (lb > lo) & (lb < hi)])]
-    lut_bytes = la.numel() * 80 + row_bytes(v, *lut_rows)
-    cases = [
-        ("shard_occ_partial", "occ_partial_kernel",
-         lambda: sops.step_partial(v, k, codes, None, j, lu0, True),
-         lambda: sops.step_partial_plain(v, k, codes, None, j, lu0, True),
-         step_bytes, f"a {k}-column search step over {B} queries, "
-         f"{v.starts.numel()} of {s.num_shards} shards"),
-        ("shard_lookup_partial", "lookup_partial_kernel",
-         lambda: sops.lookup_partial(v, "dsa", keys),
-         lambda: sops.lookup_partial_plain(v, "dsa", keys),
-         look_bytes, f"the dsa lookup of {keys.numel()} lanes ({B} x {H} "
-         f"and the edges), {v.starts.numel()} of {s.num_shards} shards"),
-        ("sharded_lut_level_partial", "lut_level_partial_kernel",
-         lambda: sops.lut_level_partial(v, la, lb, True),
-         lambda: sops.lut_level_partial_plain(v, la, lb, True),
-         lut_bytes, f"the last level of the p={p} build ({la.numel()} "
-         f"intervals), {v.starts.numel()} of {s.num_shards} shards"),
-    ]
-    summary = {}
-    for name, kern, fn, plain, nb, shape in cases:
-        fn()
-        torch.cuda.synchronize()
-        ms = time_cuda(fn, 20)
-        device_ms = kernel_device_ms(fn, 20, kern, 20)
-        plain_ms = time_cuda(plain, 3)
-        bnd = bound_ms(nb)
-        summary[name] = (ms, plain_ms, device_ms, bnd, shape, None)
-        log(f"{name}: {shape}: {fmt_ms(ms)} ms a call, device "
-            f"{fmt_ms(device_ms)} ms, plain {fmt_ms(plain_ms)} ms, {nb} B "
-            f"needed, bytes bound {bnd:.4f} ms, share "
-            f"{ratio(bnd, device_ms)} | {card}")
+    cases.append((
+        "sharded_lut_level_partial", "lut_level_partial_kernel",
+        lambda a, b: sops.lut_level_partial(v, a, b, True),
+        lambda a, b: sops.lut_level_partial_plain(v, a, b, True), [last],
+        f"the last level of the p={p} build ({la.numel()} intervals), "
+        f"{v.starts.numel()} of {s.num_shards} shards",
+        la.numel() * 80 + row_bytes(v, *lut_rows), None))
+    summary = time_cases(cases, t_row, card)
     # the all-reduce against a step's kernel
-    design = {"card": card, "all_reduces_a_batch": reduces}
-    for what, width in (("search step", 2 * B), ("walk step", B * H)):
-        t = torch.ones(width, dtype=torch.int64, device=dev)
+    design = {"card": card, "all_reduces_a_batch": reduces,
+              "request_split": split}
+    for what, width, dt in (("search step", 2 * B, torch.int64),
+                            ("walk step", B * H, torch.int32)):
+        t = torch.ones(width, dtype=dt, device=dev)
         dist.all_reduce(t)
         design[f"nccl_group_of_1_{what}_ms"] = time_cuda(
             lambda t=t: dist.all_reduce(t), 50)
-        log(f"NCCL all-reduce, group of 1, {what} ({width} int64): "
+        log(f"NCCL all-reduce, group of 1, {what} ({width} {dt}): "
             f"{design[f'nccl_group_of_1_{what}_ms']:.4f} ms | {card}")
     proc = subprocess.run(
         [sys.executable, str(REPO / "scripts" / "torch_allreduce_probe.py"),
@@ -1894,7 +2461,9 @@ def check_rank_kernels(engines, batch, reduces, card):
             f" ms of collectives against the step kernel's "
             f"{fmt_ms(summary['shard_occ_partial'][2])} ms")
     errs = {"shard_occ_partial_err": k9_err, "shard_lookup_partial_err":
-            k13_err, "sharded_lut_level_partial_err": k11_err}
+            k13_err, "sharded_lut_level_partial_err": k11_err,
+            "walk_lf_step_err": walk_err["lf"],
+            "walk_slow_step_err": walk_err["slow"]}
     return summary, errs, design
 
 
@@ -2491,7 +3060,6 @@ def check_interval_kernels(engines, ceng_s, cpacked, batch, cbatch, rot,
     and the device's busy share (:func:`request_breakdown`)."""
     import torch
     from readserver_tpu_torch.corpus import simulate
-    from readserver_tpu_torch.kernels import KERNELS
     from readserver_tpu_torch.ops import sharded as sops
     from readserver_tpu_torch.parallel import build_prefix_lut_sharded
     from readserver_tpu_torch.serve import QueryEngine
@@ -2500,18 +3068,6 @@ def check_interval_kernels(engines, ceng_s, cpacked, batch, cbatch, rot,
     s = eng.sidx
     dev = s.starts.device
     rng = np.random.default_rng(11)
-
-    def in_turn(make, needs):
-        """Input sets make(0), make(1), ... until together they pass the
-        L2 → (sets, their mean bytes, their longest chain or None)."""
-        sets = [make(0)]
-        got = [needs(*sets[0])]
-        for j in range(1, sets_past_l2(got[0][0])):
-            sets.append(make(j))
-            got.append(needs(*sets[-1]))
-        chains = [g[1] for g in got if g[1] is not None]
-        return (sets, int(np.mean([g[0] for g in got])),
-                max(chains) if chains else None)
 
     cases = []  # (name, kernel name, fn, plain, sets, what, bytes, chain)
     X = 2 * 262_144
@@ -2578,22 +3134,17 @@ def check_interval_kernels(engines, ceng_s, cpacked, batch, cbatch, rot,
                   f"p={p} LUT", nb, chain))
     # K10 on each route's engine over those batches' hit lanes, H = 64
     H = eng.H
-    span = torch.arange(H, device=dev)
     lanes = {}
 
-    def hit_lanes(j):
+    def slice_lanes(j):
         if j not in lanes:
-            l, u = sops.search(s, slices[j], None, eng.lut, p, 3)
-            rows = (l[:, None] + span).reshape(-1)
-            valid = (span[None, :] < (u - l)[:, None]).reshape(-1)
-            lanes[j] = (torch.where(valid, rows, torch.zeros_like(rows)),
-                        valid)
+            lanes[j] = hit_lanes(s, slices[j], eng.lut, p, H)
         return lanes[j]
 
     for route, e in engines.items():
         sr = e.sidx
         sets, nb, chain = in_turn(
-            hit_lanes, lambda rows, valid, sr=sr: walk_needs(sr, rows, valid))
+            slice_lanes, lambda rows, valid, sr=sr: walk_needs(sr, rows, valid))
         cases.append((
             f"sharded_resolve ({route})", "sharded_resolve_kernel",
             lambda rows, valid, sr=sr: sops.resolve(sr, rows, valid),
@@ -2638,43 +3189,14 @@ def check_interval_kernels(engines, ceng_s, cpacked, batch, cbatch, rot,
             f"rows in the served batch over 128 samples, window {SW}, "
             f"{route} route", nb, chain))
 
-    def outs(x):
-        return x if isinstance(x, tuple) else (x,)
-
     errs = {"sharded_lut_level": lut_err}
     out, routes = {}, {}
-    for name, kname, kern, plain, sets, what, nbytes, chain in cases:
-        err = max(max_err(zip(outs(kern(*x)), outs(plain(*x)))) for x in sets)
-        check(err == 0, f"{name} disagrees with its plain form ({what})")
+    for name, got in time_cases(cases, t_row, card).items():
         key = name.split(" ")[0]
-        errs[key] = max(errs.get(key, 0), err)
-        before = KERNELS[key].launches
-        kern(*sets[0])
-        per_call = KERNELS[key].launches - before
-        k_turn, p_turn = itertools.cycle(sets), itertools.cycle(sets)
-        iters = max(len(sets), N_ROT)
-        torch.cuda.synchronize()
-        t_kern, t_plain = [], []
-        for _ in range(3):  # interleaved: kernel, plain
-            t_kern.append(time_cuda(lambda: kern(*next(k_turn)), iters))
-            t_plain.append(time_cuda(lambda: plain(*next(p_turn)), 1))
-        dev_ms = kernel_device_ms(lambda: kern(*next(k_turn)), iters, kname,
-                                  launches=iters * per_call)
-        tk, tp = float(np.median(t_kern)), float(np.median(t_plain))
-        bnd = bound_ms(nbytes)
-        chain_ms = None if chain is None or t_row is None else chain * t_row
-        log(f"{name} ({what}; {len(sets)} distinct input sets in turn): "
-            f"wrapper {tk:.4f} ms, kernel device time {fmt_ms(dev_ms)} ms "
-            f"(profiler) | plain torch {tp:.4f} ms (median of 3 x {iters} "
-            f"and 3 x 1 calls, CUDA events), outputs equal on every set | "
-            f"needs {nbytes} B a set (mean): bytes bound {bnd:.4f} ms, "
-            f"device time at {ratio(bnd, dev_ms)} of it"
-            + ("" if chain is None else
-               f" | chain of {chain} dependent reads x t_row: chain bound "
-               f"{fmt_ms(chain_ms)} ms, device time at "
-               f"{ratio(chain_ms, dev_ms)} of it") + f" | {card}")
-        out.setdefault(key, (tk, tp, dev_ms, bnd, what, chain_ms))
+        errs.setdefault(key, 0)  # time_cases held each case equal
+        out.setdefault(key, got)
         if key == "sharded_resolve":
+            tk, tp, dev_ms, bnd, what, chain_ms = got
             held = max(bnd, chain_ms or 0.0)
             routes[name[name.index("(") + 1:-1]] = dict(
                 device_ms=dev_ms, ms=tk, plain_ms=tp, bound_ms=bnd,
@@ -3291,7 +3813,7 @@ def run(args) -> dict:
 
     # ------------------------------ 13. interval shards across ranks
     with phase("13 interval shards across ranks"):
-        rank_engines, rank_reduces = serve_ranks(
+        rank_engines, rank_reduces, rank_split = serve_ranks(
             packed, cache, cpacked, cfg, dev,
             (("1", q1, False), ("256", q256, False), ("4096x2", q4096, True)),
             served, reads_served, shard_engines, ceng_s, c256, c4096,
@@ -3723,7 +4245,7 @@ def run(args) -> dict:
     # ---------------------------------------------------------- 7. timing
     with phase("7 timing"):
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
 
         log(f"card: {card}")
         # the chase yardstick: one warp's time per dependent 64-byte read,
@@ -3828,13 +4350,23 @@ def run(args) -> dict:
         lvl_bound = [bound_ms(level_bytes(idx, l_, u_)) for l_, u_ in levels]
         build = lambda: lut_ops.build_prefix_lut(idx, p)  # noqa: E731
         for _ in range(5):  # the profiler now and then records no event
+            # and can miss the first launches after it starts: a build
+            # first, then the marked one read
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 build()
                 torch.cuda.synchronize()
-            kev = sorted((e for e in prof.events()
+                with record_function("marked build"):
+                    build()
+                    torch.cuda.synchronize()
+            evs = prof.events()
+            span = next(e.time_range for e in evs
+                        if e.name == "marked build"
+                        and e.device_type == DeviceType.CPU)
+            kev = sorted((e for e in evs
                           if e.device_type == DeviceType.CUDA
-                          and "lut_level_kernel" in e.name),
+                          and "lut_level_kernel" in e.name
+                          and span.start <= e.time_range.start <= span.end),
                          key=lambda e: e.time_range.start)
             if len(kev) == p - 1:
                 break
@@ -4222,15 +4754,12 @@ def run(args) -> dict:
         import torch.distributed as dist
 
         rank_summary, rank_err, rank_design = check_rank_kernels(
-            rank_engines, batches[8192], rank_reduces, card)
-        # K9's partial and K13 read one row a lane, with nothing before it
-        # to wait on: their chain is one dependent read, t_row
-        for name in ("shard_occ_partial", "shard_lookup_partial"):
-            ms, plain_ms, dev_ms, bnd, shape, _ = rank_summary[name]
-            rank_summary[name] = (ms, plain_ms, dev_ms, bnd, shape, t_row)
-            log(f"{name}: chain of 1 dependent read a lane, chain bound "
-                f"{fmt_ms(t_row)} ms warm, {fmt_ms(t_row_cold)} ms cold; "
-                f"device time {fmt_ms(dev_ms)} ms | {card}")
+            rank_engines, batches[8192], rot, rank_reduces, rank_split,
+            t_row, card)
+        # the walk steps' main readings: the LF walk's step and the slow
+        # walk's rank half (the rest under the kernels line's readings)
+        rank_summary["walk_lf_step"] = rank_summary["walk_lf_step (step)"]
+        rank_summary["walk_slow_step"] = rank_summary["walk_slow_step (rank)"]
         summary.update(rank_summary)
         summary.update(rank_err)
         del rank_engines
@@ -4281,6 +4810,12 @@ def run(args) -> dict:
         "sharded_lut_level_partial": ("sharded_partial.cu",
                                       "readserver_tpu/parallel/sharded.py:1075",
                                       "sharded_lut_level_partial_err"),
+        "walk_lf_step": ("sharded_partial.cu",
+                         "readserver_tpu/parallel/sharded.py:852",
+                         "walk_lf_step_err"),
+        "walk_slow_step": ("sharded_partial.cu",
+                           "readserver_tpu/parallel/sharded.py:885",
+                           "walk_slow_step_err"),
         "row_compact": ("compact.cu", "readserver_tpu/ops/resolve.py:383",
                         "k14_err"),
         "row_gather": ("compact.cu", "readserver_tpu/ops/resolve.py:383",
@@ -4333,6 +4868,20 @@ def run(args) -> dict:
     # all-reduce's time against a step's kernel
     next(k for k in kernels if k["name"] == "shard_occ_partial")["design"] = \
         rank_design
+    # the cross-rank kernels' other readings: K9's partial's rank, K13's LF
+    # and symbol lookups (the walks' steps before the walk-step kernels),
+    # and every mode of the walk steps
+    for k in kernels:
+        if k["name"] in RANK_KERNELS:
+            k["readings"] = {}
+            for name in summary:
+                if name.startswith(k["name"] + " ("):
+                    ms, plain_ms, device_ms, bnd, shape, chain_ms = \
+                        summary[name]
+                    k["readings"][name[len(k["name"]) + 2:-1]] = dict(
+                        ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                        bound_ms=bnd, chain_ms=chain_ms,
+                        chain_cold_ms=cold(chain_ms), shape=shape)
     # K14's and K15's readings at the full budget, and the doc merge's
     # collectives (phase 14: NCCL in the group of one; gloo between two
     # ranks on the card)

@@ -17,12 +17,13 @@
   ``SHARDED_RESOLVE`` (K10), ``csrc/sharded.cu``: the interval-sharded
   index's rank, search, LUT level, and lookups, walks and exact sweep,
   every shard on one device; launched by ``ops/sharded.py``.
-* ``SHARD_OCC_PARTIAL`` (K9's partial), ``SHARD_LOOKUP_PARTIAL`` (K13) and
-  ``SHARDED_LUT_LEVEL_PARTIAL`` (K11's partial), ``csrc/sharded_partial.cu``:
-  one rank's contribution over its run of the shards (a rank, a search
-  step, the masked lookups of the walks and the sweep, a LUT level), which
-  the ranks of a process group sum by one all-reduce; launched by
-  ``ops/sharded.py``.
+* ``SHARD_OCC_PARTIAL`` (K9's partial), ``SHARD_LOOKUP_PARTIAL`` (K13),
+  ``SHARDED_LUT_LEVEL_PARTIAL`` (K11's partial), ``WALK_LF_STEP`` and
+  ``WALK_SLOW_STEP`` (the walk steps), ``csrc/sharded_partial.cu``: one
+  rank's contribution over its run of the shards (a rank, a search step,
+  the masked lookups, a LUT level, a step of the LF or the slow walk with
+  the walk's state advanced on the card), which the ranks of a process
+  group sum by one all-reduce; launched by ``ops/sharded.py``.
 * ``ROW_COMPACT`` and ``ROW_GATHER`` (K14) and ``CAPPED_HISTOGRAM`` (K15),
   ``csrc/compact.cu``: the resolve's row-budget compaction (the prefix of
   each query's hit lanes and the budget's rows, then the walk's answers
@@ -49,6 +50,8 @@ SHARDED_RESOLVE = Kernel("rs_sharded_resolve")
 SHARD_OCC_PARTIAL = Kernel("rs_shard_occ_partial")
 SHARD_LOOKUP_PARTIAL = Kernel("rs_shard_lookup_partial")
 SHARDED_LUT_LEVEL_PARTIAL = Kernel("rs_sharded_lut_level_partial")
+WALK_LF_STEP = Kernel("rs_walk_lf_step")
+WALK_SLOW_STEP = Kernel("rs_walk_slow_step")
 ROW_COMPACT = Kernel("rs_row_compact")
 ROW_GATHER = Kernel("rs_row_gather")
 CAPPED_HISTOGRAM = Kernel("rs_capped_histogram")
@@ -67,6 +70,8 @@ KERNELS = {
     "shard_occ_partial": SHARD_OCC_PARTIAL,
     "shard_lookup_partial": SHARD_LOOKUP_PARTIAL,
     "sharded_lut_level_partial": SHARDED_LUT_LEVEL_PARTIAL,
+    "walk_lf_step": WALK_LF_STEP,
+    "walk_slow_step": WALK_SLOW_STEP,
     "row_compact": ROW_COMPACT,
     "row_gather": ROW_GATHER,
     "capped_histogram": CAPPED_HISTOGRAM,
@@ -78,5 +83,5 @@ __all__ = [
     "RESOLVE_FUSED", "RESOLVE_WALK", "ROW_COMPACT", "ROW_GATHER",
     "SHARD_LOOKUP_PARTIAL", "SHARD_OCC", "SHARD_OCC_PARTIAL",
     "SHARDED_LUT_LEVEL", "SHARDED_LUT_LEVEL_PARTIAL", "SHARDED_RESOLVE",
-    "SHARDED_SEARCH",
+    "SHARDED_SEARCH", "WALK_LF_STEP", "WALK_SLOW_STEP",
 ]

@@ -30,6 +30,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_ulonglong
 
 # the walk's tables, as csrc/resolve.cu's sweep entry points take them
 # (RS_WALK_PARAMS; ops/resolve._walk_args builds them)
@@ -59,11 +60,18 @@ SIGNATURES = {
     "rs_sharded_resolve": [
         _P, _I, _P, _P, _L, _P, _P, _P, _P, _P, _L, _L, _I, _P, _P,
     ],
-    # one rank's partials over its run of the shards
-    # (csrc/sharded_partial.cu)
-    "rs_shard_occ_partial": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _L, _P, _P],
-    "rs_shard_lookup_partial": [_P, _I, _P, _P, _L, _P, _P],
-    "rs_sharded_lut_level_partial": [_P, _P, _P, _L, _I, _P, _L, _P],
+    # one rank's partials over its run of the shards and the walk steps
+    # (csrc/sharded_partial.cu); the second argument is the address of an
+    # ops/sharded.RunKeys, a walk's the address of an ops/sharded.WalkBuffers
+    "rs_shard_occ_partial": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _L, _P,
+                             _P],
+    "rs_shard_lookup_partial": [_P, _P, _I, _P, _P, _L, _P, _P],
+    "rs_sharded_lut_level_partial": [_P, _P, _P, _P, _L, _I, _P, _L, _P],
+    "rs_walk_lf_step": [_P, _P, _P, _I, _U, _P],
+    "rs_walk_slow_step": [_P, _P, _P, _I, _I, _U, _P],
+    # the walks' live flag, a mapped host word
+    "rs_host_word": [_P, _P],
+    "rs_host_word_free": [_P],
     # the row-budget compaction and the capped histogram (csrc/compact.cu)
     "rs_row_compact": [_P, _P, _L, _I, _L, _P, _P, _P],
     "rs_row_gather": [_P, _P, _L, _I, _L, _P, _P, _P, _P, _P, _P],
@@ -165,17 +173,25 @@ class Kernel:
     def __init__(self, symbol: str) -> None:
         self.symbol = symbol
         self.launches = 0
+        self._fn = None  # the bound entry point, at the first launch
 
     def __call__(self, *args, device) -> None:
         """Launch on ``device`` (the device of the tensors in ``args``), on
         that device's current stream.  The calling thread's current device
-        may be another one (the dispatcher's worker thread), so the launch
+        may be another one (the dispatcher's worker thread): then the launch
         runs under ``torch.cuda.device(device)``."""
         import torch
 
-        fn = getattr(LIBRARY.get(), self.symbol)
-        with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = getattr(LIBRARY.get(), self.symbol)
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if index == current:
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
         if rc != 0:
             raise RuntimeError(
                 f"{self.symbol}: CUDA error {rc} at launch"

@@ -21,13 +21,16 @@ Each function has two forms:
   owner accessor.
 
 The partials (K9's partial ``occ_partial`` and ``step_partial``, K13
-``lookup_partial``, K11's partial ``lut_level_partial``,
-``csrc/sharded_partial.cu``) serve an index whose shards are spread over
-the ranks of a process group: each takes the view of one rank's run of
-shards and gives the JAX masked contribution summed over that run only,
-which the ranks sum by one all-reduce (``parallel/sharded.py``).  Their
-plain forms are built on the plain forms above applied to the run
-(``occ_plain`` is K9's partial's).
+``lookup_partial``, K11's partial ``lut_level_partial``, and the walk steps
+``lf_walk_step`` and ``slow_walk_step``, ``csrc/sharded_partial.cu``) serve
+an index whose shards are spread over the ranks of a process group: each
+takes the view of one rank's run of shards and gives the JAX masked
+contribution summed over that run only, at the JAX psum's width, which the
+ranks sum by one all-reduce (``parallel/sharded.py``).  A walk step also
+advances the walk's state (``WalkState``, on the index's device) from the
+previous all-reduce's output, so a walk is one launch and one all-reduce a
+step.  Their plain forms are built on the plain forms above applied to the
+run (``occ_plain`` is K9's partial's).
 
 The public functions take the plain form for CPU tensors and launch the
 kernel for CUDA tensors, with no fallback between them.  The walks are the
@@ -40,10 +43,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
+import weakref
+from dataclasses import dataclass
 
 import torch
 
 from readserver_tpu_torch.kernels import (
+    LIBRARY,
     SHARD_LOOKUP_PARTIAL,
     SHARD_OCC,
     SHARD_OCC_PARTIAL,
@@ -51,6 +58,8 @@ from readserver_tpu_torch.kernels import (
     SHARDED_LUT_LEVEL_PARTIAL,
     SHARDED_RESOLVE,
     SHARDED_SEARCH,
+    WALK_LF_STEP,
+    WALK_SLOW_STEP,
 )
 from readserver_tpu_torch.kernels.build import check_int32, on_cuda, ptr
 from readserver_tpu_torch.ops.rank import _WORD, occ_rows_plain
@@ -65,14 +74,18 @@ from readserver_tpu_torch.ops.search import (
     step_code,
 )
 
-MAX_SHARDS = 64  # owner keys the kernels stage in shared memory
+MAX_SHARDS = 64  # a run's shards the kernels take
 # K9's tables, numbered as csrc/sharded.cu takes them
 TABLES = {"rank": 0, "rank2": 1, "rank3": 2, "marks": 3}
 # K13's lookups, numbered as csrc/sharded_partial.cu takes them; the
-# width of each one's output in lanes
+# width of each one's output in lanes, and its type: the JAX psum's (int32,
+# but int64 for the (LF, mark rank) pair)
 LOOKUPS = {"sym": 0, "dollar": 1, "sample": 2, "dsa": 3, "lf": 4,
            "lf_mark": 5, "dollar_pair": 6}
 LOOKUP_WIDTH = {"lf_mark": 2, "dollar_pair": 3}
+# the walk steps' modes, numbered as csrc/sharded_partial.cu takes them
+WALK_MODES = {"first": 0, "step": 1, "last": 2, "rank": 3, "terminal": 4,
+              "finish": 5}
 # a search step's table by its width in columns
 STEP_TABLES = {1: "rank", 2: "rank2", 3: "rank3"}
 
@@ -340,33 +353,30 @@ def step_partial_plain(sidx, k: int, kmers, lengths, col: int, lu,
 
 def lookup_partial_plain(sidx, what: str, x, y=None):
     """K13 in plain form: lookup ``what`` of the keys ``x`` (int64 [X]) over
-    the run's shards, 0 where none owns the key → int64 [X]: ``sym``,
+    the run's shards, 0 where none owns the key → int32 [X]: ``sym``,
     ``dollar`` ($-rank → read id), ``sample`` (read id, clipped to
-    [0, m), → sample id), ``dsa`` (the uint32 word), ``lf`` (the raw value,
-    sign kept); ``lf_mark`` [2X] (lf, then the run's partial mark rank) and
-    ``dollar_pair`` [3X] (the read id of $-rank x, then the (read id,
-    offset) pairs of mark-rank slots ``y``), the JAX program's fused
-    pairs."""
-    i64 = torch.int64
+    [0, m), → sample id), ``dsa`` (the uint32 word's bits), ``lf`` (the raw
+    value, sign kept); ``lf_mark`` int64 [2X] (lf, then the run's partial
+    mark rank) and ``dollar_pair`` int32 [3X] (the read id of $-rank x,
+    then the (read id, offset) pairs of mark-rank slots ``y``), the JAX
+    program's fused pairs.  Each at the width of the JAX psum."""
     if what == "sym":
-        return sym_plain(sidx, x).to(i64)
+        return sym_plain(sidx, x)
     if what in ("dollar", "dollar_pair"):
-        out = _lookup_plain(sidx.dollar_chunk, sidx.dstarts, sidx.dlens,
-                            x).to(i64)
+        out = _lookup_plain(sidx.dollar_chunk, sidx.dstarts, sidx.dlens, x)
         if what == "dollar":
             return out
         pair = _lookup_plain(sidx.spairs_chunk, sidx.sstarts, sidx.slens, y)
-        return torch.cat([out, pair.to(i64).reshape(-1)])
+        return torch.cat([out, pair.reshape(-1)])
     if what == "sample":
-        return sample_plain(sidx, x).to(i64)
+        return sample_plain(sidx, x)
     if what == "dsa":
-        return _lookup_plain(sidx.dsa_chunk, sidx.starts, sidx.lens,
-                             x).to(i64) & _WORD
+        return _lookup_plain(sidx.dsa_chunk, sidx.starts, sidx.lens, x)
     if what in ("lf", "lf_mark"):
-        out = _lookup_plain(sidx.lf_chunk, sidx.starts, sidx.lens, x).to(i64)
+        out = _lookup_plain(sidx.lf_chunk, sidx.starts, sidx.lens, x)
         if what == "lf":
             return out
-        return torch.cat([out, occ_plain(sidx, "marks", torch.zeros(
+        return torch.cat([out.to(torch.int64), occ_plain(sidx, "marks", torch.zeros(
             x.shape, dtype=torch.int32, device=x.device), x)])
     raise ValueError(f"no sharded lookup {what!r}")
 
@@ -389,6 +399,145 @@ def lut_level_partial_plain(sidx, l, u, lead: bool):
         torch.where(alive, base + occ2[: 4 * X], l4 if lead else zero),
         torch.where(alive, base + occ2[4 * X :], u4 if lead else zero),
     ])
+
+
+# ------------------------------------- the cross-rank walks' steps, plain
+
+
+@dataclass(eq=False)
+class WalkState:
+    """One cross-rank walk's state and buffers (:func:`walk_state`), on the
+    index's device, updated in place by each step: ``cur`` int64, ``done``
+    bool, ``count`` int32 (the LF walk's steps taken; the slow walk's step
+    at its $, -1 before); ``step32`` int32 [R] the step's partial (LF: the
+    raw LF; slow: the symbol), all-reduced in place, and after ``finish``
+    the sample partial; ``step64`` int64 [R] the slow walk's rank partial;
+    ``term64`` int64 [2R] the LF walk's lf_mark partial and ``term32`` its
+    int32 [3R] (read id, pair) partial, or the slow walk's [R] read id of
+    the $-rank, each written as lanes end; ``read_id`` and ``offset``
+    int32 [R] after ``finish``.  ``live``: the plain forms' report of a
+    live lane; ``seq``, ``word`` and ``buffers``: the kernels'
+    (:func:`walk_live`)."""
+
+    kind: str
+    lead: bool
+    rows: torch.Tensor
+    valid: torch.Tensor
+    cur: torch.Tensor
+    done: torch.Tensor
+    count: torch.Tensor
+    step32: torch.Tensor
+    step64: torch.Tensor | None
+    term64: torch.Tensor | None
+    term32: torch.Tensor
+    read_id: torch.Tensor
+    offset: torch.Tensor
+    live: bool = True
+    seq: int = 0
+    word: _LiveWord | None = None
+    buffers: ctypes.Structure | None = None
+
+
+def lf_walk_step_plain(sidx, st: WalkState, mode: str) -> None:
+    """The sampled-LF walk's step ``mode`` (the JAX ``do_walk``'s fwalk,
+    852-863, and its terminal, 866-875) in plain form, as
+    ``rs_walk_lf_step`` does it.  ``first``: cur = rows, done = ~valid,
+    steps = 0, the lf_mark partial cleared.  ``step``/``last``, on a live
+    lane, from the reduced raw LF in ``step32``: an end (sign bit set or a
+    value below m) marks it done and writes its lf_mark partial (the raw
+    value on the lead rank, the run's mark rank where the row is sampled);
+    else cur = the value and steps + 1.  ``first`` and ``step`` then write
+    the run's raw LF of each live lane's cur (0 on an ended lane).
+    ``terminal``, on a valid ended lane, from the reduced lf_mark: the
+    $-rank's read id or the sampled pair.  ``finish``: read ids and
+    offsets, -1 where invalid or unended, and the sample partial."""
+    R = st.rows.shape[0]
+    zero = torch.zeros((), dtype=torch.int32, device=st.rows.device)
+    if mode in ("terminal", "finish"):
+        ok = st.valid & st.done
+        marked = st.term64[:R].to(torch.int32) < 0
+        if mode == "terminal":
+            val = st.term64[:R] & 0x7FFFFFFF
+            rid = _lookup_plain(sidx.dollar_chunk, sidx.dstarts, sidx.dlens,
+                                val)
+            pair = _lookup_plain(sidx.spairs_chunk, sidx.sstarts, sidx.slens,
+                                 st.term64[R:])
+            st.term32[:R] = torch.where(ok & ~marked, rid, zero)
+            st.term32[R:] = torch.where((ok & marked)[:, None], pair,
+                                        zero).reshape(-1)
+            return
+        pair = st.term32[R:].reshape(R, 2)
+        rid = torch.where(marked, pair[:, 0], st.term32[:R])
+        off = torch.where(marked, pair[:, 1] + st.count, st.count)
+        st.read_id.copy_(torch.where(ok, rid, -1))
+        st.offset.copy_(torch.where(ok, off, -1))
+        st.step32.copy_(sample_plain(sidx, st.read_id))
+        return
+    if mode == "first":
+        st.cur.copy_(st.rows)
+        st.done.copy_(~st.valid)
+        st.count.zero_()
+        st.term64.zero_()
+    else:
+        raw = st.step32
+        val = (raw & 0x7FFFFFFF).to(torch.int64)
+        end = ~st.done & ((raw < 0) | (val < sidx.num_reads))
+        step = ~st.done & ~end
+        st.term64[:R] = torch.where(
+            end, raw.to(torch.int64) if st.lead else 0, st.term64[:R])
+        mark = occ_plain(sidx, "marks", torch.zeros_like(raw), st.cur)
+        st.term64[R:] = torch.where(end & (raw < 0), mark, st.term64[R:])
+        st.cur.copy_(torch.where(step, val, st.cur))
+        st.count += step.to(torch.int32)
+        st.done |= end
+    live = ~st.done
+    st.live = bool(live.any())
+    if mode != "last":
+        st.step32.copy_(torch.where(live, _lookup_plain(
+            sidx.lf_chunk, sidx.starts, sidx.lens, st.cur), zero))
+
+
+def slow_walk_step_plain(sidx, st: WalkState, mode: str, t: int = 0) -> None:
+    """The slow walk's step ``mode`` (the JAX ``do_walk``'s walk, 885-895,
+    in two halves, and the read id of its $-rank, 898) in plain form, as
+    ``rs_walk_slow_step`` does it.  ``first``: cur = rows, done = ~valid,
+    offset = -1, the $'s read-id partial cleared.  ``rank`` (step t's second
+    half), from the reduced symbol c in ``step32``: the run's partial rank
+    of c before cur on each live lane.  ``step``/``last`` (step t's first
+    half), from the reduced c and rank o of a live lane: c = $ ends it
+    (offset = t, and the run's read id of $-rank o written now), else cur
+    = C[c] + o.  ``first`` and ``step`` then write the run's symbol at each
+    live lane's cur (0 on an ended lane).  ``finish``: read ids and
+    offsets, -1 where invalid or unended, and the sample partial."""
+    zero = torch.zeros((), dtype=torch.int32, device=st.rows.device)
+    if mode == "finish":
+        ok = st.valid & st.done
+        st.read_id.copy_(torch.where(ok, st.term32, -1))
+        st.offset.copy_(torch.where(ok, st.count, -1))
+        st.step32.copy_(sample_plain(sidx, st.read_id))
+        return
+    if mode == "rank":
+        st.step64.copy_(torch.where(st.done, 0, occ_plain(
+            sidx, "rank", st.step32, st.cur)))
+        return
+    if mode == "first":
+        st.cur.copy_(st.rows)
+        st.done.copy_(~st.valid)
+        st.count.fill_(-1)
+        st.term32.zero_()
+    else:
+        c, o = st.step32, st.step64
+        end = ~st.done & (c == 0)
+        st.count.copy_(torch.where(end, t, st.count))
+        st.term32.copy_(torch.where(end, _lookup_plain(
+            sidx.dollar_chunk, sidx.dstarts, sidx.dlens, o), st.term32))
+        nxt = sidx.C.index_select(0, c.to(torch.int64)) + o
+        st.cur.copy_(torch.where(~st.done & ~end, nxt, st.cur))
+        st.done |= end
+    live = ~st.done
+    st.live = bool(live.any())
+    if mode != "last":
+        st.step32.copy_(torch.where(live, sym_plain(sidx, st.cur), zero))
 
 
 # ----------------------------------------------------------------- kernels
@@ -443,8 +592,79 @@ def _check_stack(name: str, t, dev, S: int, row_words: int | None = None):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _view(sidx) -> ShardView:
-    """The checked owner view of a placed index on the card."""
+class RunKeys(ctypes.Structure):
+    """The run's key boundaries, ``csrc/sharded_partial.cu``'s RunKeys,
+    passed to its kernels as a parameter: shard s of the run holds [b[s],
+    b[s + 1]) of each kind of key (positions, $-ranks, read ids, mark-rank
+    slots; zeros where the index has no fast tier)."""
+
+    _fields_ = [("S", ctypes.c_longlong),
+                *[(k, ctypes.c_longlong * (MAX_SHARDS + 1))
+                  for k in ("pos", "dol", "rid", "slot")]]
+
+
+class _LiveWord:
+    """One walk's live flag: a device word (the last sequence number a
+    launch reported) and a mapped host word the card writes it to, with the
+    last sequence number handed out.  A walk holds its word from
+    :func:`walk_state` until it is dropped, so walks on one index from
+    several threads report apart."""
+
+    def __init__(self, device) -> None:
+        self.seen = torch.zeros(1, dtype=torch.int64, device=device)
+        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+        with torch.cuda.device(device):
+            rc = LIBRARY.get().rs_host_word(ctypes.addressof(host),
+                                            ctypes.addressof(dev))
+        if rc != 0:
+            raise RuntimeError(f"rs_host_word: CUDA error {rc}")
+        self.host, self.dev = host.value, dev.value
+        self._free = weakref.finalize(self, LIBRARY.get().rs_host_word_free,
+                                      host.value)
+        self.seq = 0
+
+
+class _KernelView:
+    """A placed index's checked view for the kernels, built once: the owner
+    view and its address, the run's key boundaries and theirs, and the
+    walks' live words not in use (:class:`_LiveWord`, reused: freeing
+    pinned memory waits for the card)."""
+
+    def __init__(self, view: ShardView, keys: RunKeys, device) -> None:
+        self.view, self.keys = view, keys
+        self.addr = ctypes.addressof(view)
+        self.keys_addr = ctypes.addressof(keys)
+        self.device = device
+        self._words: list[_LiveWord] = []
+        self._lock = threading.Lock()
+
+    def take_word(self) -> _LiveWord:
+        with self._lock:
+            if self._words:
+                return self._words.pop()
+        return _LiveWord(self.device)
+
+    def give_word(self, word: _LiveWord) -> None:
+        with self._lock:
+            self._words.append(word)
+
+
+def _bounds(name: str, starts, lens) -> list[int]:
+    """A run's S + 1 contiguous boundaries of one kind of key."""
+    st, ln = starts.tolist(), lens.tolist()
+    for s in range(len(st) - 1):
+        if st[s] + ln[s] != st[s + 1]:
+            raise ValueError(f"the run's {name} ranges are not contiguous")
+    return st + [st[-1] + ln[-1]]
+
+
+def _view(sidx) -> _KernelView:
+    """The checked owner view of a placed index on the card, built and
+    checked on the first call and kept on the index (a placed index's
+    tensors do not change)."""
+    kv = sidx.kernel_cache.get("view")
+    if kv is not None:
+        return kv
     S = sidx.starts.shape[0]  # this run's shards
     if not 1 <= S <= MAX_SHARDS:
         raise ValueError(
@@ -484,6 +704,11 @@ def _view(sidx) -> ShardView:
     v.dstarts, v.dlens = ptr(sidx.dstarts), ptr(sidx.dlens)
     v.sample, v.sample_stride = ptr(sidx.sample_chunk), sidx.sample_chunk.shape[1]
     v.rstarts, v.rlens = ptr(sidx.rstarts), ptr(sidx.rlens)
+    keys = RunKeys()
+    keys.S = S
+    keys.pos[: S + 1] = _bounds("position", sidx.starts, sidx.lens)
+    keys.dol[: S + 1] = _bounds("$-rank", sidx.dstarts, sidx.dlens)
+    keys.rid[: S + 1] = _bounds("read-id", sidx.rstarts, sidx.rlens)
     if sidx.dsa_chunk is not None and sidx.dsa_bits > 0:
         if not 1 <= sidx.dsa_bits <= 31:
             raise ValueError(f"dsa_bits must be in [1, 31], got {sidx.dsa_bits}")
@@ -508,7 +733,9 @@ def _view(sidx) -> ShardView:
         v.spairs_stride = sidx.spairs_chunk.shape[1]
         v.sstarts, v.slens = ptr(sidx.sstarts), ptr(sidx.slens)
         v.sample_rate = sidx.sample_rate
-    return v
+        keys.slot[: S + 1] = _bounds("mark-rank", sidx.sstarts, sidx.slens)
+    kv = sidx.kernel_cache["view"] = _KernelView(v, keys, dev)
+    return kv
 
 
 def occ(sidx, table: str, c: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -527,7 +754,7 @@ def occ(sidx, table: str, c: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     _check64("i", i, dev, (X,))
     out = torch.empty(X, dtype=torch.int64, device=dev)
     if X:
-        SHARD_OCC(ctypes.addressof(v), TABLES[table], ptr(c), ptr(i),
+        SHARD_OCC(v.addr, TABLES[table], ptr(c), ptr(i),
                   ptr(out), X, device=dev)
     return out
 
@@ -547,7 +774,7 @@ def lut_level(sidx, l, u, *, max_chunk: int = 1 << 22):
     nu = torch.empty_like(nl)
     for a in range(0, X, max_chunk):
         SHARDED_LUT_LEVEL(
-            ctypes.addressof(v), ptr(l) + 8 * a, ptr(u) + 8 * a,
+            v.addr, ptr(l) + 8 * a, ptr(u) + 8 * a,
             min(max_chunk, X - a), ptr(nl) + 8 * a, ptr(nu) + 8 * a, X,
             device=dev,
         )
@@ -598,7 +825,7 @@ def search(sidx, kmers, lengths, lut, p: int, kstep: int, *,
     u = torch.empty_like(l)
     if B:
         SHARDED_SEARCH(
-            ctypes.addressof(v), ptr(kmers), ptr(lengths), B, K, ptr(lut), p,
+            v.addr, ptr(kmers), ptr(lengths), B, K, ptr(lut), p,
             kstep, ptr(l), ptr(u), ptr(bad), device=dev,
         )
         if wait:
@@ -635,7 +862,7 @@ def resolve(sidx, rows, valid, *, walk_early_exit: bool = False):
     smp = torch.empty_like(rid)
     if R:
         SHARDED_RESOLVE(
-            ctypes.addressof(v), _walk_code(sidx), ptr(rows), ptr(valid), R,
+            v.addr, _walk_code(sidx), ptr(rows), ptr(valid), R,
             ptr(rid), ptr(off), ptr(smp), None, None, 0, 0, 0, None,
             device=dev,
         )
@@ -670,7 +897,7 @@ def sweep(sidx, l, u, window: int, max_rows: int | None = None, *,
     hist = torch.zeros(B * S, dtype=torch.int32, device=dev)
     if cap != 0:
         SHARDED_RESOLVE(
-            ctypes.addressof(v), _walk_code(sidx), None, None, 0, None, None,
+            v.addr, _walk_code(sidx), None, None, 0, None, None,
             None, ptr(l), ptr(cum), B, -1 if cap is None else cap, S,
             ptr(hist), device=dev,
         )
@@ -688,33 +915,34 @@ def occ_partial(sidx, table: str, c, i):
     run, its plain form."""
     if not on_cuda(sidx.starts):
         return occ_plain(sidx, table, c, i)
-    t, _, _ = _table(sidx, table)
-    if t is None:
+    if _table(sidx, table)[0] is None:
         raise ValueError(f"the index carries no {table} table")
     v = _view(sidx)
-    dev = sidx.starts.device
     X = i.shape[0]
-    check_int32("c", c, dev, (X,))
-    _check64("i", i, dev, (X,))
-    out = torch.empty(X, dtype=torch.int64, device=dev)
+    check_int32("c", c, v.device, (X,))
+    _check64("i", i, v.device, (X,))
+    out = torch.empty(X, dtype=torch.int64, device=v.device)
     if X:
-        SHARD_OCC_PARTIAL(ctypes.addressof(v), TABLES[table], ptr(c), None, 0,
-                          0, 0, 0, ptr(i), X, ptr(out), device=dev)
+        SHARD_OCC_PARTIAL(v.addr, v.keys_addr, TABLES[table], ptr(c), None,
+                          0, 0, 0, 0, ptr(i), X, ptr(out), device=v.device)
     return out
 
 
-def step_partial(sidx, k: int, kmers, lengths, col: int, lu, lead: bool):
+def step_partial(sidx, k: int, kmers, lengths, col: int, lu, lead: bool,
+                 out=None):
     """K9's partial of one search step (see :func:`step_partial_plain`):
     kmers int32 [B, K], lengths int32 [B] or None (no length mask), the
-    reduced lu int64 [2B] → int64 [2B].  One launch for a CUDA index, the
-    plain form for a CPU index."""
+    reduced lu int64 [2B] → int64 [2B], into ``out`` when given (which may
+    be ``lu`` itself: the search updates its interval in place).  One
+    launch for a CUDA index, the plain form for a CPU index."""
     if not on_cuda(sidx.starts):
-        return step_partial_plain(sidx, k, kmers, lengths, col, lu, lead)
+        got = step_partial_plain(sidx, k, kmers, lengths, col, lu, lead)
+        return got if out is None else out.copy_(got)
     table = STEP_TABLES.get(k)
     if table is None or _table(sidx, table)[0] is None:
         raise ValueError(f"the index has no table for a step of {k} columns")
     v = _view(sidx)
-    dev = sidx.starts.device
+    dev = v.device
     check_int32("kmers", kmers, dev)
     if kmers.dim() != 2 or not 1 <= kmers.shape[1] <= SEARCH_MAX_K:
         raise ValueError(f"kmers must be [B, K] with K <= {SEARCH_MAX_K}, "
@@ -726,9 +954,12 @@ def step_partial(sidx, k: int, kmers, lengths, col: int, lu, lead: bool):
     if lengths is not None:
         check_int32("lengths", lengths, dev, (B,))
     _check64("lu", lu, dev, (2 * B,))
-    out = torch.empty(2 * B, dtype=torch.int64, device=dev)
+    if out is None:
+        out = torch.empty(2 * B, dtype=torch.int64, device=dev)
+    else:
+        _check64("out", out, dev, (2 * B,))
     if B:
-        SHARD_OCC_PARTIAL(ctypes.addressof(v), TABLES[table], ptr(kmers),
+        SHARD_OCC_PARTIAL(v.addr, v.keys_addr, TABLES[table], ptr(kmers),
                           ptr(lengths), K, col, k, int(lead), ptr(lu), B,
                           ptr(out), device=dev)
     return out
@@ -737,27 +968,26 @@ def step_partial(sidx, k: int, kmers, lengths, col: int, lu, lead: bool):
 def lookup_partial(sidx, what: str, x, y=None):
     """K13: lookup ``what`` over ``sidx``'s run of shards, 0 where none
     owns the key (see :func:`lookup_partial_plain`): x (and y, the slots
-    of ``dollar_pair``) int64 [X] → int64 [X] ([2X] ``lf_mark``, [3X]
-    ``dollar_pair``).  One launch for a CUDA index, the plain form for a
+    of ``dollar_pair``) int64 [X] → int32 [X] ([3X] ``dollar_pair``), int64
+    [2X] ``lf_mark``.  One launch for a CUDA index, the plain form for a
     CPU index."""
     if what not in LOOKUPS:
         raise ValueError(f"no sharded lookup {what!r}")
     if not on_cuda(sidx.starts):
         return lookup_partial_plain(sidx, what, x, y)
     v = _view(sidx)
-    dev = sidx.starts.device
     X = x.shape[0]
-    _check64("x", x, dev, (X,))
+    _check64("x", x, v.device, (X,))
     if what == "dollar_pair":
         if y is None:
             raise ValueError("dollar_pair needs the mark-rank slots y")
-        _check64("y", y, dev, (X,))
-    out = torch.empty(LOOKUP_WIDTH.get(what, 1) * X, dtype=torch.int64,
-                      device=dev)
+        _check64("y", y, v.device, (X,))
+    out = torch.empty(LOOKUP_WIDTH.get(what, 1) * X, device=v.device,
+                      dtype=torch.int64 if what == "lf_mark" else torch.int32)
     if X:
-        SHARD_LOOKUP_PARTIAL(ctypes.addressof(v), LOOKUPS[what], ptr(x),
+        SHARD_LOOKUP_PARTIAL(v.addr, v.keys_addr, LOOKUPS[what], ptr(x),
                              ptr(y) if what == "dollar_pair" else None, X,
-                             ptr(out), device=dev)
+                             ptr(out), device=v.device)
     return out
 
 
@@ -769,15 +999,113 @@ def lut_level_partial(sidx, l, u, lead: bool, *, max_chunk: int = 1 << 22):
     if not on_cuda(sidx.starts):
         return lut_level_partial_plain(sidx, l, u, lead)
     v = _view(sidx)
-    dev = sidx.starts.device
     X = l.shape[0]
-    _check64("l", l, dev, (X,))
-    _check64("u", u, dev, (X,))
-    out = torch.empty(8 * X, dtype=torch.int64, device=dev)
+    _check64("l", l, v.device, (X,))
+    _check64("u", u, v.device, (X,))
+    out = torch.empty(8 * X, dtype=torch.int64, device=v.device)
     for a in range(0, X, max_chunk):
         SHARDED_LUT_LEVEL_PARTIAL(
-            ctypes.addressof(v), ptr(l) + 8 * a, ptr(u) + 8 * a,
+            v.addr, v.keys_addr, ptr(l) + 8 * a, ptr(u) + 8 * a,
             min(max_chunk, X - a), int(lead), ptr(out) + 8 * a, X,
-            device=dev,
+            device=v.device,
         )
     return out
+
+
+# ------------------------------------------------ the cross-rank walks' steps
+
+
+# csrc/sharded_partial.cu's Walk, field for field: every field 8 bytes, a
+# pointer as an integer address, 0 for a buffer the walk does not use
+_WALK_FIELDS = ("X", "lead", "rows", "valid", "cur", "done", "count",
+                "step32", "step64", "term64", "term32", "read_id", "offset",
+                "seen", "live")
+
+
+class WalkBuffers(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_longlong) for name in _WALK_FIELDS]
+
+
+def walk_state(sidx, rows, valid, lead: bool) -> WalkState:
+    """A cross-rank walk of ``rows`` (int64 [R], 0 where invalid) and
+    ``valid`` (bool [R]) on the index's route (lf or slow): its state and
+    buffers on the index's device, allocated and, for a CUDA index, checked
+    once for all of its steps.  ``lead``: this rank is its row's lead."""
+    kind = walk_kind(sidx)
+    if kind not in ("lf", "slow"):
+        raise ValueError(f"the {kind} route has no walk steps")
+    R = rows.shape[0]
+    dev = rows.device
+
+    def new(n, dtype):
+        return torch.empty(n, dtype=dtype, device=dev)
+
+    i32, i64 = torch.int32, torch.int64
+    st = WalkState(
+        kind=kind, lead=bool(lead), rows=rows, valid=valid, cur=new(R, i64),
+        done=new(R, torch.bool), count=new(R, i32), step32=new(R, i32),
+        step64=new(R, i64) if kind == "slow" else None,
+        term64=new(2 * R, i64) if kind == "lf" else None,
+        term32=new(3 * R if kind == "lf" else R, i32), read_id=new(R, i32),
+        offset=new(R, i32))
+    if not on_cuda(sidx.starts):
+        return st
+    v = _view(sidx)
+    _check64("rows", rows, v.device, (R,))
+    if valid.dtype != torch.bool or valid.shape != rows.shape or \
+            not valid.is_contiguous() or valid.device != v.device:
+        raise ValueError("valid must be a contiguous bool tensor shaped like "
+                         "rows, on the index's device")
+    b = st.buffers = WalkBuffers()
+    b.X, b.lead = R, int(lead)
+    for f in _WALK_FIELDS[2:-2]:
+        setattr(b, f, ptr(getattr(st, f)) or 0)
+    w = st.word = v.take_word()
+    weakref.finalize(st, v.give_word, w)
+    b.seen, b.live = ptr(w.seen), w.dev
+    return st
+
+
+def _walk_launch(kernel, sidx, st: WalkState, mode: str, *t) -> None:
+    v = _view(sidx)
+    st.word.seq += 1
+    st.seq = st.word.seq
+    if st.rows.shape[0]:
+        kernel(v.addr, v.keys_addr, ctypes.addressof(st.buffers),
+               WALK_MODES[mode], *t, st.seq, device=v.device)
+
+
+def lf_walk_step(sidx, st: WalkState, mode: str) -> None:
+    """The sampled-LF walk's step ``mode`` (``first``, ``step``, ``last``,
+    ``terminal`` or ``finish``; see :func:`lf_walk_step_plain`) on ``st``,
+    in place: one launch of ``rs_walk_lf_step`` for a CUDA index, the plain
+    form for a CPU index."""
+    if not on_cuda(sidx.starts):
+        return lf_walk_step_plain(sidx, st, mode)
+    if mode == "rank" or st.kind != "lf":
+        raise ValueError(f"no LF walk step {mode!r} on a {st.kind} walk")
+    _walk_launch(WALK_LF_STEP, sidx, st, mode)
+
+
+def slow_walk_step(sidx, st: WalkState, mode: str, t: int = 0) -> None:
+    """The slow walk's step ``mode`` (``first``, ``rank``, ``step``,
+    ``last`` or ``finish``, at step ``t``; see :func:`slow_walk_step_plain`)
+    on ``st``, in place: one launch of ``rs_walk_slow_step`` for a CUDA
+    index, the plain form for a CPU index."""
+    if not on_cuda(sidx.starts):
+        return slow_walk_step_plain(sidx, st, mode, t)
+    if mode == "terminal" or st.kind != "slow":
+        raise ValueError(f"no slow walk step {mode!r} on a {st.kind} walk")
+    _walk_launch(WALK_SLOW_STEP, sidx, st, mode, t)
+
+
+def walk_live(sidx, st: WalkState) -> bool:
+    """Whether a lane of the walk was live after its last ``first`` or
+    ``step``: for a CUDA index one wait for the stream, then the host word
+    that launch wrote (no reduction over the lanes, no copy); the plain
+    forms' report for a CPU index."""
+    if not on_cuda(sidx.starts):
+        return st.live
+    v = _view(sidx)
+    torch.cuda.current_stream(v.device).synchronize()
+    return ctypes.c_ulonglong.from_address(st.word.host).value == st.seq

@@ -23,9 +23,10 @@ forms:
 * every shard on one rank: the whole program in a few launches of kernels
   K9-K11 (``csrc/sharded.cu``), each position read at its owner shard;
 * the shards spread over the ranks of a dp row (or ``per_step``): the JAX
-  ``_query_body`` step for step, each step one rank's partial over its run
-  (K9's partial, K13 or K11's partial, ``csrc/sharded_partial.cu``), one
-  all-reduce over the row's ranks, then the update.
+  ``_query_body`` step for step, each step one launch of a rank's partial
+  over its run (K9's partial, K13, K11's partial or a walk step,
+  ``csrc/sharded_partial.cu``) and one all-reduce over the row's ranks,
+  whose output the next launch reads.
 
 Each runs the plain torch forms of ``ops/sharded.py`` for CPU tensors and
 the kernels for CUDA tensors.
@@ -34,7 +35,8 @@ the kernels for CUDA tensors.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+import functools
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -107,6 +109,10 @@ class ShardedIndex:
     max_read_len: int = 256
     sample_rate: int = 0
     dsa_bits: int = 0
+    # what ops/sharded.py builds once for the kernels of a placed index
+    # (its checked view); a replaced index starts with none
+    kernel_cache: dict = field(default_factory=dict, init=False, repr=False,
+                               compare=False)
 
     @property
     def log2_block(self) -> int:
@@ -471,12 +477,13 @@ def _query(
 class _Run:
     """One rank's run of the shards and its dp row's shard subgroup: each
     collective of the JAX program is this rank's partial over its run
-    (K9's partial, K13, K11's partial) and one all-reduce over the row's
-    ranks.  Every rank of the row holds the row's queries and sees the same
-    reduced values, so each takes the same branches and trip counts; the dp
-    rows never meet inside the program, so a row's loops stop on their own
-    where the JAX program makes the trip count dp-uniform with a pmax (the
-    answers are the same: a row's extra trips carry no live lane)."""
+    (K9's partial, K13, K11's partial, a walk step) and one all-reduce over
+    the row's ranks.  Every rank of the row holds the row's queries and
+    sees the same reduced values, so each takes the same branches and trip
+    counts; the dp rows never meet inside the program, so a row's loops
+    stop on their own where the JAX program makes the trip count
+    dp-uniform with a pmax (the answers are the same: a row's extra trips
+    carry no live lane)."""
 
     def __init__(self, sidx, mesh):
         self.s = sidx
@@ -486,9 +493,6 @@ class _Run:
     def reduce(self, t):
         return all_reduce(t, self.group)
 
-    def occ(self, table: str, c, i):
-        return self.reduce(sops.occ_partial(self.s, table, c, i))
-
     def lookup(self, what: str, x, y=None):
         return self.reduce(sops.lookup_partial(self.s, what, x, y))
 
@@ -496,10 +500,10 @@ class _Run:
 def _search_ranks(run, kmers, lengths, lut, p: int, kstep: int,
                   early_exit: bool):
     """The JAX ``_query_body``'s search: from the LUT or C, each step one
-    launch of K9's step partial and one all-reduce, whose output is the
-    next (l, u) → int64 (l, u) [B], empties (0, 0).  ``early_exit`` (the
-    k-step schedule only, as in the JAX program) stops once every interval
-    of the row is empty."""
+    launch of K9's step partial, written over the interval in place, and
+    one all-reduce, whose output is the next (l, u) → int64 (l, u) [B],
+    empties (0, 0).  ``early_exit`` (the k-step schedule only, as in the
+    JAX program) stops once every interval of the row is empty."""
     s = run.s
     B, K = kmers.shape
     if lut is not None:
@@ -518,74 +522,64 @@ def _search_ranks(run, kmers, lengths, lut, p: int, kstep: int,
     for j, k in sched:
         if kstep >= 2 and early_exit and not bool((lu[:B] < lu[B:]).any()):
             break
-        lu = run.reduce(sops.step_partial(s, k, kmers, lens, j, lu, run.lead))
+        run.reduce(sops.step_partial(s, k, kmers, lens, j, lu, run.lead,
+                                     out=lu))
     return canonical_empty(lu[:B], lu[B:])
 
 
-def _walk_ranks(run, rows, valid, walk_early_exit: bool):
-    """The JAX ``do_walk`` over global rows int64 [R] → (read_id, offset)
-    int32 [R], -1 where invalid or unterminated: the dsa gather (one
-    all-reduce), the sampled-LF walk (one a step, then the two fused
-    terminal pairs) or the slow walk (sym and rank a step, then the $-rank's
-    read).  ``walk_early_exit`` stops once every lane is done."""
+def _resolve_ranks(run, rows, valid, walk_early_exit: bool):
+    """The JAX ``do_walk`` over global rows int64 [R] and the sample lookup
+    after it → (read_id, offset, sample) int32 [R], read_id and offset -1
+    where invalid or unterminated, sample that of read id clip(read_id, 0,
+    m - 1).  The dsa gather is one K13 launch and all-reduce, then K13's
+    sample lookup and one more.  The LF and slow walks are one walk-step
+    launch and one all-reduce a step, the walk's state on the card between
+    them (:class:`ops.sharded.WalkState`): the LF walk a step, then the
+    fused terminal pairs; the slow walk the symbol and the rank a step,
+    then the $-rank's read; the last launch also writes the sample lookup's
+    partial.  ``walk_early_exit`` stops once every lane is done, as the
+    walk's last launch reports (one wait, no reduction over the lanes):
+    every lane's terminal partial is written as it ends, so the next
+    all-reduce is the terminal's."""
     s = run.s
-    m = s.num_reads
-    neg = torch.full(rows.shape, -1, dtype=torch.int32, device=rows.device)
     kind = sops.walk_kind(s)
     if kind == "dsa":
-        p = run.lookup("dsa", rows)
+        neg = torch.full(rows.shape, -1, dtype=torch.int32, device=rows.device)
+        p = run.lookup("dsa", rows).to(torch.int64) & 0xFFFFFFFF
         bits = s.dsa_bits
-        rid = (p >> bits).to(torch.int32)
-        off = (p & ((1 << bits) - 1)).to(torch.int32)
-        return torch.where(valid, rid, neg), torch.where(valid, off, neg)
+        rid = torch.where(valid, (p >> bits).to(torch.int32), neg)
+        off = torch.where(valid, (p & ((1 << bits) - 1)).to(torch.int32), neg)
+        return rid, off, run.lookup("sample", rid.to(torch.int64))
+    st = sops.walk_state(s, rows, valid, run.lead)
+    live = (lambda: sops.walk_live(s, st)) if walk_early_exit else (
+        lambda: True)
     if kind == "lf":
-        cur, done = rows, ~valid
-        steps = torch.zeros(rows.shape, dtype=torch.int32, device=rows.device)
-        for _ in range(max(s.sample_rate, 1)):
-            if walk_early_exit and bool(done.all()):
+        step = functools.partial(sops.lf_walk_step, s, st)
+        n = max(s.sample_rate, 1)
+        step("first")
+        for i in range(n):
+            if not live():
                 break
-            raw = run.lookup("lf", cur.contiguous()).to(torch.int32)
-            val = (raw & 0x7FFFFFFF).to(torch.int64)
-            is_term = (raw < 0) | (val < m)
-            step_now = ~done & ~is_term
-            cur = torch.where(step_now, val, cur)
-            steps = steps + step_now.to(torch.int32)
-            done = done | is_term
-        R = rows.shape[0]
-        both = run.lookup("lf_mark", cur.contiguous())
-        raw, slot = both[:R].to(torch.int32), both[R:]
-        is_marked = raw < 0
-        val = (raw & 0x7FFFFFFF).to(torch.int64)
-        cat = run.lookup("dollar_pair", val, slot)
-        rid_d = cat[:R].to(torch.int32)
-        pair = cat[R:].reshape(R, 2).to(torch.int32)
-        read_id = torch.where(is_marked, pair[:, 0], rid_d)
-        offset = torch.where(is_marked, pair[:, 1] + steps, steps)
-        ok = valid & done
-        return torch.where(ok, read_id, neg), torch.where(ok, offset, neg)
-    # the slow walk: carry the terminal $-rank, look the read up once
-    cur, done = rows, ~valid
-    drank = torch.full(rows.shape, -1, dtype=torch.int64, device=rows.device)
-    offset = neg.clone()
-    for t in range(s.max_read_len):
-        if walk_early_exit and bool(done.all()):
-            break
-        cur = cur.contiguous()
-        c = run.lookup("sym", cur).to(torch.int32)
-        o = run.occ("rank", c, cur)
-        hit = (c == 0) & ~done
-        drank = torch.where(hit, o, drank)
-        offset = torch.where(hit, torch.full_like(offset, t), offset)
-        done = done | (c == 0)
-        cur = torch.where(done, cur, s.C.index_select(0, c.to(torch.int64)) + o)
-    rid = run.lookup("dollar", drank.clamp(min=0)).to(torch.int32)
-    ok = valid & done
-    return torch.where(ok, rid, neg), torch.where(ok, offset, neg)
-
-
-def _sample_ranks(run, read_id):
-    """Read id (int32, -1 where none) → sample of clip(read id, 0, m - 1)."""
-    return run.lookup("sample", read_id.to(torch.int64)).to(torch.int32)
+            run.reduce(st.step32)  # the raw LF of cur
+            step("step" if i < n - 1 else "last")
+        run.reduce(st.term64)  # the (LF, mark rank) pairs
+        step("terminal")
+        run.reduce(st.term32)  # the (read id, pair) triples
+    else:
+        step = functools.partial(sops.slow_walk_step, s, st)
+        n = s.max_read_len
+        step("first")
+        for t in range(n):
+            if not live():
+                break
+            run.reduce(st.step32)  # the symbol at cur
+            step("rank", t)
+            run.reduce(st.step64)  # its rank before cur
+            step("step" if t < n - 1 else "last", t)
+        run.reduce(st.term32)  # the read ids of the $-ranks
+    step("finish")
+    run.reduce(st.step32)  # the samples of the read ids
+    return st.read_id, st.offset, st.step32
 
 
 def _sweep_ranks(run, l, u, window: int, max_rows: int | None,
@@ -611,10 +605,10 @@ def _sweep_ranks(run, l, u, window: int, max_rows: int | None,
         prev = torch.where(qc > 0, cum.index_select(0, (qc - 1).clamp(min=0)),
                            torch.zeros_like(qc))
         wrows = l.index_select(0, qc) + (g - prev)
-        rid, _ = _walk_ranks(run, torch.where(gvalid, wrows, 0), gvalid,
-                             walk_early_exit)
-        seg = qc * S + _sample_ranks(run, rid).to(torch.int64)
-        hist.index_add_(0, seg, gvalid.to(torch.int32))
+        _, _, smp = _resolve_ranks(run, torch.where(gvalid, wrows, 0), gvalid,
+                                   walk_early_exit)
+        hist.index_add_(0, qc * S + smp.to(torch.int64),
+                        gvalid.to(torch.int32))
         t += 1
     return hist.reshape(B, S), cum <= t * window
 
@@ -655,9 +649,8 @@ def _query_ranks(
         # (every rank of the row compacts alike: rows are reduced values)
         comp_rows, comp_valid, orig, keep = compact_rows(
             rows, valid, resolve_budget)
-        rid_c, off_c = _walk_ranks(run, comp_rows, comp_valid,
-                                   walk_early_exit)
-        smp_c = _sample_ranks(run, rid_c)
+        rid_c, off_c, smp_c = _resolve_ranks(run, comp_rows, comp_valid,
+                                             walk_early_exit)
         full = torch.full((F + 1,), -1, dtype=torch.int32, device=dev)
         read_id = full.scatter(0, orig, rid_c)[:F]
         offset = full.scatter(0, orig, off_c)[:F]
@@ -665,8 +658,8 @@ def _query_ranks(
             0, orig, smp_c)[:F]
         valid_w = valid & keep
     else:
-        read_id, offset = _walk_ranks(run, rows, valid, walk_early_exit)
-        sample = _sample_ranks(run, read_id)
+        read_id, offset, sample = _resolve_ranks(run, rows, valid,
+                                                 walk_early_exit)
         valid_w = valid
     S = sidx.num_samples
     seg = torch.arange(B, dtype=torch.int64, device=dev).repeat_interleave(

@@ -10,10 +10,12 @@ flag) and has each:
 1. join a gloo group of 2 and all-reduce a CUDA int64 tensor as it is: ok
    or the error;
 2. time, over gloo, the all-reduce the port runs
-   (``parallel/multihost.all_reduce`` of a CUDA tensor): int64 widths of a search step
-   (2 x 8192 lanes), a walk step (8192 x 64) and a LUT level (8 x 4^10),
-   each the median of ``--iters`` calls on the host clock, every call
-   ended by a sync of the card;
+   (``parallel/multihost.all_reduce`` of a CUDA tensor) at the widths and
+   types of its steps: a search step (2 x 8192 int64 lanes), a walk step
+   (8192 x 64 lanes, int64 as the ranks, int32 as the lookups and the
+   LF walk's steps) and a LUT level (8 x 4^10 int64), each the median of
+   ``--iters`` calls on the host clock, every call ended by a sync of the
+   card;
 3. join an NCCL group of 2 on the same device and all-reduce one int64:
    the outcome (ok, or the error NCCL raises) is reported, never retried.
 
@@ -32,9 +34,11 @@ import sys
 import time
 from datetime import timedelta
 
-WIDTHS = {"search step, 2 x 8192": 2 * 8192,
-          "walk step, 8192 x 64": 8192 * 64,
-          "LUT level, 8 x 4^10": 8 * 4**10}
+# name → (lanes, type)
+WIDTHS = {"search step, 2 x 8192": (2 * 8192, "int64"),
+          "walk step, 8192 x 64": (8192 * 64, "int64"),
+          "walk step int32, 8192 x 64": (8192 * 64, "int32"),
+          "LUT level, 8 x 4^10": (8 * 4**10, "int64")}
 
 
 def _free_port() -> int:
@@ -67,8 +71,8 @@ def rank_main(args) -> int:
     from readserver_tpu_torch.parallel.multihost import all_reduce
 
     times = {}
-    for name, width in WIDTHS.items():
-        t = torch.ones(width, dtype=torch.int64, device=dev)
+    for name, (width, dtype) in WIDTHS.items():
+        t = torch.ones(width, dtype=getattr(torch, dtype), device=dev)
         lat = []
         for it in range(args.iters + 3):
             dist.barrier()
@@ -80,7 +84,7 @@ def rank_main(args) -> int:
                 lat.append((time.perf_counter() - t0) * 1e3)
         lat.sort()
         times[name] = {"median_ms": lat[len(lat) // 2], "min_ms": lat[0],
-                       "max_ms": lat[-1], "int64": width}
+                       "max_ms": lat[-1], dtype: width}
     out["gloo_all_reduce"] = times
     dist.destroy_process_group()
     if args.rank == 0:  # before NCCL, whatever it does

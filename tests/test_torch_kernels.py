@@ -41,7 +41,10 @@ from readserver_tpu_torch.kernels import (
     SHARDED_LUT_LEVEL_PARTIAL,
     SHARDED_RESOLVE,
     SHARDED_SEARCH,
+    WALK_LF_STEP,
+    WALK_SLOW_STEP,
 )
+from readserver_tpu_torch.kernels import KERNELS
 from readserver_tpu_torch.kernels import build as kbuild
 from readserver_tpu_torch.ops import (
     DeviceIndex,
@@ -57,6 +60,7 @@ from readserver_tpu_torch.ops import resolve
 from readserver_tpu_torch.ops import search as search_ops
 from readserver_tpu_torch.ops import sharded as sops
 from readserver_tpu_torch import parallel as shard_par
+from readserver_tpu_torch.parallel import sharded as psh
 from readserver_tpu_torch.serve import MultiEngine, QueryEngine
 from readserver_tpu_torch.serve.engine import _copy_out
 from torch_common import cuda_device, t32  # noqa: F401
@@ -327,16 +331,14 @@ def test_kernel_launches_on_the_tensors_device(monkeypatch):
 
     @contextlib.contextmanager
     def fake_device(d):
-        seen.append(("device", str(d)))
+        seen.append(("device", str(torch.device("cuda", d))))
         yield
-
-    class FakeStream:
-        def __init__(self, d):
-            self.cuda_stream = 1000 + torch.device(d).index
 
     monkeypatch.setattr(kbuild.LIBRARY, "get", lambda: FakeLib())
     monkeypatch.setattr(torch.cuda, "device", fake_device)
-    monkeypatch.setattr(torch.cuda, "current_stream", FakeStream)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
     kernel = kbuild.Kernel("rs_rank_occ")
     with ThreadPoolExecutor(1, thread_name_prefix="device-batch") as ex:
         ex.submit(kernel, 1, 2, device=torch.device("cuda:3")).result()
@@ -1407,6 +1409,211 @@ def test_partial_kernels_match_plain(shard_packs, cuda_device, case, S, R):  # n
     assert SHARDED_LUT_LEVEL_PARTIAL.launches > launches[2]
 
 
+# (case, S, runs): runs of 1, 2 and 4 shards, one a rank
+WALK_STEP_CASES = [("small", 4, 4), ("small", 4, 2), ("small", 4, 1),
+                   ("six reads", 8, 2)]
+WALK_ROUTES = {"lf": _no_dsa, "slow": _slow}
+
+
+def _walk_lanes(whole, runs, rng, n_random=3000):
+    """Rows: random positions, every $ row, each run's first and last rows
+    and their neighbours; a quarter of the random ones invalid (row 0)."""
+    n = whole.n
+    sym = sops.sym_plain(whole, torch.arange(n, device=whole.starts.device))
+    edges = []
+    for r in runs:
+        a, b = int(r.starts[0]), int(r.starts[-1] + r.lens[-1])
+        edges += [e for e in (a - 1, a, a + 1, b - 2, b - 1) if 0 <= e < n]
+    dev = whole.starts.device
+    rows = torch.cat([torch.from_numpy(rng.integers(0, n, size=n_random)).to(
+        dev), torch.nonzero(sym == 0).reshape(-1),
+        torch.tensor(edges, device=dev, dtype=torch.int64)])
+    valid = torch.ones(rows.shape, dtype=torch.bool, device=dev)
+    valid[: n_random // 4] = False
+    return torch.where(valid, rows, 0).contiguous(), valid
+
+
+def _walk_lockstep(runs, rows, valid, kernel: bool):
+    """A whole cross-rank walk on every run, each step launched (``kernel``)
+    or its plain form run on the card, the all-reduces summed here → the
+    snapshots of every rank's state after each step, and each ``first`` and
+    ``step``'s live report."""
+    kind = sops.walk_kind(runs[0])
+    sts = [sops.walk_state(run, rows, valid, r == 0)
+           for r, run in enumerate(runs)]
+    fn = {("lf", True): sops.lf_walk_step, ("slow", True): sops.slow_walk_step,
+          ("lf", False): sops.lf_walk_step_plain,
+          ("slow", False): sops.slow_walk_step_plain}[kind, kernel]
+    fields = ("cur", "done", "count", "step32", "step64", "term64", "term32",
+              "read_id", "offset")
+    for st in sts:  # what a step has not written yet reads alike
+        for f in fields:
+            if getattr(st, f) is not None:
+                getattr(st, f).fill_(1 if f == "done" else -7)
+    snaps, lives = [], []
+
+    def step(mode, *t):
+        for run, st in zip(runs, sts):
+            fn(run, st, mode, *t)
+        if mode in ("first", "step"):
+            lives.append([st.live if not kernel else sops.walk_live(run, st)
+                          for run, st in zip(runs, sts)])
+        snaps.append([[None if getattr(st, f) is None
+                       else getattr(st, f).clone() for f in fields]
+                      for st in sts])
+
+    def reduce(f):
+        total = sum(getattr(st, f) for st in sts).to(getattr(sts[0], f).dtype)
+        for st in sts:
+            getattr(st, f).copy_(total)
+
+    step("first")
+    if kind == "lf":
+        n = max(runs[0].sample_rate, 1)
+        for i in range(n):
+            reduce("step32")
+            step("step" if i < n - 1 else "last")
+        reduce("term64")
+        step("terminal")
+        reduce("term32")
+    else:
+        n = runs[0].max_read_len
+        for t in range(n):
+            reduce("step32")
+            step("rank", t)
+            reduce("step64")
+            step("step" if t < n - 1 else "last", t)
+        reduce("term32")
+    step("finish")
+    reduce("step32")
+    return snaps, lives, sts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(WALK_ROUTES))
+@pytest.mark.parametrize("case, S, R", WALK_STEP_CASES)
+def test_walk_step_kernels_match_plain(shard_packs, cuda_device, route, case,
+                                       S, R):  # noqa: F811
+    """Every step of the LF and slow walks (first step, steps, last step,
+    the terminal, the finish) on runs of 4, 2 and 1 shards leaves every
+    rank's state and partials equal to the plain forms' run on the card,
+    max |err| 0, the live reports too; the walk's answers equal the
+    one-device plain walk; each step is one launch."""
+    runs, whole = _runs(shard_packs[1][case], S, R, cuda_device)
+    runs = [WALK_ROUTES[route](r) for r in runs]
+    whole = WALK_ROUTES[route](whole)
+    rows, valid = _walk_lanes(whole, runs, np.random.default_rng(S + R))
+    kern = WALK_LF_STEP if route == "lf" else WALK_SLOW_STEP
+    before = kern.launches
+    got, got_live, sts = _walk_lockstep(runs, rows, valid, True)
+    torch.cuda.synchronize()
+    assert kern.launches - before == len(got) * R
+    want, want_live, _ = _walk_lockstep(runs, rows, valid, False)
+    assert got_live == want_live
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        for r, (gr, wr) in enumerate(zip(g, w)):
+            for a, b in zip(gr, wr):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    assert a.dtype == b.dtype and torch.equal(a, b), (i, r)
+    rid, off = sops.walk_plain(whole, rows, valid)
+    assert torch.equal(sts[0].read_id, rid) and torch.equal(sts[0].offset, off)
+    assert torch.equal(sts[0].step32, sops.sample_plain(whole, rid))
+    assert int((rid >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, S, R", PARTIAL_CASES)
+def test_partials_32bit_sum_over_runs(shard_packs, cuda_device, case, S, R):  # noqa: F811
+    """K13's int32 partials (symbol, $-rank's read id, sample, dsa word, raw
+    LF, the (read id, pair) triple), summed in int32 over the runs, equal
+    the whole index's lookup; the (LF, mark rank) pair is int64."""
+    pk = shard_packs[1][case]
+    runs, whole = _runs(pk, S, R, cuda_device)
+    rng = np.random.default_rng(S + 3 * R)
+    dev = cuda_device
+    i = torch.from_numpy(_keys(runs[0], whole, rng).astype(np.int64)).to(dev)
+    ids = torch.arange(-2, pk.num_reads + 2, device=dev)
+    slots = torch.arange(-2, int(whole.slens.sum()) + 2, device=dev)
+    n = max(ids.numel(), slots.numel())
+    ids = torch.cat([ids, ids[:1].expand(n - ids.numel())]).contiguous()
+    slots = torch.cat([slots, slots[:1].expand(n - slots.numel())])
+    slots = slots.contiguous()
+    for what, x, y in (("sym", i, None), ("dsa", i, None), ("lf", i, None),
+                       ("dollar", ids, None), ("sample", ids, None),
+                       ("dollar_pair", ids, slots), ("lf_mark", i, None)):
+        parts = [sops.lookup_partial(run, what, x, y) for run in runs]
+        want = sops.lookup_partial_plain(whole, what, x, y)
+        assert parts[0].dtype == want.dtype == (
+            torch.int64 if what == "lf_mark" else torch.int32), what
+        assert torch.equal(sum(parts).to(want.dtype), want), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(WALK_ROUTES))
+@pytest.mark.parametrize("early", [False, True])
+def test_walk_one_launch_a_step(shard_packs, cuda_device, route, early,
+                                monkeypatch):  # noqa: F811
+    """Between two all-reduces of a cross-rank walk (a world of one), the
+    launch counters of every kernel grow by exactly one: the walk step's
+    (the sample partial rides on the finish)."""
+    s = WALK_ROUTES[route](_placed(shard_packs[1]["small"], 4, cuda_device))
+    rows, valid = _walk_lanes(s, [s], np.random.default_rng(7))
+    counts = []
+    monkeypatch.setattr(psh, "all_reduce", lambda t, group: (
+        counts.append(sum(k.launches for k in KERNELS.values())), t)[1])
+    run = psh._Run(s, shard_par.Mesh(shape={"dp": 1, "shard": 4},
+                                     device=cuda_device))
+    before = sum(k.launches for k in KERNELS.values())
+    kern = WALK_LF_STEP if route == "lf" else WALK_SLOW_STEP
+    k0 = kern.launches
+    rid, off, smp = psh._resolve_ranks(run, rows, valid, early)
+    torch.cuda.synchronize()
+    assert list(np.diff([before, *counts])) == [1] * len(counts)
+    assert kern.launches - k0 == len(counts)
+    want, want_off = sops.walk_plain(s, rows, valid)
+    assert torch.equal(rid, want) and torch.equal(off, want_off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(WALK_ROUTES))
+def test_walks_on_one_index_report_apart(shard_packs, cuda_device, route):  # noqa: F811
+    """Two walks on one placed index (a world of one, whose all-reduce
+    leaves a partial as it is), their launches interleaved as two threads'
+    batches may be: after every step each walk's live report is its own,
+    equal to its plain form's on the card, and each walk answers as the
+    one-device plain walk."""
+    s = WALK_ROUTES[route](_placed(shard_packs[1]["small"], 4, cuda_device))
+    lanes = [_walk_lanes(s, [s], np.random.default_rng(seed))
+             for seed in (11, 12)]
+    if route == "lf":
+        fn, plain = sops.lf_walk_step, sops.lf_walk_step_plain
+        n = max(s.sample_rate, 1)
+        plan = ([("first", ())] + [("step" if i < n - 1 else "last", ())
+                                   for i in range(n)]
+                + [("terminal", ()), ("finish", ())])
+    else:
+        fn, plain = sops.slow_walk_step, sops.slow_walk_step_plain
+        n = s.max_read_len
+        plan = [("first", ())] + [
+            m for t in range(n) for m in (("rank", (t,)), (
+                "step" if t < n - 1 else "last", (t,)))] + [("finish", ())]
+    sts = [sops.walk_state(s, rows, valid, True) for rows, valid in lanes]
+    pls = [sops.walk_state(s, rows, valid, True) for rows, valid in lanes]
+    assert sts[0].word is not sts[1].word
+    for mode, t in plan:
+        for st, pl in zip(sts, pls):
+            fn(s, st, mode, *t)
+            plain(s, pl, mode, *t)
+        if mode in ("first", "step"):
+            assert [sops.walk_live(s, st) for st in sts] == [
+                pl.live for pl in pls], (mode, t)
+    for st, (rows, valid) in zip(sts, lanes):
+        rid, off = sops.walk_plain(s, rows, valid)
+        assert torch.equal(st.read_id, rid) and torch.equal(st.offset, off)
+
+
 @pytest.mark.cuda
 def test_per_step_engine_on_card_runs_no_plain_form(shard_packs, cuda_device,
                                                     monkeypatch):  # noqa: F811
@@ -1439,6 +1646,7 @@ def test_per_step_engine_on_card_runs_no_plain_form(shard_packs, cuda_device,
     monkeypatch.setattr(rank_ops, "occ_rows_plain", refuse)
     before = (SHARD_OCC_PARTIAL.launches, SHARD_LOOKUP_PARTIAL.launches,
               SHARDED_SEARCH.launches, SHARDED_RESOLVE.launches)
+    walks = (WALK_LF_STEP.launches, WALK_SLOW_STEP.launches)
     for route, fn in (("dsa", None), ("lf", _no_dsa), ("slow", _slow)):
         if fn is not None:
             card.sidx = fn(card.sidx)
@@ -1447,6 +1655,7 @@ def test_per_step_engine_on_card_runs_no_plain_form(shard_packs, cuda_device,
     torch.cuda.synchronize()
     assert SHARD_OCC_PARTIAL.launches > before[0]
     assert SHARD_LOOKUP_PARTIAL.launches > before[1]
+    assert WALK_LF_STEP.launches > walks[0] and WALK_SLOW_STEP.launches > walks[1]
     assert (SHARDED_SEARCH.launches, SHARDED_RESOLVE.launches) == before[2:]
 
 
