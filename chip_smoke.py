@@ -64,10 +64,13 @@ are its own):
    tier dropped): ``build_sharded`` host seconds, K11's LUT equal to the
    monolithic engine's, the counts of phases 4-5 and the ``/reads`` of
    phase 8 equal on each route, the 128-sample cohort in 4 shards with
-   exact ``/samples`` equal to phase 9's monolithic engine, ``/info`` and
-   the query endpoints over REST; the sharded search, K11 and K10 must
-   have launched, and neither K9's generic entry, nor any single-device
-   kernel, nor a plain form of ``ops`` on a CUDA tensor;
+   exact ``/samples`` equal to phase 9's monolithic engine, its capped
+   ``/samples`` (``exact_attribution`` off) counting each query's hits by
+   sample, ``/info`` and the query endpoints over REST; the sharded
+   search, K11, K10, K14 (its int64 entry, the gather with the walk's
+   samples) and K15 (its sample mode) must have launched, and neither
+   K9's generic entry, nor any other single-device kernel, nor a plain
+   form of ``ops`` (or ``compact_rows``) on a CUDA tensor;
 12. ingest and maintenance (``serve_ingest``): the port's CLI, each
    command in a process of its own as a user runs it on the card's host,
    at full size: the cohort simulated to FASTA, written as FASTQ and BAM,
@@ -86,10 +89,11 @@ are its own):
    shards through the cross-rank program forced per step, one engine per
    route: K11's partial LUT equal to phase 11's, the counts of phases 4-5
    and the ``/reads`` of phase 8 on each route, the cohort's exact
-   ``/samples`` equal to phase 11's, a batch's all-reduces equal to
-   ``query_psum_estimate`` on each route; only K9's partial, K13, K11's
-   partial and the walk steps may launch, and no plain form of ``ops`` on
-   a CUDA tensor; each route's ``/reads`` batch of 4096 x 2 profiled once
+   ``/samples`` equal to phase 11's, exact and capped, a batch's
+   all-reduces equal to ``query_psum_estimate`` on each route; only K9's
+   partial, K13, K11's partial, the walk steps, K14 and K15 may launch,
+   K14 and K15 must, and no plain form of ``ops`` on a CUDA tensor; each
+   route's ``/reads`` batch of 4096 x 2 profiled once
    and split into the all-reduces, the step kernels' device time and the
    host time between steps (``cross_rank_split``), where on the lf and
    slow routes every two all-reduces must have one launch and no torch op
@@ -125,7 +129,8 @@ are its own):
    cohort 8-mers, whose worklist the 1,048,576-row cap cuts); K14 and K15
    on E. coli's 524,288 lanes under the 314,572-row budget (width 8192
    and the full budget) and on each of phase 14's cohort doc shards, K14
-   also against the torch ops it replaced;
+   also with the hit step's ``read_to_sample`` column and against the
+   torch ops it replaced;
 7. timing: the chase yardstick (``rs_chase``, no kernel of a path): one
    warp's time per dependent 64-byte read (t_row) through both fused
    tables, cold and warm, and the rate at K6's 76,521 walks and at a full
@@ -142,8 +147,11 @@ are its own):
    the chain bound (the longest chain's dependent reads x t_row, warm and
    at the E. coli table's cold t_row); K8's
    (the torch sparse pack's) bytes and time on the ``/reads`` 4096 x 2
-   request; K14 and K15 at width 8192 and at the full budget, with the
-   plain forms and the torch ops they replaced; where a served count, ``/reads`` (dsa and mark-walk engines)
+   request; K14 (and its gather's ``read_to_sample`` column) and K15 at
+   width 8192 and at the full budget, over distinct input sets in turn
+   until together they need twice the L2, with the plain forms and, over
+   the same sets, the torch ops they replaced; where a served count,
+   ``/reads`` (dsa and mark-walk engines)
    and ``/samples`` request's time goes (host stages, device busy share,
    top device ops); the mark-walk engine's ``/reads`` requests through
    the walk kernel and through the plain walk, in turns; and the cohort
@@ -155,11 +163,15 @@ are its own):
    phase 11's shapes, max |err| 0 (K9 on 2 x 262,144 random ranks, K11 at
    every level of the p = 12 build, the sharded search in every mode at
    width 8192, K10 on each route's engine at 8192 x 64 lanes and its
-   exact sweep on the cohort's width-8192 batch at window 32,768), and on
-   distinct input sets of those shapes, enough that together they need
-   twice the 50 MB L2; then, the sets in turn, each one's wrapper, device
-   and plain times, bytes bound (of the sets' mean bytes) and, for the
-   search and the walks, chain bound.
+   exact sweep on the cohort's width-8192 batch at window 32,768, K14's
+   int64 entry and its gather with the walk's samples and K15's sample
+   mode on the hit lanes of 8192 searched under the 314,572-row budget),
+   and on distinct input sets of those shapes, enough that together they
+   need twice the 50 MB L2; then, the sets in turn, each one's wrapper,
+   device and plain times, bytes bound (of the sets' mean bytes) and,
+   for the search and the walks, chain bound; and the interval programs'
+   compaction, scatter back and histogram as the torch ops they were
+   against K14 + K15, outputs equal, over the same sets.
 
 13b. cross-rank kernels (``check_rank_kernels``): K9's partial, K13, K11's
    partial and every step of the LF and slow walks (``walk_pair_err``)
@@ -188,8 +200,11 @@ over phase 9b's partition checks;
 one and ``chain_cold_ms`` it at the cold t_row, ``held_by`` the larger of
 the first two; ``resolve_walk`` also carries each walk's reading at width
 8192 and at a full budget under ``walks``; K14's and K15's entries their
-reading at the full budget under ``full_budget``, and ``row_compact`` the
-doc merge's collectives under ``doc_collectives``; the cross-rank kernels
+other readings under ``readings`` (the full budget, the gather's
+``read_to_sample`` column, the interval index's int64 rows and sample
+mode), and ``row_compact`` the interval programs' torch ops against K14 +
+K15 under ``interval_ops`` and the doc merge's collectives under
+``doc_collectives``; the cross-rank kernels
 their other shapes and modes under ``readings``, and ``shard_occ_partial``
 the cross-rank design readings, phase 13's request splits among them).
 The last line is ``{"ok": true, "device": {...}}``, printed only when
@@ -879,8 +894,8 @@ PLAIN_MODULES = ("rank", "lut", "search", "resolve", "sharded")
 @contextlib.contextmanager
 def plain_calls_on_card():
     """Count the calls of the plain forms (every ``*_plain`` function of
-    ``PLAIN_MODULES``, and the walks' plain forms) that are handed a CUDA
-    tensor or an index on the card → {"n": count}."""
+    ``PLAIN_MODULES``, ``compact_rows``, and the walks' plain forms) that
+    are handed a CUDA tensor or an index on the card → {"n": count}."""
     import importlib
 
     import torch
@@ -907,7 +922,8 @@ def plain_calls_on_card():
     for mod in (importlib.import_module(f"readserver_tpu_torch.ops.{m}")
                 for m in PLAIN_MODULES):
         for name, fn in list(vars(mod).items()):
-            if name.endswith("_plain") and callable(fn):
+            if (name.endswith("_plain") or name == "compact_rows") \
+                    and callable(fn):
                 saved.append((mod, name, fn))
                 setattr(mod, name, counted(fn))
     walks = dict(resolve._WALKS)
@@ -931,6 +947,48 @@ ROUTE_DROPS = {
 }
 
 
+# K14's and K15's kernels, which the interval paths launch beside their own
+COMPACT_KERNELS = ("row_compact", "row_gather", "capped_histogram")
+
+
+def serve_capped(cpacked, scfg, mesh, dev, kms, want, what: str) -> list:
+    """The cohort on an interval engine over ``mesh`` with capped
+    attribution (``exact_attribution`` off: K14's compaction and its
+    gather with the walk's samples, K15's sample mode): the ``/samples``
+    of ``kms`` on one strand, hits included; each histogram must count the
+    query's hits by sample and be complete iff no hit was cut, and the
+    counts and hits must equal ``want``'s → the answers."""
+    from collections import Counter
+
+    from readserver_tpu_torch.serve import QueryEngine
+
+    t0 = time.perf_counter()
+    e = QueryEngine(cpacked, dataclasses.replace(scfg,
+                                                 exact_attribution=False),
+                    mesh, device=dev)
+    up = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = e.query_batch(kms)
+    dt = time.perf_counter() - t0
+    names = e.sample_names
+    for r in got:
+        hist = Counter(names[h["sample_id"]] for h in r.hits)
+        check(hist == Counter({k: v for k, v in r.sample_hist.items() if v}),
+              f"{what}: the capped histogram of {r.kmer} is not its hits'")
+        check(r.sample_hist_complete == (len(r.hits) == r.count),
+              f"{what}: capped completeness of {r.kmer}")
+    hkey = lambda r: (r.count, r.hits, r.hits_truncated)  # noqa: E731
+    check([hkey(r) for r in got] == [hkey(r) for r in want],
+          f"{what}: capped engine's counts and hits differ")
+    counted = sum(sum(r.sample_hist.values()) for r in got)
+    log(f"{what}, capped attribution: up in {up:.3f}s, /samples of "
+        f"{len(kms)} cohort queries with hits in {dt * 1e3:.3f} ms, each "
+        f"histogram its hits' by sample ({counted} counted, "
+        f"{sum(not r.sample_hist_complete for r in got)} incomplete), "
+        f"counts and hits equal to the reference's")
+    return got
+
+
 def serve_interval(packed, engine, cpacked, ceng, cfg, dev, qs, served,
                    reads_served, c256, c4096, zero_launches, read_launches):
     """Phase 11: E. coli in SHARDS interval shards on the card through
@@ -941,8 +999,10 @@ def serve_interval(packed, engine, cpacked, ceng, cfg, dev, qs, served,
     engine's answers (phases 4 and 8, which the oracle checked), the
     128-sample cohort's exact ``/samples`` against phase 9's monolithic
     engine, and ``/info`` and the query endpoints over REST; no plain form
-    of ops on a CUDA tensor, and no single-device kernel → (the
-    E. coli sharded engines by route, the cohort's sharded engine)."""
+    of ops on a CUDA tensor, and no single-device kernel but K14 and K15;
+    the cohort with capped attribution (:func:`serve_capped`) → (the
+    E. coli sharded engines by route, the cohort's sharded engine, the
+    capped engine's answers)."""
     import torch
     from readserver_tpu_torch.ops import sharded as sops
     from readserver_tpu_torch.parallel import make_mesh
@@ -1032,6 +1092,8 @@ def serve_interval(packed, engine, cpacked, ceng, cfg, dev, qs, served,
                 f"sweep cap)")
         check(ceng_s.query_batch(ckms["256"][0]) == mono_reads,
               "interval cohort /reads differ from the monolithic engine's")
+        capped = serve_capped(cpacked, scfg, mesh, dev, ckms["256"][0],
+                              mono_reads, "cohort interval engine")
         # REST: /info and the query endpoints over the port's front
         km = decode_all(qs[1][1][:3])
         reqs = [("GET", "/info", None)] + [
@@ -1062,18 +1124,22 @@ def serve_interval(packed, engine, cpacked, ceng, cfg, dev, qs, served,
             f"and {len(reqs) - 1} query requests answered as the engine "
             f"answers")
     launches = read_launches("interval")
-    for name in ("sharded_search", "sharded_lut_level", "sharded_resolve"):
+    for name in ("sharded_search", "sharded_lut_level", "sharded_resolve",
+                 *COMPACT_KERNELS):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the interval path")
     check(launches["shard_occ"] == 0, "K9's generic entry launched on the "
           "interval path")
-    single = {n: c for n, c in launches.items() if not n.startswith("shard")}
+    single = {n: c for n, c in launches.items()
+              if not n.startswith("shard") and n not in COMPACT_KERNELS}
     check(not any(single.values()), f"single-device kernels launched on the "
           f"interval path: {single}")
     check(plain["n"] == 0, f"{plain['n']} plain forms of ops ran on the card "
           "on the interval path")
-    log("no plain form of ops ran on a CUDA tensor on the interval path")
-    return engines, ceng_s
+    log("no plain form of ops ran on a CUDA tensor on the interval path; "
+        "launches of K14 and K15 there: "
+        + ", ".join(f"{n} {launches[n]}" for n in COMPACT_KERNELS))
+    return engines, ceng_s, capped
 
 
 def free_port() -> int:
@@ -1140,8 +1206,8 @@ def stop_rank_group(procs, logs: Path, sig_first: bool) -> list[int]:
 
 
 def serve_ranks(packed, cache, cpacked, cfg, dev, qs, served, reads_served,
-                engines11, ceng_s, c256, c4096, zero_launches, read_launches,
-                card):
+                engines11, ceng_s, capped11, c256, c4096, zero_launches,
+                read_launches, card):
     """Phase 13: interval shards across the ranks of a process group.
     (b)'s two ranks start first, in their own processes (loading and
     building beside (a)).  (a), counted from 0: this process joins an NCCL
@@ -1151,8 +1217,10 @@ def serve_ranks(packed, cache, cpacked, cfg, dev, qs, served, reads_served,
     phase 11's, the counts of phases 4-5 and the ``/reads`` of phase 8 on
     each route, the cohort's exact ``/samples`` equal to phase 11's cohort
     engine, and a batch's all-reduces equal to ``query_psum_estimate`` on
-    each route; only K9's partial, K13 and K11's partial may launch, and no
-    plain form of ops on a CUDA tensor.  (b): the same answers over REST
+    each route, and the cohort's capped ``/samples`` equal to phase 11's
+    (:func:`serve_capped`); only K9's partial, K13, K11's partial, the walk
+    steps, K14 and K15 may launch, and no plain form of ops on a CUDA
+    tensor.  (b): the same answers over REST
     from the two ranks' rank 0, then a clean stop of the follower → (the
     (a) engines by route, the all-reduce counts)."""
     import torch
@@ -1256,6 +1324,10 @@ def serve_ranks(packed, cache, cpacked, cfg, dev, qs, served, reads_served,
                 log(f"/samples request of {name} cohort queries: "
                     f"{dt * 1e3:.3f} ms, exact histograms equal to phase "
                     f"11's")
+            got = serve_capped(cpacked, scfg, mesh, dev, ckms["256"][0],
+                               capped11, "cross-rank cohort engine")
+            check(got == capped11, "cross-rank capped /samples differ from "
+                  "phase 11's")
             # where a world-of-one /reads of 4096 x 2 spends its time, by
             # route, and every step of the lf and slow routes in the trace
             for route, e in engines.items():
@@ -1268,16 +1340,19 @@ def serve_ranks(packed, cache, cpacked, cfg, dev, qs, served, reads_served,
                     f"world of one (NCCL)", card,
                     check_steps=route != "dsa")
         launches = read_launches("ranks")
-        for name in RANK_KERNELS:
+        for name in (*RANK_KERNELS, *COMPACT_KERNELS):
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the cross-rank path")
-        other = {n: c for n, c in launches.items() if n not in RANK_KERNELS}
+        other = {n: c for n, c in launches.items()
+                 if n not in RANK_KERNELS and n not in COMPACT_KERNELS}
         check(not any(other.values()), f"other kernels launched on the "
               f"cross-rank path: {other}")
         check(plain["n"] == 0, f"{plain['n']} plain forms of ops ran on "
               "the card on the cross-rank path")
-        log("no single-device kernel, no fused sharded kernel and no plain "
-            "form of ops ran on the cross-rank path")
+        log("no single-device kernel but K14 and K15, no fused sharded "
+            "kernel and no plain form of ops ran on the cross-rank path; "
+            "launches of K14 and K15 there: "
+            + ", ".join(f"{n} {launches[n]}" for n in COMPACT_KERNELS))
         pay = RestServer(Dispatcher(engines["dsa"]), "127.0.0.1", 0)
         pay = pay._result_payload
         samples_want = [pay(r, "samples", False) for r in engines[
@@ -1746,94 +1821,163 @@ def serve_doc(args, cohort, meng, ceng, cfg, dev, c256, c4096, want_c,
     return engines, coll
 
 
-def time_compaction(engine_f, intervals, batch, fb, H: int,
-                    card: str) -> dict:
+def interval_torch_ops(l, u, H: int, R: int, rid_c, off_c, smp_c, S: int):
+    """The interval programs' compaction, scatter back and capped
+    histogram as torch ops, as ``parallel/sharded.py`` ran them before K14
+    and K15 served them (the JAX ``_query_body``, 902-942, op for op), on
+    int64 intervals and the walk's answers → (read_id, offset, valid,
+    hist)."""
+    import torch
+    from readserver_tpu_torch.ops import resolve
+
+    B = l.shape[0]
+    F = B * H
+    dev = l.device
+    span = torch.arange(H, dtype=torch.int64, device=dev)
+    rows = (l[:, None] + span[None, :]).reshape(-1)
+    valid = (span[None, :] < (u - l)[:, None]).reshape(-1)
+    rows = torch.where(valid, rows, torch.zeros_like(rows))
+    _, _, orig, keep = resolve.compact_rows(rows, valid, R)
+    full = torch.full((F + 1,), -1, dtype=torch.int32, device=dev)
+    read_id = full.scatter(0, orig, rid_c)[:F]
+    offset = full.scatter(0, orig, off_c)[:F]
+    sample = torch.zeros(F + 1, dtype=torch.int32, device=dev).scatter(
+        0, orig, smp_c)[:F]
+    valid_w = valid & keep
+    seg = torch.arange(B, dtype=torch.int64, device=dev).repeat_interleave(
+        H) * S + sample.to(torch.int64)
+    hist = torch.zeros(B * S, dtype=torch.int32, device=dev)
+    hist.index_add_(0, seg, valid_w.to(torch.int32))
+    return (read_id.reshape(B, H), offset.reshape(B, H),
+            valid_w.reshape(B, H), hist.reshape(B, S))
+
+
+def interval_kernel_ops(l, u, H: int, R: int, rid_c, off_c, smp_c, S: int):
+    """The same through K14's int64 entry with the walk's sample column
+    and K15's sample mode (``parallel/sharded._hit_lanes``)."""
+    from readserver_tpu_torch.ops import resolve
+
+    _, _, prefix = resolve.compact_lanes(l, u, H, R)
+    rid, off, smp, valid = resolve.gather_lanes(l, u, H, R, prefix, rid_c,
+                                                off_c, smp_c=smp_c)
+    return rid, off, valid, resolve.lane_histogram(smp, valid, S)
+
+
+def time_ops(sets, fn, what: str, card: str, kernels_ms=None):
+    """Torch ops ``fn(*x)`` over the input ``sets`` in turn: the call's
+    time (CUDA events, median of 3 passes) and its device time over every
+    op (profiler), logged beside ``kernels_ms``, the device time of the
+    kernels that replace them → (ms, device ms)."""
+    import torch
+
+    turn = itertools.cycle(sets)
+    call = lambda: fn(*next(turn))  # noqa: E731
+    call()
+    torch.cuda.synchronize()
+    iters = max(len(sets), N_ROT)
+    ms = float(np.median([time_cuda(call, iters) for _ in range(3)]))
+    dev_ms = kernel_device_ms(call, iters, "")
+    log(f"replaced torch ops, {what} ({len(sets)} distinct input sets in "
+        f"turn): {ms:.4f} ms a call (CUDA events), device {fmt_ms(dev_ms)} "
+        f"ms over its ops (profiler), against the kernels' "
+        f"{fmt_ms(kernels_ms)} ms | {card}")
+    return ms, dev_ms
+
+
+def time_compaction(engine_f, intervals, makers, H: int, card: str) -> dict:
     """Phase 7: K14 (its compaction and its gather back, around K6's walk
-    of the fused engine) and K15 (the capped histogram of the lanes it
-    gives back) at width 8192 and at the full budget: wrapper ms (CUDA
-    events), device ms (profiler), the plain forms' ms, bytes bound (each
-    input read once, each output written once, each ``read_to_sample``
-    entry once); and, beside them, the torch ops they replaced
-    (``compact_rows`` and the scatters back; the gather and
-    ``index_add_``) → summary entries by name (width 8192) and by name
-    and " (full budget)"."""
+    of the fused engine; the gather also with the hit step's
+    ``read_to_sample`` column) and K15 (the capped histogram of the lanes
+    it gives back) at width 8192 and at the full budget, each over
+    distinct input sets in turn (``makers[what](j)``: the j-th batch of
+    queries), as many as together need twice the L2
+    (:func:`time_cases`): wrapper ms (CUDA events), device ms (profiler),
+    the plain forms' ms, bytes bound (each input read once, each output
+    written once, each ``read_to_sample`` entry once; K15 reads a lane's
+    id or sample only where its flag is set, so its ids count on the
+    walked slots alone); and, beside them
+    over the same sets, the torch ops they replaced (``compact_rows`` and
+    the scatters back; the hit step's clipped gather and ``torch.where``s;
+    the gather and ``index_add_``) → summary entries by name (width 8192)
+    and by name and " (full budget)" (the column's ", full budget")."""
     import torch
     from readserver_tpu_torch.ops import resolve
 
     out = {}
     idx = engine_f.index
+    R = engine_f.row_budget
     S = max(idx.num_samples, 1)
-    for what, kms in (("width 8192", batch), ("full budget", fb)):
-        l, u = intervals(engine_f, kms)
-        R = engine_f.row_budget
-        B = l.shape[0]
-        F = B * H
-        rows_c, valid_c, prefix = resolve.compact_lanes(l, u, H, R)
-        rid_c, off_c = resolve.resolve_rows_fused(idx, rows_c, valid_c)
-        rid, off, kept = resolve.gather_lanes(l, u, H, R, prefix, rid_c,
-                                              off_c)
-        slots = min(int(prefix[-1]), R)
-        rows, valid, _ = resolve.expand_intervals(l, u, H)
+    r2s, m = idx.read_to_sample, idx.num_reads
+    for what, make in makers.items():
+        def lanes(j):
+            l, u = intervals(engine_f, make(j))
+            rows_c, valid_c, prefix = resolve.compact_lanes(l, u, H, R)
+            rid_c, off_c = resolve.resolve_rows_fused(idx, rows_c, valid_c)
+            rid, _, kept = resolve.gather_lanes(l, u, H, R, prefix, rid_c,
+                                                off_c)
+            return l, u, prefix, rid_c, off_c, rid, kept
 
-        def replaced():
-            comp, cval, orig, keep = resolve.compact_rows(rows, valid, R)
+        sets, _, _ = in_turn(lanes, lambda *x: (
+            8 * x[0].shape[0] + 4 * (x[0].shape[0] + 1) + 5 * R, None))
+        B = sets[0][0].shape[0]
+        F = B * H
+        slots = int(np.mean([min(int(x[2][-1]), R) for x in sets]))
+        hits = int(np.mean([distinct(x[5][x[6]]) for x in sets]))
+        gather = lambda col: lambda l, u, p, rc, oc, *_: (  # noqa: E731
+            resolve.gather_lanes(l, u, H, R, p, rc, oc, **col))
+        gather_plain = lambda col: lambda l, u, p, rc, oc, *_: (  # noqa: E731
+            resolve.gather_lanes_plain(l, u, H, R, p, rc, oc, **col))
+        col = dict(read_to_sample=r2s, num_reads=m)
+        shape = f"{what}: {F} lanes, budget {R}, {slots} slots walked (mean)"
+        cases = [
+            ("row_compact", "row_compact",
+             lambda l, u, *_: resolve.compact_lanes(l, u, H, R),
+             lambda l, u, *_: resolve.compact_lanes_plain(l, u, H, R), sets,
+             shape, 8 * B + 4 * (B + 1) + 5 * R, None),
+            ("row_gather", "row_gather", gather({}), gather_plain({}), sets,
+             shape, 4 * (B + 1) + 8 * slots + 9 * F, None),
+            ("row_gather (read_to_sample)", "row_gather", gather(col),
+             gather_plain(col), sets, shape + ", the hit step's sample "
+             "column", 4 * (B + 1) + 8 * slots + 4 * hits + 13 * F,
+             None),
+            ("capped_histogram", "capped_hist",
+             lambda *x: resolve.sample_histogram(idx, x[5], x[6]),
+             lambda *x: resolve.sample_histogram_plain(idx, x[5], x[6]),
+             sets, shape + f", S = {S}", F + 4 * slots + 4 * hits
+             + 4 * B * S, None),
+        ]
+        got = time_cases(cases, None, card)
+        for name, v in got.items():
+            if what != "width 8192":  # "name (what)", "name (mode, what)"
+                name = (name[:-1] + f", {what})" if name.endswith(")")
+                        else f"{name} ({what})")
+            out[name] = v
+
+        def replaced(l, u, p, rid_c, off_c, *_):
+            rows, valid, _ = resolve.expand_intervals(l, u, H)
+            _, _, orig, keep = resolve.compact_rows(rows, valid, R)
             full = torch.full((F + 1,), -1, dtype=torch.int32,
                               device=rows.device)
             return (full.scatter(0, orig, rid_c)[:F],
                     full.scatter(0, orig, off_c)[:F], valid & keep)
 
-        cases = (
-            ("row_compact", "compact_s",
-             lambda: resolve.compact_lanes(l, u, H, R),
-             lambda: resolve.compact_lanes_plain(l, u, H, R),
-             8 * B + 4 * (B + 1) + 5 * R),
-            ("row_gather", "compact_gather",
-             lambda: resolve.gather_lanes(l, u, H, R, prefix, rid_c, off_c),
-             lambda: resolve.gather_lanes_plain(l, u, H, R, prefix, rid_c,
-                                                off_c),
-             8 * B + 4 * (B + 1) + 8 * slots + 9 * F),
-            ("capped_histogram", "capped_hist",
-             lambda: (resolve.sample_histogram(idx, rid, kept),),
-             lambda: (resolve.sample_histogram_plain(idx, rid, kept),),
-             5 * F + distinct(rid[kept]) * 4 + 4 * B * S),
-        )
-        dev_of = {}
-        for name, kname, kern, plain, nbytes in cases:
-            check(max_err(zip(kern(), plain())) == 0,
-                  f"{name} disagrees with its plain form ({what})")
-            torch.cuda.synchronize()
-            t_kern, t_plain = [], []
-            for _ in range(3):  # interleaved: kernel, plain
-                t_kern.append(time_cuda(kern, 20))
-                t_plain.append(time_cuda(plain, 20))
-            dev_ms = kernel_device_ms(kern, 10, kname)
-            dev_of[name] = dev_ms
-            tk, tp = float(np.median(t_kern)), float(np.median(t_plain))
-            bnd = bound_ms(nbytes)
-            shape = (f"{what}: {F} lanes, budget {R}, {slots} slots walked"
-                     + (f", S = {S}" if name == "capped_histogram" else ""))
-            log(f"{name} ({shape}): wrapper {tk:.4f} ms, kernel device "
-                f"time {fmt_ms(dev_ms)} ms (profiler) | plain torch "
-                f"{tp:.4f} ms (CUDA events), outputs equal | needs {nbytes} "
-                f"B: bytes bound {bnd:.4f} ms, device time at "
-                f"{ratio(bnd, dev_ms)} of it | {card}")
-            key = name if what == "width 8192" else f"{name} (full budget)"
-            out[key] = (tk, tp, dev_ms, bnd, shape, None)
-        # the torch ops K14 and K15 replaced, on the same inputs
-        for name, fn, kdev in (
+        def hit_tail(l, u, p, rid_c, off_c, *_):
+            rid, off, valid = resolve.gather_lanes(l, u, H, R, p, rid_c, off_c)
+            smp = resolve._clip_take(r2s, rid, m)
+            return (torch.where(valid, rid, -1), torch.where(valid, off, -1),
+                    torch.where(valid, smp, -1), valid)
+
+        dev = {k: got[k][2] or 0.0 for k in got}
+        for name, fn, kms in (
                 ("compact_rows and the scatters back", replaced,
-                 (dev_of["row_compact"] or 0) + (dev_of["row_gather"] or 0)),
-                ("read_to_sample gather and index_add_", lambda:
-                 resolve.sample_histogram_plain(idx, rid, kept),
-                 dev_of["capped_histogram"])):
-            fn()
-            torch.cuda.synchronize()
-            ms = float(np.median([time_cuda(fn, 20) for _ in range(3)]))
-            dev_ms = kernel_device_ms(fn, 10, "")
-            log(f"replaced torch ops, {name} ({what}): {ms:.4f} ms a call "
-                f"(CUDA events), device {fmt_ms(dev_ms)} ms over its ops "
-                f"(profiler), against the kernels' {fmt_ms(kdev)} ms | "
-                f"{card}")
+                 dev["row_compact"] + dev["row_gather"]),
+                ("the hit step's gather back, clipped read_to_sample gather "
+                 "and torch.where", hit_tail,
+                 dev["row_gather (read_to_sample)"]),
+                ("read_to_sample gather and index_add_",
+                 lambda *x: resolve.sample_histogram_plain(idx, x[5], x[6]),
+                 dev["capped_histogram"])):
+            time_ops(sets, fn, f"{name} ({what})", card, kms)
     return out
 
 
@@ -3189,6 +3333,66 @@ def check_interval_kernels(engines, ceng_s, cpacked, batch, cbatch, rot,
             f"rows in the served batch over 128 samples, window {SW}, "
             f"{route} route", nb, chain))
 
+    # K14's int64 entry (with the walk's sample column) and K15's sample
+    # mode at phase 11's shapes: the served batch and the slices, searched
+    # on the interval index, compacted under the engine's budget and walked
+    # by the dsa route; then the torch ops they replaced, over the same sets
+    from readserver_tpu_torch.ops import resolve
+
+    R = max(int(eng.cfg.resolve_budget_frac * W * H), 1)
+    S1 = s.num_samples
+
+    def interval_lanes(j):
+        l, u = sops.search(s, slices[j], None, eng.lut, p, 3)
+        rows_c, valid_c, prefix = resolve.compact_lanes(l, u, H, R)
+        rid_c, off_c, smp_c = sops.resolve(s, rows_c, valid_c)
+        _, _, smp, kept = resolve.gather_lanes(l, u, H, R, prefix, rid_c,
+                                               off_c, smp_c=smp_c)
+        return l, u, prefix, rid_c, off_c, smp_c, smp, kept
+
+    isets, _, _ = in_turn(interval_lanes, lambda *x: (
+        16 * W + 4 * (W + 1) + 9 * R, None))
+    slots = int(np.mean([min(int(x[2][-1]), R) for x in isets]))
+    F = W * H
+    what = (f"width {W}, int64 intervals, {F} lanes, budget {R}, {slots} "
+            f"slots walked (mean)")
+    compact_cases = [
+        ("row_compact (interval)", "row_compact",
+         lambda l, u, *_: resolve.compact_lanes(l, u, H, R),
+         lambda l, u, *_: resolve.compact_lanes_plain(l, u, H, R), isets,
+         what, 16 * W + 4 * (W + 1) + 9 * R, None),
+        ("row_gather (interval)", "row_gather",
+         lambda l, u, pr, rc, oc, sc, *_: resolve.gather_lanes(
+             l, u, H, R, pr, rc, oc, smp_c=sc),
+         lambda l, u, pr, rc, oc, sc, *_: resolve.gather_lanes_plain(
+             l, u, H, R, pr, rc, oc, smp_c=sc), isets,
+         what + ", the walk's sample column",
+         4 * (W + 1) + 12 * slots + 13 * F, None),
+        ("capped_histogram (interval)", "capped_hist",
+         lambda *x: resolve.lane_histogram(x[6], x[7], S1),
+         lambda *x: resolve.lane_histogram_plain(x[6], x[7], S1), isets,
+         what + f", sample mode, S = {S1}", F + 4 * slots + 4 * W * S1,
+         None),
+    ]
+    compact_out = time_cases(compact_cases, None, card)
+    ops = lambda fn: lambda l, u, pr, rc, oc, sc, *_: fn(  # noqa: E731
+        l, u, H, R, rc, oc, sc, S1)
+    for x in isets:
+        check(max_err(zip(ops(interval_kernel_ops)(*x),
+                          ops(interval_torch_ops)(*x))) == 0,
+              "K14 + K15 differ from the interval program's torch ops")
+    kdev = sum(compact_out[n][2] or 0.0 for n, *_ in compact_cases)
+    t_ms, t_dev = time_ops(
+        isets, ops(interval_torch_ops), "the interval programs' compaction, "
+        "scatter back and index_add_ (JAX _query_body 902-942)", card, kdev)
+    k_ms, k_dev = time_ops(
+        isets, ops(interval_kernel_ops), "the same through K14 and K15 "
+        "(parallel/sharded._hit_lanes), outputs equal", card, kdev)
+    interval_ops = dict(torch_ms=t_ms, torch_device_ms=t_dev,
+                        kernels_ms=k_ms, kernels_device_ms=k_dev,
+                        kernels_sum_device_ms=kdev, sets=len(isets),
+                        shape=what)
+
     errs = {"sharded_lut_level": lut_err}
     out, routes = {}, {}
     for name, got in time_cases(cases, t_row, card).items():
@@ -3202,6 +3406,8 @@ def check_interval_kernels(engines, ceng_s, cpacked, batch, cbatch, rot,
                 device_ms=dev_ms, ms=tk, plain_ms=tp, bound_ms=bnd,
                 chain_ms=chain_ms, share=None if not dev_ms else held / dev_ms,
                 shape=what)
+    out.update(compact_out)
+    out["interval_ops"] = interval_ops
     # where a served interval request's time goes, by route
     for route, e in engines.items():
         log(f"served on the interval engine, {route} route:")
@@ -3799,7 +4005,7 @@ def run(args) -> dict:
 
     # ------------------------------------------------- 11. interval shards
     with phase("11 interval shards"):
-        shard_engines, ceng_s = serve_interval(
+        shard_engines, ceng_s, capped = serve_interval(
             packed, engine, cpacked, ceng, cfg, dev,
             (("1", q1, False), ("256", q256, False), ("4096x2", q4096, True)),
             served, reads_served, c256, c4096, zero_launches, read_launches)
@@ -3816,8 +4022,8 @@ def run(args) -> dict:
         rank_engines, rank_reduces, rank_split = serve_ranks(
             packed, cache, cpacked, cfg, dev,
             (("1", q1, False), ("256", q256, False), ("4096x2", q4096, True)),
-            served, reads_served, shard_engines, ceng_s, c256, c4096,
-            zero_launches, read_launches, card)
+            served, reads_served, shard_engines, ceng_s, capped, c256,
+            c4096, zero_launches, read_launches, card)
 
     # ------------------------------------------------- 14. doc shards
     with phase("14 doc shards"):
@@ -4218,6 +4424,14 @@ def run(args) -> dict:
             got = resolve.gather_lanes(kl, ku, H, R, prefix, rid_c, off_c)
             err14 = max(err14, max_err(zip(got, resolve.gather_lanes_plain(
                 kl, ku, H, R, prefix, rid_c, off_c))))
+            # the hit step's read_to_sample column
+            col = dict(read_to_sample=x.read_to_sample,
+                       num_reads=x.num_reads)
+            err14 = max(err14, max_err(zip(
+                resolve.gather_lanes(kl, ku, H, R, prefix, rid_c, off_c,
+                                     **col),
+                resolve.gather_lanes_plain(kl, ku, H, R, prefix, rid_c,
+                                           off_c, **col))))
             rows, valid, _ = resolve.expand_intervals(kl, ku, H)
             crow_r, cval_r, orig, keep = resolve.compact_rows(rows, valid, R)
             F = rows.numel()
@@ -4234,8 +4448,9 @@ def run(args) -> dict:
             log(f"K14 and K15, {what}: {F} lanes, budget {R}, "
                 f"{int(valid.sum())} valid, {int(valid_c.sum())} walked, "
                 f"S = {max(x.num_samples, 1)}: max |err| {err14} (compaction"
-                f", gather back, and against compact_rows + the scatters "
-                f"back) and {err15} (histogram)")
+                f", gather back with and without the read_to_sample column, "
+                f"and against compact_rows + the scatters back) and {err15} "
+                f"(histogram)")
             check(err14 == 0 and err15 == 0,
                   f"K14 or K15 disagrees with its plain form ({what})")
         summary.update(k14_err=k14_err, k15_err=k15_err)
@@ -4692,8 +4907,25 @@ def run(args) -> dict:
         # capped sample histogram) beside the torch ops they replaced, at
         # width 8192 (the E. coli 4096 x 2 batch) and at the full budget
         # (4096 10-mers x 2)
-        summary.update(time_compaction(engine_f, intervals, batches[8192],
-                                       fb, H, card))
+        # distinct E. coli batches of width 8192 (the served batch, then
+        # slices of the distinct timing batches) and of 4096 10-mers on
+        # both strands (the full budget's batch, then more with other seeds)
+        def width_8192(j):
+            if j == 0:
+                return batches[8192]
+            b = rot[(j - 1) // (B_TIME // 8192) % N_ROT]
+            k = (j - 1) % (B_TIME // 8192)
+            return decode_all(b[k * 8192:(k + 1) * 8192].cpu().numpy())
+
+        def full_budget(j):
+            return fb if j == 0 else engine_f._expand_rc(decode_all(
+                simulate.sample_query_kmers_fast(
+                    corpus, 4096, kf, seed=args.seed + 100 + j,
+                    miss_frac=0.0)))[0]
+
+        summary.update(time_compaction(
+            engine_f, intervals,
+            {"width 8192": width_8192, "full budget": full_budget}, H, card))
         for e, qs, tier in ((engine, q4096, "count"),
                             (engine, q4096, "reads"),
                             (engine_m, q4096, "reads"),
@@ -4882,18 +5114,23 @@ def run(args) -> dict:
                         ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                         bound_ms=bnd, chain_ms=chain_ms,
                         chain_cold_ms=cold(chain_ms), shape=shape)
-    # K14's and K15's readings at the full budget, and the doc merge's
-    # collectives (phase 14: NCCL in the group of one; gloo between two
-    # ranks on the card)
+    # K14's and K15's other readings (phase 7 at the full budget and the
+    # gather's read_to_sample column, phase 11b on the interval index), the
+    # interval programs' torch ops against K14 + K15 (phase 11b), and the
+    # doc merge's collectives (phase 14: NCCL in the group of one; gloo
+    # between two ranks on the card)
     for k in kernels:
-        full = summary.get(f"{k['name']} (full budget)")
-        if full is not None:
-            ms, plain_ms, device_ms, bnd, shape, _ = full
-            k["full_budget"] = dict(ms=ms, device_ms=device_ms,
-                                    plain_ms=plain_ms, bound_ms=bnd,
-                                    shape=shape)
-    next(k for k in kernels if k["name"] == "row_compact")[
-        "doc_collectives"] = doc_coll
+        if k["name"] in COMPACT_KERNELS:
+            k["readings"] = {}
+            for name in summary:
+                if name.startswith(k["name"] + " ("):
+                    ms, plain_ms, device_ms, bnd, shape, _ = summary[name]
+                    k["readings"][name[len(k["name"]) + 2:-1]] = dict(
+                        ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                        bound_ms=bnd, shape=shape)
+    row_compact = next(k for k in kernels if k["name"] == "row_compact")
+    row_compact["interval_ops"] = summary["interval_ops"]
+    row_compact["doc_collectives"] = doc_coll
     return dict(kernels=kernels, card=card)
 
 

@@ -26,9 +26,11 @@
   group sum by one all-reduce; launched by ``ops/sharded.py``.
 * ``ROW_COMPACT`` and ``ROW_GATHER`` (K14) and ``CAPPED_HISTOGRAM`` (K15),
   ``csrc/compact.cu``: the resolve's row-budget compaction (the prefix of
-  each query's hit lanes and the budget's rows, then the walk's answers
-  gathered back to the lanes) and the capped per-sample histogram;
-  launched by ``ops/resolve.py``.
+  each query's hit lanes and the budget's int32 or int64 rows, then the
+  walk's answers, and a sample column, gathered back to the lanes) and
+  the capped per-sample histogram (by read id or by the lanes' samples);
+  launched by ``ops/resolve.py`` on one device, on doc shards and on the
+  interval shards' programs (``parallel/sharded.py``).
 
 Each is a :class:`~readserver_tpu_torch.kernels.build.Kernel` carrying its
 launch count in ``launches``.

@@ -73,9 +73,10 @@ SIGNATURES = {
     "rs_host_word": [_P, _P],
     "rs_host_word_free": [_P],
     # the row-budget compaction and the capped histogram (csrc/compact.cu)
-    "rs_row_compact": [_P, _P, _L, _I, _L, _P, _P, _P],
-    "rs_row_gather": [_P, _P, _L, _I, _L, _P, _P, _P, _P, _P, _P],
-    "rs_capped_histogram": [_P, _P, _L, _I, _P, _L, _I, _P],
+    "rs_row_compact": [_P, _P, _I, _L, _I, _L, _P, _P, _P, _P],
+    "rs_row_gather": [_P, _L, _I, _L, _P, _P, _I, _P, _L, _P, _P, _P, _P,
+                      _P],
+    "rs_capped_histogram": [_P, _P, _L, _I, _P, _L, _I, _P, _P],
 }
 
 

@@ -27,8 +27,9 @@ form for CPU tensors, with no fallback between them:
   prefix of each query's hit lanes, the budget's slots filled from their
   queries, and the walk's answers gathered back to the lanes
   (:func:`compact_lanes`, :func:`gather_lanes`);
-* K15, the capped per-sample histogram of the resolved hit lanes
-  (:func:`sample_histogram`).
+* K15, the capped per-sample histogram of the resolved hit lanes, by
+  their read ids or by the samples a walk gave them
+  (:func:`sample_histogram`, :func:`lane_histogram`).
 
 In the JAX package the walks are XLA loops, not Pallas.  The slow walk's
 ``rank_fn``/``sym_fn`` hooks run only in the plain form; on CUDA tensors
@@ -621,8 +622,9 @@ def compact_rows(rows: torch.Tensor, valid: torch.Tensor, R_c: int):
     """The row-budget compaction as a prefix-sum scatter: the first ``R_c``
     valid lanes in flat order → ``(rows [R_c], valid [R_c], orig [R_c],
     keep [F])``, where ``orig`` is each compact slot's flat lane (F where
-    the slot is empty) and ``keep`` marks the lanes kept.  The plain form
-    K14 is held against, and the interval-sharded program's compaction."""
+    the slot is empty) and ``keep`` marks the lanes kept.  The JAX
+    package's compaction op for op: the plain form K14 is held against,
+    which no served path runs."""
     F = rows.shape[0]
     dev = rows.device
     v32 = valid.to(torch.int32)
@@ -660,15 +662,30 @@ def compact_lanes_plain(l, u, max_hits: int, row_budget: int):
     return comp_rows, comp_valid, _lane_prefix(l, u, max_hits)
 
 
-def _check_lanes(l, u, max_hits: int, row_budget: int) -> None:
-    B = l.shape[0]
-    check_int32("l", l, l.device, (B,))
-    check_int32("u", u, l.device, (B,))
-    if max_hits < 1 or row_budget < 0 or B * max_hits >= 1 << 31:
+def _check_budget(B: int, max_hits: int, row_budget: int) -> None:
+    if (max_hits < 1 or not 0 <= row_budget < 1 << 31
+            or B * max_hits >= 1 << 31):
         raise ValueError(
-            f"K14 takes max_hits >= 1, row_budget >= 0 and fewer than 2^31 "
-            f"lanes, got B={B}, max_hits={max_hits}, row_budget={row_budget}"
+            f"K14 takes max_hits >= 1, 0 <= row_budget < 2^31 and fewer "
+            f"than 2^31 lanes, got B={B}, max_hits={max_hits}, "
+            f"row_budget={row_budget}"
         )
+
+
+def _check_lanes(l, u, max_hits: int, row_budget: int) -> int:
+    """Raise ``ValueError`` unless K14's compaction takes these intervals
+    → 1 for int64 rows, 0 for int32."""
+    B = l.shape[0]
+    for name, t in (("l", l), ("u", u)):
+        if (t.device != l.device or t.dtype != l.dtype
+                or t.dtype not in (torch.int32, torch.int64)
+                or not t.is_contiguous() or tuple(t.shape) != (B,)):
+            raise ValueError(
+                f"{name} must be a contiguous int32 or int64 tensor of shape "
+                f"({B},) on {l.device}, as l is; got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    _check_budget(B, max_hits, row_budget)
+    return int(l.dtype == torch.int64)
 
 
 def compact_lanes(
@@ -677,36 +694,48 @@ def compact_lanes(
     """The row-budget compaction before a walk.  Lane (b, h) of the
     ``[B, max_hits]`` expansion holds SA row ``l[b] + h`` where ``h <
     u[b] - l[b]``; the first ``row_budget`` valid lanes in flat order →
-    ``(rows int32 [row_budget], valid bool [row_budget], prefix int32
+    ``(rows [row_budget], valid bool [row_budget], prefix int32
     [B + 1])``, a slot past them row 0 and invalid, ``prefix`` the
     exclusive prefix of each query's lanes (:func:`gather_lanes` reads it).
-    K14 for CUDA tensors: one block scans the queries' lanes, then each
-    slot finds its query by a binary search of the prefix.  The plain form
-    for CPU tensors."""
+    ``l`` and ``u`` are int32 (one device's rows) or int64 (the interval
+    shards' global rows), and the rows take their type.  K14 for CUDA
+    tensors: one launch, every block scanning the queries' lanes in shared
+    memory and filling its own stretch of slots.  The plain form for CPU
+    tensors."""
     if not on_cuda(l):
         return compact_lanes_plain(l, u, max_hits, row_budget)
-    l, u = l.contiguous(), u.contiguous()
-    _check_lanes(l, u, max_hits, row_budget)
+    # the kernel reads l and u as 16-byte vectors
+    l, u = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone()
+            for t in (l, u))
+    row64 = _check_lanes(l, u, max_hits, row_budget)
     B = l.shape[0]
     dev = l.device
     prefix = torch.empty(B + 1, dtype=torch.int32, device=dev)
-    rows = torch.empty(row_budget, dtype=torch.int32, device=dev)
+    rows = torch.empty(row_budget, dtype=l.dtype, device=dev)
     valid = torch.empty(row_budget, dtype=torch.bool, device=dev)
-    ROW_COMPACT(ptr(l), ptr(u), B, max_hits, row_budget, ptr(prefix),
+    ROW_COMPACT(ptr(l), ptr(u), row64, B, max_hits, row_budget, ptr(prefix),
                 ptr(rows), ptr(valid), device=dev)
     return rows, valid, prefix
 
 
 def gather_lanes_plain(l, u, max_hits: int, row_budget: int, prefix,
-                       rid_c, off_c):
+                       rid_c, off_c, smp_c=None, read_to_sample=None,
+                       num_reads: int = 0):
     """Plain form of :func:`gather_lanes`."""
     span = torch.arange(max_hits, dtype=torch.int64, device=l.device)
     pos = prefix[:-1, None].to(torch.int64) + span[None, :]
     keep = (span[None, :] < (u - l)[:, None]) & (pos < row_budget)
     slot = torch.where(keep, pos, torch.full_like(pos, row_budget))
     none = torch.full((1,), -1, dtype=torch.int32, device=l.device)
-    return (_take(torch.cat([rid_c, none]), slot),
-            _take(torch.cat([off_c, none]), slot), keep)
+    rid = _take(torch.cat([rid_c, none]), slot)
+    off = _take(torch.cat([off_c, none]), slot)
+    if smp_c is not None:  # a dropped lane's sample is 0
+        return rid, off, _take(torch.cat([smp_c, torch.zeros_like(none)]),
+                               slot), keep
+    if read_to_sample is not None:
+        smp = _clip_take(read_to_sample, rid, num_reads)
+        return rid, off, torch.where(keep, smp, _neg(smp)), keep
+    return rid, off, keep
 
 
 def gather_lanes(
@@ -717,29 +746,65 @@ def gather_lanes(
     prefix: torch.Tensor,
     rid_c: torch.Tensor,
     off_c: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    smp_c: torch.Tensor | None = None,
+    read_to_sample: torch.Tensor | None = None,
+    num_reads: int = 0,
+) -> tuple[torch.Tensor, ...]:
     """After the walk of :func:`compact_lanes`' slots: each lane's answer
     back from its slot → ``(read_id, offset, valid)`` [B, max_hits], -1
-    and invalid where the lane held no hit or fell past the budget.  K14's
-    gather for CUDA tensors, the plain form for CPU tensors."""
+    and invalid where the lane held no hit or fell past the budget.  With
+    ``smp_c`` (the walk's samples [row_budget], the interval programs) or
+    ``read_to_sample`` (and ``num_reads``: the single-device hit step) a
+    third column ``sample`` comes before ``valid``: the slot's sample, 0
+    where the lane drops (the JAX program clips a dropped lane's -1 to
+    read 0 and counts it with weight 0), or ``read_to_sample[clip(rid, 0,
+    num_reads - 1)]``, -1 where the lane drops.  K14's gather for CUDA
+    tensors (each query's lanes read off ``prefix``, four lanes a thread),
+    the plain form for CPU tensors."""
+    if smp_c is not None and read_to_sample is not None:
+        raise ValueError("gather_lanes takes smp_c or read_to_sample, "
+                         "not both")
     if not on_cuda(l):
         return gather_lanes_plain(l, u, max_hits, row_budget, prefix, rid_c,
-                                  off_c)
-    l, u = l.contiguous(), u.contiguous()
-    _check_lanes(l, u, max_hits, row_budget)
+                                  off_c, smp_c, read_to_sample, num_reads)
     B = l.shape[0]
     dev = l.device
+    _check_budget(B, max_hits, row_budget)
     check_int32("prefix", prefix, dev, (B + 1,))
     check_int32("rid_c", rid_c, dev, (row_budget,))
     check_int32("off_c", off_c, dev, (row_budget,))
+    column, col = 0, None
+    if smp_c is not None:
+        check_int32("smp_c", smp_c, dev, (row_budget,))
+        column, col = 1, smp_c
+    elif read_to_sample is not None:
+        check_int32("read_to_sample", read_to_sample, dev)
+        if not 1 <= num_reads <= read_to_sample.shape[0]:
+            raise ValueError(f"K14 takes 1 <= num_reads <= "
+                             f"len(read_to_sample), got {num_reads}")
+        column, col = 2, read_to_sample
     rid = torch.empty((B, max_hits), dtype=torch.int32, device=dev)
     off = torch.empty_like(rid)
+    smp = torch.empty_like(rid) if column else None
     valid = torch.empty((B, max_hits), dtype=torch.bool, device=dev)
     if B:
-        ROW_GATHER(ptr(l), ptr(u), B, max_hits, row_budget, ptr(prefix),
-                   ptr(rid_c), ptr(off_c), ptr(rid), ptr(off), ptr(valid),
-                   device=dev)
-    return rid, off, valid
+        ROW_GATHER(ptr(prefix), B, max_hits, row_budget, ptr(rid_c),
+                   ptr(off_c), column, ptr(col), num_reads, ptr(rid),
+                   ptr(off), ptr(smp), ptr(valid), device=dev)
+    return (rid, off, smp, valid) if column else (rid, off, valid)
+
+
+def _budget_walk(walk, l, u, max_hits: int, row_budget: int | None, **col):
+    """K14 around ``walk`` where ``row_budget`` cuts the B * max_hits
+    lanes: :func:`compact_lanes`, the walk of the budget's rows and
+    :func:`gather_lanes` (with ``col``'s third column, if any) → the
+    gather's tuple; None where no budget cuts."""
+    if row_budget is None or row_budget >= l.shape[0] * max_hits:
+        return None
+    rows_c, valid_c, prefix = compact_lanes(l, u, max_hits, row_budget)
+    rid_c, off_c = walk(rows_c, valid_c)
+    return gather_lanes(l, u, max_hits, row_budget, prefix, rid_c, off_c,
+                        **col)
 
 
 def resolve_intervals(
@@ -769,10 +834,9 @@ def resolve_intervals(
 
     B = l.shape[0]
     dsa = index.dsa is not None and index.dsa_bits > 0 and use_fast is None
-    if not dsa and row_budget is not None and row_budget < B * max_hits:
-        rows_c, valid_c, prefix = compact_lanes(l, u, max_hits, row_budget)
-        rid_c, off_c = walk(rows_c, valid_c)
-        return gather_lanes(l, u, max_hits, row_budget, prefix, rid_c, off_c)
+    got = None if dsa else _budget_walk(walk, l, u, max_hits, row_budget)
+    if got is not None:
+        return got
     rows, valid, _ = expand_intervals(l, u, max_hits)
     read_id, offset = walk(rows, valid)
     return (
@@ -791,14 +855,20 @@ def resolve_hits(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The engine's hit step: → ``(read_id, offset, sample, valid)`` [B, H]
     with -1 on every lane that holds no hit.  Through K5 in one pass when
-    dsa ships (for CUDA tensors); else :func:`resolve_intervals` (with its
-    row budget) and a clipped ``read_to_sample`` gather."""
+    dsa ships (for CUDA tensors); else, under a row budget that cuts,
+    :func:`compact_lanes`, the walk and :func:`gather_lanes` with the
+    ``read_to_sample`` column (K14 on the card); else
+    :func:`resolve_intervals` and a clipped ``read_to_sample`` gather."""
     if index.dsa is not None and index.dsa_bits > 0:
         rid, off, smp = resolve_dsa_hits(index, l, u, max_hits)
         return rid, off, smp, rid >= 0
-    rid, off, valid = resolve_intervals(
-        index, l, u, max_hits, row_budget=row_budget
-    )
+    # the sample column gathered back with the answers
+    got = _budget_walk(select_walk(index), l, u, max_hits, row_budget,
+                       read_to_sample=index.read_to_sample,
+                       num_reads=index.num_reads)
+    if got is not None:
+        return got
+    rid, off, valid = resolve_intervals(index, l, u, max_hits)
     smp = _clip_take(index.read_to_sample, rid, index.num_reads)
     return (
         torch.where(valid, rid, _neg(rid)),
@@ -918,6 +988,58 @@ def exact_sample_histogram(
     return hist.reshape(B, S), cum <= tw * window
 
 
+def lane_histogram_plain(sample, valid, num_samples: int) -> torch.Tensor:
+    """Plain form of :func:`lane_histogram`: an ``index_add_``, the JAX
+    ``segment_sum``."""
+    B, H = sample.shape
+    seg = (
+        torch.arange(B, dtype=torch.int64, device=sample.device)[:, None]
+        * num_samples + sample.to(torch.int64)
+    )
+    flat = torch.zeros(B * num_samples, dtype=torch.int32,
+                       device=sample.device)
+    flat.index_add_(0, seg.reshape(-1), valid.to(torch.int32).reshape(-1))
+    return flat.reshape(B, num_samples)
+
+
+def _histogram(ids, valid, read_to_sample, num_reads: int, S: int):
+    """K15 over ``ids`` [B, H] int32 (read ids where ``read_to_sample`` is
+    given, else samples) and ``valid`` bool [B, H] → int32 [B, S]."""
+    B, H = ids.shape
+    dev = ids.device
+    ids, valid = ids.contiguous(), valid.contiguous()
+    check_int32("ids", ids, dev)
+    if valid.dtype != torch.bool or valid.shape != ids.shape:
+        raise ValueError("valid must be a bool tensor shaped like the lanes")
+    if S < 1:
+        raise ValueError(f"K15 takes num_samples >= 1, got {S}")
+    if read_to_sample is not None:
+        check_int32("read_to_sample", read_to_sample, dev)
+        if not 1 <= num_reads <= read_to_sample.shape[0]:
+            raise ValueError(f"K15 takes 1 <= num_reads <= "
+                             f"len(read_to_sample), got {num_reads}")
+    if not B * H:
+        return torch.zeros((B, S), dtype=torch.int32, device=dev)
+    hist = torch.empty((B, S), dtype=torch.int32, device=dev)
+    CAPPED_HISTOGRAM(ptr(ids), ptr(valid), B, H, ptr(read_to_sample),
+                     num_reads, S, ptr(hist), device=dev)
+    return hist
+
+
+def lane_histogram(
+    sample: torch.Tensor,  # int32 [B, H]
+    valid: torch.Tensor,   # bool  [B, H]
+    num_samples: int,
+) -> torch.Tensor:
+    """Per-query per-sample counts [B, num_samples] of the lanes
+    ``valid`` marks, each under its own ``sample`` (the interval programs'
+    capped histogram, whose walk gave each lane's sample).  K15's sample
+    mode for CUDA tensors, the plain form for CPU tensors."""
+    if not on_cuda(sample):
+        return lane_histogram_plain(sample, valid, num_samples)
+    return _histogram(sample, valid, None, 0, num_samples)
+
+
 def sample_histogram_plain(
     index: DeviceIndex,
     read_id: torch.Tensor,  # int32 [B, H]
@@ -925,16 +1047,8 @@ def sample_histogram_plain(
 ) -> torch.Tensor:
     """Plain form of :func:`sample_histogram`: a gather of each lane's
     sample and an ``index_add_``."""
-    B, H = read_id.shape
-    S = max(index.num_samples, 1)
     sample = _clip_take(index.read_to_sample, read_id, index.num_reads)
-    seg = (
-        torch.arange(B, dtype=torch.int64, device=read_id.device)[:, None] * S
-        + sample.to(torch.int64)
-    )
-    flat = torch.zeros(B * S, dtype=torch.int32, device=read_id.device)
-    flat.index_add_(0, seg.reshape(-1), valid.to(torch.int32).reshape(-1))
-    return flat.reshape(B, S)
+    return lane_histogram_plain(sample, valid, max(index.num_samples, 1))
 
 
 def sample_histogram(
@@ -945,25 +1059,9 @@ def sample_histogram(
     """Per-query per-sample hit counts [B, num_samples] over the resolved
     (capped) hit lanes; a valid lane's sample is ``read_to_sample[clip(rid,
     0, num_reads - 1)]`` (a walk's -1 counts under sample 0's read, as the
-    JAX package clips it).  K15 for CUDA tensors: a block's run of queries
-    counted into a shared-memory histogram by integer atomics.  The plain
-    form for CPU tensors."""
+    JAX package clips it).  K15 for CUDA tensors: a warp a query, its bins
+    in the warp's shared memory.  The plain form for CPU tensors."""
     if not on_cuda(read_id):
         return sample_histogram_plain(index, read_id, valid)
-    B, H = read_id.shape
-    S = max(index.num_samples, 1)
-    dev = read_id.device
-    read_id, valid = read_id.contiguous(), valid.contiguous()
-    check_int32("read_id", read_id, dev)
-    check_int32("read_to_sample", index.read_to_sample, dev)
-    if valid.dtype != torch.bool or valid.shape != read_id.shape:
-        raise ValueError("valid must be a bool tensor shaped like read_id")
-    if not 1 <= index.num_reads <= index.read_to_sample.shape[0]:
-        raise ValueError(f"K15 takes 1 <= num_reads <= len(read_to_sample), "
-                         f"got {index.num_reads}")
-    if not B * H:
-        return torch.zeros((B, S), dtype=torch.int32, device=dev)
-    hist = torch.empty((B, S), dtype=torch.int32, device=dev)
-    CAPPED_HISTOGRAM(ptr(read_id), ptr(valid), B, H, ptr(index.read_to_sample),
-                     index.num_reads, S, ptr(hist), device=dev)
-    return hist
+    return _histogram(read_id, valid, index.read_to_sample, index.num_reads,
+                      max(index.num_samples, 1))

@@ -28,8 +28,11 @@ forms:
   ``csrc/sharded_partial.cu``) and one all-reduce over the row's ranks,
   whose output the next launch reads.
 
-Each runs the plain torch forms of ``ops/sharded.py`` for CPU tensors and
-the kernels for CUDA tensors.
+Both compact the hit lanes under the resolve budget and gather the walk's
+answers back with K14, and count the capped histogram with K15
+(``csrc/compact.cu``, through ``ops/resolve.py``).  Each runs the plain
+torch forms of ``ops/sharded.py`` and ``ops/resolve.py`` for CPU tensors
+and the kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -45,7 +48,11 @@ import torch
 from readserver_tpu_torch import alphabet
 from readserver_tpu_torch.index import packing
 from readserver_tpu_torch.ops import sharded as sops
-from readserver_tpu_torch.ops.resolve import compact_rows
+from readserver_tpu_torch.ops.resolve import (
+    compact_lanes,
+    gather_lanes,
+    lane_histogram,
+)
 from readserver_tpu_torch.ops.search import (
     _refused,
     canonical_empty,
@@ -395,6 +402,34 @@ def place_sharded(sidx: ShardedIndex, mesh) -> ShardedIndex:
 # --------------------------------------------------------- the query program
 
 
+def _hit_lanes(l, u, H: int, budget: int | None, walk):
+    """The JAX ``_query_body``'s hit lanes (902-929) over int64 intervals,
+    ``walk(rows int64 [R], valid bool [R]) → (read_id, offset, sample)``
+    int32 [R] → ``(read_id, offset, valid, sample, fit)``: [B, H] each, -1
+    (sample 0) on lanes that hold no hit or were dropped, and ``fit`` bool
+    [B], the interval fit the cap and no lane of it was dropped.  Under a
+    budget that cuts, K14 compacts the first ``budget`` valid lanes in
+    flat order (the rest drop and surface as hits_truncated) and gathers
+    the walk's answers and samples back; else the [B * H] expansion
+    walks."""
+    B = l.shape[0]
+    if budget is not None and budget < B * H:
+        rows_c, valid_c, prefix = compact_lanes(l, u, H, budget)
+        rid_c, off_c, smp_c = walk(rows_c, valid_c)
+        read_id, offset, sample, valid = gather_lanes(
+            l, u, H, budget, prefix, rid_c, off_c, smp_c=smp_c)
+        # a query keeps every lane iff its lanes end inside the budget
+        dropped = (u > l) & (prefix[1:] > budget)
+        return read_id, offset, valid, sample, ((u - l) <= H) & ~dropped
+    span = torch.arange(H, dtype=torch.int64, device=l.device)
+    rows = (l[:, None] + span[None, :]).reshape(-1)
+    valid = (span[None, :] < (u - l)[:, None]).reshape(-1)
+    rows = torch.where(valid, rows, torch.zeros_like(rows))
+    read_id, offset, sample = walk(rows, valid)
+    return (read_id.reshape(B, H), offset.reshape(B, H), valid.reshape(B, H),
+            sample.reshape(B, H), (u - l) <= H)
+
+
 def _query(
     sidx, lut, kmers, lengths, *,
     max_hits: int, lut_p: int, kstep: int = 1, early_exit: bool = False,
@@ -404,8 +439,7 @@ def _query(
 ):
     """Search + resolve + attribution, as the JAX ``_query_body`` on one
     device (see :func:`make_sharded_query_fn`)."""
-    B, K = kmers.shape
-    dev = kmers.device
+    B = kmers.shape[0]
     # the k-step schedule over the planes the index has, else the masked
     # 1-step scan
     if kstep >= 2 and sidx.rank2_rows is not None:
@@ -416,56 +450,25 @@ def _query(
                        kstep, early_exit=early_exit, bad=bad)
 
     H = max_hits
-    span = torch.arange(H, dtype=torch.int64, device=dev)
-    rows = (l[:, None] + span[None, :]).reshape(-1)
-    valid = (span[None, :] < (u - l)[:, None]).reshape(-1)
-    rows = torch.where(valid, rows, torch.zeros_like(rows))
-
-    F = B * H
-    if resolve_budget is not None and resolve_budget < F:
-        # row-budget compaction: the first resolve_budget valid lanes walk,
-        # the rest drop and surface as hits_truncated
-        comp_rows, comp_valid, orig, keep = compact_rows(
-            rows, valid, resolve_budget
-        )
-        rid_c, off_c, smp_c = sops.resolve(
-            sidx, comp_rows, comp_valid, walk_early_exit=walk_early_exit
-        )
-        full = torch.full((F + 1,), -1, dtype=torch.int32, device=dev)
-        read_id = full.scatter(0, orig, rid_c)[:F]
-        offset = full.scatter(0, orig, off_c)[:F]
-        # a dropped lane's sample is that of read 0 (its id -1 clips to 0),
-        # counted with weight 0
-        sample = torch.zeros(F + 1, dtype=torch.int32, device=dev).scatter(
-            0, orig, smp_c)[:F]
-        valid_w = valid & keep
-    else:
-        read_id, offset, sample = sops.resolve(
-            sidx, rows, valid, walk_early_exit=walk_early_exit
-        )
-        valid_w = valid
-    S = sidx.num_samples
-    seg = torch.arange(B, dtype=torch.int64, device=dev).repeat_interleave(
-        H) * S + sample.to(torch.int64)
-    hist = torch.zeros(B * S, dtype=torch.int32, device=dev)
-    hist.index_add_(0, seg, valid_w.to(torch.int32))
-    hist = hist.reshape(B, S)
-    # complete iff the interval fit the cap AND no lane was budget-dropped
-    hist_complete = ((u - l) <= H) & (
-        valid_w.reshape(B, H).sum(dim=1) == valid.reshape(B, H).sum(dim=1)
-    )
+    read_id, offset, valid, sample, fit = _hit_lanes(
+        l, u, H, resolve_budget,
+        lambda r, v: sops.resolve(sidx, r, v,
+                                  walk_early_exit=walk_early_exit))
     if exact_hist:
         hist, hist_complete = sops.sweep(
             sidx, l, u, B * H, exact_max_rows,
             walk_early_exit=walk_early_exit,
         )
+    else:
+        hist = lane_histogram(sample, valid, sidx.num_samples)
+        hist_complete = fit
     return dict(
         l=l,
         u=u,
         count=u - l,
-        read_id=read_id.reshape(B, H),
-        offset=offset.reshape(B, H),
-        valid=valid_w.reshape(B, H),
+        read_id=read_id,
+        offset=offset,
+        valid=valid,
         sample_hist=hist,
         hist_complete=hist_complete,
     )
@@ -627,7 +630,6 @@ def _query_ranks(
     sweep's walks and sample lookups a window."""
     run = _Run(sidx, mesh)
     B, K = kmers.shape
-    dev = kmers.device
     if kstep >= 2 and sidx.rank2_rows is not None:
         kstep = 3 if kstep >= 3 and sidx.rank3_rows is not None else 2
     else:
@@ -639,47 +641,23 @@ def _query_ranks(
                          early_exit)
 
     H = max_hits
-    span = torch.arange(H, dtype=torch.int64, device=dev)
-    rows = (l[:, None] + span[None, :]).reshape(-1)
-    valid = (span[None, :] < (u - l)[:, None]).reshape(-1)
-    rows = torch.where(valid, rows, torch.zeros_like(rows))
-    F = B * H
-    if resolve_budget is not None and resolve_budget < F:
-        # row-budget compaction: the first resolve_budget valid lanes walk
-        # (every rank of the row compacts alike: rows are reduced values)
-        comp_rows, comp_valid, orig, keep = compact_rows(
-            rows, valid, resolve_budget)
-        rid_c, off_c, smp_c = _resolve_ranks(run, comp_rows, comp_valid,
-                                             walk_early_exit)
-        full = torch.full((F + 1,), -1, dtype=torch.int32, device=dev)
-        read_id = full.scatter(0, orig, rid_c)[:F]
-        offset = full.scatter(0, orig, off_c)[:F]
-        sample = torch.zeros(F + 1, dtype=torch.int32, device=dev).scatter(
-            0, orig, smp_c)[:F]
-        valid_w = valid & keep
-    else:
-        read_id, offset, sample = _resolve_ranks(run, rows, valid,
-                                                 walk_early_exit)
-        valid_w = valid
-    S = sidx.num_samples
-    seg = torch.arange(B, dtype=torch.int64, device=dev).repeat_interleave(
-        H) * S + sample.to(torch.int64)
-    hist = torch.zeros(B * S, dtype=torch.int32, device=dev)
-    hist.index_add_(0, seg, valid_w.to(torch.int32))
-    hist = hist.reshape(B, S)
-    hist_complete = ((u - l) <= H) & (
-        valid_w.reshape(B, H).sum(dim=1) == valid.reshape(B, H).sum(dim=1)
-    )
+    # every rank of the row compacts alike: the intervals are reduced values
+    read_id, offset, valid, sample, fit = _hit_lanes(
+        l, u, H, resolve_budget,
+        lambda r, v: _resolve_ranks(run, r, v, walk_early_exit))
     if exact_hist:
         hist, hist_complete = _sweep_ranks(run, l, u, B * H, exact_max_rows,
                                            walk_early_exit)
+    else:
+        hist = lane_histogram(sample, valid, sidx.num_samples)
+        hist_complete = fit
     return dict(
         l=l,
         u=u,
         count=u - l,
-        read_id=read_id.reshape(B, H),
-        offset=offset.reshape(B, H),
-        valid=valid_w.reshape(B, H),
+        read_id=read_id,
+        offset=offset,
+        valid=valid,
         sample_hist=hist,
         hist_complete=hist_complete,
     )

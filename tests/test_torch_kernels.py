@@ -1672,6 +1672,8 @@ COMPACT_CASES = [
     ("no compaction", 300, 8, 300 * 8, 30, 0.2),
     ("past every lane", 300, 8, 5000, 30, 0.2),
     ("zero budget", 64, 8, 0, 8, 0.0),
+    ("two chunks of queries", 9000, 3, 20_000, 5, 0.3),
+    ("slots past 264 blocks", 20_000, 64, 1_100_000, 80, 0.05),
 ]
 
 
@@ -1689,38 +1691,68 @@ def _random_intervals(B, H, most, empty, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("name, B, H, R_c, most, empty", COMPACT_CASES)
 def test_row_compaction_kernel_matches_plain(cuda_device, name, B, H, R_c,
-                                             most, empty):  # noqa: F811
+                                             most, empty, dtype):  # noqa: F811
     """K14 against ``compact_rows`` over ``expand_intervals`` and the
-    scatter back, bit for bit: the budget's rows and flags, each query's
-    lane prefix, and every lane's answer gathered back (random walk
-    answers, -1 among them) with ``valid & keep``."""
+    scatter back, bit for bit, with int32 rows and int64 ones (past 2^32,
+    the interval shards' global rows): the budget's rows and flags, each
+    query's lane prefix, and every lane's answer gathered back (random
+    walk answers, -1 among them) with ``valid & keep``; then the gather
+    with each third column against its plain form and the scatter: the
+    walk's sample (0 on dropped lanes) and read_to_sample's of the clipped
+    read id (-1 on dropped lanes)."""
     l, u = _random_intervals(B, H, most, empty, seed=B + H)
+    if dtype == torch.int64:
+        base = torch.where(u > l, 1 << 32, 0)
+        l, u = l.long() + base, u.long() + base
     rows, valid, _ = resolve.expand_intervals(l, u, H)
     if R_c is None:
         R_c = int(valid.sum())
     want_rows, want_valid, orig, keep = resolve.compact_rows(rows, valid, R_c)
     before = (ROW_COMPACT.launches, ROW_GATHER.launches)
-    got_rows, got_valid, prefix = resolve.compact_lanes(
-        l.to(cuda_device), u.to(cuda_device), H, R_c)
+    dl, du = l.to(cuda_device), u.to(cuda_device)
+    got_rows, got_valid, prefix = resolve.compact_lanes(dl, du, H, R_c)
     rng = np.random.default_rng(R_c)
     rid_c = torch.from_numpy(rng.integers(-1, 1 << 16, R_c).astype(np.int32))
     off_c = torch.from_numpy(rng.integers(-1, 100, R_c).astype(np.int32))
+    smp_c = torch.from_numpy(rng.integers(0, 128, R_c).astype(np.int32))
+    r2s = torch.from_numpy(rng.integers(0, 128, 60_000).astype(np.int32))
     rid, off, kept = resolve.gather_lanes(
-        l.to(cuda_device), u.to(cuda_device), H, R_c, prefix,
-        rid_c.to(cuda_device), off_c.to(cuda_device))
+        dl, du, H, R_c, prefix, rid_c.to(cuda_device), off_c.to(cuda_device))
     torch.cuda.synchronize()
     assert (ROW_COMPACT.launches, ROW_GATHER.launches) == (before[0] + 1,
                                                            before[1] + 1)
+    assert got_rows.dtype == dtype
     assert torch.equal(got_rows.cpu(), want_rows)
     assert torch.equal(got_valid.cpu(), want_valid)
     assert torch.equal(prefix.cpu(), resolve._lane_prefix(l, u, H))
     F = B * H
     full = torch.full((F + 1,), -1, dtype=torch.int32)
-    assert torch.equal(rid.cpu(), full.scatter(0, orig, rid_c)[:F].reshape(B, H))
+    want_rid = full.scatter(0, orig, rid_c)[:F].reshape(B, H)
+    want_kept = (valid & keep).reshape(B, H)
+    assert torch.equal(rid.cpu(), want_rid)
     assert torch.equal(off.cpu(), full.scatter(0, orig, off_c)[:F].reshape(B, H))
-    assert torch.equal(kept.cpu(), (valid & keep).reshape(B, H))
+    assert torch.equal(kept.cpu(), want_kept)
+    want_smp = torch.zeros(F + 1, dtype=torch.int32).scatter(
+        0, orig, smp_c)[:F].reshape(B, H)
+    for col, want in (
+            (dict(smp_c=smp_c), want_smp),
+            (dict(read_to_sample=r2s, num_reads=50_000), torch.where(
+                want_kept, r2s[want_rid.clamp(0, 49_999).long()], -1))):
+        got = resolve.gather_lanes(
+            dl, du, H, R_c, prefix.cpu().to(cuda_device),
+            rid_c.to(cuda_device), off_c.to(cuda_device),
+            **{k: v.to(cuda_device) if isinstance(v, torch.Tensor) else v
+               for k, v in col.items()})
+        plain = resolve.gather_lanes_plain(l, u, H, R_c, prefix.cpu(), rid_c,
+                                           off_c, **col)
+        assert len(got) == 4
+        for g, w in zip(got, plain):
+            assert torch.equal(g.cpu(), w)
+        assert torch.equal(got[2].cpu(), want)
+    assert ROW_GATHER.launches == before[1] + 3
 
 
 @pytest.mark.cuda
@@ -1746,32 +1778,91 @@ def test_compact_resolve_intervals_budget_on_card(packed, cuda_device, walk):  #
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [1, 5, 128, 20_000])
-def test_capped_histogram_kernel_matches_plain(cuda_device, S):  # noqa: F811
-    """K15 against the plain ``sample_histogram``: valid lanes whose walk
-    gave -1 (counted under read 0's sample), ids past the reads (clipped),
-    invalid lanes; S = 20,000 takes the global-atomics path."""
+@pytest.mark.parametrize("mode", ["read ids", "samples"])
+@pytest.mark.parametrize("S", [1, 5, 128, 1537, 20_000])
+def test_capped_histogram_kernel_matches_plain(cuda_device, S, mode):  # noqa: F811
+    """K15 against its plain forms: by read id (``sample_histogram``:
+    valid lanes whose walk gave -1 counted under read 0's sample, ids past
+    the reads clipped) and by the lanes' own samples (``lane_histogram``,
+    the interval programs'); invalid lanes count nothing.  S = 1537 leaves
+    room for 7 warps' bins a block, S = 20,000 takes the bins in the
+    output."""
     rng = np.random.default_rng(S)
     B, H, nr = 1000, 64, 5000
     rid = rng.integers(-1, nr + 3, (B, H)).astype(np.int32)
+    smp = rng.integers(0, S, (B, H)).astype(np.int32)
     valid = rng.random((B, H)) < 0.5
+    valid[17] = False  # a query with no lane
     r2s = rng.integers(0, S, nr).astype(np.int32)
     idx = DeviceIndex(
         rank_rows=torch.zeros((1, 4), dtype=torch.int32), sym4=None, C=None,
         dollar_map=None, read_to_sample=torch.from_numpy(r2s),
         read_lengths=None, num_reads=nr, num_samples=S)
-    want = resolve.sample_histogram_plain(idx, torch.from_numpy(rid),
-                                          torch.from_numpy(valid))
     card = dataclasses.replace(
         idx, rank_rows=idx.rank_rows.to(cuda_device),
         read_to_sample=idx.read_to_sample.to(cuda_device))
+    tv = torch.from_numpy(valid)
     before = CAPPED_HISTOGRAM.launches
-    got = resolve.sample_histogram(card, torch.from_numpy(rid).to(cuda_device),
-                                   torch.from_numpy(valid).to(cuda_device))
+    if mode == "read ids":
+        want = resolve.sample_histogram_plain(idx, torch.from_numpy(rid), tv)
+        got = resolve.sample_histogram(
+            card, torch.from_numpy(rid).to(cuda_device), tv.to(cuda_device))
+    else:
+        want = resolve.lane_histogram_plain(torch.from_numpy(smp), tv, S)
+        got = resolve.lane_histogram(torch.from_numpy(smp).to(cuda_device),
+                                     tv.to(cuda_device), S)
     torch.cuda.synchronize()
     assert CAPPED_HISTOGRAM.launches == before + 1
     assert torch.equal(got.cpu(), want)
     assert int(want.sum()) == int(valid.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_step", [False, True])
+def test_compact_and_capped_interval_engine_on_card_runs_no_plain_form(
+        shard_packs, cuda_device, monkeypatch, per_step):  # noqa: F811
+    """The interval engine (4 shards of the small corpus on one card, and
+    in a world of one through the cross-rank program) answers as on the
+    CPU with every plain form of ops/ and ``compact_rows`` made to raise,
+    on the dsa, lf and slow routes, capped and exact: K14's int64 entry
+    with the walk's samples and K15's sample mode carry the compaction
+    and the capped histogram."""
+    corpus, packs = shard_packs
+    kms = ["".join("ACGT"[c - 1] for c in row) for row in _queries(
+        corpus, 100, 31, seed=29)[0]] + ["ACGTAC", "GGATC"]
+    want, engines = {}, {}
+    for exact in (True, False):
+        cfg = ServeConfig(batch_size=256, max_hits=8, num_shards=4,
+                          resolve_budget_frac=0.05, exact_attribution=exact)
+        cpu = QueryEngine(packs["small"], cfg, shard_par.make_mesh(
+            num_shards=4, device="cpu"), device="cpu")
+        card = QueryEngine(packs["small"], cfg, shard_par.make_mesh(
+            num_shards=4, device=cuda_device, per_step=per_step),
+            device=cuda_device)
+        for route, fn in (("dsa", None), ("lf", _no_dsa), ("slow", _slow)):
+            if fn is not None:
+                cpu.sidx, card.sidx = fn(cpu.sidx), fn(card.sidx)
+            want[route, exact] = [cpu.query_batch(kms, both_strands=b)
+                                  for b in (0, 1)]
+            engines[route, exact] = (card, card.sidx)
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain form ran on the card")
+
+    for mod in (sops, resolve, search_ops, lut_ops, rank_ops):
+        for name in [n for n in vars(mod) if n.endswith("_plain")]:
+            monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setattr(resolve, "compact_rows", refuse)
+    before = (ROW_COMPACT.launches, ROW_GATHER.launches,
+              CAPPED_HISTOGRAM.launches)
+    for key, (eng, sidx) in engines.items():
+        eng.sidx = sidx
+        got = [eng.query_batch(kms, both_strands=b) for b in (0, 1)]
+        assert got == want[key], key
+    torch.cuda.synchronize()
+    assert ROW_COMPACT.launches > before[0]
+    assert ROW_GATHER.launches > before[1]
+    assert CAPPED_HISTOGRAM.launches > before[2]
 
 
 @pytest.mark.cuda
