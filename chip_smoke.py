@@ -5,9 +5,10 @@
     python3 chip_smoke.py --scale 0.05 # 5% of each, for a quick check
 
 Phases, each printed with its seconds on a ``#`` line, run in the order
-1-5, 8, 9, 9b, 10, 11, 12, 13, 14, 6, 7, 11b, 13b (every main path is driven
-before the kernel-vs-plain and timing phases, so each path's launch counts
-are its own):
+1-5, 8, 9, 9b, 10, 11, 12, 13, 14, 15, 6, 7, 11b, 13b (every main path is
+driven before the kernel-vs-plain and timing phases, so each path's launch
+counts are its own; no plain pack, K8's or the merge's torch ops, may run
+on the card in phases 4 to 15):
 
 1. device: a CUDA card is required (no CPU path); its name and power limit;
 2. kernels: build K1 (rank and its LUT level entry), K2 (backward search),
@@ -16,7 +17,8 @@ are its own):
    sharded search, K11 LUT level, K10 lookups, walks and sweep), one
    rank's partials (K9's partial, K13, K11's partial, the LF and slow walk
    steps), K14 (the row-budget
-   compaction and its gather back) and K15 (the capped histogram) from
+   compaction and its gather back), K15 (the capped histogram), K8 (the
+   served answer's sparse pack) and the cohort merge's pack from
    ``readserver_tpu_torch/csrc`` for sm_90a, one nvcc per source started
    together;
 3. artifact: simulate and build the E. coli artifact with the port's
@@ -33,13 +35,13 @@ are its own):
    (``drop_tiers=("dsa", "fused", "lf")``), lf (``("dsa", "fused")``) and
    slow (``("dsa", "fused", "marks", "lf")``); the engines' answers equal,
    hit sets against the windows equal to each query on >= 64 queries; K5,
-   K6 and the walk kernel must have launched, K1's generic entry not;
+   K6, the walk kernel and K8 must have launched, K1's generic entry not;
 9. samples: the 128-sample cohort artifact (built or loaded), counts at 0,
    histogram-only and full ``query_batch`` on a dsa, a fused and a marks
    engine; histograms exact against per-sample oracle counts on >= 64
    queries (dsa and marks), and a capped engine's ``complete`` flags
    against the window-rounding rule; K7 must have launched through the
-   three walks, K6 and the walk kernel on the full answers;
+   three walks, K6 and the walk kernel on the full answers, K8 on both;
 9b. cohort: the same corpus built by ``index.cohort.build_cohort`` into 4
    doc shards (cached under ``data/``); phase 9's monolithic engine answers
    the requests first, then, counts at 0, three ``MultiEngine`` fronts (4
@@ -49,8 +51,8 @@ are its own):
    fronts, exact against the windows on >= 96 queries (hit sets by global
    read id) and equal to the monolithic engine's; the int64 merge of
    synthetic partition buffers whose counts sum past 2^31; the REST front
-   over the cohort; every kernel but K1's generic entry must have launched
-   in that window.  Then, counted no more, each front's kernels against
+   over the cohort; every kernel but K1's generic entry and K8 must have
+   launched in that window (the fronts pack through the merge kernel).  Then, counted no more, each front's kernels against
    their plain forms on one partition: the LUT (K1's level entry), K2 on
    the width-4096 batch the front serves, its resolve kernel (K5, K6 or
    the mark walk) on that batch's intervals and K7 at the engine's window;
@@ -130,7 +132,17 @@ are its own):
    on E. coli's 524,288 lanes under the 314,572-row budget (width 8192
    and the full budget) and on each of phase 14's cohort doc shards, K14
    also with the hit step's ``read_to_sample`` column and against the
-   torch ops it replaced;
+   torch ops it replaced; K8 on E. coli's /reads and the cohort's
+   /samples and /reads of 4096 x 2 and the merge kernel on the cohort
+   front's /reads and /samples, at nq = W and nq < W, and on short k-mers
+   whose kept entries pass the 16 slots a query (n = -1), the packed
+   buffers and the dense fallbacks;
+15. scaling (``serve_scaling``): ``bench/scaling_sim.py`` on the card,
+   counts at 0: the interval-sharded program at every (dp, shard)
+   factorisation of 8 in the one-device form and the cross-rank form
+   over this rank alone (dsa and lf routes), answers equal across every
+   width and form, each route's all-reduces equal to
+   ``query_psum_estimate`` once a dp row;
 7. timing: the chase yardstick (``rs_chase``, no kernel of a path): one
    warp's time per dependent 64-byte read (t_row) through both fused
    tables, cold and warm, and the rate at K6's 76,521 walks and at a full
@@ -145,18 +157,23 @@ are its own):
    profiler's kernel time; each walk's plain form: torch and K1 a step),
    each kernel's bytes needed and bytes bound, and for K2 and the walks
    the chain bound (the longest chain's dependent reads x t_row, warm and
-   at the E. coli table's cold t_row); K8's
-   (the torch sparse pack's) bytes and time on the ``/reads`` 4096 x 2
-   request; K14 (and its gather's ``read_to_sample`` column) and K15 at
+   at the E. coli table's cold t_row); K14 (and its gather's
+   ``read_to_sample`` column) and K15 at
    width 8192 and at the full budget, over distinct input sets in turn
    until together they need twice the L2, with the plain forms and, over
-   the same sets, the torch ops they replaced; where a served count,
+   the same sets, the torch ops they replaced, and K14 beside the library
+   yardstick ``torch.nonzero_static`` (``time_yardstick``); K8 on the
+   ``/reads`` request of 4096 x 2 and the cohort's ``/samples`` of
+   4096 x 2, and the merge kernel on the cohort front's ``/reads`` and
+   ``/samples`` batches of 4096, over distinct sets in turn
+   (``time_packs``), beside their torch ops and the yardstick; where a
+   served count,
    ``/reads`` (dsa and mark-walk engines)
    and ``/samples`` request's time goes (host stages, device busy share,
    top device ops); the mark-walk engine's ``/reads`` requests through
    the walk kernel and through the plain walk, in turns; and the cohort
    front's ``/samples`` and ``/reads`` requests of 4096 queries on both
-   strands, its merge's device time against its bytes bound, and
+   strands, and
    ``query_batches`` / ``count_batches`` over 8 batches of 4096 against 8
    single-batch calls, in turns, with the spread;
 11b. interval kernels: each sharded kernel against its plain form at
@@ -191,12 +208,14 @@ are its own):
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the one before it is the kernels' JSON summary (``launches`` summed over
-the main-path phases 4, 8, 9, 9b, 10, 11, 13 and 14, where every kernel but K1's
-and K9's generic entries must have launched, ``cohort_launches`` those of
+the main-path phases 4, 8, 9, 9b, 10, 11, 13, 14 and 15, where every kernel
+but K1's and K9's generic entries must have launched, ``cohort_launches`` those of
 phase 9b, ``ingest_launches`` those of phase 12;
 ``max_abs_err`` the largest over every check, ``cohort_max_abs_err`` that
 over phase 9b's partition checks;
-``bound_ms`` the bytes bound, ``chain_ms`` the chain bound where there is
+``bound_ms`` the bytes bound, ``library_ms`` the yardstick's time where
+there is one (``library_call`` names it: K14, K8, the merge),
+``chain_ms`` the chain bound where there is
 one and ``chain_cold_ms`` it at the cold t_row, ``held_by`` the larger of
 the first two; ``resolve_walk`` also carries each walk's reading at width
 8192 and at a full budget under ``walks``; K14's and K15's entries their
@@ -204,7 +223,8 @@ other readings under ``readings`` (the full budget, the gather's
 ``read_to_sample`` column, the interval index's int64 rows and sample
 mode), and ``row_compact`` the interval programs' torch ops against K14 +
 K15 under ``interval_ops`` and the doc merge's collectives under
-``doc_collectives``; the cross-rank kernels
+``doc_collectives``; K8's and the merge's histogram tier under
+``readings``; the cross-rank kernels
 their other shapes and modes under ``readings``, and ``shard_occ_partial``
 the cross-rank design readings, phase 13's request splits among them).
 The last line is ``{"ok": true, "device": {...}}``, printed only when
@@ -744,15 +764,18 @@ def serve_cohort(args, cohort, cpacked, ceng, cfg, dev, c256, c4096,
     launches = read_launches("cohort")
     # K14 compacts only where the row budget binds (past 314,572 lanes; the
     # fronts' widths here are 4096 and below) and K15 serves only capped
-    # attribution (the fronts attribute exactly): phase 14 launches both
+    # attribution (the fronts attribute exactly): phase 14 launches both.
+    # The fronts pack every batch through the merge kernel, never K8
     for name in KERNELS:
         if (name not in ("rank_occ", "row_compact", "row_gather",
-                         "capped_histogram")
+                         "capped_histogram", "sparse_pack")
                 and not name.startswith(("shard", "walk"))):
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the cohort path")
     check(launches["rank_occ"] == 0, "K1's generic entry launched on "
           "the cohort path: a walk ran its plain form")
+    check(launches["sparse_pack"] == 0, "K8 launched on the cohort path: a "
+          "front packed outside the merge kernel")
     log(f"{n_req} REST requests over the cohort front answered as it "
         f"answers")
     # each front's kernels against their plain forms on its first
@@ -805,9 +828,9 @@ def serve_cohort(args, cohort, cpacked, ceng, cfg, dev, c256, c4096,
 
 def time_cohort(meng, cohort, c4096, seed: int, card: str) -> None:
     """Phase 7's cohort timing, on the dsa front ``meng``: where a
-    /samples and a /reads request of 4096 queries on both strands go,
-    the merge against its bytes bound, and the pipelined bulk paths
-    against one batch at a time, in turns, with the spread."""
+    /samples and a /reads request of 4096 queries on both strands go, and
+    the pipelined bulk paths against one batch at a time, in turns, with
+    the spread (the merge kernel: :func:`time_packs`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -819,28 +842,6 @@ def time_cohort(meng, cohort, c4096, seed: int, card: str) -> None:
             meng, decode_all(c4096), tier,
             lambda c, le, nq, h=tier == "reads": meng._served(c, le, nq,
                                                               h)[0])
-    ce, le, nq = meng._pad_encode(decode_all(c4096))
-    badm = meng._new_bad()
-    mouts = [e._dispatch_single(ce, le, nq, "full", bad=badm)
-             for e in meng.engines]
-    nbytes = lambda ts: sum(  # noqa: E731
-        t.numel() * t.element_size() for t in ts if t is not None)
-    m_in = nbytes(mouts)
-    m_dense = nbytes(meng._merge_dense(mouts, True))
-    m_full = nbytes(meng._merge_full(mouts, nq, True, badm)) + 4
-    for what, fn, nb in (
-            ("merge (_merge_dense)",
-             lambda: meng._merge_dense(mouts, True), m_in + m_dense),
-            ("merge + K8 pack (_merge_full)",
-             lambda: meng._merge_full(mouts, nq, True, badm),
-             m_in + m_full)):
-        t_m = float(np.median([time_cuda(fn, 20) for _ in range(3)]))
-        dev_ms = kernel_device_ms(fn, 10, "")
-        log(f"cohort {what}, {SHARDS} partitions x {list(mouts[0].shape)}"
-            f" int32 ({m_in} B in): {t_m:.4f} ms a call (CUDA events), "
-            f"device {fmt_ms(dev_ms)} ms over all its ops (profiler) | "
-            f"needs {nb} B: bytes bound {bound_ms(nb):.4f} ms, device "
-            f"time at {ratio(bound_ms(nb), dev_ms)} of it | {card}")
     bulk = decode_all(simulate.sample_query_kmers_fast(
         cohort, 8 * 4096, KMER, seed=seed + 6, miss_frac=0.1))
     bb = [bulk[i : i + 4096] for i in range(0, len(bulk), 4096)]
@@ -886,16 +887,229 @@ def time_cohort(meng, cohort, c4096, seed: int, card: str) -> None:
 
 
 
+# ------------------------------------------------ K8 and the cohort merge
+
+
+def pack_inputs(engine, kms, with_hits: bool):
+    """What a ``QueryEngine`` hands K8 for the batch ``kms`` (``_served``):
+    (l, u, complete, hist, rid, off, smp, nq) on the card."""
+    ce, le, nq = engine._pad_encode(kms)
+    l, u, hist, complete, rid, off, smp = engine._pieces(
+        *engine._to_device(ce, le), *engine._routes(ce, le, nq), with_hits,
+        engine._new_bad())
+    return l, u, complete, hist, rid, off, smp, nq
+
+
+def merge_inputs(meng, kms, with_hits: bool):
+    """The partitions' dense buffers a ``MultiEngine`` merges for the
+    batch ``kms`` → (outs, nq)."""
+    ce, le, nq = meng._pad_encode(kms)
+    bad = meng._new_bad()
+    mode = "full" if with_hits else "hist"
+    return [e._dispatch_single(ce, le, nq, mode, bad=bad)
+            for e in meng.engines], nq
+
+
+def pack_n(buf, W: int, R: int, head: int, hits: bool) -> tuple:
+    """(n_hist, n_hits or None) of a packed buffer whose segments before
+    n_hist are ``head`` words a query."""
+    p = W * head
+    return int(buf[p]), int(buf[p + 1 + 2 * R]) if hits else None
+
+
+def check_pack_kernels(engine, ceng, meng, reads_kms, cohort_kms,
+                       short_kms) -> dict:
+    """Phase 6: K8 and the merge kernel against their plain forms, word
+    for word (the packed buffer and the dense fallbacks), at the served
+    shapes: K8 on E. coli's /reads 4096 x 2 (dsa engine) and the cohort's
+    /samples and /reads 4096 x 2 (monolithic engine); the merge on the
+    cohort front's 4 partitions, /reads and /samples; each at nq = W and
+    nq < W, and on a batch of short k-mers whose kept entries pass the 16
+    slots a query (n = -1) → {"k8_err", "merge_err"}."""
+    from readserver_tpu_torch.ops import pack
+
+    def err_of(got, want):
+        pairs = [(got[0], want[0]), (pack.dense(got[1]), want[1])]
+        if want[2] is not None:
+            pairs.append((pack.dense(got[2]), want[2]))
+        return max_err(pairs)
+
+    err = {"k8_err": 0, "merge_err": 0}
+    cpq = engine.COMPACT_PER_QUERY
+    for what, e, kms, hits in (
+            ("E. coli /reads", engine, reads_kms, True),
+            ("cohort /samples", ceng, cohort_kms, False),
+            ("cohort /reads", ceng, cohort_kms, True),
+            ("E. coli short k-mers", engine, short_kms, True),
+            ("cohort short k-mers /samples", ceng, short_kms, False)):
+        l, u, comp, hist, rid, off, smp, nq = pack_inputs(e, kms, hits)
+        W = l.shape[0]
+        for n in (nq, nq // 2 + 1):
+            a = (l, u, comp, hist, rid, off, smp, n, cpq, e._new_bad(), e.H)
+            got = pack.pack_answer(*a)
+            k = err_of(got, pack.pack_answer_plain(*a))
+            err["k8_err"] = max(err["k8_err"], k)
+            ns = pack_n(got[0], W, cpq * W, 4 + (not hits), hits)
+            log(f"K8, {what}: W = {W}, NS = {hist.shape[1]}, SH = "
+                f"{0 if rid is None else rid.shape[1]}, nq = {n}, n = {ns}: "
+                f"max |err| {k}")
+            check(k == 0, f"K8 disagrees with its plain form ({what}, "
+                  f"nq = {n})")
+    for what, kms, hits in (("/reads", cohort_kms, True),
+                            ("/samples", cohort_kms, False),
+                            ("short k-mers /reads", short_kms, True)):
+        outs, nq = merge_inputs(meng, kms, hits)
+        W = outs[0].shape[0]
+        for n in (nq, nq // 2 + 1):
+            a = (outs, [p._ns for p in meng.engines], meng._read_base,
+                 meng._ns, meng.H, n, cpq, meng._new_bad(), hits)
+            got = pack.merge_pack(*a)
+            k = err_of(got, pack.merge_pack_plain(*a))
+            err["merge_err"] = max(err["merge_err"], k)
+            ns = pack_n(got[0], W, cpq * W, 3 + (not hits), hits)
+            log(f"merge kernel, cohort front {what}: {len(outs)} partitions"
+                f" x {list(outs[0].shape)}, nq = {n}, n = {ns}: max |err| "
+                f"{k}")
+            check(k == 0, f"the merge kernel disagrees with its plain form "
+                  f"({what}, nq = {n})")
+    return err
+
+
+def time_yardstick(masks, size: int, what: str, card: str) -> tuple:
+    """One PyTorch call that compacts as K8 and K14 do, over the masks in
+    turn: ``torch.nonzero_static`` of a precomputed flat mask, its first
+    ``size`` set positions, -1 after → (ms, the call's name)."""
+    import torch
+
+    turn = itertools.cycle(masks)
+    call = lambda: torch.nonzero_static(  # noqa: E731
+        next(turn), size=size, fill_value=-1)
+    call()
+    iters = max(len(masks), N_ROT)
+    ms = float(np.median([time_cuda(call, iters) for _ in range(3)]))
+    log(f"library yardstick, {what}: torch.nonzero_static of the "
+        f"precomputed kept mask ({masks[0].numel()} positions, size {size}; "
+        f"{len(masks)} distinct masks in turn): {ms:.4f} ms a call (CUDA "
+        f"events) | {card}")
+    return ms, "torch.nonzero_static"
+
+
+def time_packs(engine, ceng, meng, reads_make, cohort_make, card):
+    """Phase 7: K8 on the /reads request of 4096 x 2 (E. coli, dsa engine)
+    and on the cohort's /samples of 4096 x 2 (the histogram tier), and the
+    merge kernel on the cohort front's batches of 4096 (/reads and
+    /samples), each over distinct input sets in turn until together they
+    need twice the L2 (:func:`time_cases`: the kernel against its plain
+    form on every set, wrapper ms, device ms of both launches, the plain
+    form's ms, bytes bound); beside them the torch ops they replaced (the
+    plain forms; for the merge also ``merge_dense`` alone) with their
+    device time over every op, and the library yardstick (a
+    ``nonzero_static`` of the kept mask) → (summary entries, {name: (ms,
+    call)})."""
+    import torch
+    from readserver_tpu_torch.ops import pack
+
+    cpq = engine.COMPACT_PER_QUERY
+    out, library = {}, {}
+
+    def words(x) -> int:
+        return 0 if x is None else x.numel() * x.element_size()
+
+    for name, e, make, hits in (
+            ("sparse_pack", engine, reads_make, True),
+            ("sparse_pack (samples)", ceng, cohort_make, False)):
+        def answer(j, e=e, make=make, hits=hits):
+            return pack_inputs(e, make(j), hits)
+
+        def needs(l, u, comp, hist, rid, off, smp, nq, hits=hits):
+            W = l.shape[0]
+            kept = 0 if rid is None else min(int((rid[:nq] >= 0).sum()),
+                                             cpq * W)
+            packed = 4 * (W * (4 + (not hits)) + 2 + 2 * cpq * W
+                          + (1 + 4 * cpq * W if hits else 0))
+            return (words(l) + words(u) + words(comp) + words(hist)
+                    + words(rid) + 8 * kept + 4 + packed, None)
+
+        sets, nbytes, _ = in_turn(answer, needs)
+        x = sets[0]
+        W, SH = x[0].shape[0], 0 if x[4] is None else x[4].shape[1]
+        # the packed buffers compared and timed (the dense fallbacks:
+        # phase 6); the plain form also writes the dense hits' copy
+        kern = lambda *x, e=e: pack.pack_answer(  # noqa: E731
+            *x, cpq, e._new_bad(), e.H)[0]
+        plain = lambda *x, e=e: pack.pack_answer_plain(  # noqa: E731
+            *x, cpq, e._new_bad(), e.H)[0]
+        what = (f"W = {W}, NS = {x[3].shape[1]}, SH = {SH}, R = {cpq * W}")
+        got = time_cases([(name, ("pack_", 2), kern, plain, sets, what,
+                           nbytes, None)], None, card)
+        out.update(got)
+        copy = 12 * W * SH  # the dense hits the torch pack also wrote
+        log(f"{name}: bytes bound with the dense hits' copy the torch pack "
+            f"wrote ({copy} B more): {bound_ms(nbytes + copy):.4f} ms | "
+            f"{card}")
+        time_ops(sets, lambda *x, p=plain: p(*x), f"K8's torch ops, {name}",
+                 card, got[name][2])
+        masks = [((s[4] >= 0) if hits else (s[3] > 0)).reshape(-1)
+                 for s in sets]
+        library[name] = time_yardstick(masks, cpq * W, name, card)
+    for name, hits in (("merge_pack", True), ("merge_pack (samples)", False)):
+        ns = [p._ns for p in meng.engines]
+
+        def outs_of(j, hits=hits):  # the front's batches of 4096 queries
+            return merge_inputs(meng, cohort_make(j)[:4096], hits)
+
+        def needs(outs, nq, hits=hits):
+            W = outs[0].shape[0]
+            nb = 4 + 4 * (W * (3 + (not hits)) + 2 + 2 * cpq * W
+                          + (1 + 4 * cpq * W if hits else 0))
+            kept = 0
+            for o, n in zip(outs, ns):
+                nb += 4 * W * (2 + n + (meng.H if hits else 0))
+                if hits:
+                    kept += int((o[:nq, 4 + n:4 + n + meng.H] >= 0).sum())
+            return nb + 8 * min(kept, cpq * W), None
+
+        sets, nbytes, _ = in_turn(outs_of, needs)
+        W = sets[0][0][0].shape[0]
+        args = lambda outs, nq, h=hits: (  # noqa: E731
+            outs, ns, meng._read_base, meng._ns, meng.H, nq, cpq,
+            meng._new_bad(), h)
+        kern = lambda outs, nq: pack.merge_pack(  # noqa: E731
+            *args(outs, nq))[0]
+        plain = lambda outs, nq: pack.merge_pack_plain(  # noqa: E731
+            *args(outs, nq))[0]
+        what = (f"{len(ns)} partitions x {list(sets[0][0][0].shape)} int32, "
+                f"NS = {meng._ns}, R = {cpq * W}")
+        got = time_cases([(name, ("pack_", 2), kern, plain, sets, what,
+                           nbytes, None)], None, card)
+        out.update(got)
+        time_ops(sets, plain, f"the merge's torch ops (merge_dense + the "
+                 f"pack), {name}", card, got[name][2])
+        time_ops(sets, lambda outs, nq, h=hits: pack.merge_dense(
+            outs, ns, meng._read_base, meng._ns, meng.H, h),
+            f"merge_dense alone, {name}", card)
+        masks = []
+        for outs, nq in sets:
+            m = (torch.cat([o[:, 4 + n:4 + n + meng.H] for o, n in
+                            zip(outs, ns)], 1) >= 0 if hits else
+                 pack.merge_dense(outs, ns, meng._read_base, meng._ns,
+                                  meng.H, False)[2] > 0)
+            masks.append(m.reshape(-1))
+        library[name] = time_yardstick(masks, cpq * W, name, card)
+    return out, library
+
+
 # the modules of readserver_tpu_torch.ops whose plain forms may not run on
 # the card on a path
-PLAIN_MODULES = ("rank", "lut", "search", "resolve", "sharded")
+PLAIN_MODULES = ("rank", "lut", "search", "resolve", "sharded", "pack")
 
 
 @contextlib.contextmanager
-def plain_calls_on_card():
+def plain_calls_on_card(modules=PLAIN_MODULES):
     """Count the calls of the plain forms (every ``*_plain`` function of
-    ``PLAIN_MODULES``, ``compact_rows``, and the walks' plain forms) that
-    are handed a CUDA tensor or an index on the card → {"n": count}."""
+    ``modules``, ``compact_rows``, and the walks' plain forms) that are
+    handed a CUDA tensor (or a list of them) or an index on the card →
+    {"n": count}."""
     import importlib
 
     import torch
@@ -906,6 +1120,8 @@ def plain_calls_on_card():
     def on_card(a) -> bool:
         if isinstance(a, torch.Tensor):
             return a.is_cuda
+        if isinstance(a, (list, tuple)):  # the merge's partition buffers
+            return any(on_card(x) for x in a)
         t = getattr(a, "starts", None)          # a ShardedIndex
         if t is None:
             t = getattr(a, "rank_rows", None)   # a DeviceIndex
@@ -920,15 +1136,16 @@ def plain_calls_on_card():
 
     saved = []
     for mod in (importlib.import_module(f"readserver_tpu_torch.ops.{m}")
-                for m in PLAIN_MODULES):
+                for m in modules):
         for name, fn in list(vars(mod).items()):
             if (name.endswith("_plain") or name == "compact_rows") \
                     and callable(fn):
                 saved.append((mod, name, fn))
                 setattr(mod, name, counted(fn))
     walks = dict(resolve._WALKS)
-    for kind, (fn, plain) in walks.items():
-        resolve._WALKS[kind] = (fn, counted(plain))
+    if "resolve" in modules:
+        for kind, (fn, plain) in walks.items():
+            resolve._WALKS[kind] = (fn, counted(plain))
     try:
         yield calls
     finally:
@@ -1884,7 +2101,8 @@ def time_ops(sets, fn, what: str, card: str, kernels_ms=None):
     return ms, dev_ms
 
 
-def time_compaction(engine_f, intervals, makers, H: int, card: str) -> dict:
+def time_compaction(engine_f, intervals, makers, H: int, card: str,
+                    library: dict) -> dict:
     """Phase 7: K14 (its compaction and its gather back, around K6's walk
     of the fused engine; the gather also with the hit step's
     ``read_to_sample`` column) and K15 (the capped histogram of the lanes
@@ -1898,8 +2116,11 @@ def time_compaction(engine_f, intervals, makers, H: int, card: str) -> dict:
     walked slots alone); and, beside them
     over the same sets, the torch ops they replaced (``compact_rows`` and
     the scatters back; the hit step's clipped gather and ``torch.where``s;
-    the gather and ``index_add_``) → summary entries by name (width 8192)
-    and by name and " (full budget)" (the column's ", full budget")."""
+    the gather and ``index_add_``), and at width 8192 the library
+    yardstick of the compaction (a ``nonzero_static`` of the lanes' valid
+    mask, into ``library["row_compact"]``) → summary entries by name
+    (width 8192) and by name and " (full budget)" (the column's ", full
+    budget")."""
     import torch
     from readserver_tpu_torch.ops import resolve
 
@@ -1947,6 +2168,12 @@ def time_compaction(engine_f, intervals, makers, H: int, card: str) -> dict:
              + 4 * B * S, None),
         ]
         got = time_cases(cases, None, card)
+        if what == "width 8192":
+            masks = [resolve.expand_intervals(x[0], x[1], H)[1]
+                     for x in sets]
+            library["row_compact"] = time_yardstick(
+                masks, R, f"row_compact ({what})", card)
+            del masks
         for name, v in got.items():
             if what != "width 8192":  # "name (what)", "name (mode, what)"
                 name = (name[:-1] + f", {what})" if name.endswith(")")
@@ -2352,7 +2579,8 @@ def time_cases(cases, t_row, card) -> dict:
     snapshot: every call starts from the snapshot, restored outside the
     wrapper's timed pass (inside the profiler's, whose reading counts the
     kernel alone) → {name: (ms, plain ms, device ms, bound ms, shape,
-    chain ms)}."""
+    chain ms)}.  A case's kernel name may be a pair (name, device kernels
+    a launch) where one wrapper call launches several."""
     import torch
     from readserver_tpu_torch.kernels import KERNELS
 
@@ -2364,6 +2592,7 @@ def time_cases(cases, t_row, card) -> dict:
 
     out = {}
     for name, kname, kern, plain, sets, what, nbytes, chain in cases:
+        kname, per_launch = kname if isinstance(kname, tuple) else (kname, 1)
         walk = name.startswith("walk_")
         err = 0
         for x in sets:
@@ -2405,7 +2634,7 @@ def time_cases(cases, t_row, card) -> dict:
             return kern(*x)
 
         dev_ms = kernel_device_ms(restored, iters, kname,
-                                  launches=iters * per_call)
+                                  launches=iters * per_call * per_launch)
         tk, tp = float(np.median(t_kern)), float(np.median(t_plain))
         bnd = bound_ms(nbytes)
         chain_ms = None if chain is None or t_row is None else chain * t_row
@@ -3671,6 +3900,35 @@ def interval_rows(l, u):
             - first).int()
 
 
+def serve_scaling(card: str) -> dict:
+    """Phase 15: ``bench/scaling_sim.py`` on the card, as ``python -m
+    readserver_tpu_torch.bench.scaling_sim`` runs it: the interval-sharded
+    program at every (dp, shard) factorisation of 8, all shards on the
+    card, in the one-device form and the cross-rank form over this rank
+    alone on the dsa and the lf route; answers equal across every width
+    and form, and each cross-rank route's all-reduces equal to
+    ``query_psum_estimate`` once a dp row → the module's JSON object."""
+    from readserver_tpu_torch.bench import scaling_sim
+
+    t0 = time.perf_counter()
+    try:
+        res = scaling_sim.run(8, "cuda")
+    except AssertionError as e:
+        raise PhaseFailed(f"scaling_sim: {e}") from e
+    for w in res["scaling_sim"]:
+        check(w["parity"] == "exact" and all(
+            a["counted"] == a["estimate"] for a in w["all_reduces"].values()),
+            f"scaling_sim at dp={w['dp']}, shards={w['shards']}: {w}")
+    log(f"scaling_sim on the card in {time.perf_counter() - t0:.3f}s, "
+        f"parity exact at " + ", ".join(
+            f"(dp {w['dp']}, shards {w['shards']})"
+            for w in res["scaling_sim"])
+        + "; all-reduces a batch equal to the estimate on both cross-rank "
+        f"routes | {card}")
+    log(f"scaling_sim: {json.dumps(res)}")
+    return res
+
+
 def run(args) -> dict:
     import torch
 
@@ -3743,6 +4001,10 @@ def run(args) -> dict:
         return counts
 
     path_launches: dict[str, dict] = {}
+    # the plain packs (K8's and the merge's torch ops) may not run on the
+    # card anywhere on the main paths (phases 4 to 15)
+    main_paths = contextlib.ExitStack()
+    plain_packs = main_paths.enter_context(plain_calls_on_card(("pack",)))
     with phase("4 main path"):
         zero_launches()
         cfg = ServeConfig(batch_size=8192, warmup_query_lengths=(KMER,))
@@ -3856,7 +4118,8 @@ def run(args) -> dict:
                 f"{sum(r.hits_truncated for r in res)} truncated, answers "
                 f"equal")
         launches = read_launches("reads")
-        for name in ("resolve_dsa", "resolve_fused", "resolve_walk"):
+        for name in ("resolve_dsa", "resolve_fused", "resolve_walk",
+                     "sparse_pack"):
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the reads path")
         check(launches["rank_occ"] == 0, "K1's generic entry launched on "
@@ -3937,7 +4200,8 @@ def run(args) -> dict:
               == [key(r) for r in answers["dsa", "full"]],
               "histogram-only and full answers disagree")
         launches = read_launches("samples")
-        for name in ("exact_histogram", "resolve_fused", "resolve_walk"):
+        for name in ("exact_histogram", "resolve_fused", "resolve_walk",
+                     "sparse_pack"):
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the samples path")
         check(launches["rank_occ"] == 0, "K1's generic entry launched on "
@@ -3998,7 +4262,8 @@ def run(args) -> dict:
                 e, kms, RestServer, Dispatcher,
                 lambda rid, e=e: e.sample_names[e._sample_of(rid)])
         launches = read_launches("REST")
-        for name in ("backward_search", "resolve_dsa", "exact_histogram"):
+        for name in ("backward_search", "resolve_dsa", "exact_histogram",
+                     "sparse_pack"):
             check(launches[name] > 0,
                   f"kernel {name} was not launched on the REST path")
         log(f"{n_req} REST requests answered as the engines answer")
@@ -4030,6 +4295,17 @@ def run(args) -> dict:
         doc_engines, doc_coll = serve_doc(
             args, cohort, meng, ceng, cfg, dev, c256, c4096, want_c,
             zero_launches, read_launches, card)
+
+    # ---------------------------------- 15. scaling over the meshes of 8
+    with phase("15 scaling"):
+        zero_launches()
+        serve_scaling(card)
+        read_launches("scaling")
+    main_paths.close()
+    check(plain_packs["n"] == 0, f"{plain_packs['n']} plain packs ran on "
+          "the card on the main paths")
+    log("no plain pack (K8's or the merge's torch ops) ran on a CUDA tensor "
+        "on the main paths (phases 4 to 15)")
 
     # -------------------------------------------------- 6. kernel vs plain
     idx = engine.index
@@ -4456,6 +4732,11 @@ def run(args) -> dict:
         summary.update(k14_err=k14_err, k15_err=k15_err)
         for k, v in cohort_err.items():
             summary[k] = max(summary[k], v)
+        # K8 and the merge kernel at the served shapes, nq < W, and short
+        # k-mers past the 16 slots a query
+        short = ["".join(w) for w in rng.choice(list("ACGT"), (512, 8))]
+        summary.update(check_pack_kernels(engine, ceng, meng, batches[8192],
+                                          cbatches[8192], short))
 
     # ---------------------------------------------------------- 7. timing
     with phase("7 timing"):
@@ -4874,35 +5155,6 @@ def run(args) -> dict:
                    f"{ratio(chain_ms, dev_ms)} of it; at the cold t_row "
                    f"{fmt_ms(cold_ms)} ms") + f" | {card}")
             summary.setdefault(name, (tk, tp, dev_ms, bnd, what, chain_ms))
-        # K8, the sparse pack (torch): its bytes on the /reads 4096x2
-        # request of the dsa engine, each input read once and each output
-        # (the packed buffer and the dense hits beside it) written once
-        ce, le, nq = engine._pad_encode(engine._expand_rc(
-            decode_all(q4096))[0])
-        bad8 = engine._new_bad()
-        l8, u8, hist8, comp8, rid8, off8, smp8 = engine._pieces(
-            *engine._to_device(ce, le), *engine._routes(ce, le, nq), True,
-            bad8)
-        from readserver_tpu_torch.serve.engine import sparse_pack_device
-
-        def pack():
-            return sparse_pack_device(u8 - l8, comp8, hist8, rid8, off8, smp8,
-                                      nq, engine.COMPACT_PER_QUERY, bad8,
-                                      l=l8, u=u8)
-
-        packed8, _, dense8 = pack()
-        k8_in = sum(t.numel() * t.element_size() for t in (
-            l8, u8, comp8, hist8, rid8, off8, smp8, bad8)) + l8.numel() * 4
-        k8_bytes = k8_in + packed8.nbytes + dense8.nbytes
-        t_pack = float(np.median([time_cuda(pack, 20) for _ in range(3)]))
-        pack_dev = kernel_device_ms(pack, 10, "")
-        log(f"K8 sparse pack (torch) on the /reads request of 4096 x 2: "
-            f"{t_pack:.4f} ms per pack (CUDA events), device time "
-            f"{fmt_ms(pack_dev)} ms over all its ops (profiler) | needs "
-            f"{k8_bytes} B ({k8_in} in, {packed8.nbytes} packed, "
-            f"{dense8.nbytes} dense hits): bound {bound_ms(k8_bytes):.4f} "
-            f"ms, device time at {ratio(bound_ms(k8_bytes), pack_dev)} of "
-            f"it | {card}")
         # K14 (the row-budget compaction and its gather back) and K15 (the
         # capped sample histogram) beside the torch ops they replaced, at
         # width 8192 (the E. coli 4096 x 2 batch) and at the full budget
@@ -4923,9 +5175,26 @@ def run(args) -> dict:
                     corpus, 4096, kf, seed=args.seed + 100 + j,
                     miss_frac=0.0)))[0]
 
+        library = {}
         summary.update(time_compaction(
             engine_f, intervals,
-            {"width 8192": width_8192, "full budget": full_budget}, H, card))
+            {"width 8192": width_8192, "full budget": full_budget}, H, card,
+            library))
+
+        # K8 on the /reads request of 4096 x 2 and the cohort's /samples of
+        # 4096 x 2, the merge kernel on the cohort front's batches of 4096,
+        # over distinct batches (E. coli's as above; the cohort's from new
+        # seeds), beside their torch ops and the library yardstick
+        def cohort_8192(j):
+            return cbatches[8192] if j == 0 else ceng._expand_rc(decode_all(
+                simulate.sample_query_kmers_fast(
+                    cohort, 4096, KMER, seed=args.seed + 200 + j,
+                    miss_frac=0.1)))[0]
+
+        pack_summary, pack_library = time_packs(engine, ceng, meng,
+                                                width_8192, cohort_8192, card)
+        summary.update(pack_summary)
+        library.update(pack_library)
         for e, qs, tier in ((engine, q4096, "count"),
                             (engine, q4096, "reads"),
                             (engine_m, q4096, "reads"),
@@ -5054,6 +5323,10 @@ def run(args) -> dict:
                        "k14_err"),
         "capped_histogram": ("compact.cu",
                              "readserver_tpu/ops/resolve.py:502", "k15_err"),
+        "sparse_pack": ("pack.cu", "readserver_tpu/serve/engine.py:127",
+                        "k8_err"),
+        "merge_pack": ("pack.cu", "readserver_tpu/serve/engine.py:1139",
+                       "merge_err"),
     }
 
     def cold(chain_ms):
@@ -5077,7 +5350,8 @@ def run(args) -> dict:
             max_abs_err=summary[err], cohort_max_abs_err=cohort_err.get(err),
             ms=ms,
             device_ms=device_ms, plain_ms=plain_ms, bound_ms=bnd,
-            bound_by="bytes", library_ms=None, shape=shape,
+            bound_by="bytes", library_ms=library.get(name, (None,))[0],
+            library_call=library.get(name, (None, None))[1], shape=shape,
             chain_ms=chain_ms, chain_cold_ms=cold(chain_ms),
             held_by="chain" if chain_ms is not None and chain_ms > bnd
             else "bytes"))
@@ -5128,6 +5402,15 @@ def run(args) -> dict:
                     k["readings"][name[len(k["name"]) + 2:-1]] = dict(
                         ms=ms, device_ms=device_ms, plain_ms=plain_ms,
                         bound_ms=bnd, shape=shape)
+    # K8's and the merge's histogram-tier readings (the /samples shapes)
+    for k in kernels:
+        if k["name"] in ("sparse_pack", "merge_pack"):
+            ms, plain_ms, device_ms, bnd, shape, _ = summary[
+                k["name"] + " (samples)"]
+            lib = library.get(k["name"] + " (samples)", (None, None))
+            k["readings"] = {"samples": dict(
+                ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bnd,
+                library_ms=lib[0], library_call=lib[1], shape=shape)}
     row_compact = next(k for k in kernels if k["name"] == "row_compact")
     row_compact["interval_ops"] = summary["interval_ops"]
     row_compact["doc_collectives"] = doc_coll

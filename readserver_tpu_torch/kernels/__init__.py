@@ -31,6 +31,10 @@
   the capped per-sample histogram (by read id or by the lanes' samples);
   launched by ``ops/resolve.py`` on one device, on doc shards and on the
   interval shards' programs (``parallel/sharded.py``).
+* ``SPARSE_PACK`` (K8) and ``MERGE_PACK``, ``csrc/pack.cu``: a served
+  answer's sparse pack into one small buffer, and a cohort's partitions
+  merged and packed; launched by ``ops/pack.py`` for every served full
+  answer of ``QueryEngine`` and ``MultiEngine``.
 
 Each is a :class:`~readserver_tpu_torch.kernels.build.Kernel` carrying its
 launch count in ``launches``.
@@ -57,6 +61,8 @@ WALK_SLOW_STEP = Kernel("rs_walk_slow_step")
 ROW_COMPACT = Kernel("rs_row_compact")
 ROW_GATHER = Kernel("rs_row_gather")
 CAPPED_HISTOGRAM = Kernel("rs_capped_histogram")
+SPARSE_PACK = Kernel("rs_sparse_pack")
+MERGE_PACK = Kernel("rs_merge_pack")
 KERNELS = {
     "rank_occ": RANK_OCC,
     "lut_level": LUT_LEVEL,
@@ -77,13 +83,15 @@ KERNELS = {
     "row_compact": ROW_COMPACT,
     "row_gather": ROW_GATHER,
     "capped_histogram": CAPPED_HISTOGRAM,
+    "sparse_pack": SPARSE_PACK,
+    "merge_pack": MERGE_PACK,
 }
 
 __all__ = [
     "BACKWARD_SEARCH", "CAPPED_HISTOGRAM", "EXACT_HISTOGRAM", "KERNELS",
-    "LIBRARY", "LUT_LEVEL", "Kernel", "RANK_OCC", "RESOLVE_DSA",
+    "LIBRARY", "LUT_LEVEL", "Kernel", "MERGE_PACK", "RANK_OCC", "RESOLVE_DSA",
     "RESOLVE_FUSED", "RESOLVE_WALK", "ROW_COMPACT", "ROW_GATHER",
     "SHARD_LOOKUP_PARTIAL", "SHARD_OCC", "SHARD_OCC_PARTIAL",
     "SHARDED_LUT_LEVEL", "SHARDED_LUT_LEVEL_PARTIAL", "SHARDED_RESOLVE",
-    "SHARDED_SEARCH", "WALK_LF_STEP", "WALK_SLOW_STEP",
+    "SHARDED_SEARCH", "SPARSE_PACK", "WALK_LF_STEP", "WALK_SLOW_STEP",
 ]

@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "kernels"
 _SOURCES = ("rank.cu", "search.cu", "resolve.cu", "sharded.cu",
-            "sharded_partial.cu", "compact.cu")
+            "sharded_partial.cu", "compact.cu", "pack.cu")
 _HEADERS = ("rank.cuh", "search.cuh", "walk.cuh", "shard_view.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -77,6 +77,12 @@ SIGNATURES = {
     "rs_row_gather": [_P, _L, _I, _L, _P, _P, _I, _P, _L, _P, _P, _P, _P,
                       _P],
     "rs_capped_histogram": [_P, _P, _L, _I, _P, _L, _I, _P, _P],
+    # the served answer's sparse pack and the cohort merge (csrc/pack.cu);
+    # the merge's first three arguments are host arrays
+    "rs_sparse_pack": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _L, _L, _I,
+                       _P, _P, _L, _P, _L, _P],
+    "rs_merge_pack": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _L, _L, _P, _P,
+                      _L, _P, _L, _P],
 }
 
 

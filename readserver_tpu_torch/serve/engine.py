@@ -37,6 +37,7 @@ from readserver_tpu_torch.ops import (
     resolve_intervals,
     sample_histogram,
 )
+from readserver_tpu_torch.ops.pack import dense, merge_pack, pack_answer
 from readserver_tpu_torch.ops.resolve import resolve_hits
 from readserver_tpu_torch.ops.search import raise_if_refused, search_batch
 
@@ -161,78 +162,6 @@ def fold_strand_results(
 COMPACT_PER_QUERY = 16
 
 
-def _compact_cols(mask: torch.Tensor, cols, R: int):
-    """Order-preserving compaction of ``cols`` where ``mask`` → fixed [R]
-    buffers + the kept count (-1 signals overflow → dense fallback).  A
-    cumsum plus a scatter; slot R is the overflow slot, cut off after."""
-    m32 = mask.to(torch.int32)
-    pos = torch.cumsum(m32, 0) - m32
-    keep = mask & (pos < R)
-    slot = torch.where(keep, pos, torch.full_like(pos, R))
-    outs = [
-        torch.full((R + 1,), -1, dtype=torch.int32, device=mask.device)
-        .scatter(0, slot, c.to(torch.int32))[:R]
-        for c in cols
-    ]
-    total = m32.sum()
-    n = torch.where(total > R, torch.full_like(total, -1), total)
-    return n.to(torch.int32), outs
-
-
-def sparse_pack_device(
-    count, complete, hist, rid, off, smp, nq, cpq, bad, l=None, u=None,
-    trunc=None, count_hi=None,
-):
-    """Device-side sparse pack of a query batch's answers into ONE small
-    int32 buffer (one short device→host copy per batch):
-
-      [count(W), count_hi(W)?, complete(W), trunc(W)?, (l(W), u(W))?,
-       n_hist, hist_idx(R), hist_val(R),
-       (n_hits, hit_idx(R), read_id(R), offset(R), sample(R))?, bad]
-
-    ``bad`` (int32 [1]) is the search's refused-query count.
-    ``count_hi`` carries bits 31+ of an int64 cross-partition count sum as
-    a second int32 lane (each partition's count fits int32, their sum over
-    a cohort's partitions need not).
-
-    ``rid=None`` packs a histogram-only answer (the /samples shape).
-    Returns ``(packed, hist, dense_hits)``: the dense device tensors back
-    the rare overflow case (n == -1), copied only when needed."""
-    W = count.shape[0]
-    R = cpq * W
-    dev = count.device
-    segs = [count.to(torch.int32)]
-    if count_hi is not None:
-        segs.append(count_hi.to(torch.int32))
-    segs.append(complete.to(torch.int32))
-    if trunc is not None:
-        # hist-only tier: whether a follow-up hits query would truncate
-        segs.append(trunc.to(torch.int32))
-    if l is not None:
-        segs += [l.to(torch.int32), u.to(torch.int32)]
-    NS = hist.shape[1]
-    cells = torch.arange(W * NS, dtype=torch.int32, device=dev)
-    n_hist, (hist_idx, hist_val) = _compact_cols(
-        (hist.reshape(-1) > 0) & (cells // NS < nq),
-        [cells, hist.reshape(-1)],
-        R,
-    )
-    segs += [n_hist.reshape(1), hist_idx, hist_val]
-    dense_hits = None
-    if rid is not None:
-        SH = rid.shape[1]
-        lanes = torch.arange(W * SH, dtype=torch.int32, device=dev)
-        n_hits, (hit_idx, hit_rid, hit_off, hit_smp) = _compact_cols(
-            (rid.reshape(-1) >= 0) & (lanes // SH < nq),
-            [lanes, rid.reshape(-1), off.reshape(-1), smp.reshape(-1)],
-            R,
-        )
-        segs += [n_hits.reshape(1), hit_idx, hit_rid, hit_off, hit_smp]
-        dense_hits = torch.cat([rid, off, smp], dim=1)
-    segs.append(bad)
-    return torch.cat(segs), hist, dense_hits
-
-
 def assemble_sparse(
     kmers,
     nq,
@@ -251,7 +180,8 @@ def assemble_sparse(
 ) -> list[QueryResult]:
     """Host-side assembly of the sparse packed buffer → QueryResults (NumPy;
     the JAX package's ``assemble_sparse``, with the dense fallbacks copied
-    off the device by ``.cpu().numpy()``).
+    off the device by ``.cpu().numpy()``; a fallback may be a callable that
+    assembles it, called only when the section overflowed).
 
     ``stats`` (optional dict) accumulates transfer accounting: batches,
     sparse-path bytes, and dense-fallback events/bytes."""
@@ -285,7 +215,7 @@ def assemble_sparse(
             cell = int(hist_idx[j])
             hist_q[cell // NS][sample_names[cell % NS]] = int(hist_val[j])
     else:  # dense fallback: transfer just the histogram
-        hist_m = dense_hist_dev.cpu().numpy()[:nq]
+        hist_m = dense(dense_hist_dev).cpu().numpy()[:nq]
         if stats is not None:
             stats["hist_dense_fallbacks"] += 1
             stats["dense_bytes"] += int(hist_m.nbytes)
@@ -312,7 +242,7 @@ def assemble_sparse(
                     )
                 )
         else:  # dense fallback: transfer just the hit tensor
-            dh = dense_hits_dev.cpu().numpy()[:nq]
+            dh = dense(dense_hits_dev).cpu().numpy()[:nq]
             if stats is not None:
                 stats["hits_dense_fallbacks"] += 1
                 stats["dense_bytes"] += int(dh.nbytes)
@@ -973,11 +903,8 @@ class QueryEngine:
         )
         # hist-tier trunc flag reflects the per-query hit cap ONLY (not
         # resolve_intervals' whole-batch row budget)
-        return sparse_pack_device(
-            u - l, complete, hist, rid, off, smp, nq,
-            self.COMPACT_PER_QUERY, bad, l=l, u=u,
-            trunc=None if with_hits else (u - l) > self.H,
-        )
+        return pack_answer(l, u, complete, hist, rid, off, smp, nq,
+                           self.COMPACT_PER_QUERY, bad, self.H)
 
     def _counted(self, codes, lengths, nq: int) -> torch.Tensor:
         """The count tier on the device → flat int32 [l(nq), u(nq), bad]:
@@ -1209,55 +1136,18 @@ class MultiEngine:
         sum need not."""
         return sum(o[:, 2].to(torch.int64) for o in outs)
 
-    def _merge_dense(self, outs, with_hits: bool):
-        """Merge of the partitions' dense [W, 4+ns(+3H)] buffers on the
-        device → ``(count, complete, hist, read_id, offset, sample,
-        trunc)``: counts add in int64; ``complete`` is the product of the
-        partitions' flags; each partition's histogram adds into columns
-        ``[:, :ns_s]`` (its sample space may be narrower than the cohort's);
-        read ids shift by the partition's first global id, -1 kept, and hit
-        lanes concatenate partition by partition.  Without hits the three
-        hit tensors are None and ``trunc`` is the histogram tier's flag;
-        with hits ``trunc`` is None."""
-        W = outs[0].shape[0]
-        dev = outs[0].device
-        count = torch.zeros(W, dtype=torch.int64, device=dev)
-        complete = torch.ones(W, dtype=torch.int32, device=dev)
-        trunc = torch.zeros(W, dtype=torch.bool, device=dev)
-        hist = torch.zeros((W, self._ns), dtype=torch.int32, device=dev)
-        rids, offs, smps = [], [], []
-        H = self.H
-        for e, o, base in zip(self.engines, outs, self._read_base):
-            ns_s = e._ns
-            count += o[:, 2].to(torch.int64)
-            complete *= o[:, 3]
-            hist[:, :ns_s] += o[:, 4 : 4 + ns_s]
-            if with_hits:
-                rid = o[:, 4 + ns_s : 4 + ns_s + H]
-                rids.append(torch.where(rid >= 0, rid + base, -1))
-                offs.append(o[:, 4 + ns_s + H : 4 + ns_s + 2 * H])
-                smps.append(o[:, 4 + ns_s + 2 * H : 4 + ns_s + 3 * H])
-            else:
-                # a follow-up hits query truncates iff some PARTITION's
-                # count exceeds the per-query cap, visible only here.  As
-                # in the JAX package, the flag reflects that cap only, not
-                # the whole-batch row budget of a follow-up /reads
-                trunc |= o[:, 2] > H
-        if not with_hits:
-            return count, complete, hist, None, None, None, trunc
-        return (count, complete, hist, *(torch.cat(x, dim=1)
-                                         for x in (rids, offs, smps)), None)
-
     def _merge_full(self, outs, nq: int, with_hits: bool, bad):
-        """:meth:`_merge_dense`, then :func:`sparse_pack_device` with the
-        int64 count as two int32 lanes (bits 0-30, then 31+) → ``(packed,
-        hist, dense_hits)``, ``bad`` the packed buffer's last word."""
-        count, complete, hist, rid, off, smp, trunc = self._merge_dense(
-            outs, with_hits)
-        return sparse_pack_device(
-            count & 0x7FFFFFFF, complete, hist, rid, off, smp, nq,
-            self.COMPACT_PER_QUERY, bad, trunc=trunc, count_hi=count >> 31,
-        )
+        """The partitions' dense [W, 4+ns(+3H)] buffers merged and packed
+        on the device (:func:`~readserver_tpu_torch.ops.pack.merge_pack`:
+        counts add in int64, shipped as two int32 lanes; ``complete`` is
+        the product of the partitions' flags; each partition's histogram
+        adds into its first ``ns`` columns; read ids shift by the
+        partition's first global id and hit lanes concatenate) →
+        ``(packed, hist, dense_hits)``, ``bad`` the packed buffer's last
+        word."""
+        return merge_pack(outs, [e._ns for e in self.engines],
+                          self._read_base, self._ns, self.H, nq,
+                          self.COMPACT_PER_QUERY, bad, with_hits)
 
     def _counted(self, codes, lengths, nq: int) -> torch.Tensor:
         """The count tier on the device → flat int32 [count bits 0-30 (nq),

@@ -5,9 +5,9 @@ machine), without the repository's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
-Every test but one needs a CUDA card and skips without one; the CPU parity
+Every test but two needs a CUDA card and skips without one; the CPU parity
 of the plain forms with the JAX package is in
-test_torch_{rank,search,lut,resolve}.py.
+test_torch_{rank,search,lut,resolve,compact,pack}.py.
 """
 
 import contextlib
@@ -28,6 +28,7 @@ from readserver_tpu_torch.kernels import (
     CAPPED_HISTOGRAM,
     EXACT_HISTOGRAM,
     LUT_LEVEL,
+    MERGE_PACK,
     RANK_OCC,
     RESOLVE_DSA,
     RESOLVE_FUSED,
@@ -41,6 +42,7 @@ from readserver_tpu_torch.kernels import (
     SHARDED_LUT_LEVEL_PARTIAL,
     SHARDED_RESOLVE,
     SHARDED_SEARCH,
+    SPARSE_PACK,
     WALK_LF_STEP,
     WALK_SLOW_STEP,
 )
@@ -55,6 +57,7 @@ from readserver_tpu_torch.ops import (
     encode_query_batch,
 )
 from readserver_tpu_torch.ops import lut as lut_ops
+from readserver_tpu_torch.ops import pack as pack_ops
 from readserver_tpu_torch.ops import rank as rank_ops
 from readserver_tpu_torch.ops import resolve
 from readserver_tpu_torch.ops import search as search_ops
@@ -315,6 +318,36 @@ def test_engine_raises_refused_queries_at_its_copy(packed, cuda_device,
 
 
 # ------------------------------------------------------------ launch device
+
+
+def _c_entries():
+    """Every ``extern "C"`` entry of the library's sources → its
+    parameter count, the walk tables' macro expanded."""
+    import re
+
+    entries = {}
+    for src in kbuild._SOURCES:
+        text = (kbuild._CSRC / src).read_text()
+        macro = re.search(r"#define RS_WALK_PARAMS((?:[^\n]*\\\n)*[^\n]*)",
+                          text)
+        if macro:
+            text = text.replace("RS_WALK_PARAMS,", macro.group(1).replace(
+                "\\\n", " ") + ",")
+        for m in re.finditer(r'extern "C" \w+ (\w+)\(([^)]*)\)', text):
+            entries[m.group(1)] = len(
+                [a for a in m.group(2).split(",") if a.strip()])
+    return entries
+
+
+def test_signatures_match_the_sources():
+    """Each C entry's ctypes argtypes count its parameters, the stream
+    included: a missing one makes ctypes pass the stream as a 32-bit int,
+    which faults the launch on the card."""
+    entries = _c_entries()
+    assert set(entries) == set(kbuild.SIGNATURES)
+    for name, n in entries.items():
+        assert len(kbuild.SIGNATURES[name]) == n, name
+    assert len(kbuild._WALK) == 18
 
 
 def test_kernel_launches_on_the_tensors_device(monkeypatch):
@@ -1913,3 +1946,203 @@ def test_compact_and_capped_doc_engine_on_card_runs_no_plain_form(packed, cuda_d
     assert ROW_COMPACT.launches > before[0]
     assert ROW_GATHER.launches > before[1]
     assert CAPPED_HISTOGRAM.launches > before[2]
+
+
+# --------------------------------------- K8 and the cohort merge's pack
+
+# (name, W, NS, H, nq, density): the served shapes (/reads and /samples of
+# 4096 queries on both strands: E. coli's one sample, the cohort's 128),
+# nq < W, and densities past the 16 slots a query in either section
+PACK_CASES = [
+    ("E. coli /reads", 8192, 1, 64, 8192, 0.01),
+    ("cohort /samples", 8192, 128, 0, 8192, 0.005),
+    ("cohort /reads, nq < W", 8192, 128, 64, 5000, 0.01),
+    ("hist overflow", 8192, 128, 64, 8192, 0.2),
+    ("hits overflow", 8192, 1, 64, 6000, 0.4),
+    ("one query", 1, 3, 8, 1, 0.5),
+]
+
+
+def _pack_inputs(W, NS, H, density, seed, device):
+    rng = np.random.default_rng(seed)
+    l = rng.integers(0, 1 << 20, W)
+    u = l + rng.integers(0, 200, W)
+    hist = np.where(rng.random((W, NS)) < density,
+                    rng.integers(1, 50, (W, NS)), 0)
+    comp = torch.from_numpy(rng.random(W) < 0.9).to(device)
+    cols = [t32(l, device), t32(u, device), comp, t32(hist, device)]
+    if H:
+        rid = np.where(rng.random((W, H)) < density,
+                       rng.integers(0, 1 << 24, (W, H)), -1)
+        cols += [t32(rid, device), t32(rng.integers(0, 150, (W, H)), device),
+                 t32(rng.integers(0, 128, (W, H)), device)]
+    else:
+        cols += [None, None, None]
+    return cols
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, W, NS, H, nq, density", PACK_CASES)
+def test_sparse_pack_kernel_matches_plain(cuda_device, name, W, NS, H, nq,
+                                          density):  # noqa: F811
+    """K8 against its plain form, word for word: the segments, both
+    sections with -1 past the kept entries, n = -1 and the first R kept on
+    an overflow, the refused-query word; the dense fallbacks equal."""
+    cols = _pack_inputs(W, NS, H, density, W + NS + H, cuda_device)
+    bad = torch.tensor([2], dtype=torch.int32, device=cuda_device)
+    before = SPARSE_PACK.launches
+    got = pack_ops.pack_answer(*cols, nq, 16, bad, 64)
+    torch.cuda.synchronize()
+    assert SPARSE_PACK.launches == before + 1
+    want = pack_ops.pack_answer_plain(*cols, nq, 16, bad, 64)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(pack_ops.dense(got[1]), want[1])
+    if H:
+        assert torch.equal(pack_ops.dense(got[2]), want[2])
+    else:
+        assert got[2] is None and want[2] is None
+    # n_hist after count, complete, (trunc,) l and u; n_hits R + R later
+    p = W * (4 if H else 5)
+    n = [int(got[0][p])] + ([int(got[0][p + 1 + 32 * W])] if H else [])
+    assert (-1 in n) == ("overflow" in name)
+    if name == "hist overflow":
+        assert n[0] == -1
+
+
+def _merge_inputs(W, ns, H, with_hits, density, big, seed, device):
+    rng = np.random.default_rng(seed)
+    outs = []
+    for n in ns:
+        o = np.zeros((W, 4 + n + (3 * H if with_hits else 0)), np.int64)
+        o[:, 0] = rng.integers(0, 1 << 20, W)
+        o[:, 2] = (2**31 - 5 if big else rng.integers(0, 2 * H, W))
+        o[:, 1] = o[:, 0] + o[:, 2] % (1 << 20)
+        o[:, 3] = rng.random(W) < 0.9
+        o[:, 4:4 + n] = np.where(rng.random((W, n)) < density,
+                                 rng.integers(1, 20, (W, n)), 0)
+        if with_hits:
+            o[:, 4 + n:4 + n + H] = np.where(
+                rng.random((W, H)) < density,
+                rng.integers(0, 1 << 20, (W, H)), -1)
+            o[:, 4 + n + H:] = rng.integers(0, 150, (W, 2 * H))
+        outs.append(t32(o, device))
+    return outs
+
+
+# (name, W, partitions' samples, H, nq, density, counts past 2^31)
+MERGE_CASES = [
+    ("cohort's 4 partitions", 8192, (32, 64, 96, 128), 64, 8192, 0.005,
+     False),
+    ("nq < W, past 2^31", 8192, (32, 64, 96, 128), 64, 3000, 0.005, True),
+    ("overflow", 8192, (128, 128, 128, 128), 64, 8192, 0.1, False),
+    ("one partition", 300, (5,), 8, 300, 0.3, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_hits", [True, False])
+@pytest.mark.parametrize("name, W, ns, H, nq, density, big", MERGE_CASES)
+def test_merge_pack_kernel_matches_plain(cuda_device, name, W, ns, H, nq,
+                                         density, big, with_hits):  # noqa: F811
+    """The cohort merge and its pack against ``merge_dense`` and the plain
+    pack, word for word, on both tiers: int64 count sums (past 2^31 in
+    two lanes), narrower partitions' histograms, read ids shifted by each
+    base, the histogram tier's trunc flags, overflow; the dense fallbacks
+    the merged tensors."""
+    outs = _merge_inputs(W, ns, H, with_hits, density, big, W + len(ns),
+                         cuda_device)
+    bases = [0, 1_000_000, 3_000_000, 7_000_000][:len(ns)]
+    bad = torch.tensor([0], dtype=torch.int32, device=cuda_device)
+    args = (outs, list(ns), bases, max(ns), H, nq, 16, bad, with_hits)
+    before = MERGE_PACK.launches
+    got = pack_ops.merge_pack(*args)
+    torch.cuda.synchronize()
+    assert MERGE_PACK.launches == before + 1
+    want = pack_ops.merge_pack_plain(*args)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(pack_ops.dense(got[1]), want[1])
+    if with_hits:
+        assert torch.equal(pack_ops.dense(got[2]), want[2])
+    if big:
+        assert int(got[0][W]) == len(ns) * (2**31 - 5) >> 31
+
+
+@pytest.mark.cuda
+def test_pack_kernels_refuse_what_they_do_not_take(cuda_device):  # noqa: F811
+    cols = _pack_inputs(64, 2, 8, 0.3, 1, cuda_device)
+    bad = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    for i, wrong in ((0, cols[0].long()), (3, cols[3][:, :1]),
+                     (4, cols[4].t()), (2, cols[2].int())):
+        bent = list(cols)
+        bent[i] = wrong
+        with pytest.raises(ValueError):
+            pack_ops.pack_answer(*bent, 64, 16, bad, 8)
+    with pytest.raises(ValueError):
+        pack_ops.pack_answer(*cols, 65, 16, bad, 8)
+    outs = _merge_inputs(64, (2, 3), 8, False, 0.3, False, 2, cuda_device)
+    with pytest.raises(ValueError):  # ns past the cohort's
+        pack_ops.merge_pack(outs, [2, 3], [0, 10], 2, 8, 64, 16, bad, False)
+    with pytest.raises(ValueError):  # rows without the hit columns
+        pack_ops.merge_pack(outs, [2, 3], [0, 10], 3, 8, 64, 16, bad, True)
+
+
+@pytest.mark.cuda
+def test_merge_pack_histogram_tier_on_full_rows(cuda_device):  # noqa: F811
+    """The histogram tier over buffers that carry the hit columns too (a
+    row stride past 4 + ns), as the plain merge slices them."""
+    outs = _merge_inputs(4096, (32, 64, 96, 128), 64, True, 0.01, True, 7,
+                         cuda_device)
+    bad = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    args = (outs, [32, 64, 96, 128], [0, 10, 20, 30], 128, 64, 3000, 16,
+            bad, False)
+    got = pack_ops.merge_pack(*args)
+    want = pack_ops.merge_pack_plain(*args)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(pack_ops.dense(got[1]), want[1])
+
+
+@pytest.mark.cuda
+def test_engines_on_card_pack_through_the_kernels(cohort, cohort_parts,
+                                                  cuda_device,
+                                                  monkeypatch):  # noqa: F811
+    """``QueryEngine`` and ``MultiEngine`` on the card answer as on the CPU
+    with the plain packs made to raise: K8 packs every full answer of the
+    engine (both tiers, both strands, an overflowing batch of short
+    k-mers, whose dense fallbacks the host reads) and the merge kernel
+    every cohort batch."""
+    corpus, packed = cohort
+    _, parts = cohort_parts
+    # H = 32: a full width of short k-mers (256, the width it pads to)
+    # keeps more than the 16 slots a query in both sections
+    cfg = ServeConfig(batch_size=512, max_hits=32, resolve_budget_frac=0.05)
+    kms = ["".join("ACGT"[c - 1] for c in row) for row in _queries(
+        corpus, 200, 31, seed=9)[0]] + ["ACGTAC", "GGATC"]
+    short = ["ACG", "TTA", "GAT", "CCA"] * 64
+    calls = (dict(), dict(include_hits=False), dict(both_strands=True))
+    engines = {}
+    for name, make in (("single", lambda d: QueryEngine(packed, cfg,
+                                                        device=d)),
+                       ("cohort", lambda d: MultiEngine(parts, cfg,
+                                                        device=d))):
+        cpu, card = make("cpu"), make(cuda_device)
+        want = [cpu.query_batch(q, **kw) for q in (kms, short)
+                for kw in calls]
+        engines[name] = (card, want)
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain pack ran on the card")
+
+    for fn in ("sparse_pack_plain", "pack_answer_plain", "merge_pack_plain",
+               "_compact_cols"):
+        monkeypatch.setattr(pack_ops, fn, refuse)
+    for name, (card, want) in engines.items():
+        kernel = SPARSE_PACK if name == "single" else MERGE_PACK
+        before = kernel.launches
+        got = [card.query_batch(q, **kw) for q in (kms, short)
+               for kw in calls]
+        assert got == want, name
+        torch.cuda.synchronize()
+        assert kernel.launches >= before + 6, name
+        stats = card.pack_stats
+        assert stats["hits_dense_fallbacks"] > 0, name
+        assert stats["hist_dense_fallbacks"] > 0, name
