@@ -136,7 +136,10 @@ on the card in phases 4 to 15):
    /samples and /reads of 4096 x 2 and the merge kernel on the cohort
    front's /reads and /samples, at nq = W and nq < W, and on short k-mers
    whose kept entries pass the 16 slots a query (n = -1), the packed
-   buffers and the dense fallbacks;
+   buffers and the dense fallbacks, then both at the one-launch design's
+   edges on seeded inputs (``pack_edge_cases``: exactly R and R + 1 kept,
+   nq = 0, odd widths and strides, 64 partitions, more tiles than the
+   card holds blocks at once);
 15. scaling (``serve_scaling``): ``bench/scaling_sim.py`` on the card,
    counts at 0: the interval-sharded program at every (dp, shard)
    factorisation of 8 in the one-device form and the cross-rank form
@@ -917,6 +920,97 @@ def pack_n(buf, W: int, R: int, head: int, hits: bool) -> tuple:
     return int(buf[p]), int(buf[p + 1 + 2 * R]) if hits else None
 
 
+def pack_edge_cases(dev) -> list:
+    """Seeded inputs at the edges of the one-launch pack → [(what, kind,
+    args)]: K8 (kind "k8": ``pack_answer``'s arguments up to ``nq``) with
+    exactly R and R + 1 kept in each section, nq = 0, odd NS and SH (the
+    kernel's four-load groups) and more tiles than the card holds blocks
+    at once; the merge (kind "merge": ``merge_pack``'s ``outs, ns,
+    bases, NS, H, nq, with_hits``) on odd row strides, 64 partitions,
+    nq = 0, more tiles than the card holds, and exactly R and R + 1
+    merged entries kept in each section."""
+    import torch
+
+    rng = np.random.default_rng(16)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+    def kept_at(W, width, nq, k, empty):
+        a = np.full(W * width, empty, np.int64)
+        a[rng.choice(nq * width, size=k, replace=False)] = rng.integers(
+            1, 50, k)
+        return a.reshape(W, width)
+
+    def answer(W, NS, H, dens):
+        l = rng.integers(0, 1 << 20, W)
+        return [l, l + rng.integers(0, 200, W), rng.random(W) < 0.9,
+                np.where(rng.random((W, NS)) < dens,
+                         rng.integers(1, 50, (W, NS)), 0),
+                np.where(rng.random((W, H)) < dens,
+                         rng.integers(0, 1 << 24, (W, H)), -1),
+                rng.integers(0, 150, (W, H)), rng.integers(0, 128, (W, H))]
+
+    def parts(W, ns, H, hits, dens):
+        outs = []
+        for n in ns:
+            o = np.zeros((W, 4 + n + (3 * H if hits else 0)), np.int64)
+            o[:, 2] = rng.integers(0, 2 * H, W)
+            o[:, 3] = rng.random(W) < 0.9
+            o[:, 4:4 + n] = np.where(rng.random((W, n)) < dens,
+                                     rng.integers(1, 20, (W, n)), 0)
+            if hits:
+                o[:, 4 + n:4 + n + H] = np.where(
+                    rng.random((W, H)) < dens,
+                    rng.integers(0, 1 << 20, (W, H)), -1)
+                o[:, 4 + n + H:] = rng.integers(0, 150, (W, 2 * H))
+            outs.append(o)
+        return outs
+
+    cases = []
+
+    def k8(what, x, nq):
+        cases.append((what, "k8", (t(x[0]), t(x[1]),
+                                   torch.from_numpy(x[2]).to(dev), t(x[3]),
+                                   t(x[4]), t(x[5]), t(x[6]), nq)))
+
+    def merge(what, outs, ns, H, nq, hits):
+        cases.append((what, "merge", (
+            [t(o) for o in outs], list(ns),
+            [1_000_000 * p for p in range(len(ns))], max(ns), H, nq, hits)))
+
+    W, nq = 4096, 4000
+    R = 16 * W
+    for extra, tag in ((0, "R"), (1, "R + 1")):
+        x = answer(W, 33, 8, 0.0)
+        x[3] = kept_at(W, 33, nq, R + extra, 0)
+        k8(f"hist kept {tag}", x, nq)
+        x = answer(W, 1, 33, 0.0)
+        x[4] = kept_at(W, 33, nq, R + extra, -1)
+        k8(f"hits kept {tag}", x, nq)
+        outs = parts(W, (128, 64), 64, True, 0.0)
+        outs[0][:, 4:132] = kept_at(W, 128, nq, R + extra, 0)
+        merge(f"merged cells kept {tag}", outs, (128, 64), 64, nq, bool(extra))
+        outs = parts(W, (16, 16), 64, True, 0.0)
+        lanes = kept_at(W, 128, nq, R + extra, -1)
+        for p, o in enumerate(outs):
+            o[:, 20:84] = lanes[:, 64 * p:64 * (p + 1)]
+        merge(f"merged lanes kept {tag}", outs, (16, 16), 64, nq, True)
+    k8("nq = 0", answer(W, 5, 7, 0.3), 0)
+    k8("odd NS and SH", answer(4093, 5, 7, 0.3), 4000)
+    k8("more tiles than the card holds", answer(16384, 2, 256, 0.05), 16384)
+    for what, W, ns, H, nq, dens in (
+            ("odd strides", 4096, (7, 9, 11, 13), 4, 4000, 0.05),
+            ("64 partitions", 512, (3, 4, 8, 5) * 16, 4, 500, 0.05),
+            ("nq = 0", 4096, (128,) * 4, 64, 0, 0.05),
+            ("more tiles than the card holds", 16384, (128,) * 4, 64, 16384,
+             0.01)):
+        for hits in (True, False):
+            merge(f"{what}, {'full' if hits else 'histogram'} tier",
+                  parts(W, ns, H, hits, dens), ns, H, nq, hits)
+    return cases
+
+
 def check_pack_kernels(engine, ceng, meng, reads_kms, cohort_kms,
                        short_kms) -> dict:
     """Phase 6: K8 and the merge kernel against their plain forms, word
@@ -925,7 +1019,8 @@ def check_pack_kernels(engine, ceng, meng, reads_kms, cohort_kms,
     /samples and /reads 4096 x 2 (monolithic engine); the merge on the
     cohort front's 4 partitions, /reads and /samples; each at nq = W and
     nq < W, and on a batch of short k-mers whose kept entries pass the 16
-    slots a query (n = -1) → {"k8_err", "merge_err"}."""
+    slots a query (n = -1); then both at the one-launch design's edges
+    (:func:`pack_edge_cases`) → {"k8_err", "merge_err"}."""
     from readserver_tpu_torch.ops import pack
 
     def err_of(got, want):
@@ -972,6 +1067,24 @@ def check_pack_kernels(engine, ceng, meng, reads_kms, cohort_kms,
                 f"{k}")
             check(k == 0, f"the merge kernel disagrees with its plain form "
                   f"({what}, nq = {n})")
+    # the one-launch design's edges, on seeded inputs
+    bad = engine._new_bad()
+    for what, kind, a in pack_edge_cases(bad.device):
+        if kind == "k8":
+            args = (*a, cpq, bad, 64)
+            got = pack.pack_answer(*args)
+            k = err_of(got, pack.pack_answer_plain(*args))
+        else:
+            outs, ns, bases, NS, H, nq, hits = a
+            args = (outs, ns, bases, NS, H, nq, cpq, bad, hits)
+            got = pack.merge_pack(*args)
+            k = err_of(got, pack.merge_pack_plain(*args))
+        key = "k8_err" if kind == "k8" else "merge_err"
+        err[key] = max(err[key], k)
+        log(f"{'K8' if kind == 'k8' else 'merge kernel'}, edge: {what}: max "
+            f"|err| {k}")
+        check(k == 0, f"the pack kernels disagree with their plain forms "
+              f"({what})")
     return err
 
 
@@ -1040,7 +1153,7 @@ def time_packs(engine, ceng, meng, reads_make, cohort_make, card):
         plain = lambda *x, e=e: pack.pack_answer_plain(  # noqa: E731
             *x, cpq, e._new_bad(), e.H)[0]
         what = (f"W = {W}, NS = {x[3].shape[1]}, SH = {SH}, R = {cpq * W}")
-        got = time_cases([(name, ("pack_", 2), kern, plain, sets, what,
+        got = time_cases([(name, ("pack_", 1), kern, plain, sets, what,
                            nbytes, None)], None, card)
         out.update(got)
         copy = 12 * W * SH  # the dense hits the torch pack also wrote
@@ -1080,7 +1193,7 @@ def time_packs(engine, ceng, meng, reads_make, cohort_make, card):
             *args(outs, nq))[0]
         what = (f"{len(ns)} partitions x {list(sets[0][0][0].shape)} int32, "
                 f"NS = {meng._ns}, R = {cpq * W}")
-        got = time_cases([(name, ("pack_", 2), kern, plain, sets, what,
+        got = time_cases([(name, ("pack_", 1), kern, plain, sets, what,
                            nbytes, None)], None, card)
         out.update(got)
         time_ops(sets, plain, f"the merge's torch ops (merge_dense + the "
@@ -4732,8 +4845,8 @@ def run(args) -> dict:
         summary.update(k14_err=k14_err, k15_err=k15_err)
         for k, v in cohort_err.items():
             summary[k] = max(summary[k], v)
-        # K8 and the merge kernel at the served shapes, nq < W, and short
-        # k-mers past the 16 slots a query
+        # K8 and the merge kernel at the served shapes, nq < W, short
+        # k-mers past the 16 slots a query, and the one-launch edges
         short = ["".join(w) for w in rng.choice(list("ACGT"), (512, 8))]
         summary.update(check_pack_kernels(engine, ceng, meng, batches[8192],
                                           cbatches[8192], short))
@@ -4859,15 +4972,24 @@ def run(args) -> dict:
             span = next(e.time_range for e in evs
                         if e.name == "marked build"
                         and e.device_type == DeviceType.CPU)
-            kev = sorted((e for e in evs
-                          if e.device_type == DeviceType.CUDA
-                          and "lut_level_kernel" in e.name
-                          and span.start <= e.time_range.start <= span.end),
-                         key=lambda e: e.time_range.start)
+            seen = sorted((e for e in evs
+                           if e.device_type == DeviceType.CUDA
+                           and "lut_level_kernel" in e.name),
+                          key=lambda e: e.time_range.start)
+            kev = [e for e in seen
+                   if span.start <= e.time_range.start <= span.end]
+            if len(kev) != p - 1 and len(seen) == 2 * (p - 1):
+                # the device's clock off the host's range: both builds
+                # were seen whole, the second after the first's wait
+                kev = seen[p - 1:]
             if len(kev) == p - 1:
                 break
         lvl_dev = [e.self_device_time_total / 1e3 for e in kev]
-        check(len(lvl_dev) == p - 1, f"profiled {len(lvl_dev)} level launches")
+        check(len(lvl_dev) == p - 1,
+              f"profiled {len(lvl_dev)} level launches in the marked build "
+              f"({len(seen)} in the trace, "
+              f"{sum(e.device_type == DeviceType.CUDA for e in evs)} device "
+              f"events)")
         for k, (l_, u_) in enumerate(levels):
             last = k == len(levels) - 1
             ms = float(np.median([time_cuda(

@@ -26,22 +26,48 @@
 // dense fallbacks are not written here: the wrapper hands back the
 // tensors they are made of (ops/pack.py).
 //
-// Two launches over the flat cells (W * NS) and lanes (W * SH) of both
-// sections, a block of 256 threads per tile of 2048, eight consecutive
-// cells or lanes a thread, every load of a thread issued before any is
-// used: a pass waits one round of loads.  The first writes the segments
-// (a thread a query, over the grid) and each tile's kept count (a block
-// reduction) to a scratch buffer.  The second sums the counts of its
-// section's tiles before its own (a few hundred words, from the L2): its
-// first slot; it re-reads its cells or lanes (from the L2), scans the
-// threads' kept counts in the block and writes each kept entry at its slot
-// while the slot is below R, reading the lanes' offset and sample for kept
-// lanes only; the grid fills the slots past min(total, R) with -1, and
-// block 0 writes n_hist, n_hits and the refused-query count.  No scatter
-// over the whole batch and no wait between blocks: the tile counts are the
-// only state between the passes.  Bytes bound it: the answer's segments
-// and the cells and read ids read once, offset and sample of a kept lane,
-// the packed buffer written.
+// What bounds both: bytes.  The answer's segments and the cells and read
+// ids are read once, offset and sample of a kept lane, and the packed
+// buffer is written once, most of it the -1 past the kept entries.  On an
+// H100 an empty launch costs 0.5-1.3 us of device time, so a second
+// launch was not in itself what held the earlier two-launch design: its
+// second launch re-read every cell and read id and wrote the -1 tail with
+// scalar stores, and its first waited a round of loads in which each
+// thread's eight consecutive items spanned 1 KB a warp.  What holds the
+// one launch (scripts/torch_pack_trace.py) is a chain of round trips: the
+// tile's claim, its loads, the look-back (the slowest predecessor's
+// count), and the -1 tail, which waits for the sections' totals.
+//
+// One launch here, a single pass over the inputs.  The flat cells (nq NS)
+// and lanes (nq SH) of the two sections are cut in tiles of 2048, the
+// cells' tiles first.  A block takes tiles in dispatch order from a counter
+// until a claim passes the last tile, on a grid of at most the blocks the
+// card holds at once: every tile a block waits on, in the look-back or for
+// the totals, was claimed before, by a block that runs, so no block waits
+// on one the card has not started (another launch may share the card).  A
+// thread takes two groups of four consecutive items, the block's groups
+// side by side: 16-byte loads where the rows allow (the served rows do),
+// four loads a group otherwise, every load of a tile in flight before any
+// is used.  The merge sums the P
+// partitions' cells of both groups partition by partition and shifts read
+// ids by their partition's base, its addressing a multiply-high by the
+// widths' reciprocals (no division).  A kept lane's offset and sample are
+// loaded with its read id's group, before the scan.  Each tile's kept count
+// is one block scan (the two groups' counts in the halves of one word);
+// the block publishes it in the tile's descriptor, puts the kept entries
+// at their ranks in shared memory, and writes its share of the W queries'
+// segments while its predecessors publish; then it reads their descriptors
+// a block's width at a time, nearest first, down to the nearest inclusive
+// prefix (a decoupled look-back, one barrier a window), publishes its own
+// inclusive prefix and stores the kept entries below slot R side by
+// side.  Once the last tile of each section has its inclusive prefix (the
+// section's total), every block writes its share of the -1 past the kept
+// entries as 16-byte stores, and block 0 the n words and the refused-query
+// count.  A descriptor carries the call's epoch, which the wrapper counts a
+// call on each scratch, so the flags of an earlier call are stale without
+// a reset; the block whose claim is the call's last sets the counter back
+// to 0.  Each device and stream has its own scratch (ops/pack.py), so calls
+// on two streams share no flag.
 //
 // Plain C interface (built with nvcc into a shared library and bound with
 // ctypes); each entry point runs on the caller's stream and returns
@@ -57,9 +83,30 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 8;      // consecutive cells or lanes a thread
-constexpr int kTile = kThreads * kItems;  // cells or lanes a block
-constexpr int kMaxParts = 64;  // partitions a merge takes
+constexpr int kGroups = 2;                     // groups of 4 items a thread
+constexpr int kTile = kThreads * 4 * kGroups;  // cells or lanes a tile
+constexpr int kMaxParts = 64;                  // partitions a merge takes
+constexpr uint32_t kInclusive = 0x80000000u;   // a descriptor's prefix bit
+static_assert(kGroups == 2, "a tile's scan packs two groups in one word");
+
+// floor(n / d) for 0 <= n < 2^31 by a multiply-high (Granlund and
+// Montgomery): s = ceil(log2 d), m = floor(2^(31 + s) / d) + 1 < 2^32.
+struct Div {
+  uint32_t m;
+  int s;
+
+  static Div of(uint32_t d) {
+    Div r{0, 0};
+    while ((1ULL << r.s) < d) ++r.s;
+    if (r.s) r.m = static_cast<uint32_t>((1ULL << (31 + r.s)) / d + 1);
+    return r;
+  }
+  __device__ __forceinline__ int operator()(int n) const {
+    return s ? static_cast<int>(__umulhi(static_cast<uint32_t>(n), m) >>
+                                (s - 1))
+             : n;
+  }
+};
 
 // where each segment of the packed buffer starts (-1: absent)
 struct Layout {
@@ -73,9 +120,9 @@ Layout make_layout(int W, int nq, int NS, int SH, int R, bool hi, bool trunc,
   Layout L{};
   L.W = W, L.nq = nq, L.NS = NS, L.SH = SH, L.R = R;
   L.tiles_hist = static_cast<int>(
-      (static_cast<long long>(W) * NS + kTile - 1) / kTile);
+      (static_cast<long long>(nq) * NS + kTile - 1) / kTile);
   L.tiles_hits = static_cast<int>(
-      (static_cast<long long>(W) * SH + kTile - 1) / kTile);
+      (static_cast<long long>(nq) * SH + kTile - 1) / kTile);
   long long p = 0;
   auto seg = [&p](long long n) {
     const long long at = p;
@@ -104,9 +151,15 @@ Layout make_layout(int W, int nq, int NS, int SH, int R, bool hi, bool trunc,
   return L;
 }
 
+__device__ __forceinline__ void load4(const int32_t* p, int32_t (&v)[4]) {
+  const int4 q = __ldg(reinterpret_cast<const int4*>(p));
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+
 // One engine's answer: the search interval, the complete flags (bool),
 // the histogram [W, NS] and, on the full tier, the hit lanes [W, SH];
-// count = u - l, and on the histogram tier trunc = count > trunc_cap.
+// count = u - l, and on the histogram tier trunc = count > trunc_cap.  A
+// flat cell or lane is its index in the row-major array.
 struct Answer {
   const int32_t* l;
   const int32_t* u;
@@ -127,32 +180,60 @@ struct Answer {
     out[L.l + b] = lv;
     out[L.u + b] = uv;
   }
-  __device__ int32_t cell(int b, int c) const {
-    return hist[static_cast<long long>(b) * NS + c];
+  // the cells (section 0) or read ids (section 1) of the group at flat g;
+  // the items at or past N are not read
+  template <bool Vec>
+  __device__ __forceinline__ void load(int section, int g, int N,
+                                       int32_t (&v)[4]) const {
+    const int32_t* a = (section ? rid : hist) + g;
+    if (Vec) {
+      load4(a, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = g + e < N ? __ldg(a + e) : 0;
+    }
   }
-  __device__ int32_t read_id(int b, int j) const {
-    return rid[static_cast<long long>(b) * SH + j];
+  // both groups of a thread (at flat g[k]), their loads in flight together
+  template <bool Vec>
+  __device__ __forceinline__ void load_groups(int section,
+                                              const int (&g)[kGroups], int N,
+                                              int32_t (&v)[kGroups][4]) const {
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      if (g[k] < N) load<Vec>(section, g[k], N, v[k]);
+    }
   }
-  __device__ int32_t offset(int b, int j) const {
-    return off[static_cast<long long>(b) * SH + j];
-  }
-  __device__ int32_t sample(int b, int j) const {
-    return smp[static_cast<long long>(b) * SH + j];
+  // offset and sample of the group's kept lanes (bits of ``kept``)
+  template <bool Vec>
+  __device__ __forceinline__ void hit_cols(int g, unsigned kept,
+                                           int32_t (&o)[4],
+                                           int32_t (&s)[4]) const {
+    if (Vec) {
+      load4(off + g, o);
+      load4(smp + g, s);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (kept >> e & 1u) o[e] = __ldg(off + g + e), s[e] = __ldg(smp + g + e);
+      }
+    }
   }
 };
 
 // A cohort's partitions: P dense buffers whose rows of stride_p words
 // begin with (l, u, count, complete, hist[ns_p], (read_id, offset,
-// sample)[H] each); hit lane j = p * H + h is lane h of partition p, its
-// read id shifted by base_p.
+// sample)[H] each); merged cell (b, c) adds the partitions' cells c <
+// ns_p of row b, merged lane (b, j = p * H + h) is lane h of partition p,
+// its read id shifted by base_p.
 struct Parts {
-  int P, H;
+  int P, H, NS, SH;
+  Div by_ns, by_sh, by_h;
   const int32_t* o[kMaxParts];
   int ns[kMaxParts];
   int stride[kMaxParts];
   int base[kMaxParts];
 
-  __device__ const int32_t* row(int p, int b) const {
+  __device__ __forceinline__ const int32_t* row(int p, int b) const {
     return o[p] + static_cast<long long>(b) * stride[p];
   }
   __device__ void header(int b, int32_t* out, const Layout& L) const {
@@ -161,212 +242,404 @@ struct Parts {
     bool trunc = false;
     for (int p = 0; p < P; ++p) {
       const int32_t* r = row(p, b);
-      count += r[2];
-      complete *= static_cast<uint32_t>(r[3]);
-      trunc |= r[2] > H;
+      const int32_t c = __ldg(r + 2);
+      count += c;
+      complete *= static_cast<uint32_t>(__ldg(r + 3));
+      trunc |= c > H;
     }
     out[L.count + b] = static_cast<int32_t>(count & 0x7FFFFFFF);
     out[L.hi + b] = static_cast<int32_t>(count >> 31);
     out[L.complete + b] = static_cast<int32_t>(complete);
     if (L.trunc >= 0) out[L.trunc + b] = trunc;
   }
-  __device__ int32_t cell(int b, int c) const {
-    uint32_t v = 0;
-    for (int p = 0; p < P; ++p) {
-      if (c < ns[p]) v += static_cast<uint32_t>(row(p, b)[4 + c]);
-    }
-    return static_cast<int32_t>(v);
+  // lane f's read id in its partition p's row
+  __device__ __forceinline__ const int32_t* lane(int f, int& p) const {
+    const int b = by_sh(f);
+    const int j = f - b * SH;
+    p = by_h(j);
+    return row(p, b) + 4 + ns[p] + (j - p * H);
   }
-  // column k (0 read id, 1 offset, 2 sample) of hit lane j
-  __device__ int32_t hit(int b, int j, int k, int& p) const {
-    p = j / H;
-    return row(p, b)[4 + ns[p] + k * H + (j - p * H)];
-  }
-  __device__ int32_t read_id(int b, int j) const {
-    int p;
-    const int32_t r = hit(b, j, 0, p);
+  __device__ __forceinline__ int32_t shift(int32_t r, int p) const {
     return r >= 0 ? static_cast<int32_t>(static_cast<uint32_t>(r) +
                                          static_cast<uint32_t>(base[p]))
                   : -1;
   }
-  __device__ int32_t offset(int b, int j) const {
-    int p;
-    return hit(b, j, 1, p);
+  template <bool Vec>
+  __device__ __forceinline__ void load(int section, int g, int N,
+                                       int32_t (&v)[4]) const {
+    if (section == 0 && Vec) {  // a group lies in one row, in or past ns_p
+      const int b = by_ns(g);
+      const int c = g - b * NS;
+      uint32_t x[4] = {0, 0, 0, 0};
+#pragma unroll 4
+      for (int p = 0; p < P; ++p) {
+        if (c < ns[p]) {
+          int32_t q[4];
+          load4(row(p, b) + 4 + c, q);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[e] += static_cast<uint32_t>(q[e]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = static_cast<int32_t>(x[e]);
+    } else if (section == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t x = 0;
+        if (g + e < N) {
+          const int b = by_ns(g + e);
+          const int c = g + e - b * NS;
+          for (int p = 0; p < P; ++p) {
+            if (c < ns[p]) {
+              x += static_cast<uint32_t>(__ldg(row(p, b) + 4 + c));
+            }
+          }
+        }
+        v[e] = static_cast<int32_t>(x);
+      }
+    } else if (Vec) {  // a group lies in one partition's lanes
+      int p;
+      load4(lane(g, p), v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = shift(v[e], p);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = 0;
+        if (g + e < N) {
+          int p;
+          const int32_t* r = lane(g + e, p);
+          v[e] = shift(__ldg(r), p);
+        }
+      }
+    }
   }
-  __device__ int32_t sample(int b, int j) const {
-    int p;
-    return hit(b, j, 2, p);
+  template <bool Vec>
+  __device__ __forceinline__ void load_groups(int section,
+                                              const int (&g)[kGroups], int N,
+                                              int32_t (&v)[kGroups][4]) const {
+    if (section == 0 && Vec) {  // partition by partition, both groups
+      int b[kGroups], c[kGroups];
+      uint32_t x[kGroups][4] = {};
+#pragma unroll
+      for (int k = 0; k < kGroups; ++k) {
+        b[k] = by_ns(g[k] < N ? g[k] : 0);
+        c[k] = g[k] < N ? g[k] - b[k] * NS : NS;
+      }
+#pragma unroll 2
+      for (int p = 0; p < P; ++p) {
+        int32_t q[kGroups][4];
+#pragma unroll
+        for (int k = 0; k < kGroups; ++k) {
+          if (c[k] < ns[p]) load4(row(p, b[k]) + 4 + c[k], q[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < kGroups; ++k) {
+          if (c[k] < ns[p]) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) x[k][e] += static_cast<uint32_t>(q[k][e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kGroups; ++k) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[k][e] = static_cast<int32_t>(x[k][e]);
+      }
+      return;
+    }
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      if (g[k] < N) load<Vec>(section, g[k], N, v[k]);
+    }
+  }
+  template <bool Vec>
+  __device__ __forceinline__ void hit_cols(int g, unsigned kept,
+                                           int32_t (&o)[4],
+                                           int32_t (&s)[4]) const {
+    if (Vec) {
+      int p;
+      const int32_t* r = lane(g, p);
+      load4(r + H, o);
+      load4(r + 2 * H, s);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (kept >> e & 1u) {
+          int p;
+          const int32_t* r = lane(g + e, p);
+          o[e] = __ldg(r + H), s[e] = __ldg(r + 2 * H);
+        }
+      }
+    }
   }
 };
 
-// The kept entries of a thread's ``kItems`` consecutive flat cells
-// (section 0) or lanes (section 1) from f0, query-major as the JAX
-// compaction orders them, every load issued before any is used: ``v``
-// holds each item's value (the histogram cell) or read id, ``kept`` a bit
-// an item → their number.
-template <typename Src>
-__device__ __forceinline__ int load_items(const Src& src, const Layout& L,
-                                          int section, long long f0,
-                                          int32_t* v, unsigned& kept) {
-  const int width = section ? L.SH : L.NS;
-  const long long N = static_cast<long long>(L.nq) * width;
-  int b = static_cast<int>(f0 / width);
-  int c = static_cast<int>(f0 - static_cast<long long>(b) * width);
-  kept = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const bool in = f0 + k < N;  // a query below nq
-    v[k] = in ? (section ? src.read_id(b, c) : src.cell(b, c)) : 0;
-    if (in && (section ? v[k] >= 0 : v[k] > 0)) kept |= 1u << k;
-    if (++c == width) {
-      c = 0;
-      ++b;
-    }
-  }
-  return __popc(kept);
-}
-
-// The exclusive prefix of v over the block's threads; ``total`` their sum.
-__device__ __forceinline__ int block_scan(int v, int* sums, int& total) {
+// The exclusive prefix over the block's threads of x, whose two 16-bit
+// halves scan apart (each half's block total is below 2^16); ``total``
+// the block's sums.
+__device__ __forceinline__ uint32_t block_scan(uint32_t x, uint32_t* sums,
+                                               uint32_t& total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
+  uint32_t y = x;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
+    const uint32_t z = __shfl_up_sync(kFull, y, o);
+    if (lane >= o) y += z;
   }
-  if (lane == 31) sums[warp] = x;
+  if (lane == 31) sums[warp] = y;
   __syncthreads();
-  int before = 0;
+  uint32_t before = 0;
   total = 0;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) {
-    before += w < warp ? sums[w] : 0;
-    total += sums[w];
+    const uint32_t s = sums[w];
+    before += w < warp ? s : 0;
+    total += s;
   }
-  return before + x - v;
+  return before + y - x;
 }
 
-// The block's section and tile: the cells' tiles first, then the lanes'.
-__device__ __forceinline__ int section_of(const Layout& L, int& tile) {
-  tile = static_cast<int>(blockIdx.x);
-  if (tile < L.tiles_hist) return 0;
-  tile -= L.tiles_hist;
-  return 1;
+// A tile's descriptor: the call's epoch in the high word; in the low word
+// the tile's kept count, or with kInclusive the section's kept entries up
+// to and with the tile.  Read and written whole, past the L1.
+__device__ __forceinline__ void write_desc(unsigned long long* d,
+                                           uint32_t epoch, uint32_t low) {
+  *reinterpret_cast<volatile unsigned long long*>(d) =
+      static_cast<unsigned long long>(epoch) << 32 | low;
 }
 
-// First pass: the segments (a thread a query, over the grid), and each
-// tile's kept count into ``totals`` (the cells' tiles, then the lanes').
+// The low word of descriptor d once it is this call's, and with the
+// inclusive prefix where ``inclusive``.
+__device__ __forceinline__ uint32_t await_desc(const unsigned long long* d,
+                                               uint32_t epoch,
+                                               bool inclusive) {
+  for (;;) {
+    const unsigned long long x =
+        *reinterpret_cast<const volatile unsigned long long*>(d);
+    if (static_cast<uint32_t>(x >> 32) == epoch &&
+        (!inclusive || (static_cast<uint32_t>(x) & kInclusive))) {
+      return static_cast<uint32_t>(x);
+    }
+    __nanosleep(32);
+  }
+}
+
+// The section's kept entries before tile ``tile`` (the section's first
+// tile ``first``, always inclusive): the block reads up to kThreads
+// predecessors' descriptors at once, nearest first (a warp 32 of them),
+// and sums their counts down to the nearest inclusive prefix, a window
+// further back while the window holds none.  Each warp sums its lanes up
+// to its own nearest inclusive prefix; one barrier, then every thread
+// adds the warps' sums up to the first warp that holds one.  ``red``:
+// 2 kWarps words.
+__device__ uint32_t look_back(const unsigned long long* desc, int first,
+                              int tile, uint32_t epoch, uint32_t* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t before = 0;
+  for (int end = tile; end > first; end -= kThreads) {
+    const int i = end - 1 - static_cast<int>(threadIdx.x);
+    uint32_t v = 0;
+    bool inclusive = false;
+    if (i >= first) {
+      const uint32_t w = await_desc(desc + i, epoch, false);
+      v = w & ~kInclusive;
+      inclusive = (w & kInclusive) != 0;
+    }
+    const unsigned has = __ballot_sync(kFull, inclusive);
+    // the lanes up to the warp's nearest inclusive prefix (all: none)
+    const unsigned upto = has ? (2u << (__ffs(has) - 1)) - 1 : kFull;
+    uint32_t sum = upto >> lane & 1u ? v : 0;
+#pragma unroll
+    for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+    if (lane == 0) {
+      red[warp] = sum;
+      red[kWarps + warp] = has != 0;
+    }
+    __syncthreads();
+    bool found = false;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      if (!found) before += red[w];
+      found = found || red[kWarps + w];
+    }
+    __syncthreads();  // ``red`` free again
+    if (found) break;
+  }
+  return before;
+}
+
+// -1 into slots [a, R) of the column at ``col``, this block's share of
+// the grid's: 16-byte stores, the few slots before and after the aligned
+// stretch by block 0 (32-bit shares: the column is below 2^31 words).
+__device__ __forceinline__ void fill_tail(int32_t* col, int a, int R) {
+  if (a >= R) return;
+  const int mis =
+      static_cast<int>(reinterpret_cast<uintptr_t>(col + a) >> 2 & 3);
+  const int s0 = min(R, a + ((4 - mis) & 3));
+  const int n4 = (R - s0) >> 2;
+  const int s1 = s0 + 4 * n4;
+  if (blockIdx.x == 0) {
+    if (static_cast<int>(threadIdx.x) < s0 - a) col[a + threadIdx.x] = -1;
+    if (static_cast<int>(threadIdx.x) < R - s1) col[s1 + threadIdx.x] = -1;
+  }
+  int4* q = reinterpret_cast<int4*>(col + s0);
+  const int share = (n4 + static_cast<int>(gridDim.x) - 1) /
+                    static_cast<int>(gridDim.x);
+  const int lo = min(n4, static_cast<int>(blockIdx.x) * share);
+  const int hi = min(n4, lo + share);
+  for (int k = lo + static_cast<int>(threadIdx.x); k < hi; k += kThreads) {
+    q[k] = make_int4(-1, -1, -1, -1);
+  }
+}
+
+// The segments of this block's share of the W queries.
 template <typename Src>
-__global__ void __launch_bounds__(kThreads)
-    pack_count_kernel(__grid_constant__ const Src src,
-                      __grid_constant__ const Layout L,
-                      int32_t* __restrict__ out,
-                      int32_t* __restrict__ totals) {
-  __shared__ int sums[kWarps];
-  const int step = static_cast<int>(gridDim.x) * kThreads;
-  for (int b = static_cast<int>(blockIdx.x) * kThreads + threadIdx.x;
-       b < L.W; b += step) {
+__device__ __forceinline__ void write_segments(const Src& src, int32_t* out,
+                                               const Layout& L) {
+  const int share = (L.W + static_cast<int>(gridDim.x) - 1) /
+                    static_cast<int>(gridDim.x);
+  const int b0 = min(L.W, static_cast<int>(blockIdx.x) * share);
+  const int b1 = min(L.W, b0 + share);
+  for (int b = b0 + static_cast<int>(threadIdx.x); b < b1; b += kThreads) {
     src.header(b, out, L);
   }
-  int tile;
-  const int section = section_of(L, tile);
-  int32_t v[kItems];
-  unsigned kept;
-  const int n = load_items(src, L, section,
-                           static_cast<long long>(tile) * kTile +
-                               threadIdx.x * kItems, v, kept);
-  int total;
-  block_scan(n, sums, total);
-  if (threadIdx.x == 0) totals[blockIdx.x] = total;
 }
 
-// The sums over the block of three values, on every thread; ``shared``
-// (3 kWarps ints) is free again on return.
-__device__ __forceinline__ void block_sum3(int* v, int* shared) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int o = 16; o; o >>= 1) v[i] += __shfl_down_sync(kFull, v[i], o);
-    if (lane == 0) shared[i * kWarps + warp] = v[i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    v[i] = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) v[i] += shared[i * kWarps + w];
-  }
-  __syncthreads();
-}
-
-// Second pass: each kept cell and lane to its slot, the rest -1.
-template <typename Src>
+// The whole pack in one launch (see the note at the top).  ``scratch``:
+// the tile counter (its low word), then a descriptor a tile, the cells'
+// tiles first.
+template <typename Src, bool Vec>
 __global__ void __launch_bounds__(kThreads)
-    pack_fill_kernel(__grid_constant__ const Src src,
-                     __grid_constant__ const Layout L,
-                     int32_t* __restrict__ out,
-                     const int32_t* __restrict__ totals,
-                     const int32_t* __restrict__ bad) {
-  __shared__ int shared[3 * kWarps];
-  int tile;
-  const int section = section_of(L, tile);
-  const int first = section ? L.tiles_hist : 0;
-  // [the section's kept entries before this tile, all cells, all lanes]
-  int sum[3] = {0, 0, 0};
-  for (int k = threadIdx.x; k < L.tiles_hist + L.tiles_hits; k += kThreads) {
-    const int t = totals[k];
-    sum[k < L.tiles_hist ? 1 : 2] += t;
-    if (k >= first && k < first + tile) sum[0] += t;
-  }
-  block_sum3(sum, shared);
-  const int before = sum[0], th = sum[1], tx = sum[2];
-  const int R = L.R;
-  if (before < R) {
-    const long long f0 =
-        static_cast<long long>(tile) * kTile + threadIdx.x * kItems;
-    int32_t v[kItems];
-    unsigned kept;
-    const int n = load_items(src, L, section, f0, v, kept);
-    int total;
-    int slot = before + block_scan(n, shared, total);
-    const int width = section ? L.SH : L.NS;
+    pack_kernel(__grid_constant__ const Src src,
+                __grid_constant__ const Layout L, int32_t* __restrict__ out,
+                unsigned long long* __restrict__ scratch,
+                const int32_t* __restrict__ bad, uint32_t epoch) {
+  __shared__ uint32_t red[2 * kWarps];
+  __shared__ int claimed;
+  __shared__ uint32_t totals[2];
+  // a tile's kept entries at their ranks: flat index, value or read id,
+  // offset, sample
+  __shared__ int32_t stage[4][kTile];
+  auto* counter = reinterpret_cast<unsigned*>(scratch);
+  unsigned long long* desc = scratch + 1;
+  const int T = L.tiles_hist + L.tiles_hits;
+  bool segments = true;  // this block's segments still to write
+  // A block claims until a claim passes T, one claim past it a block, so
+  // the call makes T + G claims; its last sets the counter back to 0: every
+  // block has made its last by then.
+  const int last = T + static_cast<int>(gridDim.x) - 1;
+  for (;;) {
+    __syncthreads();  // ``claimed``, ``red`` and ``stage`` free again
+    if (threadIdx.x == 0) {
+      const int t = static_cast<int>(atomicAdd(counter, 1u));
+      if (t == last) *counter = 0;
+      claimed = t;
+    }
+    __syncthreads();
+    const int tile = claimed;
+    if (tile >= T) break;
+    const int section = tile < L.tiles_hist ? 0 : 1;
+    const int first = section ? L.tiles_hist : 0;
+    const int N = L.nq * (section ? L.SH : L.NS);
+    const int f0 = (tile - first) * kTile;
+    int g[kGroups];
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      if ((kept >> k & 1u) && slot < R) {
-        const long long f = f0 + k;
-        if (section) {
-          const int b = static_cast<int>(f / width);
-          const int j = static_cast<int>(f - static_cast<long long>(b) *
-                                                 width);
-          out[L.hit_idx + slot] = static_cast<int32_t>(f);
-          out[L.rid + slot] = v[k];
-          out[L.off + slot] = src.offset(b, j);
-          out[L.smp + slot] = src.sample(b, j);
-        } else {
-          out[L.hist_idx + slot] = static_cast<int32_t>(f);
-          out[L.hist_val + slot] = v[k];
+    for (int k = 0; k < kGroups; ++k) {
+      g[k] = f0 + 4 * (k * kThreads + static_cast<int>(threadIdx.x));
+    }
+    int32_t v[kGroups][4], o[kGroups][4], s[kGroups][4];
+    unsigned kept[kGroups];
+    src.template load_groups<Vec>(section, g, N, v);
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      kept[k] = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (g[k] + e < N && (section ? v[k][e] >= 0 : v[k][e] > 0)) {
+          kept[k] |= 1u << e;
         }
       }
-      slot += kept >> k & 1u;
+    }
+    if (section) {
+#pragma unroll
+      for (int k = 0; k < kGroups; ++k) {
+        if (kept[k]) src.template hit_cols<Vec>(g[k], kept[k], o[k], s[k]);
+      }
+    }
+    uint32_t total;
+    const uint32_t ex = block_scan(
+        __popc(kept[0]) | static_cast<uint32_t>(__popc(kept[1])) << 16, red,
+        total);
+    const uint32_t agg = (total & 0xFFFF) + (total >> 16);
+    if (threadIdx.x == 0) {
+      write_desc(desc + tile, epoch, tile == first ? agg | kInclusive : agg);
+    }
+    // the kept entries at their ranks in the tile
+    uint32_t rank[kGroups] = {ex & 0xFFFF, (total & 0xFFFF) + (ex >> 16)};
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (kept[k] >> e & 1u) {
+          stage[0][rank[k]] = g[k] + e;
+          stage[1][rank[k]] = v[k][e];
+          if (section) {
+            stage[2][rank[k]] = o[k][e];
+            stage[3][rank[k]] = s[k][e];
+          }
+          ++rank[k];
+        }
+      }
+    }
+    // while the predecessors publish their counts: the block's segments
+    if (segments) {
+      write_segments(src, out, L);
+      segments = false;
+    }
+    __syncthreads();  // ``red`` free again, ``stage`` written
+    const uint32_t before =
+        tile == first ? 0 : look_back(desc, first, tile, epoch, red);
+    if (threadIdx.x == 0 && tile != first) {
+      write_desc(desc + tile, epoch, (before + agg) | kInclusive);
+    }
+    // the tile's kept entries below slot R, side by side
+    const uint32_t R = static_cast<uint32_t>(L.R);
+    const int n = static_cast<int>(
+        before >= R ? 0 : (R - before < agg ? R - before : agg));
+    int32_t* at = out + before;
+    const long long idx = section ? L.hit_idx : L.hist_idx;
+    const long long val = section ? L.rid : L.hist_val;
+    for (int i = static_cast<int>(threadIdx.x); i < n; i += kThreads) {
+      at[idx + i] = stage[0][i];
+      at[val + i] = stage[1][i];
+      if (section) {
+        at[L.off + i] = stage[2][i];
+        at[L.smp + i] = stage[3][i];
+      }
     }
   }
-  // the slots past the kept entries: -1, over the whole grid
-  const int kh = th < R ? th : R, kx = tx < R ? tx : R;
-  const int step = static_cast<int>(gridDim.x) * kThreads;
-  const int t0 = static_cast<int>(blockIdx.x) * kThreads + threadIdx.x;
-  for (int s = kh + t0; s < R; s += step) {
-    out[L.hist_idx + s] = -1;
-    out[L.hist_val + s] = -1;
+  if (segments) write_segments(src, out, L);
+  // every tile was claimed by a block that runs: the sections' totals come
+  if (threadIdx.x < 2) {
+    const bool hits = threadIdx.x == 1;
+    const int last = hits ? T - 1 : L.tiles_hist - 1;
+    totals[threadIdx.x] =
+        (hits ? L.tiles_hits : L.tiles_hist) > 0
+            ? await_desc(desc + last, epoch, true) & ~kInclusive
+            : 0;
   }
+  __syncthreads();
+  const int th = static_cast<int>(totals[0]);
+  const int tx = static_cast<int>(totals[1]);
+  const int R = L.R;
+  fill_tail(out + L.hist_idx, min(th, R), R);
+  fill_tail(out + L.hist_val, min(th, R), R);
   if (L.SH) {
-    for (int s = kx + t0; s < R; s += step) {
-      out[L.hit_idx + s] = -1;
-      out[L.rid + s] = -1;
-      out[L.off + s] = -1;
-      out[L.smp + s] = -1;
-    }
+    fill_tail(out + L.hit_idx, min(tx, R), R);
+    fill_tail(out + L.rid, min(tx, R), R);
+    fill_tail(out + L.off, min(tx, R), R);
+    fill_tail(out + L.smp, min(tx, R), R);
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     out[L.n_hist] = th > R ? -1 : th;
@@ -375,17 +648,38 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename Src>
-int launch_pack(const Src& src, const Layout& L, void* bad, void* scratch,
-                void* out, cudaStream_t st) {
-  auto* o = static_cast<int32_t*>(out);
-  auto* t = static_cast<int32_t*>(scratch);
-  const int grid = L.tiles_hist + L.tiles_hits;
-  pack_count_kernel<Src><<<grid, kThreads, 0, st>>>(src, L, o, t);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  pack_fill_kernel<Src><<<grid, kThreads, 0, st>>>(
-      src, L, o, t, static_cast<const int32_t*>(bad));
+// Blocks of the launch: one a tile, and enough for the segments and the
+// -1 past the kept entries where the tiles are few; at most the blocks the
+// card holds at once, read once per device.
+template <typename Src, bool Vec>
+int grid_for(const Layout& L) {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (cached[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pack_kernel<Src, Vec>, kThreads, 0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cached[dev] = per_sm * sms > 0 ? per_sm * sms : 1;
+  }
+  const long long tail = static_cast<long long>(L.R) * (L.SH ? 6 : 2);
+  long long want = L.tiles_hist + L.tiles_hits;
+  if (want < tail / (16 * kThreads)) want = tail / (16 * kThreads);
+  if (want < L.W / (4 * kThreads)) want = L.W / (4 * kThreads);
+  if (want > cached[dev]) want = cached[dev];
+  return want < 1 ? 1 : static_cast<int>(want);
+}
+
+template <typename Src, bool Vec>
+int launch(const Src& src, const Layout& L, const void* bad, void* scratch,
+           int epoch, void* out, cudaStream_t st) {
+  const int grid = grid_for<Src, Vec>(L);
+  pack_kernel<Src, Vec><<<grid, kThreads, 0, st>>>(
+      src, L, static_cast<int32_t*>(out),
+      static_cast<unsigned long long*>(scratch),
+      static_cast<const int32_t*>(bad), static_cast<uint32_t>(epoch));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -397,8 +691,14 @@ bool valid_shape(long long W, long long nq, long long NS, long long SH,
          W * 6 + 6 * R + 3 < (1LL << 31);
 }
 
-long long scratch_words(const Layout& L) {
-  return static_cast<long long>(L.tiles_hist) + L.tiles_hits;
+// Whether the scratch holds the counter and a descriptor a tile, and the
+// epoch is one a descriptor can carry (0 is a zeroed scratch's).
+bool valid_scratch(const Layout& L, long long scratch_words, int epoch) {
+  return epoch >= 1 && scratch_words >= 1LL + L.tiles_hist + L.tiles_hits;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
@@ -407,16 +707,17 @@ long long scratch_words(const Layout& L) {
 // [W, NS]; rid, off, smp int32 [W, SH], or all null with SH = 0) packed
 // into out (int32 [out_words], the layout's size: count, complete, trunc
 // where trunc_cap >= 0, l and u, the sections), trunc = u - l > trunc_cap;
-// scratch int32 [scratch_words]: a word a tile of 2048 cells or lanes,
-// ceil(W NS / 2048) + ceil(W SH / 2048); bad int32 [1], the
-// buffer's last word.  A size that is not the layout's is refused.
+// scratch int64 [scratch_words >= 1 + ceil(nq NS / 2048) + ceil(nq SH /
+// 2048)], zeroed when made and used by one stream, with an epoch >= 1
+// greater than its last call's; bad int32 [1], the buffer's last word.  A
+// size that is not the layout's is refused.
 extern "C" int rs_sparse_pack(const void* l, const void* u,
                               const void* complete, const void* hist,
                               long long W, int NS, const void* rid,
                               const void* off, const void* smp, int SH,
                               long long nq, long long R, int trunc_cap,
                               const void* bad, void* scratch,
-                              long long scratch_words_, void* out,
+                              long long scratch_words, int epoch, void* out,
                               long long out_words, void* stream) {
   if (!valid_shape(W, nq, NS, SH, R) ||
       (SH && (rid == nullptr || off == nullptr || smp == nullptr))) {
@@ -434,36 +735,47 @@ extern "C" int rs_sparse_pack(const void* l, const void* u,
   const Layout L = make_layout(static_cast<int>(W), static_cast<int>(nq), NS,
                                SH, static_cast<int>(R), false,
                                trunc_cap >= 0, true);
-  if (L.size != out_words || scratch_words(L) != scratch_words_) {
+  if (L.size != out_words || !valid_scratch(L, scratch_words, epoch)) {
     return cudaErrorInvalidValue;
   }
-  return launch_pack(a, L, const_cast<void*>(bad), scratch, out,
-                     static_cast<cudaStream_t>(stream));
+  // 16-byte groups: the arrays aligned and of whole groups
+  const bool vec = aligned16(hist) && W * NS % 4 == 0 &&
+                   (SH == 0 || (aligned16(rid) && aligned16(off) &&
+                                aligned16(smp) && W * SH % 4 == 0));
+  const auto st = static_cast<cudaStream_t>(stream);
+  return vec ? launch<Answer, true>(a, L, bad, scratch, epoch, out, st)
+             : launch<Answer, false>(a, L, bad, scratch, epoch, out, st);
 }
 
 // The cohort merge and its pack: parts holds P device pointers to the
 // partitions' int32 [W, strides[p]] buffers, strides[p] >= 4 + ns[p] (+ 3H
 // where with_hits), ns, strides and bases P ints each (host arrays); NS
-// the cohort's samples (>= every ns[p]); out as rs_sparse_pack's, with the count as bits 0-30 and 31+,
-// trunc on the histogram tier and no l and u; scratch and bad as
-// rs_sparse_pack's.
+// the cohort's samples (>= every ns[p]); out as rs_sparse_pack's, with the
+// count as bits 0-30 and 31+, trunc on the histogram tier and no l and u;
+// scratch, epoch and bad as rs_sparse_pack's.
 extern "C" int rs_merge_pack(const void* parts, const void* ns,
                              const void* strides, const void* bases, int P,
-                             long long W, int NS,
-                             int H, int with_hits, long long nq, long long R,
-                             const void* bad, void* scratch,
-                             long long scratch_words_, void* out,
-                             long long out_words, void* stream) {
+                             long long W, int NS, int H, int with_hits,
+                             long long nq, long long R, const void* bad,
+                             void* scratch, long long scratch_words,
+                             int epoch, void* out, long long out_words,
+                             void* stream) {
   const long long SH = with_hits ? static_cast<long long>(P) * H : 0;
   if (P < 1 || P > kMaxParts || H < 1 || !valid_shape(W, nq, NS, SH, R)) {
     return cudaErrorInvalidValue;
   }
   Parts s{};
-  s.P = P, s.H = H;
+  s.P = P, s.H = H, s.NS = NS, s.SH = static_cast<int>(SH);
+  s.by_ns = Div::of(static_cast<uint32_t>(NS));
+  s.by_sh = Div::of(static_cast<uint32_t>(SH > 0 ? SH : 1));
+  s.by_h = Div::of(static_cast<uint32_t>(H));
   const auto* ptrs = static_cast<const int32_t* const*>(parts);
   const auto* n = static_cast<const int*>(ns);
   const auto* st = static_cast<const int*>(strides);
   const auto* b = static_cast<const int*>(bases);
+  // 16-byte groups: every row's cells and lanes start aligned, a group
+  // lies in one row, and in or past each partition's samples
+  bool vec = NS % 4 == 0 && (!with_hits || H % 4 == 0);
   for (int p = 0; p < P; ++p) {
     if (ptrs[p] == nullptr || n[p] < 1 || n[p] > NS ||
         st[p] < 4 + n[p] + (with_hits ? 3LL * H : 0LL)) {
@@ -473,13 +785,15 @@ extern "C" int rs_merge_pack(const void* parts, const void* ns,
     s.ns[p] = n[p];
     s.stride[p] = st[p];
     s.base[p] = b[p];
+    vec = vec && aligned16(ptrs[p]) && st[p] % 4 == 0 && n[p] % 4 == 0;
   }
   const Layout L = make_layout(static_cast<int>(W), static_cast<int>(nq), NS,
                                static_cast<int>(SH), static_cast<int>(R),
                                true, !with_hits, false);
-  if (L.size != out_words || scratch_words(L) != scratch_words_) {
+  if (L.size != out_words || !valid_scratch(L, scratch_words, epoch)) {
     return cudaErrorInvalidValue;
   }
-  return launch_pack(s, L, const_cast<void*>(bad), scratch, out,
-                     static_cast<cudaStream_t>(stream));
+  const auto cs = static_cast<cudaStream_t>(stream);
+  return vec ? launch<Parts, true>(s, L, bad, scratch, epoch, out, cs)
+             : launch<Parts, false>(s, L, bad, scratch, epoch, out, cs);
 }

@@ -80,9 +80,9 @@ SIGNATURES = {
     # the served answer's sparse pack and the cohort merge (csrc/pack.cu);
     # the merge's first three arguments are host arrays
     "rs_sparse_pack": [_P, _P, _P, _P, _L, _I, _P, _P, _P, _I, _L, _L, _I,
-                       _P, _P, _L, _P, _L, _P],
+                       _P, _P, _L, _I, _P, _L, _P],
     "rs_merge_pack": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _L, _L, _P, _P,
-                      _L, _P, _L, _P],
+                      _L, _I, _P, _L, _P],
 }
 
 

@@ -32,14 +32,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 from readserver_tpu_torch.kernels import MERGE_PACK, SPARSE_PACK
 from readserver_tpu_torch.kernels.build import check_int32, on_cuda, ptr
 
-TILE = 2048     # cells or lanes a block of csrc/pack.cu takes
+TILE = 2048     # cells or lanes a tile of csrc/pack.cu
 MAX_PARTS = 64  # partitions rs_merge_pack takes
+EPOCHS = 1 << 31  # calls on a scratch before it is zeroed again
 
 
 def dense(t):
@@ -116,11 +118,47 @@ def _words(W: int, R: int, count_hi: bool, trunc: bool, lu: bool,
             + (1 + 4 * R if hits else 0))
 
 
-def _scratch(W: int, NS: int, SH: int, dev) -> torch.Tensor:
-    """The kernels' scratch: each tile's kept count, the cells' tiles then
-    the lanes'."""
-    return torch.empty(-(-W * NS // TILE) + -(-W * SH // TILE),
-                       dtype=torch.int32, device=dev)
+class _Scratch:
+    """The kernels' scratch on one device and stream (int64: the tile
+    counter, then a descriptor a tile), and the epoch of its last call: a
+    descriptor carries its call's epoch, so an earlier call's are stale
+    with no reset.  Zeroed when made, and again when the epochs wrap."""
+
+    def __init__(self) -> None:
+        self.buf: torch.Tensor | None = None
+        self.epoch = 0
+
+
+_SCRATCH: dict = {}
+_SCRATCH_LOCK = threading.Lock()
+
+
+def _scratch(nq: int, NS: int, SH: int, dev) -> tuple:
+    """(scratch, epoch) for one call on ``dev``'s current stream: a
+    scratch of at least the counter and a descriptor for each tile of
+    ``TILE`` of the ``nq`` queries' cells and lanes, and this call's
+    epoch.  Calls on one stream run in order, so they may share flags;
+    two streams have a scratch each."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    words = 1 + -(-nq * NS // TILE) + -(-nq * SH // TILE)
+    with _SCRATCH_LOCK:
+        sc = _SCRATCH.setdefault((index, stream), _Scratch())
+        if sc.buf is None or sc.buf.numel() < words:
+            sc.buf = torch.zeros(max(words, 1024), dtype=torch.int64,
+                                 device=torch.device("cuda", index))
+        sc.epoch += 1
+        if sc.epoch == EPOCHS:
+            sc.buf.zero_()
+            sc.epoch = 1
+        return sc.buf, sc.epoch
+
+
+@functools.lru_cache(maxsize=64)
+def _host_ints(values: tuple):
+    """A ctypes int array of ``values``, made once (the merge's ns,
+    strides and bases repeat from batch to batch)."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 def _check_pack(W: int, nq: int, NS: int, SH: int, cpq: int) -> int:
@@ -163,7 +201,7 @@ def pack_answer(
     tier int32 ``rid, off, smp`` [W, SH], -1 where a lane holds no hit;
     None on the histogram tier, whose ``trunc`` flag is ``u - l >
     max_hits``) → ``(packed, hist, dense_hits)``.  ``cpq`` slots a query
-    a section.  ``rs_sparse_pack`` for CUDA tensors (two launches, no
+    a section.  ``rs_sparse_pack`` for CUDA tensors (one launch, no
     copy of the dense hits: ``dense_hits`` is a callable concatenating
     them on an overflow), the plain form for CPU tensors."""
     if not on_cuda(l):
@@ -190,10 +228,10 @@ def pack_answer(
         raise ValueError("rid, off and smp come together")
     out = torch.empty(_words(W, R, False, not SH, True, bool(SH)),
                       dtype=torch.int32, device=dev)
-    scratch = _scratch(W, NS, SH, dev)
+    scratch, epoch = _scratch(nq, NS, SH, dev)
     SPARSE_PACK(ptr(l), ptr(u), ptr(complete), ptr(hist), W, NS, ptr(rid),
                 ptr(off), ptr(smp), SH, nq, R, -1 if SH else max_hits,
-                ptr(bad), ptr(scratch), scratch.numel(), ptr(out),
+                ptr(bad), ptr(scratch), scratch.numel(), epoch, ptr(out),
                 out.numel(), device=dev)
     return out, hist, (lambda: torch.cat(hits, dim=1)) if SH else None
 
@@ -265,7 +303,7 @@ def merge_pack(
     global read id in ``bases`` → ``(packed, hist, dense_hits)`` as
     :func:`merge_pack_plain` gives them: the count as bits 0-30 and 31+,
     the histogram tier's ``trunc``, no ``l`` and ``u``.
-    ``rs_merge_pack`` for CUDA tensors (two launches reading every
+    ``rs_merge_pack`` for CUDA tensors (one launch reading every
     partition's buffer in place; the dense fallbacks are callables that
     merge them by :func:`merge_dense` on an overflow), the plain form for
     CPU tensors."""
@@ -293,15 +331,13 @@ def merge_pack(
     check_int32("bad", bad, dev, (1,))
     out = torch.empty(_words(W, R, True, not with_hits, False, with_hits),
                       dtype=torch.int32, device=dev)
-    scratch = _scratch(W, NS, SH, dev)
+    scratch, epoch = _scratch(nq, NS, SH, dev)
     parts = (ctypes.c_void_p * P)(*(o.data_ptr() for o in outs))
-    ns_c = (ctypes.c_int * P)(*ns)
-    strides_c = (ctypes.c_int * P)(*(o.shape[1] for o in outs))
-    bases_c = (ctypes.c_int * P)(*bases)
-    MERGE_PACK(ctypes.addressof(parts), ctypes.addressof(ns_c),
-               ctypes.addressof(strides_c), ctypes.addressof(bases_c), P, W,
-               NS, H, int(with_hits), nq, R, ptr(bad), ptr(scratch),
-               scratch.numel(), ptr(out), out.numel(), device=dev)
+    ns_c, strides_c, bases_c = (ctypes.addressof(_host_ints(tuple(x))) for x
+                                in (ns, (o.shape[1] for o in outs), bases))
+    MERGE_PACK(ctypes.addressof(parts), ns_c, strides_c, bases_c, P, W, NS,
+               H, int(with_hits), nq, R, ptr(bad), ptr(scratch),
+               scratch.numel(), epoch, ptr(out), out.numel(), device=dev)
     merged = functools.cache(
         lambda: merge_dense(outs, ns, bases, NS, H, with_hits))
     hits = (lambda: torch.cat(merged()[3:6], dim=1)) if with_hits else None

@@ -20,17 +20,26 @@ served requests showed:
 
 16 distinct input sets a case, in turn: the wrapper's time (CUDA events,
 median of 3 passes) and the device time of the pack's kernels (profiler,
-every kernel whose name holds ``pack_``), the outputs equal to the plain
-forms on every set.  Prints one JSON line per run and a table of medians.
-Imports torch, never jax.
+every kernel whose name holds ``pack_``, in all and by kernel; a pass
+where the profiler saw fewer launches than were made is taken again), the
+outputs equal to the plain forms on every set; each pack kernel's launch
+as the profiler's trace records it (grid, registers a thread, shared
+memory: the library's own build, whose grid is the blocks its occupancy
+query allows where the tiles are more); and an empty kernel's device
+time on the grid of the two-launch design (a block a tile of 2048 cells
+or lanes), the floor a launch costs, built alone into ``build/pack_ab/``.
+Prints one JSON line per run and a table of medians.  Imports torch,
+never jax.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -40,29 +49,112 @@ SETS = 16
 CPQ = 16
 
 
-def device_ms(fn, iters: int) -> float | None:
-    """Device milliseconds a call of ``fn`` over the kernels whose name
-    holds ``pack_`` (one profiler pass after ``iters`` untimed calls)."""
+def device_ms(fn, iters: int, key: str = "pack_") -> dict:
+    """Device milliseconds a call of ``fn`` by kernel, over the kernels
+    whose name holds ``key`` (a profiler pass after ``iters`` untimed
+    calls) → {kernel: ms}, with their sum under "total"; empty when the
+    profiler saw none.  The profiler now and then misses launches: a pass
+    where some kernel was seen fewer than ``iters`` times is taken again,
+    up to 5 passes, and dropped (empty) if none saw them all."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        with record_function("timed calls"):
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-    events = prof.events()
-    span = next(e.time_range for e in events if e.name == "timed calls"
-                and e.device_type == DeviceType.CPU)
-    us = sum(e.self_device_time_total for e in events
-             if e.device_type == DeviceType.CUDA and "pack_" in e.name
-             and span.start <= e.time_range.start <= span.end)
-    return us / iters / 1e3 if us else None
+            with record_function("timed calls"):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        span = next(e.time_range for e in events if e.name == "timed calls"
+                    and e.device_type == DeviceType.CPU)
+        by, seen = {}, {}
+        for e in events:
+            if (e.device_type == DeviceType.CUDA and key in e.name
+                    and span.start <= e.time_range.start <= span.end):
+                name = re.search(r"(\w*" + key + r"\w*)", e.name).group(1)
+                by[name] = by.get(name, 0.0) + e.self_device_time_total
+                seen[name] = seen.get(name, 0) + 1
+        if seen and all(n == iters for n in seen.values()):
+            out = {k: v / iters / 1e3 for k, v in by.items()}
+            out["total"] = sum(out.values())
+            return out
+    return {}
+
+
+# the empty kernel, a unit of its own (the library holds only the
+# entries a path launches)
+FLOOR_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void launch_floor_kernel() {}
+extern "C" int rs_launch_floor(int grid, int threads, void* stream) {
+  launch_floor_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def floor_ms(grid: int, iters: int) -> float | None:
+    """Device ms of the empty kernel on ``grid`` blocks of 256 threads."""
+    import torch
+    from readserver_tpu_torch.kernels import build as kbuild
+
+    so = REPO / "build" / "pack_ab" / "liblaunch_floor.so"
+    if not so.exists():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        unit = so.with_suffix(".cu")
+        unit.write_text(FLOOR_SRC)
+        subprocess.run([kbuild._nvcc(), *kbuild.ARCH_FLAGS, "-O3",
+                        "-Xcompiler", "-fPIC", "-shared", str(unit), "-o",
+                        str(so)], check=True)
+    fn = ctypes.CDLL(str(so)).rs_launch_floor
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call():
+        rc = fn(grid, 256, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"rs_launch_floor: CUDA error {rc}")
+
+    return device_ms(call, iters, "launch_floor").get("total")
+
+
+def launches(fn, key: str = "pack_") -> dict:
+    """Each kernel whose name holds ``key`` that one call of ``fn``
+    launches, as the profiler's trace records it → {kernel: {grid, block,
+    registers per thread, shared memory, ...}} (empty: none seen)."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    keep = ("grid", "block", "registers per thread", "shared memory",
+            "est. achieved occupancy %")
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text()).get("traceEvents", [])
+        out = {}
+        for e in events:
+            if e.get("cat") == "kernel" and key in e.get("name", ""):
+                name = re.search(r"(\w*" + key + r"\w*)", e["name"]).group(1)
+                out[name] = {k: v for k, v in e.get("args", {}).items()
+                             if k in keep}
+        if out:
+            return out
+    return {}
 
 
 def wrapper_ms(fn, iters: int) -> float:
@@ -137,20 +229,23 @@ def child(checkout: str) -> dict:
     bad = torch.zeros(1, dtype=torch.int32, device=dev)
     ns, bases = [128] * 4, [0, 600_000, 1_200_000, 1_800_000]
     cases = {}
-    for name, sets in (
-            ("K8 /reads", answer_sets(rng, 8192, 1, 64, 0.85, 0.145, dev)),
-            ("K8 /samples", answer_sets(rng, 8192, 128, 0, 0.018, 0, dev))):
+    for name, sets, grid in (
+            ("K8 /reads", answer_sets(rng, 8192, 1, 64, 0.85, 0.145, dev),
+             4 + 256),
+            ("K8 /samples", answer_sets(rng, 8192, 128, 0, 0.018, 0, dev),
+             512)):
         cases[name] = (sets, lambda x: pack.pack_answer(
             *x, 8192, CPQ, bad, 64)[0], lambda x: pack.pack_answer_plain(
-                *x, 8192, CPQ, bad, 64)[0])
+                *x, 8192, CPQ, bad, 64)[0], grid)
     for name, hits in (("merge /reads", True), ("merge /samples", False)):
         sets = merge_sets(rng, 4096, ns, 64, hits, 0.005, 0.01, dev)
         cases[name] = (sets, lambda x, h=hits: pack.merge_pack(
             x, ns, bases, 128, 64, 4096, CPQ, bad, h)[0],
             lambda x, h=hits: pack.merge_pack_plain(
-                x, ns, bases, 128, 64, 4096, CPQ, bad, h)[0])
+                x, ns, bases, 128, 64, 4096, CPQ, bad, h)[0],
+            256 + (512 if hits else 0))
     res = {"checkout": checkout, "card": torch.cuda.get_device_name(0)}
-    for name, (sets, kern, plain) in cases.items():
+    for name, (sets, kern, plain, grid) in cases.items():
         for x in sets:
             if not torch.equal(kern(x), plain(x)):
                 raise SystemExit(f"{checkout}: {name} differs from its "
@@ -158,10 +253,21 @@ def child(checkout: str) -> dict:
         turn = itertools.cycle(sets)
         call = lambda: kern(next(turn))  # noqa: E731
         call()
+        by_kernel = device_ms(call, SETS)
         res[name] = dict(
             wrapper_ms=float(np.median([wrapper_ms(call, SETS)
                                         for _ in range(3)])),
-            device_ms=device_ms(call, SETS))
+            device_ms=by_kernel.get("total"), by_kernel=by_kernel,
+            launches=launches(call),
+            floor_ms=floor_ms(grid, SETS), floor_grid=grid)
+    # ptxas's lines for the pack kernels, where this process built the
+    # library (its first run of a checkout)
+    from readserver_tpu_torch.kernels.build import LIBRARY
+
+    log = getattr(LIBRARY, "build_log", "").splitlines()
+    res["ptxas"] = [" | ".join(x.strip() for x in log[i:i + 4])
+                    for i, line in enumerate(log)
+                    if "Compiling entry function" in line and "pack" in line]
     return res
 
 
@@ -196,11 +302,26 @@ def main() -> int:
         for root in roots:
             mine = [r[name] for r in runs if r["checkout"] == root]
             dev = [m["device_ms"] for m in mine if m["device_ms"]]
+            split = {k: np.median([m["by_kernel"].get(k, np.nan)
+                                   for m in mine])
+                     for k in mine[0]["by_kernel"] if k != "total"}
+            floor = [m["floor_ms"] for m in mine if m["floor_ms"]]
             cells.append(
                 f"{Path(root).name}: "
                 f"{np.median(dev) if dev else float('nan'):.4f} "
-                f"({np.median([m['wrapper_ms'] for m in mine]):.4f})")
+                f"({np.median([m['wrapper_ms'] for m in mine]):.4f})"
+                + "".join(f" {k} {v:.4f}" for k, v in split.items())
+                + (f" empty launch on {mine[0]['floor_grid']} blocks "
+                   f"{np.median(floor):.4f}" if floor else ""))
         print(f"# {name}: " + " · ".join(cells))
+    for root in roots:
+        mine = next(r for r in runs if r["checkout"] == root)
+        print(f"# launches, {Path(root).name}: " + "; ".join(
+            f"{name} {k} {v}" for name in ("K8 /reads", "K8 /samples",
+                                           "merge /reads", "merge /samples")
+            for k, v in mine[name]["launches"].items()))
+        for line in mine["ptxas"]:
+            print(f"# ptxas, {Path(root).name}: {line}")
     return 0
 
 

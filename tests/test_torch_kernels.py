@@ -1950,16 +1950,27 @@ def test_compact_and_capped_doc_engine_on_card_runs_no_plain_form(packed, cuda_d
 
 # --------------------------------------- K8 and the cohort merge's pack
 
-# (name, W, NS, H, nq, density): the served shapes (/reads and /samples of
-# 4096 queries on both strands: E. coli's one sample, the cohort's 128),
-# nq < W, and densities past the 16 slots a query in either section
+# (name, W, NS, H, nq, density, exact): the served shapes (/reads and
+# /samples of 4096 queries on both strands: E. coli's one sample, the
+# cohort's 128), nq < W, densities past the 16 slots a query in either
+# section, and the edges of the one-launch design: exactly R and R + 1
+# kept in a section (exact: the section and kept - R), nq = 0, odd NS and
+# SH (the kernel's four-load groups), and more tiles than the card holds
+# blocks at once (blocks take further tiles)
 PACK_CASES = [
-    ("E. coli /reads", 8192, 1, 64, 8192, 0.01),
-    ("cohort /samples", 8192, 128, 0, 8192, 0.005),
-    ("cohort /reads, nq < W", 8192, 128, 64, 5000, 0.01),
-    ("hist overflow", 8192, 128, 64, 8192, 0.2),
-    ("hits overflow", 8192, 1, 64, 6000, 0.4),
-    ("one query", 1, 3, 8, 1, 0.5),
+    ("E. coli /reads", 8192, 1, 64, 8192, 0.01, None),
+    ("cohort /samples", 8192, 128, 0, 8192, 0.005, None),
+    ("cohort /reads, nq < W", 8192, 128, 64, 5000, 0.01, None),
+    ("hist overflow", 8192, 128, 64, 8192, 0.2, None),
+    ("hits overflow", 8192, 1, 64, 6000, 0.4, None),
+    ("one query", 1, 3, 8, 1, 0.5, None),
+    ("hist kept R", 4096, 33, 8, 4000, 0.0, ("hist", 0)),
+    ("hist kept R + 1", 4096, 33, 8, 4000, 0.0, ("hist", 1)),
+    ("hits kept R", 4096, 1, 33, 4000, 0.0, ("hits", 0)),
+    ("hits kept R + 1", 4096, 1, 33, 4000, 0.0, ("hits", 1)),
+    ("nq = 0", 4096, 5, 7, 0, 0.3, None),
+    ("odd NS and SH", 4093, 5, 7, 4000, 0.3, None),
+    ("more tiles than the card holds", 16384, 2, 256, 16384, 0.05, None),
 ]
 
 
@@ -1981,14 +1992,29 @@ def _pack_inputs(W, NS, H, density, seed, device):
     return cols
 
 
+def _kept_at(shape, nq, k, seed, empty, device):
+    """An int32 [W, width] tensor holding ``empty`` but at ``k`` seeded
+    cells of the first ``nq`` rows, which hold values 1 to 49."""
+    W, width = shape
+    rng = np.random.default_rng(seed)
+    a = np.full(W * width, empty, np.int64)
+    a[rng.choice(nq * width, size=k, replace=False)] = rng.integers(1, 50, k)
+    return t32(a.reshape(W, width), device)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name, W, NS, H, nq, density", PACK_CASES)
+@pytest.mark.parametrize("name, W, NS, H, nq, density, exact", PACK_CASES)
 def test_sparse_pack_kernel_matches_plain(cuda_device, name, W, NS, H, nq,
-                                          density):  # noqa: F811
+                                          density, exact):  # noqa: F811
     """K8 against its plain form, word for word: the segments, both
     sections with -1 past the kept entries, n = -1 and the first R kept on
     an overflow, the refused-query word; the dense fallbacks equal."""
     cols = _pack_inputs(W, NS, H, density, W + NS + H, cuda_device)
+    R = 16 * W
+    if exact:
+        i = 3 if exact[0] == "hist" else 4
+        cols[i] = _kept_at(cols[i].shape, nq, R + exact[1], W + exact[1],
+                           0 if i == 3 else -1, cuda_device)
     bad = torch.tensor([2], dtype=torch.int32, device=cuda_device)
     before = SPARSE_PACK.launches
     got = pack_ops.pack_answer(*cols, nq, 16, bad, 64)
@@ -2003,10 +2029,14 @@ def test_sparse_pack_kernel_matches_plain(cuda_device, name, W, NS, H, nq,
         assert got[2] is None and want[2] is None
     # n_hist after count, complete, (trunc,) l and u; n_hits R + R later
     p = W * (4 if H else 5)
-    n = [int(got[0][p])] + ([int(got[0][p + 1 + 32 * W])] if H else [])
-    assert (-1 in n) == ("overflow" in name)
+    n = [int(got[0][p])] + ([int(got[0][p + 1 + 2 * R])] if H else [])
+    assert (-1 in n) == ("overflow" in name or "R + 1" in name)
     if name == "hist overflow":
         assert n[0] == -1
+    if exact:
+        assert n[exact[0] == "hits"] == (R if exact[1] == 0 else -1)
+    if nq == 0:
+        assert n == [0] * len(n)
 
 
 def _merge_inputs(W, ns, H, with_hits, density, big, seed, device):
@@ -2029,21 +2059,51 @@ def _merge_inputs(W, ns, H, with_hits, density, big, seed, device):
     return outs
 
 
-# (name, W, partitions' samples, H, nq, density, counts past 2^31)
+def _merge_kept_at(outs, ns, H, nq, section, k, seed):
+    """Exactly ``k`` kept merged entries of the first ``nq`` queries in
+    ``section``: cells of partition 0 alone (every other partition's
+    zero), or lanes spread over the partitions (every other lane -1)."""
+    W = outs[0].shape[0]
+    if section == "hist":
+        for p, (o, n) in enumerate(zip(outs, ns)):
+            o[:, 4:4 + n] = (_kept_at((W, n), nq, k, seed, 0, o.device)
+                             if p == 0 else 0)
+        return
+    lanes = _kept_at((W, len(ns) * H), nq, k, seed, -1, outs[0].device)
+    for p, (o, n) in enumerate(zip(outs, ns)):
+        o[:, 4 + n:4 + n + H] = lanes[:, p * H:(p + 1) * H]
+
+
+# (name, W, partitions' samples, H, nq, density, counts past 2^31, exact):
+# the served partitions, an unaligned row stride (one partition: 33 words
+# with hits; odd strides: 23-29), 64 partitions, nq = 0, more tiles than
+# the card holds blocks at once, and exactly R and R + 1 kept
 MERGE_CASES = [
     ("cohort's 4 partitions", 8192, (32, 64, 96, 128), 64, 8192, 0.005,
-     False),
-    ("nq < W, past 2^31", 8192, (32, 64, 96, 128), 64, 3000, 0.005, True),
-    ("overflow", 8192, (128, 128, 128, 128), 64, 8192, 0.1, False),
-    ("one partition", 300, (5,), 8, 300, 0.3, False),
+     False, None),
+    ("nq < W, past 2^31", 8192, (32, 64, 96, 128), 64, 3000, 0.005, True,
+     None),
+    ("overflow", 8192, (128, 128, 128, 128), 64, 8192, 0.1, False, None),
+    ("one partition", 300, (5,), 8, 300, 0.3, False, None),
+    ("odd strides", 4096, (7, 9, 11, 13), 4, 4000, 0.05, False, None),
+    ("64 partitions", 512, (3, 4, 8, 5) * 16, 4, 500, 0.05, False, None),
+    ("nq = 0", 4096, (128,) * 4, 64, 0, 0.05, False, None),
+    ("more tiles than the card holds", 16384, (128,) * 4, 64, 16384, 0.01,
+     False, None),
+    ("hist kept R", 4096, (128, 64), 64, 4000, 0.0, False, ("hist", 0)),
+    ("hist kept R + 1", 4096, (128, 64), 64, 4000, 0.0, False, ("hist", 1)),
+    ("hits kept R", 4096, (16, 16), 64, 4000, 0.0, False, ("hits", 0)),
+    ("hits kept R + 1", 4096, (16, 16), 64, 4000, 0.0, False, ("hits", 1)),
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_hits", [True, False])
-@pytest.mark.parametrize("name, W, ns, H, nq, density, big", MERGE_CASES)
+@pytest.mark.parametrize("name, W, ns, H, nq, density, big, exact",
+                         MERGE_CASES)
 def test_merge_pack_kernel_matches_plain(cuda_device, name, W, ns, H, nq,
-                                         density, big, with_hits):  # noqa: F811
+                                         density, big, exact,
+                                         with_hits):  # noqa: F811
     """The cohort merge and its pack against ``merge_dense`` and the plain
     pack, word for word, on both tiers: int64 count sums (past 2^31 in
     two lanes), narrower partitions' histograms, read ids shifted by each
@@ -2051,7 +2111,10 @@ def test_merge_pack_kernel_matches_plain(cuda_device, name, W, ns, H, nq,
     the merged tensors."""
     outs = _merge_inputs(W, ns, H, with_hits, density, big, W + len(ns),
                          cuda_device)
-    bases = [0, 1_000_000, 3_000_000, 7_000_000][:len(ns)]
+    R = 16 * W
+    if exact and (exact[0] == "hist" or with_hits):
+        _merge_kept_at(outs, ns, H, nq, exact[0], R + exact[1], W)
+    bases = ([0, 1_000_000, 3_000_000, 7_000_000] * 16)[:len(ns)]
     bad = torch.tensor([0], dtype=torch.int32, device=cuda_device)
     args = (outs, list(ns), bases, max(ns), H, nq, 16, bad, with_hits)
     before = MERGE_PACK.launches
@@ -2065,6 +2128,10 @@ def test_merge_pack_kernel_matches_plain(cuda_device, name, W, ns, H, nq,
         assert torch.equal(pack_ops.dense(got[2]), want[2])
     if big:
         assert int(got[0][W]) == len(ns) * (2**31 - 5) >> 31
+    if exact and (exact[0] == "hist" or with_hits):
+        p = W * (3 if with_hits else 4)
+        n = int(got[0][p + (1 + 2 * R if exact[0] == "hits" else 0)])
+        assert n == (R if exact[1] == 0 else -1)
 
 
 @pytest.mark.cuda
@@ -2099,6 +2166,151 @@ def test_merge_pack_histogram_tier_on_full_rows(cuda_device):  # noqa: F811
     want = pack_ops.merge_pack_plain(*args)
     assert torch.equal(got[0], want[0])
     assert torch.equal(pack_ops.dense(got[1]), want[1])
+
+
+def _pack_calls(device):
+    """(kernel call, plain call) pairs at four shapes, each a closure over
+    its seeded inputs: K8 on /reads- and /samples-like answers and on odd
+    widths (the four-load groups), and the merge of 4 served partitions;
+    their tiles, and so the descriptors a call uses, range from 7 to 188."""
+    bad = torch.tensor([1], dtype=torch.int32, device=device)
+    calls = []
+    for W, NS, H, nq, dens in ((2048, 1, 64, 2048, 0.15),
+                               (2048, 128, 0, 2000, 0.02),
+                               (999, 5, 7, 990, 0.3)):
+        cols = _pack_inputs(W, NS, H, dens, W + NS, device)
+        a = (*cols, nq, 16, bad, 64)
+        calls.append((lambda a=a: pack_ops.pack_answer(*a)[0],
+                      lambda a=a: pack_ops.pack_answer_plain(*a)[0]))
+    outs = _merge_inputs(1024, (128,) * 4, 64, True, 0.01, False, 3, device)
+    a = (outs, [128] * 4, [0, 10, 20, 30], 128, 64, 1000, 16, bad, True)
+    calls.append((lambda a=a: pack_ops.merge_pack(*a)[0],
+                  lambda a=a: pack_ops.merge_pack_plain(*a)[0]))
+    return calls
+
+
+@pytest.mark.cuda
+def test_pack_kernels_reuse_one_scratch(cuda_device):  # noqa: F811
+    """1,000 calls in a row on one stream, K8 and the merge in turn at four
+    shapes, with no wait between them: they share one scratch, whose
+    descriptors no launch resets (each call's epoch makes the last call's
+    stale, and the call's last claim sets the tile counter back to 0), and
+    every buffer equals its plain form."""
+    calls = _pack_calls(cuda_device)
+    wants = [plain() for _, plain in calls]
+    torch.cuda.synchronize()
+    key = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    diff = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    before = SPARSE_PACK.launches + MERGE_PACK.launches
+    for i in range(1000):
+        kern, _ = calls[i % len(calls)]
+        diff += (kern() != wants[i % len(calls)]).sum()
+    torch.cuda.synchronize()
+    assert int(diff) == 0
+    assert SPARSE_PACK.launches + MERGE_PACK.launches == before + 1000
+    assert key in pack_ops._SCRATCH
+    assert int(pack_ops._SCRATCH[key].buf[0]) == 0  # the tile counter
+
+
+@pytest.mark.cuda
+def test_pack_kernels_on_two_streams(cuda_device):  # noqa: F811
+    """Two streams packing at once, K8 on one and the merge on the other,
+    100 calls each without a wait: each stream has its own scratch, so
+    neither reads the other's flags, and every buffer equals its plain
+    form."""
+    (k8, k8_plain), *_, (merge, merge_plain) = _pack_calls(cuda_device)
+    wants = (k8_plain(), merge_plain())
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    diffs = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            diffs.append(torch.zeros((), dtype=torch.int64,
+                                     device=cuda_device))
+    for _ in range(100):
+        for s, kern, want, d in zip(streams, (k8, merge), wants, diffs):
+            with torch.cuda.stream(s):
+                d += (kern() != want).sum()
+    torch.cuda.synchronize()
+    assert [int(d) for d in diffs] == [0, 0]
+    index = torch.cuda.current_device()
+    assert all((index, s.cuda_stream) in pack_ops._SCRATCH for s in streams)
+
+
+@pytest.mark.cuda
+def test_pack_kernels_on_two_streams_past_the_card(cuda_device):  # noqa: F811
+    """K8 at the served /reads shape (W 8192, NS 1, SH 64: 260 tiles on a
+    grid of 260 blocks) on two streams at once, 50 calls each without a
+    wait: the two grids ask more blocks than the card holds at once, so a
+    launch may run with part of its blocks not yet started while the
+    other holds the card; no block waits on a tile that no running block
+    has claimed, so both finish, and every buffer equals its plain form."""
+    bad = torch.tensor([1], dtype=torch.int32, device=cuda_device)
+    args = [(*_pack_inputs(8192, 1, 64, 0.15, seed, cuda_device), 8192, 16,
+             bad, 64) for seed in (5, 6)]
+    wants = [pack_ops.pack_answer_plain(*a)[0] for a in args]
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    diffs = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            diffs.append(torch.zeros((), dtype=torch.int64,
+                                     device=cuda_device))
+    before = SPARSE_PACK.launches
+    for _ in range(50):
+        for s, a, want, d in zip(streams, args, wants, diffs):
+            with torch.cuda.stream(s):
+                d += (pack_ops.pack_answer(*a)[0] != want).sum()
+    torch.cuda.synchronize()
+    assert [int(d) for d in diffs] == [0, 0]
+    assert SPARSE_PACK.launches == before + 100
+
+
+@pytest.mark.cuda
+def test_pack_scratch_epochs_wrap(cuda_device):  # noqa: F811
+    """The epochs' wrap, the one point where a descriptor's epoch repeats:
+    a scratch two calls short of ``EPOCHS`` is zeroed at its second call,
+    whose epoch is 1 again; three calls in a row at 65, 125 and 7 tiles
+    each equal their plain form word for word."""
+    calls = _pack_calls(cuda_device)[:3]
+    wants = [plain() for _, plain in calls]
+    calls[0][0]()  # this stream's scratch
+    torch.cuda.synchronize()
+    key = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    sc = pack_ops._SCRATCH[key]
+    sc.epoch = pack_ops.EPOCHS - 2
+    epochs = []
+    for (kern, _), want in zip(calls, wants):
+        assert torch.equal(kern(), want)
+        epochs.append(sc.epoch)
+    assert epochs == [pack_ops.EPOCHS - 1, 1, 2]
+
+
+@pytest.mark.cuda
+def test_pack_kernels_are_one_launch(cuda_device):  # noqa: F811
+    """Each wrapper call is one launch on the card and nothing else: the
+    profiler sees one kernel a call (no memset of the flags, no second
+    pass)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = _pack_calls(cuda_device)
+    for kern, _ in calls:
+        kern()
+    torch.cuda.synchronize()
+    for _ in range(5):  # the profiler now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                for kern, _ in calls:
+                    kern()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 3 * len(calls)
+    assert all("pack_kernel" in k for k in kernels), set(kernels)
 
 
 @pytest.mark.cuda

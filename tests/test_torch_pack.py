@@ -254,3 +254,114 @@ def test_merge_plain_matches_jax_synthetic(cohorts, setup, with_hits, case):
         assert n_hist == -1
         if with_hits:
             assert int(buf[W * 3 + 1 + 2 * R]) == -1
+
+
+def _kept_at(shape, nq, k, seed, empty):
+    """An int32 [W, width] array holding ``empty`` but at ``k`` seeded
+    cells of the first ``nq`` rows, which hold values 1 to 49."""
+    W, width = shape
+    rng = np.random.default_rng(seed)
+    a = np.full(W * width, empty, np.int32)
+    a[rng.choice(nq * width, size=k, replace=False)] = rng.integers(1, 50, k)
+    return a.reshape(W, width)
+
+
+# (name, W, NS, SH, nq, exact): the kept counts at the slots' edge (the
+# section and kept - R), nq = 0, odd NS and SH
+PACK_EDGES = [
+    ("hist kept R", 40, 19, 8, 38, ("hist", 0)),
+    ("hist kept R + 1", 40, 19, 8, 38, ("hist", 1)),
+    ("hits kept R", 40, 3, 19, 38, ("hits", 0)),
+    ("hits kept R + 1", 40, 3, 19, 38, ("hits", 1)),
+    ("nq = 0", 40, 5, 7, 0, None),
+    ("odd NS and SH", 41, 5, 7, 39, None),
+]
+
+
+@pytest.mark.parametrize("name, W, NS, SH, nq, exact", PACK_EDGES,
+                         ids=[e[0] for e in PACK_EDGES])
+def test_sparse_pack_plain_edges_match_jax(name, W, NS, SH, nq, exact):
+    """The edges the one-launch kernel takes apart (exactly R and R + 1
+    kept in a section, no query, widths that are not whole groups of
+    four), both tiers' layouts: the buffers and the dense fallbacks equal
+    JAX's, and n is R, -1 or 0."""
+    cols = list(_answer(W, NS, SH, 0.3, seed=W + NS + SH))
+    R = CPQ * W
+    if exact:
+        i = 3 if exact[0] == "hist" else 4
+        cols[i] = _kept_at(cols[i].shape, nq, R + exact[1], W + exact[1],
+                           0 if i == 3 else -1)
+    for lu, trunc, hits in ((True, False, True), (False, True, False)):
+        want, got = _both(*cols, nq, lu, trunc, False, hits)
+        buf = got[0][:-1].numpy()
+        assert np.array_equal(buf, np.asarray(want[0]))
+        assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+        if hits:
+            assert np.array_equal(got[2].numpy(), np.asarray(want[2]))
+        n = _n_fields(buf, W, R, lu, trunc, False, hits)
+        if exact and (exact[0] == "hist" or hits):
+            assert n[exact[0] == "hits"] == (R if exact[1] == 0 else -1)
+        if nq == 0:
+            assert n[0] == 0 and n[1] in (0, None)
+
+
+# (name, tiers, extra row words, nq, exact): an odd row stride, nq = 0,
+# and exactly R and R + 1 merged entries kept in a section
+MERGE_EDGES = [
+    ("odd stride", (True, False), 1, 50, None),
+    ("nq = 0", (True, False), 0, 0, None),
+    ("hist kept R", (False,), 0, 50, ("hist", 0)),
+    ("hist kept R + 1", (True,), 0, 50, ("hist", 1)),
+    ("hits kept R", (True,), 0, 50, ("hits", 0)),
+    ("hits kept R + 1", (True,), 0, 50, ("hits", 1)),
+]
+
+
+@pytest.mark.parametrize(
+    "name, with_hits, extra, nq, exact",
+    [(n, h, x, q, e) for n, tiers, x, q, e in MERGE_EDGES for h in tiers],
+    ids=[f"{n}-{'full' if h else 'hist'}" for n, tiers, *_ in MERGE_EDGES
+         for h in tiers])
+def test_merge_plain_edges_match_jax(cohorts, name, with_hits, extra, nq,
+                                     exact):
+    """The merge at the edges the one-launch kernel takes apart: rows of
+    an odd stride (a word past the hit columns), no query, and exactly R
+    or R + 1 merged entries kept (cells of partition 0 alone, or lanes
+    spread over the 4 partitions): the buffers and the dense fallbacks
+    equal JAX's."""
+    _, parts, orig = cohorts["cohort"]
+    W, H = 64, 8
+    R = CPQ * W
+    rng = np.random.default_rng(len(name) + with_hits)
+    outs = []
+    for n in [128] * 4:
+        o = np.zeros((W, 4 + n + (3 * H if with_hits else 0) + extra),
+                     np.int32)
+        o[:, 2] = rng.integers(0, 2 * H, W)
+        o[:, 3] = rng.random(W) < 0.8
+        o[:, 4:4 + n] = np.where(rng.random((W, n)) < 0.01,
+                                 rng.integers(1, 9, (W, n)), 0)
+        if with_hits:
+            o[:, 4 + n:4 + n + H] = np.where(
+                rng.random((W, H)) < 0.1, rng.integers(0, 5000, (W, H)), -1)
+            o[:, 4 + n + H:4 + n + 3 * H] = rng.integers(0, 90, (W, 2 * H))
+        outs.append(o)
+    if exact and exact[0] == "hist":
+        for p, o in enumerate(outs):
+            o[:, 4:132] = (_kept_at((W, 128), nq, R + exact[1], 3, 0)
+                           if p == 0 else 0)
+    elif exact:
+        lanes = _kept_at((W, 4 * H), nq, R + exact[1], 5, -1)
+        for p, o in enumerate(outs):
+            o[:, 132:132 + H] = lanes[:, p * H:(p + 1) * H]
+    _, got, want = _merges(parts, orig, outs, nq, with_hits, H)
+    buf = got[0][:-1].numpy()
+    assert np.array_equal(buf, np.asarray(want[0]))
+    assert np.array_equal(pack.dense(got[1]).numpy(), np.asarray(want[1]))
+    if with_hits:
+        assert np.array_equal(pack.dense(got[2]).numpy(), np.asarray(want[2]))
+    n = _n_fields(buf, W, R, False, not with_hits, True, with_hits)
+    if exact:
+        assert n[exact[0] == "hits"] == (R if exact[1] == 0 else -1)
+    if nq == 0:
+        assert n[0] == 0 and n[1] in (0, None)
