@@ -5,10 +5,10 @@
     python3 chip_smoke.py --scale 0.05 # 5% of each, for a quick check
 
 Phases, each printed with its seconds on a ``#`` line, run in the order
-1-5, 8, 9, 9b, 10, 11, 12, 13, 14, 15, 6, 7, 11b, 13b (every main path is
-driven before the kernel-vs-plain and timing phases, so each path's launch
-counts are its own; no plain pack, K8's or the merge's torch ops, may run
-on the card in phases 4 to 15):
+1-5, 8, 16, 9, 9b, 10, 11, 12, 13, 14, 15, 6, 7, 11b, 13b (every main path
+is driven before the kernel-vs-plain and timing phases, so each path's
+launch counts are its own; no plain pack, K8's or the merge's torch ops,
+may run on the card in phases 4 to 15):
 
 1. device: a CUDA card is required (no CPU path); its name and power limit;
 2. kernels: build K1 (rank and its LUT level entry), K2 (backward search),
@@ -36,6 +36,25 @@ on the card in phases 4 to 15):
    slow (``("dsa", "fused", "marks", "lf")``); the engines' answers equal,
    hit sets against the windows equal to each query on >= 64 queries; K5,
    K6, the walk kernel and K8 must have launched, K1's generic entry not;
+16. replica (``build_replica``, ``serve_replica``): phase 3's artifact
+   replicated 15-fold by ``scripts/torch_build_replica.py`` (copy j of
+   read i is read 15 i + j, in sample j: n' = 2,090,700,000, past human
+   chr20 30x's 1,939,200,000, 97% of 2^31, read ids past 2^24, no triple
+   tier), its host seconds and peak RSS; counts at 0, one engine at a time
+   (dsa, fused, marks), each freed before the next: tier plan, ship,
+   prefix LUT, warmup; count requests of 1, 256 and 4096 x 2 and K2 on
+   262,144 31-mers (counts and intervals 15 times E. coli's; >= 64 found
+   k-mers starting TT, in the index's top rows), ``/reads`` of 256 and
+   4096 x 2 and ``/samples`` on both strands, each answer equal to the
+   replica oracle (phase 8's E. coli answers, counts 15 times, hit sets
+   expanded, under the engines' row budget and sweep cap, which cut
+   there), ``/count`` and ``/reads`` through ``RestServer``; no plain
+   form of ``ops`` on the card, K1's level entry, K2, K5, K6, the walk
+   kernel, K7, K14 and K8 must launch, K1's generic entry not; then,
+   uncounted, each engine's kernels against their plain forms at n'
+   (K1's generic entry on 2^20 random ranks up to n' on the base and pair
+   tables, the LUT, K2, K5, K8, K14 and its gather, K6, the mark walk,
+   K7), max |err| 0;
 9. samples: the 128-sample cohort artifact (built or loaded), counts at 0,
    histogram-only and full ``query_batch`` on a dsa, a fused and a marks
    engine; histograms exact against per-sample oracle counts on >= 64
@@ -157,7 +176,9 @@ on the card in phases 4 to 15):
    the mark walk's step; K5-K7 at width 8192, K6 at a full budget and K7
    at the cap-filling batch, the rank walks at width 8192 and at a full
    budget and K7 through them (CUDA events and the
-   profiler's kernel time; each walk's plain form: torch and K1 a step),
+   profiler's kernel time; each walk's plain form: torch and K1 a step,
+   timed once a round of three since phase 16 came, the cut that keeps the
+   script near 1,000 s),
    each kernel's bytes needed and bytes bound, and for K2 and the walks
    the chain bound (the longest chain's dependent reads x t_row, warm and
    at the E. coli table's cold t_row); K14 (and its gather's
@@ -211,11 +232,13 @@ on the card in phases 4 to 15):
 
 The line before the last is the card's ``nvidia-smi`` name and power limit;
 the one before it is the kernels' JSON summary (``launches`` summed over
-the main-path phases 4, 8, 9, 9b, 10, 11, 13, 14 and 15, where every kernel
+the main-path phases 4, 8, 16, 9, 9b, 10, 11, 13, 14 and 15, where every kernel
 but K1's and K9's generic entries must have launched, ``cohort_launches`` those of
-phase 9b, ``ingest_launches`` those of phase 12;
+phase 9b, ``replica_launches`` those of phase 16, ``ingest_launches`` those
+of phase 12;
 ``max_abs_err`` the largest over every check, ``cohort_max_abs_err`` that
-over phase 9b's partition checks;
+over phase 9b's partition checks, ``replica_max_abs_err`` that over phase
+16's;
 ``bound_ms`` the bytes bound, ``library_ms`` the yardstick's time where
 there is one (``library_call`` names it: K14, K8, the merge),
 ``chain_ms`` the chain bound where there is
@@ -1215,6 +1238,8 @@ def time_packs(engine, ceng, meng, reads_make, cohort_make, card):
 # the modules of readserver_tpu_torch.ops whose plain forms may not run on
 # the card on a path
 PLAIN_MODULES = ("rank", "lut", "search", "resolve", "sharded", "pack")
+# off inside :func:`uncounted`: plain calls and launches there are no path's
+COUNTING = {"on": True}
 
 
 @contextlib.contextmanager
@@ -1242,7 +1267,8 @@ def plain_calls_on_card(modules=PLAIN_MODULES):
 
     def counted(fn):
         def inner(*args, **kw):
-            if any(on_card(a) for a in (*args, *kw.values())):
+            if COUNTING["on"] and any(on_card(a)
+                                      for a in (*args, *kw.values())):
                 calls["n"] += 1
             return fn(*args, **kw)
         return inner
@@ -2214,7 +2240,7 @@ def time_ops(sets, fn, what: str, card: str, kernels_ms=None):
     return ms, dev_ms
 
 
-def time_compaction(engine_f, intervals, makers, H: int, card: str,
+def time_compaction(engine_f, makers, H: int, card: str,
                     library: dict) -> dict:
     """Phase 7: K14 (its compaction and its gather back, around K6's walk
     of the fused engine; the gather also with the hit step's
@@ -2244,7 +2270,7 @@ def time_compaction(engine_f, intervals, makers, H: int, card: str,
     r2s, m = idx.read_to_sample, idx.num_reads
     for what, make in makers.items():
         def lanes(j):
-            l, u = intervals(engine_f, make(j))
+            l, u = engine_intervals(engine_f, make(j))
             rows_c, valid_c, prefix = resolve.compact_lanes(l, u, H, R)
             rid_c, off_c = resolve.resolve_rows_fused(idx, rows_c, valid_c)
             rid, _, kept = resolve.gather_lanes(l, u, H, R, prefix, rid_c,
@@ -3884,7 +3910,8 @@ def k2_needs(idx, codes, lut, p) -> tuple[int, int, int]:
     so.run_kstep(codes, lu[:, 0].contiguous(), lu[:, 1].contiguous(), K - p,
                  kstep, step)
     nbytes = B * K * 4 + distinct(ids) * 8 + B * 8 + sum(
-        distinct(*rows[k]) * tables[k][0].shape[1] * 4 for k in rows)
+        distinct(*rows[k]) * tables[k][0].shape[1] * 4 for k in rows
+        if rows[k])
     return nbytes, count["steps"], 2 + count["longest"]
 
 
@@ -4040,6 +4067,395 @@ def serve_scaling(card: str) -> dict:
         f"routes | {card}")
     log(f"scaling_sim: {json.dumps(res)}")
     return res
+
+
+M_REPLICA = 15          # copies of each E. coli read in phase 16's replica
+CHR20_N = 1_939_200_000  # human chr20 30x (BENCH_r05.json n_symbols)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches and plain forms on the card inside the block leave every
+    count as it was (:func:`plain_calls_on_card` too): a check against a
+    plain form, or the source engine answering for the oracle, is no part
+    of the path being counted."""
+    from readserver_tpu_torch.kernels import KERNELS
+
+    saved = {name: k.launches for name, k in KERNELS.items()}
+    COUNTING["on"] = False
+    try:
+        yield
+    finally:
+        COUNTING["on"] = True
+        for name, k in KERNELS.items():
+            k.launches = saved[name]
+
+
+def replica_module():
+    """``scripts/torch_build_replica.py`` of this checkout."""
+    import importlib
+
+    if str(REPO / "scripts") not in sys.path:
+        sys.path.insert(0, str(REPO / "scripts"))
+    return importlib.import_module("torch_build_replica")
+
+
+def hist_fields(res) -> list[tuple]:
+    return [(r.kmer, r.count, r.interval, r.sample_hist,
+             r.sample_hist_complete) for r in res]
+
+
+def single_rule(eng, rname: str):
+    """A single-device engine's cuts at padded width W → (the row budget,
+    where it applies: the walk routes, or None; the rows the exact sweep
+    reaches: ``max_sweep_rows`` in whole windows of min(W·H, 8·W))."""
+    cfg, H = eng.cfg, eng.H
+
+    def rule(W: int):
+        window = cfg.sweep_window or min(W * H, 8 * W)
+        reach = (None if cfg.max_sweep_rows is None
+                 else -(-cfg.max_sweep_rows // window) * window)
+        return (eng.row_budget if rname != "dsa" else None), reach
+    return rule
+
+
+def replica_reads(engine, eng, rname: str, rule, m: int, kms: list[str],
+                  both: bool, hits: bool,
+                  want_served=None) -> tuple[int, int, int, float]:
+    """One ``query_batch`` request to the replica engine ``eng`` (its cuts
+    at width W ``rule(W)``) held against the replica oracle: the E. coli
+    engine's one-strand answers to the same searched k-mers
+    (``want_served``, phase 8's verified answers, must be their fold),
+    each count m times and each hit set expanded, under the row budget
+    and the sweep cap → (queries cut by the budget, histograms cut by the
+    cap, hits, seconds)."""
+    import torch
+
+    rb = replica_module()
+    exp, back = rb_expand(kms, both)
+    with uncounted():
+        one = engine.query_batch(exp)
+        torch.cuda.synchronize()
+    if want_served is not None:
+        check((rb.fold_strands(kms, one, back) if both else one)
+              == want_served,
+              "the E. coli engine's one-strand answers do not fold to "
+              "phase 8's")
+    t0 = time.perf_counter()
+    got = eng.query_batch(kms, both_strands=both, include_hits=hits)
+    dt = time.perf_counter() - t0
+    W, H = eng.last_width, eng.H
+    budget, reach = rule(W)
+    single = rb.replica_answers(one, m, H, eng.sample_names, W, budget,
+                                reach)
+    want = rb.fold_strands(kms, single, back) if both else single
+    if hits:
+        check(got == want, f"replica {rname} engine: /reads of "
+              f"{len(kms)}{' x 2' if both else ''} differs from the "
+              "replica oracle")
+    else:
+        check(hist_fields(got) == hist_fields(want), f"replica {rname} "
+              f"engine: /samples of {len(kms)}{' x 2' if both else ''} "
+              "differs from the replica oracle")
+    cut = sum(len(w.hits) < min(w.count, H) for w in single)
+    capped = sum(not w.sample_hist_complete for w in single)
+    return cut, capped, sum(len(r.hits) for r in got), dt
+
+
+def rb_expand(kms: list[str], both: bool):
+    from readserver_tpu_torch.serve.engine import expand_rc
+
+    return expand_rc(kms) if both else (list(kms), {})
+
+
+def engine_intervals(eng, kms):
+    """The engine's own search of its padded batch ``kms`` → (l, u)."""
+    ce, le, nq = eng._pad_encode(kms)
+    return eng._search(*eng._to_device(ce, le), *eng._routes(ce, le, nq),
+                       eng._new_bad())
+
+
+def replica_kernel_checks(eng, rname: str, bq, kms8192, kms512, rng,
+                          dev) -> dict:
+    """Each kernel the replica engine ``eng`` serves through, against its
+    plain form on the card on a subset at n', max |err| 0 → errors by the
+    kernels line's keys."""
+    import torch
+
+    from readserver_tpu_torch.ops import pack, resolve
+    from readserver_tpu_torch.ops import lut as lut_ops
+    from readserver_tpu_torch.ops import rank as rank_ops
+    from readserver_tpu_torch.ops import search as search_ops
+
+    idx, H, R = eng.index, eng.H, eng.row_budget
+    n = idx.n
+    errs = {}
+
+    def put(key, what, err):
+        errs[key] = max(errs.get(key, 0), err)
+        log(f"  {what}: max |err| {err}")
+        check(err == 0, f"replica {rname}: {what} disagrees with its plain "
+              "form")
+
+    l, u = engine_intervals(eng, kms8192)
+    l2, u2 = engine_intervals(eng, kms512)
+    window = 8 * l2.shape[0]
+    if rname == "dsa":
+        lay = dict(rows_per_symbol=idx.rows_per_symbol,
+                   log2_block=idx.log2_block,
+                   words_per_block=idx.words_per_block)
+        S = idx.block_size
+        for tname, table, P in (("base", idx.rank_rows, 5),
+                                ("rank2", idx.rank2_rows, 16)):
+            blocks = rng.integers(n // S - 4096, n // S, size=4096)
+            ii = np.concatenate([rng.integers(0, n, size=1 << 20),
+                                 [0, 1, n - 1, n], blocks * S,
+                                 blocks * S + S - 1]).astype(np.int32)
+            cc = rng.integers(0, P, size=len(ii)).astype(np.int32)
+            c_t, i_t = (torch.from_numpy(a).to(dev) for a in (cc, ii))
+            put("k1_err", f"K1 generic entry, {tname} table, {len(ii)} "
+                f"ranks up to n' (max {int(ii.max())})",
+                max_err([(rank_ops.occ_rows_cuda(table, c_t, i_t, **lay),
+                          rank_ops.occ_rows_plain(table, c_t, i_t, **lay))]))
+        put("k1l_err", f"K1 level entry, the engine's p={eng.lut_p} LUT "
+            "vs the plain build",
+            max_err([(eng.lut, lut_ops.build_prefix_lut_plain(
+                idx, eng.lut_p))]))
+        codes = torch.from_numpy(bq[:8192]).to(dev)
+        full = torch.full((8192,), KMER, dtype=torch.int32, device=dev)
+        put("k2_err", "K2 width 8192, k-step + LUT and 1-step",
+            max_err([*zip(search_ops.backward_search_cuda(
+                idx, codes, lut=eng.lut, p=eng.lut_p, kstep=True),
+                search_ops.backward_search_pair_plain(
+                    idx, codes, eng.lut, eng.lut_p)),
+                *zip(search_ops.backward_search_cuda(idx, codes, full),
+                     search_ops.backward_search_plain(idx, codes, full))]))
+        put("k5_err", f"K5 on the /reads batch of width {l.shape[0]}",
+            max_err(zip(resolve.resolve_dsa_hits(idx, l, u, H),
+                        resolve.resolve_dsa_hits_plain(idx, l, u, H))))
+        *a, nq = pack_inputs(eng, kms8192, True)
+        args = (*a, nq, eng.COMPACT_PER_QUERY, eng._new_bad(), H)
+        got, want = pack.pack_answer(*args), pack.pack_answer_plain(*args)
+        pairs = [(got[0], want[0]), (pack.dense(got[1]), want[1])]
+        if want[2] is not None:
+            pairs.append((pack.dense(got[2]), want[2]))
+        put("k8_err", f"K8 on the /reads batch ({nq} queries)",
+            max_err(pairs))
+    else:
+        rows, valid, prefix = resolve.compact_lanes(l, u, H, R)
+        want = resolve.compact_lanes_plain(l, u, H, R)
+        put("k14_err", f"K14 compaction, {l.shape[0]} x {H} lanes under "
+            f"the {R}-row budget ({int(valid.sum())} kept)",
+            max_err(zip((rows, valid.int(), prefix),
+                        (want[0], want[1].int(), want[2]))))
+        walk = resolve.select_walk(idx)
+        plain_walk = resolve.select_walk(idx, plain=True)
+        rid_c, off_c = walk(rows, valid)
+        key = "k6_err" if rname == "fused" else "kw_err"
+        put(key, f"{rname} walk on the {R} compacted rows",
+            max_err(zip((rid_c, off_c), plain_walk(rows, valid))))
+        args = (l, u, H, R, prefix, rid_c, off_c)
+        col = dict(read_to_sample=idx.read_to_sample,
+                   num_reads=idx.num_reads)
+        put("k14_err", "K14 gather back with read_to_sample",
+            max_err(zip(resolve.gather_lanes(*args, **col),
+                        resolve.gather_lanes_plain(*args, **col))))
+    put("k7_err", f"K7 through the {rname} walk on the /samples batch "
+        f"({int((u2 - l2).long().sum())} rows, window {window})",
+        max_err(zip(resolve.exact_sample_histogram(idx, l2, u2, window),
+                    resolve.exact_sample_histogram_plain(idx, l2, u2,
+                                                         window))))
+    return errs
+
+
+REPLICA_ROUTES = (("dsa", ()), ("fused", ("dsa",)),
+                  ("marks", ("dsa", "fused", "lf")))
+
+
+def build_replica(args, packed) -> tuple:
+    """The E. coli artifact replicated M_REPLICA-fold, copy j of every
+    read in sample j (``scripts/torch_build_replica.py``) → (the replica,
+    {"build_s", "rss_gib", "host_gib"})."""
+    rb = replica_module()
+    m = M_REPLICA
+    t0 = time.perf_counter()
+    steps: dict = {}
+    rep = rb.replicate_packed(packed, m, steps)
+    build_s = time.perf_counter() - t0
+    rss = rb.peak_rss_gib()
+    host = sum(v.nbytes for v in vars(rep).values()
+               if isinstance(v, np.ndarray)) / 2**30
+    log(f"replica m={m} of the E. coli artifact: n'={rep.n} "
+        f"({rep.n / 2**31:.4f} of 2^31), {rep.num_reads} reads in "
+        f"{rep.num_samples} samples, dsa_bits {rep.dsa_bits}, k-step "
+        f"{3 if rep.rank3_blocks is not None else 2}, built in "
+        f"{build_s:.3f}s (" + ", ".join(f"{k} {v:.3f}s"
+                                        for k, v in steps.items())
+        + f"), {host:.2f} GiB of host arrays, the process's peak RSS "
+        f"{rss:.2f} GiB")
+    check(rep.n == m * packed.n and rep.dsa is not None
+          and rep.num_samples == m, "the replica lacks its dsa or samples")
+    if args.scale == 1.0:
+        check(CHR20_N <= rep.n < 2**31 and rep.rank3_blocks is None
+              and rep.num_reads > 1 << 24,
+              f"the replica (n'={rep.n}) is not past chr20 with read ids "
+              "past 2^24 and no triple tier")
+    return rep, dict(build_s=build_s, rss_gib=rss, host_gib=host)
+
+
+def serve_replica(args, corpus, engine, rep, cfg, dev, qs, served,
+                  reads_served, zero_launches, read_launches,
+                  routes=REPLICA_ROUTES, on_engine=None) -> dict:
+    """Phase 16: the replica (:func:`build_replica`) served at n' = 15 n
+    through the normal entry points, one engine a route at a time (the
+    phase's: dsa, fused, marks), every answer held against the replica
+    oracle; then each engine's kernels against their plain forms there,
+    and ``on_engine(route, engine)``, if given, before the engine goes
+    (both uncounted) → {"errs": max |err| by the kernels line's keys}."""
+    import torch
+
+    from readserver_tpu_torch.ops import resolve
+    from readserver_tpu_torch.ops import search as search_ops
+    from readserver_tpu_torch.serve import Dispatcher, QueryEngine
+    from readserver_tpu_torch.serve.http import RestServer
+
+    m = M_REPLICA
+    q1, q256, q4096 = qs
+    kms = {"1": decode_all(q1), "256": decode_all(q256),
+           "4096x2": decode_all(q4096)}
+    bq = simulate_bq(corpus, args.seed)
+    rng = np.random.default_rng(args.seed + 16)
+    with uncounted():
+        e_l, e_u = search_ops.search_batch(
+            engine.index, torch.from_numpy(bq).to(dev), None, engine.lut,
+            engine.lut_p, True)
+    zero_launches()
+    errs: dict = {}
+    for rname, drop in routes:
+        t0 = time.perf_counter()
+        eng = QueryEngine(rep, dataclasses.replace(cfg, drop_tiers=drop),
+                          device=dev)
+        up = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng.warmup()
+        check(resolve.walk_kind(eng.index) == rname,
+              f"the replica's {rname} plan walks "
+              f"{resolve.walk_kind(eng.index)}")
+        log(f"replica {rname} engine up in {up:.3f}s (ship "
+            f"{eng.startup_seconds['ship']:.3f}s, prefix LUT p={eng.lut_p} "
+            f"{eng.startup_seconds['lut']:.3f}s), "
+            f"{eng.index.device_bytes() / 2**30:.3f} GiB on card, tiers "
+            f"{sorted(eng.tier_plan.keep)}, warm in "
+            f"{time.perf_counter() - t0:.3f}s")
+        rule = single_rule(eng, rname)
+        with plain_calls_on_card() as plain:
+            if rname == "dsa":
+                replica_counts(engine, eng, m, kms, served, bq, e_l, e_u,
+                               rep, dev)
+            for name, both in (("256", False), ("4096x2", True)):
+                cut, capped, nh, dt = replica_reads(
+                    engine, eng, rname, rule, m, kms[name], both, True,
+                    reads_served[name] if rname == "dsa" else None)
+                log(f"replica {rname} engine /reads of {name}: "
+                    f"{dt * 1e3:.3f} ms, {nh} hits, {cut} one-strand "
+                    f"queries cut by the row budget, {capped} histograms "
+                    f"cut by the sweep cap: equal to the replica oracle")
+            for name, both in (("256", True),) + (
+                    (("4096x2", True),) if rname == "dsa" else ()):
+                cut, capped, _, dt = replica_reads(
+                    engine, eng, rname, rule, m, kms[name], both, False)
+                log(f"replica {rname} engine /samples of {name} x 2: "
+                    f"{dt * 1e3:.3f} ms, {capped} one-strand histograms cut "
+                    f"by the sweep cap: equal to the replica oracle")
+            if rname == "dsa":
+                n_req = rest_check(
+                    eng, kms["256"], RestServer, Dispatcher,
+                    lambda rid, e=eng: e.sample_names[e._sample_of(rid)])
+                for rid in (0, 7, rep.num_reads - 1):
+                    check(eng.read_sequence(rid)
+                          == engine.read_sequence(rid // m),
+                          f"replica read {rid} is not E. coli read "
+                          f"{rid // m}'s text")
+                log(f"replica REST: {n_req} requests answered as the "
+                    "engine answers; read text of copies equal to their "
+                    "sources'")
+        check(plain["n"] == 0, f"{plain['n']} plain forms ran on the card "
+              f"on the replica's {rname} path")
+        with uncounted():
+            exp8192 = rb_expand(kms["4096x2"], True)[0]
+            exp512 = rb_expand(kms["256"], True)[0]
+            for k, v in replica_kernel_checks(eng, rname, bq, exp8192,
+                                              exp512, rng, dev).items():
+                errs[k] = max(errs.get(k, 0), v)
+            if on_engine is not None:
+                on_engine(rname, eng)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = read_launches("replica")
+    for name in ("lut_level", "backward_search", "resolve_dsa",
+                 "resolve_fused", "resolve_walk", "exact_histogram",
+                 "row_compact", "row_gather", "sparse_pack"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the replica's path")
+    check(launches["rank_occ"] == 0, "K1's generic entry launched on the "
+          "replica's path")
+    return dict(errs=errs)
+
+
+def simulate_bq(corpus, seed: int) -> np.ndarray:
+    """Phase 6's batch of B_TIME 31-mers (int32 [B_TIME, 31])."""
+    from readserver_tpu_torch.corpus import simulate
+
+    return simulate.sample_query_kmers_fast(
+        corpus, B_TIME, KMER, seed=seed + 1, miss_frac=0.1
+    ).astype(np.int32)
+
+
+def replica_counts(engine, eng, m: int, kms: dict, served: dict, bq, e_l,
+                   e_u, rep, dev) -> None:
+    """The replica's count requests (1, 256, 4096 x 2) and K2 at B_TIME
+    against the E. coli answers, each count and interval end m times; the
+    k-mers starting TT land in the top of the index."""
+    import torch
+
+    from readserver_tpu_torch.ops import search as search_ops
+
+    for name, both in (("1", False), ("256", False), ("4096x2", True)):
+        t0 = time.perf_counter()
+        got = eng.count_batch(kms[name], both_strands=both)
+        dt = time.perf_counter() - t0
+        with uncounted():
+            src = engine.count_batch(kms[name], both_strands=both)
+        counts = np.array([r.count for r in src], dtype=np.int64)
+        check(np.array_equal(counts, served[name]),
+              f"the E. coli engine's counts of {name} moved since phase 4")
+        check([(r.count, r.interval) for r in got]
+              == [(m * r.count, (m * r.interval[0], m * r.interval[1]))
+                  for r in src],
+              f"replica counts of {name} are not m x E. coli's")
+        log(f"replica count request of {name}: {dt * 1e3:.3f} ms, counts "
+            "and intervals m x E. coli's")
+    tt = int(rep.C2[15])  # the TT bucket's first row
+    top = [r for r in got
+           if r.kmer.startswith("TT") and r.interval[1] > r.interval[0]]
+    check(len(top) >= 64 and min(r.interval[0] for r in top) >= tt,
+          f"{len(top)} found TT k-mers, not >= 64 in rows >= {tt}")
+    log(f"{len(top)} found k-mers starting TT at rows "
+        f"{min(r.interval[0] for r in top)} to "
+        f"{max(r.interval[1] for r in top)} (the TT bucket starts at {tt}, "
+        f"{tt / rep.n:.4f} of n')")
+    t0 = time.perf_counter()
+    l, u = search_ops.search_batch(eng.index, torch.from_numpy(bq).to(dev),
+                                   None, eng.lut, eng.lut_p, True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(torch.equal(l.long(), e_l.long() * m)
+          and torch.equal(u.long(), e_u.long() * m),
+          "replica K2 at B_TIME is not m x E. coli's")
+    log(f"replica K2 batch of {B_TIME}: {dt * 1e3:.3f} ms, "
+        f"{int((u > l).sum())} found, intervals m x E. coli's, highest "
+        f"row {int(u.max())}")
 
 
 def run(args) -> dict:
@@ -4262,6 +4678,16 @@ def run(args) -> dict:
             f"{sum(r.hits_truncated for r in served_q)} capped at H={H} "
             f"(subsets), in {time.perf_counter() - t0:.3f}s")
 
+    # ------------------- 16. E. coli replicated 15-fold, n' past chr20's
+    with phase("16 replica"):
+        rep, _ = build_replica(args, packed)
+        replica = serve_replica(
+            args, corpus, engine, rep, cfg, dev, (q1, q256, q4096),
+            served, reads_served, zero_launches, read_launches)
+        del rep
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # --------------------------------------------------------- 9. samples
     with phase("9 samples"):
         ccache = REPO / "data" / "chip_smoke" / f"cohort_s{args.scale:g}"
@@ -4428,11 +4854,6 @@ def run(args) -> dict:
     k2 = search_ops.backward_search_cuda
     summary = {}
 
-    def intervals(eng, kms):
-        ce, le, nq = eng._pad_encode(kms)
-        return eng._search(*eng._to_device(ce, le), *eng._routes(ce, le, nq),
-                           eng._new_bad())
-
     batches = {256: decode_all(q256),
                8192: engine._expand_rc(decode_all(q4096))[0]}
     cbatches = {256: ckms, 8192: ceng._expand_rc(decode_all(c4096))[0]}
@@ -4462,7 +4883,7 @@ def run(args) -> dict:
         # walk kernel took its ranks over: the first step of the mark walk
         # over the engine's 8192-wide batch (compacted rows)
         idx_m = engine_m.index
-        ml, mu = intervals(engine_m, batches[8192])
+        ml, mu = engine_intervals(engine_m, batches[8192])
         rows, valid, _ = resolve.expand_intervals(ml, mu, H)
         mrows, mvalid, _, _ = resolve.compact_rows(rows, valid,
                                                    engine_m.row_budget)
@@ -4494,9 +4915,7 @@ def run(args) -> dict:
         del plain_lut, chunked
 
         # K2: every mode and tier set at widths 256, 8192 and B_TIME
-        bq = simulate.sample_query_kmers_fast(
-            corpus, B_TIME, KMER, seed=args.seed + 1, miss_frac=0.1
-        ).astype(np.int32)
+        bq = simulate_bq(corpus, args.seed)
         no3 = dataclasses.replace(idx, rank3_rows=None, C3=None)
         mlen = rng.integers(8, KMER + 1, size=B_TIME)
         mixed, mixed_len = encode_query_batch(
@@ -4589,7 +5008,7 @@ def run(args) -> dict:
         idx_f = engine_f.index
         k5_err = k6_err = k7_err = 0
         for width, kms in batches.items():
-            l, u = (x.clone() for x in intervals(engine, kms))
+            l, u = (x.clone() for x in engine_intervals(engine, kms))
             check(l.shape[0] == width, f"batch of width {l.shape[0]}")
             l[0], u[0] = 0, 0          # an empty interval
             l[1], u[1] = 1000, 1200    # count 200 > H
@@ -4659,8 +5078,8 @@ def run(args) -> dict:
         kf = fill_k(idx_f.n, 2 * H)
         fb = engine_f._expand_rc(decode_all(simulate.sample_query_kmers_fast(
             corpus, 4096, kf, seed=args.seed + 4, miss_frac=0.0)))[0]
-        frows, fvalid, _ = resolve.expand_intervals(*intervals(engine_f, fb),
-                                                    H)
+        frows, fvalid, _ = resolve.expand_intervals(
+            *engine_intervals(engine_f, fb), H)
         frows, fvalid, _, _ = resolve.compact_rows(frows, fvalid,
                                                    engine_f.row_budget)
         check(bool(fvalid.all()), "the 10-mer batch does not fill the budget")
@@ -4732,7 +5151,7 @@ def run(args) -> dict:
         # K7 at a cap-filling batch: 8192 cohort 8-mers, whose worklist the
         # engine's max_sweep_rows cuts
         kc = fill_k(ceng.index.n, 256)
-        cap_l, cap_u = intervals(ceng, decode_all(
+        cap_l, cap_u = engine_intervals(ceng, decode_all(
             simulate.sample_query_kmers_fast(cohort, 8192, kc,
                                              seed=args.seed + 5,
                                              miss_frac=0.0)))
@@ -4760,7 +5179,7 @@ def run(args) -> dict:
             check(err == 0, f"K7 disagrees with the plain form at the "
                   f"cap-filling batch ({wname})")
         for width, kms in cbatches.items():
-            l, u = intervals(ceng, kms)
+            l, u = engine_intervals(ceng, kms)
             for wname, cidx in hist_idx.items():
                 for window, max_rows in ((8 * width, 1 << 20), (64, 100)):
                     got = resolve.exact_sample_histogram(cidx, l, u, window,
@@ -4795,7 +5214,7 @@ def run(args) -> dict:
         de = doc_engines["fused"]
         dce, dle, dnq = de._pad_encode(cbatches[8192])
         dcodes, dlens = de._to_device(dce, dle)
-        kcases = [(f"E. coli {w}", idx_f, *intervals(engine_f, kms),
+        kcases = [(f"E. coli {w}", idx_f, *engine_intervals(engine_f, kms),
                    engine_f.row_budget)
                   for w, kms in (("width 8192", batches[8192]),
                                  ("full budget", fb))]
@@ -5097,7 +5516,7 @@ def run(args) -> dict:
         # the dsa engine, K6 on the fused engine's compacted rows) and the
         # cohort's (K7 through either walk, the engine's window and cap);
         # then K6 at a full budget and K7 at the cap-filling batch
-        l, u = intervals(engine, batches[8192])
+        l, u = engine_intervals(engine, batches[8192])
         rows, valid, _ = resolve.expand_intervals(l, u, H)
         crow, cval, _, _ = resolve.compact_rows(rows, valid,
                                                 engine_f.row_budget)
@@ -5121,7 +5540,7 @@ def run(args) -> dict:
                 f"step, "
                 f"{nc * 32 / ms / 1e6:.4f} G rows/s "
                 f"({nc * 32 * 64 / ms / 1e6:.1f} GB/s of rows) | {card}")
-        cl, cu = intervals(ceng, cbatches[8192])
+        cl, cu = engine_intervals(ceng, cbatches[8192])
         win = 8 * 8192
         wrows = interval_rows(cl, cu)
         check(wrows.numel() <= win, "the cohort batch's worklist passes "
@@ -5258,7 +5677,7 @@ def run(args) -> dict:
             t_kern, t_plain = [], []
             for _ in range(3):  # interleaved: kernel, plain
                 t_kern.append(time_cuda(kern, 20))
-                t_plain.append(time_cuda(plain, 3))
+                t_plain.append(time_cuda(plain, 1))
             dev_ms = kernel_device_ms(kern, 10, kname)
             tk, tp = float(np.median(t_kern)), float(np.median(t_plain))
             nbytes, chain = needs[name]
@@ -5268,7 +5687,7 @@ def run(args) -> dict:
                        else chain * t_row_cold)
             log(f"{name} ({what}): wrapper {tk:.4f} ms, kernel device time "
                 f"{fmt_ms(dev_ms)} ms (profiler) | plain torch {tp:.4f} ms "
-                f"(median of 3 x 20 and 3 x 3 calls, CUDA events), outputs "
+                f"(median of 3 x 20 and 3 x 1 calls, CUDA events), outputs "
                 f"equal | needs {nbytes} B: bytes bound {bnd:.4f} ms, device "
                 f"time at {ratio(bnd, dev_ms)} of it"
                 + ("" if chain is None else
@@ -5299,7 +5718,7 @@ def run(args) -> dict:
 
         library = {}
         summary.update(time_compaction(
-            engine_f, intervals,
+            engine_f,
             {"width 8192": width_8192, "full budget": full_budget}, H, card,
             library))
 
@@ -5469,7 +5888,10 @@ def run(args) -> dict:
             launches=total[name],
             cohort_launches=path_launches["cohort"][name],
             ingest_launches=ingest_launches[name],
-            max_abs_err=summary[err], cohort_max_abs_err=cohort_err.get(err),
+            replica_launches=path_launches["replica"][name],
+            max_abs_err=max(summary[err], replica["errs"].get(err, 0)),
+            cohort_max_abs_err=cohort_err.get(err),
+            replica_max_abs_err=replica["errs"].get(err),
             ms=ms,
             device_ms=device_ms, plain_ms=plain_ms, bound_ms=bnd,
             bound_by="bytes", library_ms=library.get(name, (None,))[0],

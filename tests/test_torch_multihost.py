@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import random
 import signal
 import socket
 import subprocess
@@ -75,10 +76,38 @@ ROUTE_STRIP = {
 }
 
 
+def _ephemeral_low() -> int:
+    """The first port of the kernel's ephemeral range (Linux's default
+    32768 where the range cannot be read)."""
+    try:
+        text = Path("/proc/sys/net/ipv4/ip_local_port_range").read_text()
+        return int(text.split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A TCP port that binds now and lies below the ephemeral range.
+
+    A rank binds its port seconds after this check.  A port from
+    ``bind(("127.0.0.1", 0))`` is ephemeral: in between, any socket that
+    another test's process, or a gloo pair of this very group, binds to
+    port 0 or connects out can be handed the same port, and the rank then
+    fails to bind it, or another test's server answers on it.  The kernel
+    hands out no port below the range that way.
+    """
+    hi = _ephemeral_low()
+    lo = max(1024, hi - 16384)
+    rng = random.SystemRandom()
+    for _ in range(256):
+        port = rng.randrange(lo, hi)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port in [{lo}, {hi})")
 
 
 def _env() -> dict:
@@ -285,7 +314,9 @@ def test_serve_coordinator_answers_over_rest(tmp_path, tiny_corpus):
 
     procs = _launch(cmd, 2)
     try:
-        deadline = time.time() + 120
+        # two ranks import torch, join the group, build and warm the
+        # engine: seconds alone, minutes beside a loaded test run's workers
+        deadline = time.time() + 300
         up = False
         while time.time() < deadline and not up:
             assert all(p.poll() is None for p in procs), _wait(procs, 5)

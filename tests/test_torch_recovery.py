@@ -14,7 +14,6 @@ integers: tolerance 0).
 import asyncio
 import json
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -68,12 +67,6 @@ def test_restart_from_artifact_identical(saved):
     assert [(r.kmer, r.count) for r in jeng.count_batch(kmers)] == a1
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_elastic_shard_count_change(saved, tmp_path):
     """The same artifact at 1, 2 and 4 shards on one device, and at 2
     shards over a group of 2 ranks (one shard a rank), answers alike."""
@@ -88,6 +81,8 @@ def test_elastic_shard_count_change(saved, tmp_path):
         answers.append(_answers(eng, kmers))
     assert answers[0] == answers[1] == answers[2]
     # 2 ranks reload the artifact and answer their streams together
+    from test_torch_multihost import _free_port
+
     port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
