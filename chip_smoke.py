@@ -5477,7 +5477,11 @@ def run(args) -> dict:
             for _ in range(3):
                 r_k.append(time_cuda(kern, iters))
                 r_p.append(time_cuda(plain, 3))
-            dev_ms = kernel_device_ms(kern, iters, "rank_occ_kernel")
+            # the bucketed design is three kernels a call (csrc/rank.cu)
+            per_call = 3 if rank_ops.scratch_bytes(
+                c_t.numel(), table, lay["log2_block"]) else 1
+            dev_ms = kernel_device_ms(kern, iters, "rank_occ",
+                                      iters * per_call)
             nb = k1_bytes(table, c_t, i_t, lay)
             tk, tp = float(np.median(r_k)), float(np.median(r_p))
             if main:

@@ -50,9 +50,9 @@
 // shared memory) and the local count.  The walks are held by the
 // instructions a step issues (PERF.md): a one-round owner search with more
 // compares read slower than the search with a dependent read, and the
-// 32-bit rows with the divisor faster than both.  K9 and K11 are one thread
-// per lane, grid-stride; K10's dsa resolve a persistent grid of one lane a
-// thread at a time.
+// 32-bit rows with the divisor faster than both.  K9 and K11 are one
+// thread per lane, grid-stride (K9 with the prefix in shared memory);
+// K10's dsa resolve a persistent grid of one lane a thread at a time.
 //
 // Plain C interface (built with nvcc into a shared library and bound with
 // ctypes); each entry point runs on the caller's stream and returns
@@ -280,19 +280,61 @@ unsigned grid_for(long long n, int threads) {
 
 // ------------------------------------------------------------------- K9
 
+// One rank a thread (four a thread in blocks of 256 read slower on the
+// H100: a rank's index load, owner and row are one chain, PERF.md), the
+// table's prefix over shards staged in shared memory beside the
+// positions' ranges, and the rank's c and i loaded before the block
+// stages them.
 __global__ void __launch_bounds__(kThreads)
     shard_occ_kernel(ShardView v, int which, const int32_t* __restrict__ c,
                      const long long* __restrict__ i,
                      long long* __restrict__ out, long long X) {
-  __shared__ Keys k;
-  const Even e = __syncthreads_and(stage_keys(v, k, kPositions))
-                     ? k.even : Even{0, 0, 0};
+  extern __shared__ long long s_prefix[];  // [(S + 1) * planes]
+  __shared__ Ranges pos;
+  __shared__ Even even;
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  long long x = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  int32_t cc = x < X ? c[x] : 0;
+  long long ii = x < X ? i[x] : 0;
   const Table t = table_of(v, which);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long x = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       x < X; x += stride) {
-    out[x] = shard_rank(v, k, e, t, c[x], i[x]);
+  const int S = static_cast<int>(v.S);
+  const int staged = (S + 1) * t.planes;
+  for (int j = threadIdx.x; j < staged; j += kThreads) {
+    s_prefix[j] = t.prefix[j];
+  }
+  const Even e = __syncthreads_and(stage_positions(pos, even, v))
+                     ? even : Even{0, 0, 0};
+  const rs::Layout g = layout_of(v, t.planes);
+  const long long n = v.n;
+  for (; x < X; x += step) {
+    // as shard_rank: the owner of min(i, n - 1), at its end for i >= n,
+    // nothing read for i <= 0
+    long long got = 0;
+    const uint32_t* row = nullptr;
+    int within = 0;
+    if (ii > 0 && n > 0) {
+      long long start;
+      const int s = pos_owner(pos, e, S, ii < n ? ii : n - 1, start);
+      const int32_t loc = static_cast<int32_t>(ii < n ? ii - start
+                                                      : pos.end[s] - start);
+      const long long j = static_cast<long long>(s) * t.planes + cc;
+      got = j < staged ? s_prefix[j] : __ldg(t.prefix + j);
+      const int32_t blk = loc >> g.log2_block;
+      within = loc - (blk << g.log2_block);
+      row = rs::row_ptr(t.rows + s * t.stride, t.planes == 1 ? 0 : cc, blk,
+                        g);
+    }
+    if (row != nullptr) {
+      got += g.row_words == 4
+                 ? rs::count_row4(__ldg(reinterpret_cast<const uint4*>(row)),
+                                  within, g.words_per_block)
+                 : rs::count_row(row, within, g.words_per_block);
+    }
+    out[x] = got;
+    if (x + step < X) {
+      cc = c[x + step];
+      ii = i[x + step];
+    }
   }
 }
 
@@ -663,7 +705,9 @@ extern "C" int rs_shard_occ(const void* view, int which, const void* c,
                    (which == 2 && v.rank3 != nullptr) ||
                    (which == 3 && v.marks != nullptr);
   if (!view_ok(v) || !has) return cudaErrorInvalidValue;
-  shard_occ_kernel<<<grid_for(X, kThreads), kThreads, 0,
+  const int planes = which == 1 ? 16 : which == 2 ? 64 : which == 3 ? 1 : 5;
+  const size_t smem = static_cast<size_t>(v.S + 1) * planes * 8;
+  shard_occ_kernel<<<grid_for(X, kThreads), kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       v, which, static_cast<const int32_t*>(c),
       static_cast<const long long*>(i), static_cast<long long*>(out), X);

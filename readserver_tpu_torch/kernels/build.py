@@ -38,7 +38,9 @@ _WALK = [_P, _I, _P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P, _L, _P, _L, _I]
 
 # C entry points: name → argtypes (every one returns cudaGetLastError())
 SIGNATURES = {
-    "rs_rank_occ": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
+    "rs_rank_occ": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _L, _P, _L, _P],
+    # the scratch rs_rank_occ needs (bytes written at the last argument)
+    "rs_rank_occ_scratch": [_L, _L, _I, _I, _P],
     "rs_lut_level": [_P, _P, _P, _P, _L, _P, _P, _P, _L, _L, _I, _I, _I, _P],
     "rs_backward_search": [
         _P, _P, _L, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I,

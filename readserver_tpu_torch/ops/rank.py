@@ -10,7 +10,11 @@ Two forms of one function:
   ``ops/rank.py::occ_rows``.  torch has no uint32 shifts on the CPU and no
   popcount op, so the words are widened to int64, masked with
   ``& 0xFFFFFFFF``, and counted with a SWAR popcount.
-* kernel K1 (``csrc/rank.cu``), one thread per rank.
+* kernel K1 (``csrc/rank.cu``): four ranks a thread, their row loads back
+  to back; or, for a batch large enough that its ranks share the rows of
+  a table larger than L2, the ranks sorted by region of the table in
+  tiles, answered region by region from L2, and put back in order (three
+  launches on a scratch of :func:`scratch_bytes`).
 
 :func:`occ_rows` takes the plain form for CPU tensors and launches K1 for
 CUDA tensors (there is no fallback between them).
@@ -18,9 +22,11 @@ CUDA tensors (there is no fallback between them).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from readserver_tpu_torch.kernels import RANK_OCC
+from readserver_tpu_torch.kernels import LIBRARY, RANK_OCC
 from readserver_tpu_torch.kernels.build import on_cuda, ptr
 from readserver_tpu_torch.ops.types import DeviceIndex
 
@@ -98,12 +104,28 @@ def occ_rows_cuda(
     out = torch.empty_like(i)
     B = i.shape[0]
     if B:
+        nbytes = scratch_bytes(B, rank_rows, log2_block)
+        scratch = (torch.empty(nbytes, dtype=torch.uint8,
+                               device=rank_rows.device) if nbytes else None)
         RANK_OCC(
             ptr(rank_rows), ptr(c), ptr(i), ptr(out), B, rows_per_symbol,
             log2_block, words_per_block, rank_rows.shape[1],
+            rank_rows.shape[0], ptr(scratch), nbytes,
             device=rank_rows.device,
         )
     return out
+
+
+def scratch_bytes(B: int, rank_rows: torch.Tensor, log2_block: int) -> int:
+    """The scratch K1 takes for ``B`` ranks against ``rank_rows``: 0 where
+    it runs the direct design, else the bucketed design's (the switch is
+    the kernel's, ``csrc/rank.cu::plan_for``)."""
+    n = (ctypes.c_longlong * 1)()
+    rc = LIBRARY.get().rs_rank_occ_scratch(
+        B, rank_rows.shape[0], log2_block, rank_rows.shape[1], n)
+    if rc:
+        raise RuntimeError(f"rs_rank_occ_scratch: error {rc}")
+    return int(n[0])
 
 
 def _check_table(t: torch.Tensor) -> None:

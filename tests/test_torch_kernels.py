@@ -394,6 +394,98 @@ def test_rank_kernel_from_worker_thread(dev):
                                                     **_layout(dev)))
 
 
+def _random_table(P, rps, row_words, seed, device):
+    """A rank table of random words, checkpoints below 2^30: K1 reads any
+    table, and its plain form on the same table is the reference."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(-(1 << 31), 1 << 31, size=(P * rps, row_words),
+                     dtype=np.int64).astype(np.int32)
+    t[:, 0] = rng.integers(0, 1 << 30, size=P * rps)
+    return torch.from_numpy(t).to(device)
+
+
+# (planes, rows a plane, row words, log2 block, words a block): a base-like
+# and a pair-like table of 16-byte rows and one of 20-byte rows, each
+# several of K1's 8 MiB regions (csrc/rank.cu kRegionBytes); K1 buckets a
+# batch of at least max(2^22, table rows) ranks
+BIG_TABLES = {"base": (5, 1_000_000, 4, 6, 2),
+              "pair": (16, 300_000, 4, 6, 2),
+              "20-byte rows": (5, 800_000, 5, 7, 4)}
+
+
+def _k1_case(table, c, i, lay):
+    """K1 on (c, i) against its plain form, one launch."""
+    c_t, i_t = t32(c, table.device), t32(i, table.device)
+    before = RANK_OCC.launches
+    got = rank_ops.occ_rows(table, c_t, i_t, **lay)
+    want = rank_ops.occ_rows_plain(table, c_t, i_t, **lay)
+    torch.cuda.synchronize()
+    assert RANK_OCC.launches == before + (1 if len(c) else 0)
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [0, 1, 2, 3, 1023, 1025, 4097, 314_572])
+@pytest.mark.parametrize("table", ["base", "rank2"])
+def test_rank_kernel_direct_edges(dev, B, table):
+    """K1's direct design: B = 0 and 1, B not a multiple of the four ranks
+    a thread carries nor of a block's 1,024, ranks at i = 0 and i = n,
+    every plane of the table."""
+    field, planes = TABLES[table]
+    rows = getattr(dev, field)
+    rng = np.random.default_rng(B + planes)
+    i = rng.integers(0, dev.n + 1, size=B)
+    i[: min(B, 2)] = [0, dev.n][: min(B, 2)]
+    c = np.arange(B) % planes
+    assert rank_ops.scratch_bytes(B, rows, dev.log2_block) == 0
+    _k1_case(rows, c, i, _layout(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", sorted(BIG_TABLES))
+@pytest.mark.parametrize("side", ["below", "at", "above"])
+def test_rank_kernel_bucket_switch(cuda_device, table, side):  # noqa: F811
+    """K1 on each side of the switch to the bucketed design (max(2^22,
+    table rows) ranks), every plane, i = 0 and i = n, a last tile that is
+    not full."""
+    P, rps, rw, lg, wpb = BIG_TABLES[table]
+    t = _random_table(P, rps, rw, P + rw, cuda_device)
+    switch = max(1 << 22, P * rps)
+    B = {"below": switch - 1, "at": switch, "above": switch + 4096 + 3}[side]
+    n = (rps << lg) - 1
+    rng = np.random.default_rng(B)
+    i = rng.integers(0, n + 1, size=B)
+    i[:2] = [0, n]
+    c = rng.integers(0, P, size=B)
+    c[:P] = np.arange(P)
+    nbytes = rank_ops.scratch_bytes(B, t, lg)
+    assert (nbytes > 0) == (side != "below")
+    _k1_case(t, c, i, dict(rows_per_symbol=rps, log2_block=lg,
+                           words_per_block=wpb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+def test_rank_kernel_one_bucket(cuda_device, where):  # noqa: F811
+    """Every rank of a bucketed batch in one bucket (the first region, one
+    in the middle, the last and partial one): one tile's run is the whole
+    tile, the other buckets' blocks find nothing."""
+    P, rps, rw, lg, wpb = BIG_TABLES["base"]
+    t = _random_table(P, rps, rw, 7, cuda_device)
+    B = (1 << 23) + 5
+    region = (8 << 20) // 16  # rows of one bucket
+    first = {"first": 0, "middle": 2 * region,
+             "last": (P * rps - 1) // region * region}[where]
+    rows = np.random.default_rng(3).integers(
+        first, min(first + region, P * rps), size=B)
+    c, blk = rows // rps, rows % rps
+    i = (blk << lg) + np.random.default_rng(4).integers(0, 1 << lg, size=B)
+    i = np.minimum(i, (rps << lg) - 1)
+    assert rank_ops.scratch_bytes(B, t, lg) > 0
+    _k1_case(t, c, i, dict(rows_per_symbol=rps, log2_block=lg,
+                           words_per_block=wpb))
+
+
 # --------------------------------------------- K5, K6, the rank walks, K7
 
 
@@ -1041,6 +1133,34 @@ def test_shard_occ_kernel_matches_plain(shard_packs, cuda_device, case, S):  # n
         got = sops.occ(s, table, c, i)
         assert SHARD_OCC.launches == before + 1
         assert got.dtype == torch.int64
+        assert torch.equal(got, sops.occ_plain(s, table, c, i)), table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, S", [("small", 1), ("small", 3),
+                                     ("small", 4), ("six reads", 8)])
+@pytest.mark.parametrize("X", [0, 1, 1023, 1025, 1 << 21])
+def test_shard_occ_kernel_edges(shard_packs, cuda_device, case, S, X):  # noqa: F811
+    """K9 over 1, 3 (the last shard short), 4 and 8 shards (three empty) on
+    every table, with i at every shard edge (start - 1, start, start + 1,
+    end - 1, end, end + 1), below 0 and past n, X = 0, 1, X not a multiple
+    of a block's 128 ranks, and X past one wave of blocks."""
+    s = _placed(shard_packs[1][case], S, cuda_device)
+    rng = np.random.default_rng(S + X)
+    n = s.n
+    st, ln = s.starts.cpu().numpy(), s.lens.cpu().numpy()
+    edges = np.concatenate([[0, 1, n - 1, n, n + 5, -2], st - 1, st, st + 1,
+                            st + ln - 1, st + ln, st + ln + 1])
+    i = rng.integers(0, n + 1, size=X)
+    i[: min(X, edges.size)] = edges[: min(X, edges.size)]
+    i = torch.from_numpy(i.astype(np.int64)).to(cuda_device)
+    for table, P in (("rank", 5), ("rank2", 16), ("rank3", 64), ("marks", 1)):
+        c = torch.from_numpy((np.arange(X) % P).astype(np.int32)).to(
+            cuda_device)
+        before = SHARD_OCC.launches
+        got = sops.occ(s, table, c, i)
+        assert SHARD_OCC.launches == before + (1 if X else 0)
+        assert got.dtype == torch.int64 and got.shape == (X,)
         assert torch.equal(got, sops.occ_plain(s, table, c, i)), table
 
 

@@ -433,6 +433,33 @@ def test_k9_edges_match_jax(six_reads, table):
         assert got[0].item() == 0
 
 
+@pytest.mark.parametrize("shards", [1, 3, 4])
+@pytest.mark.parametrize("table", ["rank_rows", "rank2_rows", "rank3_rows",
+                                   "mark_table"])
+def test_k9_shard_edges_match_jax(packed, table, shards):
+    """K9's plain form with i at every shard edge (start - 1, start,
+    start + 1, end - 1, end, end + 1), at 0 and at n equals the JAX
+    clamped rank over 1, 3 (the last shard short) and 4 shards, every
+    plane of the table."""
+    n = packed.n
+    s = tp.build_sharded(packed, shards)
+    P = {"rank_rows": 5, "rank2_rows": 16, "rank3_rows": 64,
+         "mark_table": 1}[table]
+    st, en = s.starts, s.starts + s.lens
+    ii = np.concatenate([[0, 1, n - 1, n], st - 1, st, st + 1, en - 1, en,
+                         en + 1])
+    ii = np.clip(ii, 0, n).astype(np.int64)
+    cc = (np.arange(ii.size) % P).astype(np.int32)
+    want, _ = _jax_ranks(packed, 1, shards, cc, ii, table)
+    _, ps = port_sidx(packed, shards)
+    name = {"rank_rows": "rank", "rank2_rows": "rank2",
+            "rank3_rows": "rank3", "mark_table": "marks"}[table]
+    got = sops.occ(ps, name, torch.from_numpy(cc), torch.from_numpy(ii))
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), want)
+
+
+
 def test_six_reads_every_route_matches_jax(six_reads, tiny_corpus):
     """Queries over an index with empty shards, on the dsa, lf and slow
     routes, with the LUT and the exact sweep."""
