@@ -42,6 +42,9 @@ import argparse
 import json
 import sys
 import time
+from pathlib import Path
+
+from readserver_tpu_torch import trace
 
 
 def _ingest_file(args) -> tuple[list, list]:
@@ -316,7 +319,13 @@ def _load_engine(index_path: str, batch_size: int, device: str,
     from readserver_tpu_torch.parallel import make_mesh
     from readserver_tpu_torch.serve import MultiEngine, QueryEngine
 
-    parts = _doc_partitions(index_path)
+    with trace.stage("setup.load") as st:
+        parts = _doc_partitions(index_path)
+        packed = (artifact.load_artifact(index_path, mmap=False)
+                  if parts is None else None)
+        if trace.ON:
+            st.set(bytes=sum(f.stat().st_size for p in index_path.split(",")
+                             for f in Path(p).rglob("*") if f.is_file()))
     if parts is not None:
         cfg = ServeConfig(batch_size=batch_size,
                           warmup_query_lengths=warmup_k)
@@ -325,7 +334,6 @@ def _load_engine(index_path: str, batch_size: int, device: str,
         return QueryEngine(parts, cfg,
                            make_mesh(num_shards=len(parts), device=device),
                            device=device)
-    packed = artifact.load_artifact(index_path, mmap=False)
     cfg = ServeConfig(batch_size=batch_size, num_shards=num_shards,
                       warmup_query_lengths=warmup_k)
     mesh = None
@@ -422,14 +430,24 @@ def cmd_serve(args) -> int:
     from readserver_tpu_torch.serve.http import serve_forever
 
     if args.coordinator:
+        if args.trace_out:
+            raise SystemExit("--trace-out records one process; a group's "
+                             "ranks are not traced")
         return _serve_group(args)
-    engine = _load_engine(args.index, args.batch, args.device,
-                          warmup_k=_warmup_k(args), num_shards=args.shards)
-    engine.warmup()
+    if args.trace_out:
+        trace.enable()
     try:
+        engine = _load_engine(args.index, args.batch, args.device,
+                              warmup_k=_warmup_k(args),
+                              num_shards=args.shards)
+        engine.warmup()
         asyncio.run(serve_forever(engine, args.host, args.port))
     except KeyboardInterrupt:
         pass
+    finally:
+        if args.trace_out:
+            trace.disable()
+            trace.export_chrome(args.trace_out)
     return 0
 
 
@@ -553,6 +571,11 @@ def main(argv=None) -> int:
     s.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
                    help="the group's backend: nccl (a GPU a rank) or gloo "
                         "(the CPU, or ranks sharing a card)")
+    s.add_argument("--trace-out", default="",
+                   help="record the server's spans from start-up on and "
+                        "write them at exit to this path as Chrome-trace "
+                        "JSON, on the clock of torch.profiler's traces "
+                        "(one process; not with --coordinator)")
 
     s.set_defaults(fn=cmd_serve)
 

@@ -19,6 +19,8 @@ import threading
 import time
 from pathlib import Path
 
+from readserver_tpu_torch import trace
+
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG.parent / "build" / "kernels"
@@ -160,13 +162,16 @@ class _Library:
     def get(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
-                self.path = self.build()
-                lib = ctypes.CDLL(str(self.path))
-                for name, argtypes in SIGNATURES.items():
-                    fn = getattr(lib, name)
-                    fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
-                self._lib = lib
+                with trace.stage("setup.kernel_library") as st:
+                    self.path = self.build()
+                    lib = ctypes.CDLL(str(self.path))
+                    for name, argtypes in SIGNATURES.items():
+                        fn = getattr(lib, name)
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
+                    self._lib = lib
+                    if trace.ON:
+                        st.set(built=int(self.build_seconds is not None))
             return self._lib
 
 

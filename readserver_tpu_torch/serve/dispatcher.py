@@ -24,6 +24,7 @@ from readserver_tpu_torch.serve.engine import (
     rc_string,
 )
 from readserver_tpu_torch.serve.metrics import Metrics
+from readserver_tpu_torch import trace
 
 
 class _Block:
@@ -125,21 +126,31 @@ class Dispatcher:
         if both_strands:
             # two blocks (forward + reverse-complement, palindromes only
             # forward), enqueued together so they share the batch window
+            trace_request = trace.new_request()
+            t_trace = trace.now()
             rcs = [rc_string(k) for k in kmers]
             rc_needed = [r for k, r in zip(kmers, rcs) if r != k]
+            if trace.ON:
+                trace.span("dispatcher.rc", t_trace, n=len(kmers))
             fwd, rev_res = await asyncio.gather(
                 self.submit_many(kmers, mode=mode),
                 self.submit_many(rc_needed, mode=mode),
             )
+            t_trace = trace.now()
             it = iter(rev_res)
-            return [
+            folded = [
                 fold_strand_results(k, f, next(it) if r != k else None)
                 for k, r, f in zip(kmers, rcs, fwd)
             ]
+            if trace.ON:
+                trace.span("dispatcher.fold", t_trace, n=len(kmers))
+            trace.end_request(trace_request)
+            return folded
         if not kmers:
             return []
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         self._queue.append(_Block(list(kmers), mode, fut))
+        trace.enqueued(self._queue[-1])
         self._pending += len(kmers)
         self._wake.set()
         if self._pending >= self.engine.B:
@@ -158,6 +169,7 @@ class Dispatcher:
         count-path latency ever regresses under mixed load, drain
         same-tier blocks into a batch first instead of promoting; answers
         are unaffected either way (stronger tiers are supersets)."""
+        t_trace = trace.now()
         kmers: list[str] = []
         slices: list[tuple[_Block, int, int]] = []
         mode = "count"
@@ -170,8 +182,12 @@ class Dispatcher:
                 mode = blk.mode
             blk.taken += take
             self._pending -= take
+            if trace.ON:
+                trace.sliced(blk, blk.taken == len(blk.kmers))
             if blk.taken == len(blk.kmers):
                 self._queue.pop(0)
+        if trace.ON:
+            trace.span("dispatcher.take", t_trace, nq=len(kmers), mode=mode)
         return kmers, mode, slices
 
     async def _run(self) -> None:
@@ -187,6 +203,7 @@ class Dispatcher:
             # fill window: sleep until the B-th arrival fires _full or the
             # deadline lapses — no polling (the old sleep(deadline/8) loop
             # added up to deadline/8 of avoidable jitter per batch)
+            t_trace = trace.next_batch()
             t_first = time.perf_counter()
             while self._pending < B:
                 remaining = deadline_s - (time.perf_counter() - t_first)
@@ -199,6 +216,8 @@ class Dispatcher:
                     )
                 except asyncio.TimeoutError:
                     break
+            if trace.ON:
+                trace.span("dispatcher.fill", t_trace, pending=self._pending)
             batch = self._take_batch(B)
             if self._queue:
                 self._wake.set()  # more waiting — go again immediately
@@ -210,6 +229,7 @@ class Dispatcher:
 
     async def _fly(self, kmers, mode, slices) -> None:
         t0 = time.perf_counter()
+        t_trace = trace.now()
         loop = asyncio.get_running_loop()
         try:
             if mode == "count":
@@ -227,6 +247,9 @@ class Dispatcher:
                 if not blk.fut.done():
                     blk.fut.set_exception(e)
             return
+        if trace.ON:
+            trace.span("dispatcher.fly", t_trace, nq=len(kmers))
+        t_trace = trace.now()
         dt = time.perf_counter() - t0
         self.metrics.record_batch(len(kmers), dt)
         if log.isEnabledFor(logging.INFO):
@@ -244,3 +267,5 @@ class Dispatcher:
             blk.done += n
             if blk.done == len(blk.kmers) and not blk.fut.done():
                 blk.fut.set_result(blk.results)
+        if trace.ON:
+            trace.span("dispatcher.deliver", t_trace, nq=len(kmers))

@@ -24,7 +24,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from readserver_tpu_torch import alphabet
+from readserver_tpu_torch import alphabet, trace
 from readserver_tpu_torch.config import ServeConfig
 from readserver_tpu_torch.index.budget import device_budget_bytes, plan_tiers
 from readserver_tpu_torch.index.builder import PackedIndex
@@ -189,6 +189,8 @@ def assemble_sparse(
     if stats is not None:
         stats["batches"] += 1
         stats["sparse_bytes"] += int(arr.nbytes)
+    if trace.ON:
+        trace.annotate(sparse_bytes=int(arr.nbytes))
     p = W
     count_m = arr[:W].astype(np.int64)
     if has_count_hi:  # recombine the int64 cross-partition count sum
@@ -219,6 +221,8 @@ def assemble_sparse(
         if stats is not None:
             stats["hist_dense_fallbacks"] += 1
             stats["dense_bytes"] += int(hist_m.nbytes)
+        if trace.ON:
+            trace.annotate(hist_dense_bytes=int(hist_m.nbytes))
         for i in range(nq):
             nz = np.nonzero(hist_m[i])[0]
             hist_q[i] = {
@@ -246,6 +250,8 @@ def assemble_sparse(
             if stats is not None:
                 stats["hits_dense_fallbacks"] += 1
                 stats["dense_bytes"] += int(dh.nbytes)
+            if trace.ON:
+                trace.annotate(hits_dense_bytes=int(dh.nbytes))
             rid_m = dh[:, :SH]
             off_m = dh[:, SH : 2 * SH]
             smp_m = dh[:, 2 * SH :]
@@ -751,6 +757,8 @@ class QueryEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.startup_seconds[stage] = time.perf_counter() - t0
+        if trace.ON:
+            trace.span(f"setup.{stage}", trace.at(t0))
 
     # ------------------------------------------------------------- helpers
 
@@ -774,6 +782,8 @@ class QueryEngine:
         ``ValueError`` when that count is not 0, else → the other words."""
         return self._collect(_copy_out(buf))
 
+    @trace.staged("engine.copy_wait", lambda arr, self, pending: dict(
+        bytes=int(pending[0].nbytes)))
     def _collect(self, pending) -> np.ndarray:
         """Wait for a copy that :func:`_copy_out` started — for its event
         only, so device work queued after it runs on — then check the
@@ -785,6 +795,8 @@ class QueryEngine:
         raise_if_refused(int(arr[-1]), self.K)
         return arr[:-1]
 
+    @trace.staged("engine.encode", lambda out, self, kmers: dict(
+        width=int(out[0].shape[0])))
     def _pad_encode(self, kmers: list[str]) -> tuple[np.ndarray, np.ndarray, int]:
         nq = len(kmers)
         if nq > self.B:
@@ -825,6 +837,8 @@ class QueryEngine:
         )
         return use_lut, use_pair
 
+    @trace.staged("engine.h2d", lambda out, self, codes, lengths: dict(
+        bytes=int(codes.nbytes + lengths.nbytes)))
     def _to_device(self, codes, lengths):
         """Host batch → device tensors.  On the card the copy is staged in
         pinned memory and does not wait for the card, so batches queue."""
@@ -917,7 +931,9 @@ class QueryEngine:
 
     def _run(self, kmers: list[str]) -> dict[str, np.ndarray]:
         codes, lengths, nq = self._pad_encode(kmers)
-        arr = self._fetch(self._counted(codes, lengths, nq))
+        with trace.stage("engine.launch"):
+            pending = _copy_out(self._counted(codes, lengths, nq))
+        arr = self._collect(pending)
         l, u = arr[:nq], arr[nq:]
         return dict(l=l, u=u, count=u - l)
 
@@ -971,15 +987,16 @@ class QueryEngine:
         )
         # short query (plain path) at the smallest width; each configured
         # uniform length at every width
-        for q in [["A"]] + [
-            ["A" * k] * w for w in widths for k in lengths
-        ]:
-            self.count_batch(q)  # a doc engine's runs its whole program
-            if self._sharded:
-                self._run_sharded(q)
-            elif not self._doc:
-                self.query_batch(q)
-                self.query_batch(q, include_hits=False)
+        with trace.stage("setup.warmup"):
+            for q in [["A"]] + [
+                ["A" * k] * w for w in widths for k in lengths
+            ]:
+                self.count_batch(q)  # a doc engine's runs its whole program
+                if self._sharded:
+                    self._run_sharded(q)
+                elif not self._doc:
+                    self.query_batch(q)
+                    self.query_batch(q, include_hits=False)
 
     def _locate(self, rid: int) -> tuple[int, int]:
         """Global read id → (partition, local id) of a doc engine."""
@@ -994,6 +1011,7 @@ class QueryEngine:
 
     _expand_rc = staticmethod(expand_rc)
 
+    @trace.engine_call
     def count_batch(
         self, kmers: list[str], both_strands: bool = False
     ) -> list[QueryResult]:
@@ -1003,18 +1021,21 @@ class QueryEngine:
             # the whole doc program, as the JAX engine runs it; each shard
             # is its own BWT, so there is no global (l, u)
             out = self._run_doc(kmers)
-            return [QueryResult(kmer=km, count=int(out["count"][i]))
-                    for i, km in enumerate(kmers)]
+            with trace.stage("engine.assemble"):
+                return [QueryResult(kmer=km, count=int(out["count"][i]))
+                        for i, km in enumerate(kmers)]
         out = self._run_sharded(kmers) if self._sharded else self._run(kmers)
-        return [
-            QueryResult(
-                kmer=km,
-                count=int(out["count"][i]),
-                interval=(int(out["l"][i]), int(out["u"][i])),
-            )
-            for i, km in enumerate(kmers)
-        ]
+        with trace.stage("engine.assemble"):
+            return [
+                QueryResult(
+                    kmer=km,
+                    count=int(out["count"][i]),
+                    interval=(int(out["l"][i]), int(out["u"][i])),
+                )
+                for i, km in enumerate(kmers)
+            ]
 
+    @trace.engine_call
     def query_batch(
         self,
         kmers: list[str],
@@ -1031,20 +1052,26 @@ class QueryEngine:
             # the whole sharded program runs for either tier, as in the
             # JAX engine
             run = self._run_doc if self._doc else self._run_sharded
-            return self._sharded_results(kmers, run(kmers))
+            out = run(kmers)
+            with trace.stage("engine.assemble"):
+                return self._sharded_results(kmers, out)
         codes, lengths, nq = self._pad_encode(kmers)
         use_lut, use_pair = self._routes(codes, lengths, nq)
         codes_t, lengths_t = self._to_device(codes, lengths)
-        packed_dev, hist_dev, hits_dev = self._served(
-            codes_t, lengths_t, nq, use_lut, use_pair, include_hits
-        )
-        return assemble_sparse(
-            kmers, nq, codes.shape[0], self._fetch(packed_dev),
-            self._ns, self.H, self.COMPACT_PER_QUERY,
-            self.sample_names, has_lu=True, has_hits=include_hits,
-            dense_hist_dev=hist_dev, dense_hits_dev=hits_dev,
-            stats=self.pack_stats,
-        )
+        with trace.stage("engine.launch"):
+            packed_dev, hist_dev, hits_dev = self._served(
+                codes_t, lengths_t, nq, use_lut, use_pair, include_hits
+            )
+            pending = _copy_out(packed_dev)
+        arr = self._collect(pending)
+        with trace.stage("engine.assemble"):
+            return assemble_sparse(
+                kmers, nq, codes.shape[0], arr,
+                self._ns, self.H, self.COMPACT_PER_QUERY,
+                self.sample_names, has_lu=True, has_hits=include_hits,
+                dense_hist_dev=hist_dev, dense_hits_dev=hits_dev,
+                stats=self.pack_stats,
+            )
 
     def read_sequence(self, read_id: int) -> str:
         """Read text from the host-side cold store (a doc engine's from
@@ -1178,22 +1205,30 @@ class MultiEngine:
 
     def _dispatch_counts(self, kmers: list[str]):
         codes, lengths, nq = self._pad_encode(kmers)
-        return kmers, nq, _copy_out(self._counted(codes, lengths, nq))
+        with trace.stage("engine.launch") as st:
+            if trace.ON:
+                st.set(partitions=len(self.engines))
+            return kmers, nq, _copy_out(self._counted(codes, lengths, nq))
 
     def _assemble_counts(self, kmers, nq, pending) -> list[QueryResult]:
         arr = self._collect(pending)
-        counts = arr[:nq].astype(np.int64) + (arr[nq:].astype(np.int64) << 31)
-        return [
-            QueryResult(kmer=km, count=int(counts[i]))
-            for i, km in enumerate(kmers)
-        ]
+        with trace.stage("engine.assemble"):
+            counts = (arr[:nq].astype(np.int64)
+                      + (arr[nq:].astype(np.int64) << 31))
+            return [
+                QueryResult(kmer=km, count=int(counts[i]))
+                for i, km in enumerate(kmers)
+            ]
 
     def _dispatch_merged(self, kmers: list[str], include_hits: bool = True):
         codes, lengths, nq = self._pad_encode(kmers)
-        packed_dev, hist_dev, hits_dev = self._served(codes, lengths, nq,
-                                                      include_hits)
-        return kmers, nq, include_hits, (_copy_out(packed_dev), hist_dev,
-                                         hits_dev)
+        with trace.stage("engine.launch") as st:
+            if trace.ON:
+                st.set(partitions=len(self.engines))
+            packed_dev, hist_dev, hits_dev = self._served(codes, lengths, nq,
+                                                          include_hits)
+            pending = _copy_out(packed_dev)
+        return kmers, nq, include_hits, (pending, hist_dev, hits_dev)
 
     def _assemble_merged(
         self, kmers, nq, include_hits, merged
@@ -1206,12 +1241,13 @@ class MultiEngine:
             W = (len(arr) - 2) // (3 + cpq * 6)
         else:  # [count, count_hi, complete, trunc] + hist sections
             W = (len(arr) - 1) // (4 + cpq * 2)
-        return assemble_sparse(
-            kmers, nq, W, arr, NS, SH, cpq, self.sample_names,
-            has_lu=False, has_hits=include_hits,
-            dense_hist_dev=dense_hist_dev, dense_hits_dev=dense_hits_dev,
-            has_count_hi=True, stats=self.pack_stats,
-        )
+        with trace.stage("engine.assemble"):
+            return assemble_sparse(
+                kmers, nq, W, arr, NS, SH, cpq, self.sample_names,
+                has_lu=False, has_hits=include_hits,
+                dense_hist_dev=dense_hist_dev, dense_hits_dev=dense_hits_dev,
+                has_count_hi=True, stats=self.pack_stats,
+            )
 
     # ------------------------------------------------------------ public
 
@@ -1226,18 +1262,20 @@ class MultiEngine:
         lengths = sorted(
             {int(k) for k in self.cfg.warmup_query_lengths} | {self.K}
         )
-        for kmers in [["A"]] + [
-            ["A" * k] * w for w in widths for k in lengths
-        ]:
-            self.query_batch(kmers)
-            self.query_batch(kmers, include_hits=False)
-            self.count_batch(kmers)
+        with trace.stage("setup.warmup"):
+            for kmers in [["A"]] + [
+                ["A" * k] * w for w in widths for k in lengths
+            ]:
+                self.query_batch(kmers)
+                self.query_batch(kmers, include_hits=False)
+                self.count_batch(kmers)
 
     def _locate(self, rid: int) -> tuple[int, int]:
         """Global read id → (partition, local id)."""
         s = bisect.bisect_right(self._read_base, rid) - 1
         return s, rid - self._read_base[s]
 
+    @trace.engine_call
     def count_batch(
         self, kmers: list[str], both_strands: bool = False
     ) -> list[QueryResult]:
@@ -1262,6 +1300,7 @@ class MultiEngine:
             results.append(self._assemble_counts(*pend))
         return results
 
+    @trace.engine_call
     def query_batch(
         self,
         kmers: list[str],

@@ -68,9 +68,36 @@ def _sources(rel: str) -> tuple[str, str]:
     )
 
 
+# The port's dispatcher carries the span recorder's sites: every line it
+# adds names the tracer, but for these, written out whole, which the spans
+# reshaped (the fold's ``return [...]`` became an assignment, a span and a
+# return).  The comparison drops the tracer's lines from the port and these
+# from both files; whatever else differs fails as before.
+TRACER_LINE = re.compile(r"\btrace\.|\bimport trace$")
+RESHAPED = {
+    "serve/dispatcher.py": (
+        "            return [",
+        "            folded = [",
+        "            return folded",
+    ),
+}
+
+
+def _untraced(orig: str, port: str, reshaped: tuple) -> tuple[str, str]:
+    for line in reshaped:
+        assert (orig + port).splitlines().count(line) == 1, line
+    keep = lambda src, traced: "\n".join(  # noqa: E731
+        x for x in src.splitlines()
+        if x not in reshaped and not (traced and TRACER_LINE.search(x)))
+    return keep(orig, False), keep(port, True)
+
+
 @pytest.mark.parametrize("rel", COPIED)
 def test_host_copy_equals_original(rel):
     orig, port = _sources(rel)
+    if rel in RESHAPED:
+        assert not TRACER_LINE.search(orig)
+        orig, port = _untraced(orig, port, RESHAPED[rel])
     assert port == _ported(orig), (
         f"readserver_tpu_torch/{rel} drifted from readserver_tpu/{rel}: "
         "change both, or neither"
