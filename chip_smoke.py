@@ -4332,6 +4332,7 @@ def serve_replica(args, corpus, engine, rep, cfg, dev, qs, served,
     zero_launches()
     errs: dict = {}
     for rname, drop in routes:
+        held = torch.cuda.memory_allocated(dev)
         t0 = time.perf_counter()
         eng = QueryEngine(rep, dataclasses.replace(cfg, drop_tiers=drop),
                           device=dev)
@@ -4389,9 +4390,17 @@ def serve_replica(args, corpus, engine, rep, cfg, dev, qs, served,
                 errs[k] = max(errs.get(k, 0), v)
             if on_engine is not None:
                 on_engine(rname, eng)
-        del eng
+        # the engine's warm-up froze the heap (serve/engine._settle_heap):
+        # its last reference must still free it, index and all
+        index_b = eng.index.device_bytes()
+        del eng, rule
         gc.collect()
         torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated(dev) - held
+        log(f"replica {rname} engine dropped: {left} B above the "
+            f"{held} B held before it (its index {index_b} B)")
+        check(left < index_b, f"the replica's {rname} engine outlived its "
+              f"last reference: {left} B still held")
     launches = read_launches("replica")
     for name in ("lut_level", "backward_search", "resolve_dsa",
                  "resolve_fused", "resolve_walk", "exact_histogram",

@@ -29,6 +29,7 @@ from readserver_tpu_torch.index import build_index, cohort
 from readserver_tpu_torch.oracle import naive_count
 from readserver_tpu_torch.serve import MultiEngine, QueryEngine
 from readserver_tpu_torch.serve.engine import _copy_out
+from torch_common import thaw_heap  # noqa: F401 (autouse)
 
 SHARDS = 4
 

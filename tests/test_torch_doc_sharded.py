@@ -50,6 +50,7 @@ from readserver_tpu_torch.parallel import (
     place_doc_sharded,
 )
 from readserver_tpu_torch.serve import QueryEngine
+from torch_common import thaw_heap  # noqa: F401 (autouse)
 
 MAX_HITS = 16  # the gloo worker's
 SHARDS = 4

@@ -23,6 +23,7 @@ from readserver_tpu_torch import cli
 from readserver_tpu_torch.config import ServeConfig
 from readserver_tpu_torch.ops.resolve import walk_kind
 from readserver_tpu_torch.serve import QueryEngine, rc_string
+from torch_common import thaw_heap  # noqa: F401 (autouse)
 
 CFG = dict(batch_size=512, small_batch_sizes=(1, 256))
 

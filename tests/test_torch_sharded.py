@@ -39,6 +39,7 @@ from readserver_tpu_torch.ops import sharded as sops
 from readserver_tpu_torch.ops.search import canonical_empty, run_kstep
 from readserver_tpu_torch.parallel.stats import query_psum_estimate
 from readserver_tpu_torch.serve import QueryEngine
+from torch_common import thaw_heap  # noqa: F401 (autouse)
 
 MAX_HITS = 32
 KEYS = ("l", "u", "count", "read_id", "offset", "valid", "sample_hist",

@@ -16,6 +16,7 @@ from readserver_tpu_torch.config import ServeConfig
 from readserver_tpu_torch.corpus import simulate
 from readserver_tpu_torch.index import build_index
 from readserver_tpu_torch.serve import Dispatcher, MultiEngine, QueryEngine
+from torch_common import thaw_heap  # noqa: F401 (autouse)
 
 CFG = dict(batch_size=64, max_hits=32, batch_deadline_ms=5.0,
            small_batch_sizes=(8,))

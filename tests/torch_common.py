@@ -5,6 +5,8 @@ Each test feeds the same NumPy inputs, made from a seed, to the JAX package
 output of the count path is an integer.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,17 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def thaw_heap():
+    """Imported by each test module that warms an engine (autouse there):
+    ``warmup()`` freezes everything alive into the collector's permanent
+    generation (``serve/engine._settle_heap``), so each test ends with the
+    heap thawed, and no test's frozen engines stay held, never collected,
+    for the rest of the worker's life."""
+    yield
+    gc.unfreeze()
 
 
 def t32(x, device="cpu") -> torch.Tensor:
